@@ -1,0 +1,27 @@
+"""Path helpers over the port's parameter trees (nested dicts and lists
+of tensors). A leaf's path joins its keys and list indices with '/', e.g.
+'layers/3/adapter/w', so one regex addresses a leaf kind in every layer."""
+from __future__ import annotations
+
+from typing import Callable, Iterator, Tuple
+
+
+def flatten_with_paths(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flatten_with_paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flatten_with_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def map_with_path(fn: Callable[[str, object], object], tree, prefix: str = ""):
+    """A new tree of the same structure with fn(path, leaf) at each leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
