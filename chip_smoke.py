@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -7,8 +7,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   1. the card and its settings (TF32 off for fp32 matmuls);
   2. build every CUDA kernel from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serve path gives it, in fp32 and bf16, with its time, the
-     plain version's time and, where one exists, one PyTorch call's time;
+     shapes the serve and train paths give it, in fp32 and bf16, with its
+     time, the plain version's time and, where one exists, one PyTorch
+     call's time; the backward of every autograd Function around a kernel
+     against autograd through the plain forward;
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -16,14 +18,29 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      max_len 512, prompt 128, 32 new tokens, bf16;
   6. multi-tenant serving: the same traffic through a 3-task
      MultiTaskEngine, task ids round-robin;
-  7. one JSON line of per-kernel results (launch counts from phases 5-6);
-  8. the last line, {"ok": true, "device": {...}}.
+  7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
+     32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
+     every trainable gradient through the kernels against the plain path,
+     for the 'hadamard' (attn_out) and 'hadamard_concat' strategies;
+  8. the paper's two-stage fine-tune of bert-base on sst2 (seq 128, batch
+     32, 30 steps per stage) for 'hadamard', then stage 2 alone for
+     'hadamard_concat': finite losses, the trainable count, the launches of
+     every train step and eval batch counted inside those runs, step rates
+     and a torch.profiler breakdown of a train step;
+  9. one JSON line of per-kernel results (launch counts from phases 5, 6
+     and 8);
+  then the card's name and power limit, and the last line,
+  {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repo's `src/` beside it, and imports no JAX.
+The GPUs other than the first are hidden from it: it drives one card.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +59,12 @@ ARCH = "qwen3-0.6b"
 SERVE = dict(requests=8, num_slots=4, max_len=512, prompt_len=128,
              new_tokens=32, seed=0)
 TASKS = 3
+# the paper's experiment: two-stage fine-tune of bert-base on sst2
+TRAIN = dict(arch="bert-base", task="sst2", batch=32, seq=128, steps=30,
+             lr=3e-3, seed=0)
+# bert-base's stage-2 trainable count under 'hadamard' (adapter w and b
+# plus the ffn-output LayerNorm of 12 layers), as the JAX package counts it
+BERT_BASE_TRAINABLE = (36_864, 109_503_746)
 
 
 def log(msg: str) -> None:
@@ -58,6 +81,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def main() -> int:
+    # one card: the first visible one, and only it
+    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     import torch
 
     if not torch.cuda.is_available():
@@ -70,7 +96,9 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.attention import FlashAttention
+    from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
     from repro_torch.serving import ServingConfig, make_scheduler
@@ -138,55 +166,82 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
+    # fp32 tolerances: max abs error of an elementwise output; an output
+    # summed over rows (dw, db, dscale, dbias) is held to SUM_TOL of its
+    # reference's max abs, since the kernel sums in another order. bf16:
+    # each output within BF16_TOL of its own reference's max abs.
     TOL = {"fused_adapter_norm": 1e-5, "flash_attention": 1e-4,
-           "paged_attention": 1e-4, "multitask_hadamard": 1e-5}
-    checks = {name: {"errs": [], "rels": []} for name in TOL}
+           "paged_attention": 1e-4, "multitask_hadamard": 1e-5,
+           "hadamard_affine": 1e-5, "hadamard_affine_bwd": 1e-5,
+           "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4}
+    SUM_TOL, BF16_TOL = 1e-5, 2e-2
+    # errs: fp32 max abs err of the elementwise outputs, per case; rels:
+    # bf16 worst max abs err / max |ref| over the outputs, per case
+    checks = {name: {"errs": [], "rels": [], "summed": False} for name in TOL}
 
-    def compare(name, case, dtype, kernel_fn, plain_fn):
-        """Kernel against plain version on the same inputs. fp32: max abs
-        error within TOL; bf16: within 2e-2 of the reference's max abs."""
+    def compare(name, case, dtype, kernel_fn, plain_fn, summed=()):
+        """Kernel against plain version on the same inputs, output by
+        output. fp32: max abs error within TOL (SUM_TOL of max |ref| for the
+        outputs whose index is in `summed`); bf16: within BF16_TOL of the
+        output's own max |ref|."""
         got, want = kernel_fn(), plain_fn()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err, scale = 0.0, 0.0
-        for g, w in zip(got, want):
+        check(len(got) == len(want), f"{name} {case}: {len(got)} outputs, "
+                                     f"want {len(want)}")
+        checks[name]["summed"] |= bool(summed)
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{name} {case}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
             check(bool(torch.isfinite(g.float()).all()),
                   f"{name} {case}: non-finite output")
-            err = max(err, (g.float() - w.float()).abs().max().item())
-            scale = max(scale, w.float().abs().max().item())
-        if dtype == torch.float32:
-            tol = TOL[name]
-            checks[name]["errs"].append(err)
-        else:
-            tol = 2e-2 * scale
-            checks[name]["rels"].append(err / max(scale, 1e-30))
-        check(err <= tol, f"{name} {case} {dtype}: max abs err {err:.3g} > "
-                          f"tol {tol:.3g}")
+            e = (g.float() - w.float()).abs().max().item()
+            m = w.float().abs().max().item()
+            if dtype != torch.float32:
+                tol = BF16_TOL * m
+                worst = max(worst, e / max(m, 1e-30))
+            elif i in summed:
+                tol = SUM_TOL * m
+            else:
+                tol = TOL[name]
+                worst = max(worst, e)
+            check(e <= tol, f"{name} {case} {dtype}: output {i} max abs err "
+                            f"{e:.3g} > tol {tol:.3g} (max|ref| {m:.3g})")
+        key = "errs" if dtype == torch.float32 else "rels"
+        checks[name][key].append(worst)
+
+    def errors(name):
+        """The worst errors of a kernel's checks, for the log."""
+        c = checks[name]
+        summed = (f"; outputs summed over rows within {SUM_TOL} of their "
+                  "max|ref|") if c["summed"] else ""
+        return (f"fp32 max abs err {max(c['errs']):.3g} (tol {TOL[name]}"
+                f"{summed}), bf16 worst max abs err / max|ref| per output "
+                f"{max(c['rels']):.3g} (tol {BF16_TOL})")
 
     results = {}
 
-    def record(name, shape, kernel_fn, plain_fn, library_fn, bytes_, flops):
-        """Time kernel, plain version and library call at one serve shape
-        (bf16); the bound is the larger of bytes over the memory rate and
-        flops over the bf16 tensor-core peak."""
+    def record(key, name, shape, dtype, kernel_fn, plain_fn, library_fn,
+               bytes_, flops):
+        """Time kernel, plain version and library call at one shape of the
+        serve or train path; the bound is the larger of bytes over the
+        memory rate and flops over the peak of `dtype`, the type of the
+        timed inputs."""
         ms, host_ms = time_ms(kernel_fn)
         plain_ms, plain_host_ms = time_ms(plain_fn)
         lib_ms = lib_host_ms = None
         if library_fn is not None:
             lib_ms, lib_host_ms = time_ms(library_fn)
-        t_mem, t_ops = bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+        t_mem = bytes_ / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
         r = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                  host_ms=host_ms, plain_host_ms=plain_host_ms,
                  library_host_ms=lib_host_ms, bytes=bytes_, flops=flops,
                  bound_ms=max(t_mem, t_ops) * 1e3,
                  bound_by="bytes" if t_mem >= t_ops else "operations")
-        results[name] = r
-        c = checks[name]
-        log(f"[3] {name}: fp32 max abs err {max(c['errs']):.3g} (tol "
-            f"{TOL[name]}), bf16 max rel err {max(c['rels']):.3g} (tol 2e-2); "
-            f"{shape}: device ms kernel {ms:.5f}, plain {plain_ms:.5f}, "
+        results[key] = r
+        log(f"[3] {name}: {errors(name)}; {shape}: device ms kernel {ms:.5f}, plain {plain_ms:.5f}, "
             f"library {lib_ms}, bound {r['bound_ms']:.6f} ({r['bound_by']}); "
             f"host ms per eager call kernel {host_ms:.5f}, plain "
             f"{plain_host_ms:.5f}; on {smi}")
@@ -211,8 +266,9 @@ def main() -> int:
                                                        impl="ref", **kw))
     x, res = randn(4, 1, d, dtype=bf), randn(4, 1, d, dtype=bf)
     w, b, scale = 1 + randn(d, scale=0.1), randn(d, scale=0.1), randn(d, dtype=bf)
-    record("fused_adapter_norm", "x,res (4,1,1024) bf16, fp32 w/b, RMSNorm "
-           "(one layer of a 4-slot decode tick)",
+    record("fused_adapter_norm", "fused_adapter_norm",
+           "x,res (4,1,1024) bf16, fp32 w/b, RMSNorm (one layer of a 4-slot "
+           "decode tick)", bf,
            lambda: ops.fused_adapter_norm(x, res, w, b, scale, impl="kernel"),
            lambda: ops.fused_adapter_norm(x, res, w, b, scale, impl="ref"),
            None, nbytes(x, res, w, b, scale) + 2 * nbytes(x), 8 * x.numel())
@@ -223,22 +279,28 @@ def main() -> int:
     cases += [dict(sq=200, skv=200, window=64, cap=30.0),
               dict(sq=37, skv=300), dict(sq=70, skv=70, D=64, kh=16),
               dict(sq=40, skv=100, D=256, b=2)]
+    # the encoder's non-causal attention: bert-base's train shape (12 heads
+    # of 64, no grouping) and a ragged one
+    B_tr, S_tr = TRAIN["batch"], TRAIN["seq"]
+    cases += [dict(sq=S_tr, skv=S_tr, D=64, h=12, kh=12, b=B_tr, causal=False),
+              dict(sq=37, skv=300, D=64, h=12, kh=12, b=2, causal=False)]
     for dt in (torch.float32, bf):
         for c in cases:
             nb_, kh, D = c.get("b", 1), c.get("kh", 8), c.get("D", 128)
-            q = randn(nb_, 16, c["sq"], D, dtype=dt)
+            q = randn(nb_, c.get("h", 16), c["sq"], D, dtype=dt)
             k = randn(nb_, kh, c["skv"], D, dtype=dt)
             v = randn(nb_, kh, c["skv"], D, dtype=dt)
-            kw = dict(causal=True, window=c.get("window"), cap=c.get("cap", 0.0))
+            kw = dict(causal=c.get("causal", True), window=c.get("window"),
+                      cap=c.get("cap", 0.0))
             compare("flash_attention", str(c), dt,
                     lambda: ops.flash_attention(q, k, v, impl="kernel", **kw),
                     lambda: ops.flash_attention(q, k, v, impl="ref", **kw))
     S = SERVE["prompt_len"]
     q = randn(1, 16, S, 128, dtype=bf)
     k, v = randn(1, 8, S, 128, dtype=bf), randn(1, 8, S, 128, dtype=bf)
-    record("flash_attention",
+    record("flash_attention", "flash_attention",
            f"q (1,16,{S},128) over k/v (1,8,{S},128) bf16 causal (one layer "
-           "of a prefill)",
+           "of a prefill)", bf,
            lambda: ops.flash_attention(q, k, v, impl="kernel"),
            lambda: ops.flash_attention(q, k, v, impl="ref"),
            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -285,9 +347,9 @@ def main() -> int:
               + torch.arange(nbt, device=dev, dtype=torch.int32))
     kl = torch.tensor([129, 140, 150, 160], dtype=torch.int32, device=dev)
     n_keys = int(kl.sum())
-    record("paged_attention",
+    record("paged_attention", "paged_attention",
            f"q ({B},16,128) bf16 over a ({B},{max_len},8,128) bf16 slot cache, "
-           f"kv_lens {kl.tolist()} (one layer of a 4-slot decode tick)",
+           f"kv_lens {kl.tolist()} (one layer of a 4-slot decode tick)", bf,
            lambda: ops.paged_attention(q, kp, vp, tables, kl, impl="kernel"),
            lambda: ops.paged_attention(q, kp, vp, tables, kl, impl="ref"),
            None,
@@ -308,14 +370,146 @@ def main() -> int:
                     lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="ref"))
     x = randn(4, 1, d, dtype=bf)
     wb, bb = 1 + randn(TASKS, d, scale=0.1), randn(TASKS, d, scale=0.1)
-    record("multitask_hadamard",
+    record("multitask_hadamard", "multitask_hadamard",
            "x (4,1,1024) bf16, fp32 bank (3,1024) (one layer of a 4-slot "
-           "decode tick)",
+           "decode tick)", bf,
            lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="kernel"),
            lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="ref"),
            None,
            # x, y, ids, and the 3 distinct (w, b) rows the ids name
            2 * nbytes(x) + nbytes(tids) + 3 * 2 * d * 4, 2 * x.numel())
+
+    # #1 hadamard_affine and #2 its backward, hadamard_affine_bwd: the rows
+    # of a bert-base train batch (32x128 tokens, d=768), and ragged shapes
+    d_tr, n_tr = 768, B_tr * S_tr
+    f32 = torch.float32
+    for dt in (f32, bf):
+        for rows, width in ((n_tr, d_tr), (1000, d_tr), (7, 4000)):
+            x, g = randn(rows, width, dtype=dt), randn(rows, width, dtype=dt)
+            w, b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+            case = f"rows={rows} d={width}"
+            compare("hadamard_affine", case, dt,
+                    lambda: ops.hadamard(x, w, b, impl="kernel"),
+                    lambda: ops.hadamard(x, w, b, impl="ref"))
+            compare("hadamard_affine_bwd", case, dt,
+                    lambda: ops.hadamard_affine_bwd(g, x, w, impl="kernel"),
+                    lambda: ops.hadamard_affine_bwd(g, x, w, impl="ref"),
+                    summed=(1, 2))
+
+    def grads_of(fn, inputs, cotangents):
+        """Gradients of fn's outputs with the given cotangents (None: that
+        output is discarded) with respect to every input."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        kept = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+        return torch.autograd.grad([o for o, _ in kept], leaves,
+                                   [c for _, c in kept])
+
+    # the backward of FusedAdapterResidualNorm (norm VJP in plain torch,
+    # then #2) against autograd through the plain forward, for the post-LN
+    # encoder's LayerNorm (eps 1e-12) and the decoder's RMSNorm; with and
+    # without a cotangent for x_new (the encoder block discards it)
+    for dt in (f32, bf):
+        for shape in ((B_tr, S_tr, d_tr), (1000, d_tr), (7, 4000)):
+            width = shape[-1]
+            x, res = randn(*shape, dtype=dt), randn(*shape, dtype=dt)
+            w, b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+            scale, bias = 1 + randn(width, dtype=dt, scale=0.1), \
+                randn(width, dtype=dt, scale=0.1)
+            g_xn, g_h = randn(*shape, dtype=dt), randn(*shape, dtype=dt)
+            for ln, eps in ((True, 1e-12), (False, 1e-6)):
+                for gx in (None, g_xn):
+                    ins = (x, res, w, b, scale) + ((bias,) if ln else ())
+
+                    def kern(*t, eps=eps, ln=ln):
+                        return FusedAdapterResidualNorm.apply(
+                            *t[:5], t[5] if ln else None, eps, "kernel")
+
+                    def plain(*t, eps=eps, ln=ln):
+                        return ref.fused_adapter_residual_norm_ref(
+                            *t[:5], eps=eps, bias=t[5] if ln else None)
+
+                    compare("fused_adapter_norm_bwd",
+                            f"{shape} ln={ln} g_xn={gx is not None}", dt,
+                            lambda: grads_of(kern, ins, (gx, g_h)),
+                            lambda: grads_of(plain, ins, (gx, g_h)),
+                            summed=(2, 3, 4, 5))
+
+    # the backward of FlashAttention (plain PyTorch: P recomputed from q
+    # and k, delta from the kernel's output) against autograd through the
+    # plain forward: the encoder's shapes, and a causal grouped one
+    fcases = [dict(b=B_tr, h=12, kh=12, sq=S_tr, skv=S_tr, D=64, causal=False),
+              dict(b=2, h=12, kh=12, sq=37, skv=300, D=64, causal=False),
+              dict(b=1, h=16, kh=8, sq=128, skv=128, D=128, causal=True)]
+    for dt in (f32, bf):
+        for c in fcases:
+            q = randn(c["b"], c["h"], c["sq"], c["D"], dtype=dt)
+            k = randn(c["b"], c["kh"], c["skv"], c["D"], dtype=dt)
+            v = randn(c["b"], c["kh"], c["skv"], c["D"], dtype=dt)
+            g = randn(c["b"], c["h"], c["sq"], c["D"], dtype=dt)
+            causal = c["causal"]
+            compare("flash_attention_bwd", str(c), dt,
+                    lambda: grads_of(lambda *t: FlashAttention.apply(
+                        *t, causal, None, None, 0.0, "kernel"), (q, k, v), (g,)),
+                    lambda: grads_of(lambda *t: ops.flash_attention(
+                        *t, causal=causal, impl="ref"), (q, k, v), (g,)))
+    for name in ("fused_adapter_norm_bwd", "flash_attention_bwd"):
+        log(f"[3] {name} (the gradients): {errors(name)}")
+
+    # timed at the train shapes, fp32 as bert-base trains. Each timed call
+    # takes the next of several copies of its inputs, together over twice
+    # the 50 MB L2, so that it reads them from device memory as a train
+    # step does (one copy would stay in L2 from one replay to the next)
+    def rotating(copies, fn):
+        sets = itertools.cycle(copies)
+        return lambda: fn(*next(sets))
+
+    w, b = 1 + randn(d_tr, scale=0.1), randn(d_tr, scale=0.1)
+    xs = [(randn(n_tr, d_tr),) for _ in range(8)]
+    record("hadamard_affine", "hadamard_affine",
+           f"x ({n_tr},{d_tr}) fp32 (8 copies in turn), fp32 w/b (one layer "
+           "of a bert-base train step, hadamard_concat)", f32,
+           rotating(xs, lambda x: ops.hadamard(x, w, b, impl="kernel")),
+           rotating(xs, lambda x: ops.hadamard(x, w, b, impl="ref")),
+           rotating(xs, lambda x: torch.addcmul(b, x, w)),
+           2 * nbytes(xs[0][0]) + nbytes(w, b), 2 * xs[0][0].numel())
+    gxs = [(randn(n_tr, d_tr), randn(n_tr, d_tr)) for _ in range(4)]
+    record("hadamard_affine_bwd", "hadamard_affine_bwd",
+           f"g, x ({n_tr},{d_tr}) fp32 (4 copies in turn), fp32 w (one layer "
+           "of a bert-base train step's backward)", f32,
+           rotating(gxs, lambda g, x: ops.hadamard_affine_bwd(
+               g, x, w, impl="kernel")),
+           rotating(gxs, lambda g, x: ops.hadamard_affine_bwd(
+               g, x, w, impl="ref")),
+           None,
+           # read g, x, w; write dx, dw, db
+           3 * nbytes(gxs[0][0]) + nbytes(w) + 2 * d_tr * 4,
+           4 * gxs[0][0].numel())
+    qkvs = [tuple(randn(B_tr, 12, S_tr, 64) for _ in range(3))
+            for _ in range(3)]
+    record("flash_attention@train", "flash_attention",
+           f"q, k, v ({B_tr},12,{S_tr},64) fp32 (3 copies in turn) "
+           "non-causal (one layer of a bert-base forward)", f32,
+           rotating(qkvs, lambda q, k, v: ops.flash_attention(
+               q, k, v, causal=False, impl="kernel")),
+           rotating(qkvs, lambda q, k, v: ops.flash_attention(
+               q, k, v, causal=False, impl="ref")),
+           rotating(qkvs, F.scaled_dot_product_attention),
+           4 * nbytes(qkvs[0][0]), 4 * B_tr * 12 * S_tr * S_tr * 64)
+    xrs = [(randn(B_tr, S_tr, d_tr), randn(B_tr, S_tr, d_tr))
+           for _ in range(4)]
+    scale, bias = randn(d_tr), randn(d_tr)
+    record("fused_adapter_norm@train", "fused_adapter_norm",
+           f"x, res ({B_tr},{S_tr},{d_tr}) fp32 (4 copies in turn), "
+           "LayerNorm (one layer of a bert-base forward, hadamard)", f32,
+           rotating(xrs, lambda x, res: ops.fused_adapter_norm(
+               x, res, w, b, scale, bias=bias, eps=1e-12, impl="kernel")),
+           rotating(xrs, lambda x, res: ops.fused_adapter_norm(
+               x, res, w, b, scale, bias=bias, eps=1e-12, impl="ref")),
+           None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale, bias),
+           8 * xrs[0][0].numel())
+    del xs, gxs, qkvs, xrs
 
     # -- phase 4: full-width model in fp32, kernel path vs plain path -------
     cfg32 = launcher.build_config(ARCH).replace(param_dtype="float32",
@@ -357,29 +551,25 @@ def main() -> int:
         del eng, caches, runs
         torch.cuda.empty_cache()
 
-    def profile_ticks(eng, tasks, n=8):
-        """Where a 4-slot decode tick's time goes: host wall time per tick
-        (each ending in a device sync), the device's busy share of it, and
-        the kernels that take the device time, from torch.profiler."""
+    def profile_calls(fn, n):
+        """Where the time of a call goes: host wall ms per call (each ending
+        in a device sync), the device's busy share of it, and the kernels
+        that take the device time, from torch.profiler."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        slots = SERVE["num_slots"]
-        caches = eng.init_slot_caches(slots, SERVE["max_len"])
-        args = ([[11]] * slots, [140 + i for i in range(slots)])
-        tids = [t % max(tasks, 1) for t in range(slots)]
         for _ in range(3):
-            eng.decode_step(caches, *args, task_ids=tids)
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.decode_step(caches, *args, task_ids=tids)
+            fn()
             torch.cuda.synchronize()
-        tick_ms = (time.perf_counter() - t0) * 1e3 / n
+        call_ms = (time.perf_counter() - t0) * 1e3 / n
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                eng.decode_step(caches, *args, task_ids=tids)
+                fn()
                 torch.cuda.synchronize()
         # device-side events only: each kernel once (an aten op's entry
         # repeats the device time of the kernels it launched)
@@ -390,11 +580,10 @@ def main() -> int:
                 launches += e.count
         busy_ms = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-        return {"tick_ms": tick_ms,
-                "device_ms_per_tick": busy_ms if dev_us else None,
-                "device_busy_share": busy_ms / tick_ms if dev_us else None,
-                "device_kernels_per_tick": launches / n,
-                "top_device_us_per_tick": [[k[:80], v] for k, v in top]}
+        return {"ms": call_ms, "device_ms": busy_ms if dev_us else None,
+                "device_busy_share": busy_ms / call_ms if dev_us else None,
+                "device_kernels": launches / n,
+                "top_device_us": [[k[:80], v] for k, v in top]}
 
     def count_per_call(eng):
         """Record each engine prefill's and decode step's own launches in
@@ -461,7 +650,14 @@ def main() -> int:
         for k in need:
             check(launches[phase][k] > 0,
                   f"phase {phase}: kernel {k} never launched on the serve path")
-        tick = profile_ticks(eng, tasks)
+        # the profile of a 4-slot decode tick
+        slots = SERVE["num_slots"]
+        caches = eng.init_slot_caches(slots, SERVE["max_len"])
+        args = ([[11]] * slots, [140 + i for i in range(slots)])
+        stids = [t % max(tasks, 1) for t in range(slots)]
+        tick = profile_calls(
+            lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        del caches
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
                                     tick=tick)
@@ -479,27 +675,247 @@ def main() -> int:
         del eng, sched
         torch.cuda.empty_cache()
 
-    # -- phase 7: the kernels line ------------------------------------------
+    # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
+    from repro_torch.common.types import OptimCfg, TrainCfg
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import peft
+    from repro_torch.core.hadamard import perturb_adapters
+    from repro_torch.data.synthetic import TASKS as GLUE, TaskData
+    from repro_torch.train import loop
+    from repro_torch.train.steps import (build_train_step, loss_and_grads,
+                                         make_state)
+
+    bert = get_arch(TRAIN["arch"])
+    L = bert.n_layers
+    data = TaskData(TRAIN["task"], bert.vocab_size, seq_len=S_tr,
+                    seed=TRAIN["seed"])
+    batch = loop.to_device(next(data.train_batches(1, B_tr, seed=0)), dev)
+    for sname in ("hadamard", "hadamard_concat"):
+        strat = peft.strategy(sname)
+        cfg_s = peft.attach(bert, strat)
+        params = perturb_adapters(
+            M.init_params(torch.Generator(device=dev).manual_seed(1), cfg_s),
+            seed=2, scale=0.2)
+        runs = {}
+        for impl in ("auto", "ref"):
+            state = make_state(None, cfg_s, strat, OptimCfg(), params=params)
+            loss, _, grads = loss_and_grads(cfg_s, state, batch, impl)
+            with torch.no_grad():
+                logits, _, _ = M.forward_encoder(state["params"], cfg_s,
+                                                 batch["tokens"],
+                                                 batch["type_ids"], impl=impl)
+            runs[impl] = (logits, loss.item(), grads)
+            del state
+        (lg, loss_k, gk), (lr_, loss_r, gr) = runs["auto"], runs["ref"]
+        check(lg.shape == (B_tr, bert.n_classes) and
+              bool(torch.isfinite(lg).all()), f"phase 7 {sname}: logits "
+              f"{tuple(lg.shape)}, finite {bool(torch.isfinite(lg).all())}")
+        diff, top = (lg - lr_).abs().max().item(), lr_.abs().max().item()
+        check(diff <= 1e-3 * top, f"phase 7 {sname}: |kernel - plain| logits "
+              f"{diff:.3g} > 1e-3 x {top:.3g}")
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        check(math.isfinite(loss_k) and loss_rel <= 1e-5,
+              f"phase 7 {sname}: loss {loss_k} vs plain {loss_r}")
+        want = {f"layers/{i}/{leaf}" for i in range(L)
+                for leaf in ("adapter/w", "adapter/b", "ffn_norm/scale",
+                             "ffn_norm/bias")}
+        check(set(gk) == want == set(gr),
+              f"phase 7 {sname}: trainable leaves {sorted(set(gk) ^ want)}")
+        worst = 0.0
+        for path in sorted(want):
+            e = (gk[path] - gr[path]).abs().max().item()
+            m = gr[path].abs().max().item()
+            check(bool(torch.isfinite(gk[path]).all()) and e <= 1e-3 * m,
+                  f"phase 7 {sname}: gradient {path} max abs err {e:.3g} > "
+                  f"1e-3 x {m:.3g}")
+            worst = max(worst, e / m)
+        log(f"[7] {TRAIN['arch']} fp32, {L} layers, {sname}, one {B_tr}x{S_tr} "
+            f"{TRAIN['task']} batch: kernel path vs plain path logits max "
+            f"|diff| / max|ref| {diff / top:.3g} (tol 1e-3), loss {loss_k:.6f}"
+            f" vs {loss_r:.6f} (rel {loss_rel:.3g}, tol 1e-5), {len(want)} "
+            f"gradient leaves, worst max|diff| / max|ref| {worst:.3g} "
+            f"(tol 1e-3)")
+        del runs, params
+    torch.cuda.empty_cache()
+
+    # -- phase 8: two-stage training at full width, fp32 --------------------
+    def count_loop_calls():
+        """Wrap the train loop's step and eval builders for one run: each
+        step function they build records, per call, its own change of the
+        launch counts. Returns ({"train": [...], "eval": [...]}, one list of
+        per-call dicts per built function, in build order), restore)."""
+        runs = {"train": [], "eval": []}
+        originals = (loop.build_train_step, loop.build_eval_step)
+
+        def wrap(builder, built):
+            def build(*a, **kw):
+                fn, calls = builder(*a, **kw), []
+                built.append(calls)
+
+                def counted(*a2, **kw2):
+                    before = _build.launch_counts()
+                    out = fn(*a2, **kw2)
+                    after = _build.launch_counts()
+                    calls.append({k: after[k] - before[k] for k in after})
+                    return out
+                return counted
+            return build
+
+        loop.build_train_step = wrap(originals[0], runs["train"])
+        loop.build_eval_step = wrap(originals[1], runs["eval"])
+
+        def restore():
+            loop.build_train_step, loop.build_eval_step = originals
+        return runs, restore
+
+    def per_call(counts):
+        """A launch dict with every kernel, zero where not given."""
+        return {k: counts.get(k, 0) for k in _build.LAUNCHES}
+
+    flash, fused = "flash_attention", "fused_adapter_norm"
+    aff, aff_bwd = "hadamard_affine", "hadamard_affine_bwd"
+    # predicted launches per train step and per eval batch: the forward
+    # runs #4 in every layer and the adapter's forward kernel (#3 at
+    # attn_out, #1 at attn_concat); stage 1's backward reaches only the
+    # head, stage 2's reaches every layer's adapter through #2
+    want_step = {"stage1": per_call({flash: L}),
+                 "hadamard": per_call({flash: L, fused: L, aff_bwd: L}),
+                 "hadamard_concat": per_call({flash: L, aff: L, aff_bwd: L})}
+    want_eval = {"stage1": per_call({flash: L}),
+                 "hadamard": per_call({flash: L, fused: L}),
+                 "hadamard_concat": per_call({flash: L, aff: L})}
+    n_eval = 512 // B_tr  # TaskData's eval set, in whole batches
+    metric = GLUE[TRAIN["task"]].metric
+    tc = TrainCfg(optim=OptimCfg(lr=TRAIN["lr"], total_steps=TRAIN["steps"]),
+                  steps=TRAIN["steps"], batch_size=B_tr, seq_len=S_tr,
+                  log_every=10)
+
+    def check_calls(phase, stage, calls, want, n):
+        check(len(calls) == n, f"phase 8 {phase}: {len(calls)} {stage} "
+                               f"calls counted, want {n}")
+        for i, c in enumerate(calls):
+            check(c == want, f"phase 8 {phase}: {stage} call {i} launched "
+                             f"{c}, predicted {want}")
+
+    def rates(hist):
+        """Step rates of a stage from its history (each step timed to a
+        device sync); the first step, which warms the caches, apart."""
+        s = [h["step_s"] for h in hist[1:]]
+        mean = sum(s) / len(s)
+        return {"first_step_ms": hist[0]["step_s"] * 1e3,
+                "host_ms_per_step": mean * 1e3, "steps_per_s": 1 / mean,
+                "tokens_per_s": B_tr * S_tr / mean,
+                "losses": [h["loss"] for h in hist]}
+
+    def profile_steps(cfg_s, strat, params):
+        """profile_calls of one train step of `strat` from `params`, on a
+        fixed batch (a copy of the state: `params` stays as it was)."""
+        state = make_state(None, cfg_s, strat, tc.optim, params=params)
+        step = build_train_step(cfg_s, tc.optim)
+        r = profile_calls(lambda: step(state, batch), 5)
+        del state
+        return r
+
+    train_launches, train_report = {}, {}
+    step_calls, eval_calls = {}, {}  # per stage: the per-call launch dicts
+    for phase in ("train_hadamard", "train_concat"):
+        calls, restore = count_loop_calls()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        try:
+            if phase == "train_hadamard":
+                res = loop.two_stage_finetune(
+                    TRAIN["seed"], bert, "hadamard", data, stage1=tc,
+                    stage2=tc, metric=metric, device=dev, log=log)
+            else:  # stage 2 alone from the same tuned head
+                res = loop.run_stage2(bert, "hadamard_concat", data, tc,
+                                      stage1_params, metric=metric,
+                                      seed=TRAIN["seed"], log=log)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        train_launches[phase] = _build.launch_counts()
+        stages = (("stage1", "hadamard") if phase == "train_hadamard"
+                  else ("hadamard_concat",))
+        check(len(calls["train"]) == len(stages) == len(calls["eval"]),
+              f"phase 8 {phase}: {len(calls['train'])} train and "
+              f"{len(calls['eval'])} eval step functions for {stages}")
+        for stage, tcalls, ecalls in zip(stages, calls["train"],
+                                         calls["eval"]):
+            check_calls(phase, f"{stage} train step", tcalls,
+                        want_step[stage], TRAIN["steps"])
+            check_calls(phase, f"{stage} eval batch", ecalls,
+                        want_eval[stage], n_eval)
+            step_calls[stage], eval_calls[stage] = tcalls, ecalls
+        for k, total in train_launches[phase].items():
+            check(sum(c[k] for fn_calls in calls["train"] + calls["eval"]
+                      for c in fn_calls) == total,
+                  f"phase 8 {phase}: {k} launched outside train steps and "
+                  "eval batches")
+        stats = res["param_stats"]
+        if TRAIN["arch"] == "bert-base":
+            check((stats["trainable"], stats["total"]) == BERT_BASE_TRAINABLE,
+                  f"phase 8 {phase}: trainable {stats['trainable']} of "
+                  f"{stats['total']}, want {BERT_BASE_TRAINABLE}")
+        hist = res["history"]
+        rep = {"trainable": stats["trainable"], "total": stats["total"],
+               "percent": stats["percent"], metric: res["final_metric"]}
+        if phase == "train_hadamard":
+            stage1_params = res["stage1_params"]
+            cfg1 = peft.attach(bert, peft.strategy("classifier_only"))
+            rep["stage1"] = dict(rates(hist["stage1"]),
+                                 **{metric: res["stage1_metric"]})
+            rep["stage1"]["profile"] = profile_steps(
+                cfg1, peft.strategy("classifier_only"), stage1_params)
+            hist2 = hist["stage2"]
+        else:
+            hist2 = hist
+        rep["stage2"] = dict(rates(hist2), **{metric: res["final_metric"]})
+        rep["stage2"]["profile"] = profile_steps(
+            res["cfg"], peft.strategy(stages[-1]), res["params"])
+        for st in ("stage1", "stage2"):
+            if st in rep:
+                check(all(math.isfinite(v) for v in rep[st]["losses"]),
+                      f"phase 8 {phase}: non-finite {st} loss")
+        train_report[phase] = rep
+        log(f"[8] {phase} on {smi}: {TRAIN['arch']} {TRAIN['task']} fp32, "
+            f"{TRAIN['steps']} steps per stage of {B_tr}x{S_tr} tokens; "
+            f"trainable {stats['trainable']:,} of {stats['total']:,} "
+            f"({stats['percent']:.4f}%); launches {train_launches[phase]}; "
+            f"per train step and eval batch as predicted; {json.dumps(rep)}")
+        del res
+        torch.cuda.empty_cache()
+
+    # -- phase 9: the kernels line ------------------------------------------
+    csrc = "src/repro_torch/kernels/csrc/"
     meta = {
-        "fused_adapter_norm": ("src/repro_torch/kernels/csrc/fused_adapter_norm.cu",
+        "hadamard_affine": (csrc + "hadamard_affine.cu",
+                            "src/repro/kernels/hadamard.py:69"),
+        "hadamard_affine_bwd": (csrc + "hadamard_affine.cu",
+                                "src/repro/kernels/hadamard.py:87"),
+        "fused_adapter_norm": (csrc + "fused_adapter_norm.cu",
                                "src/repro/kernels/hadamard.py:159"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention": (csrc + "flash_attention.cu",
                             "src/repro/kernels/attention.py:74"),
-        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+        "paged_attention": (csrc + "paged_attention.cu",
                             "src/repro/kernels/attention.py:194"),
-        "multitask_hadamard": ("src/repro_torch/kernels/csrc/multitask_hadamard.cu",
+        "multitask_hadamard": (csrc + "multitask_hadamard.cu",
                                "src/repro/kernels/multitask.py:26"),
     }
+    by_phase = {"serve_single": launches[5], "serve_multitask": launches[6],
+                **train_launches}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
+             "plain_host_ms", "library_host_ms", "bytes", "flops")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             # every check failure has already exited; these all passed
             "check": "pass",
-            "launches": launches[5][name] + launches[6][name],
-            "launches_by_phase": {"serve_single": launches[5][name],
-                                  "serve_multitask": launches[6][name]},
+            "launches": sum(counts[name] for counts in by_phase.values()),
+            "launches_by_phase": {p: counts[name]
+                                  for p, counts in by_phase.items()},
             # distinct counts per call in the same runs
             "launches_per_decode_tick": {
                 "serve_single": serve_reports[5]["launches_per_decode_tick"][name],
@@ -507,23 +923,40 @@ def main() -> int:
             "launches_per_prefill": {
                 "serve_single": serve_reports[5]["launches_per_prefill"][name],
                 "serve_multitask": serve_reports[6]["launches_per_prefill"][name]},
+            "launches_per_train_step": {
+                s: sorted({c[name] for c in calls})
+                for s, calls in step_calls.items()},
+            "launches_per_eval_batch": {
+                s: sorted({c[name] for c in calls})
+                for s, calls in eval_calls.items()},
             "max_abs_err": max(checks[name]["errs"]), "tol_fp32": TOL[name],
             "max_rel_err_bf16": max(checks[name]["rels"]),
-            "tol_bf16_rel": 2e-2,
-            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "host_ms", "plain_host_ms",
-                                 "library_host_ms", "bytes", "flops")},
+            "tol_bf16_rel": BF16_TOL,
+            **{k: r[k] for k in timed},
             "timed_shape": r["shape"],
-        })
+        }
+        if name + "@train" in results:
+            t = results[name + "@train"]
+            entry["train_shape_timing"] = dict(
+                {k: t[k] for k in timed}, shape=t["shape"])
+        if name in ("fused_adapter_norm", "flash_attention"):
+            # the backward of the autograd Function around this kernel
+            bwd = checks[name + "_bwd"]
+            entry["bwd_max_abs_err"] = max(bwd["errs"])
+            entry["bwd_max_rel_err_bf16"] = max(bwd["rels"])
+        kernels.append(entry)
     serve = {("serve_single" if p == 5 else "serve_multitask"): {
         k: v for k, v in rep.items()
         if k not in ("launches_per_decode_tick", "launches_per_prefill")}
         for p, rep in serve_reports.items()}
-    print(json.dumps({"kernels": kernels, "serve": serve, "card": smi}))
+    print(json.dumps({"kernels": kernels, "serve": serve,
+                      "train": train_report, "card": smi}))
     print(smi)
+    count = torch.cuda.device_count()
+    check(count == 1, f"{count} CUDA devices visible, want the one it drove")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": count}}))
     return 0
 
 

@@ -164,3 +164,41 @@ class ModelCfg:
         """The decoder stack's slots in execution order, one per layer."""
         return tuple(s for g in self.groups for _ in range(g.repeats)
                      for s in g.slots)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer / training configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimCfg:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # 'constant' | 'linear' | 'cosine'
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    min_lr_ratio: float = 0.1
+    # kept for field parity with the JAX config; the trainer raises
+    # NotImplementedError on any value but the default (gradient
+    # compression and quantized moments arrive with a later slice)
+    compress_grads: bool = False
+    m_dtype: str = "float32"
+    v_dtype: str = "float32"
+    qstate_ef: bool = True
+
+
+@dataclass(frozen=True)
+class TrainCfg:
+    optim: OptimCfg = OptimCfg()
+    batch_size: int = 16
+    seq_len: int = 128
+    steps: int = 100
+    eval_every: int = 50
+    microbatch: int = 0  # gradient accumulation: not ported, must stay 0
+    seed: int = 0
+    log_every: int = 10

@@ -1,15 +1,26 @@
 """Architecture registry: --arch <id> resolution for launchers and tests.
 
-The port carries the architectures its slices serve; the other `repro`
-configs arrive with the slices that run them.
+The port carries the architectures its slices run: qwen3-0.6b (serving)
+and the paper's own BERT-family encoders (two-stage training). The other
+`repro` configs arrive with the slices that run them.
 """
 from __future__ import annotations
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.configs import qwen3_0_6b
+from repro_torch.configs import bert, qwen3_0_6b
 
 ASSIGNED = {
     "qwen3-0.6b": qwen3_0_6b,
+}
+
+# the paper's own PLMs (encoder classifiers for the GLUE-style benchmarks)
+PAPER = {
+    "bert-base": bert.bert_base,
+    "bert-large": bert.bert_large,
+    "roberta-base": bert.roberta_base,
+    "roberta-large": bert.roberta_large,
+    "bert-small": bert.bert_small,
+    "bert-tiny": bert.bert_tiny,
 }
 
 
@@ -20,10 +31,16 @@ def list_archs():
 def get(name: str) -> ModelCfg:
     if name in ASSIGNED:
         return ASSIGNED[name].config()
-    raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    if name in PAPER:
+        return PAPER[name]()
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{list_archs() + sorted(PAPER)}")
 
 
 def get_smoke(name: str) -> ModelCfg:
     if name in ASSIGNED:
         return ASSIGNED[name].smoke()
-    raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    if name in PAPER:
+        return bert.smoke()
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{list_archs() + sorted(PAPER)}")

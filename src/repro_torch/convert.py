@@ -6,8 +6,10 @@ groups stack their layers' parameters on a leading `repeats` dim
 (`repro.models.program`); the port keeps one dict per layer, so each
 stacked leaf is unstacked in execution order: group by group, repeat by
 repeat, slot by slot. Every leaf is named by its path; a leaf the port does
-not know raises. A multi-task bank (adapter leaves (repeats, T, d)) carries
-over as (T, d) rows per layer.
+not know (or that the config's family does not have) raises. A multi-task
+bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
+layer. `jax_path` names a port leaf by its JAX path, so that one regex
+(a PEFT mask) means the same leaves in both packages.
 """
 from __future__ import annotations
 
@@ -29,7 +31,18 @@ BLOCK_LEAVES = frozenset(
     + ["adapter/w", "adapter/b"])
 TOP_LEAVES = frozenset(["embed/table", "final_norm/scale", "final_norm/bias",
                         "lm_head/kernel"])
+ENCODER_LEAVES = frozenset(["pos_embed/table", "type_embed/table",
+                            "embed_norm/scale", "embed_norm/bias",
+                            "pooler/kernel", "pooler/bias",
+                            "classifier/kernel", "classifier/bias"])
 _BLOCK_RE = re.compile(r"^blocks/g(\d+)/slot(\d+)/(.+)$")
+_LAYER_RE = re.compile(r"^layers/(\d+)/(.+)$")
+
+
+def top_leaves(cfg: ModelCfg) -> frozenset:
+    """The non-block leaves a config of this family may hold."""
+    return TOP_LEAVES | ENCODER_LEAVES if cfg.family == "encoder" \
+        else TOP_LEAVES
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -59,18 +72,42 @@ def _set(tree: dict, path: str, value) -> None:
     tree[last] = value
 
 
+def jax_path(path: str, cfg: ModelCfg) -> str:
+    """The JAX path of the port leaf `path`: 'layers/3/adapter/w' ->
+    'blocks/g0/slot0/adapter/w' (every layer of a group shares its group's
+    stacked leaf); a top-level path is the same in both."""
+    m = _LAYER_RE.match(path)
+    if m is None:
+        return path
+    gi, _, si = _layer_position(cfg)[int(m.group(1))]
+    return f"blocks/g{gi}/slot{si}/{m.group(2)}"
+
+
+def jax_ndim(path: str, leaf: torch.Tensor) -> int:
+    """The rank of the port leaf `path` in the JAX layout: a layer's leaf
+    is one slice of its group's stacked leaf, one rank more."""
+    return leaf.dim() + (1 if _LAYER_RE.match(path) else 0)
+
+
+def _layer_position(cfg: ModelCfg) -> List[Tuple[int, int, int]]:
+    """Position in the port's layer list -> (group, repeat, slot)."""
+    index = _layer_index(cfg)
+    return sorted(index, key=index.get)
+
+
 def from_jax_params(np_tree: dict, cfg: ModelCfg, device) -> dict:
-    """The port's parameters from a JAX decoder parameter tree whose
-    leaves are numpy arrays. Raises on any leaf it does not map."""
+    """The port's parameters from a JAX decoder or encoder parameter tree
+    whose leaves are numpy arrays. Raises on any leaf it does not map."""
     if cfg.enc_groups:
-        raise NotImplementedError("encoder stacks are not ported yet")
+        raise NotImplementedError("encdec encoder stacks (enc_groups) are "
+                                  "not ported yet")
     index = _layer_index(cfg)
     layers: List[dict] = [{} for _ in range(len(index))]
     out: dict = {}
     for path, leaf in tu.flatten_with_paths(np_tree):
         m = _BLOCK_RE.match(path)
         if m is None:
-            if path not in TOP_LEAVES:
+            if path not in top_leaves(cfg):
                 raise KeyError(f"unknown JAX parameter leaf {path!r}")
             _set(out, path, to_tensor(leaf, device))
             continue

@@ -34,8 +34,12 @@ LIB_NAME = "librepro_torch_kernels.so"
 # dtype codes of csrc/common.cuh (rt::Dtype)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SIGNATURES = {
+    "rt_hadamard_affine": (_P, _P, _I, _P, _I, _P, _L, _I, _I, _P),
+    "rt_hadamard_affine_bwd": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _L, _I,
+                               _P),
+    "rt_hadamard_affine_chunk_rows": (),
     "rt_fused_adapter_norm": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
                               _I, _I, _F, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F,
@@ -48,6 +52,8 @@ SIGNATURES = {
 
 # kernel name -> launches since the last reset (see launch())
 LAUNCHES: Dict[str, int] = {
+    "hadamard_affine": 0,
+    "hadamard_affine_bwd": 0,
     "fused_adapter_norm": 0,
     "flash_attention": 0,
     "paged_attention": 0,

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import check_dtype, check_inputs, launch, ptr
+from repro_torch.kernels.ref import attention_bwd_ref
 
 FLASH = "flash_attention"
 PAGED = "paged_attention"
@@ -127,3 +128,34 @@ def paged_attention(q, k_pool, v_pool, tables, kv_lens, *,
            kv_lens.data_ptr(), out.data_ptr(), B, H, KH, sq, D, page, nbt,
            win, ring, scale, float(cap), q_code, kv_code)
     return out[:, :, 0] if squeeze else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with forward #4 (`flash_attention`). The TPU kernel has no
+    VJP; the JAX trainer differentiates through the jnp flash backward of
+    `repro/models/flash.py`, so the backward here is plain PyTorch too
+    (`ref.attention_bwd_ref`: P recomputed from q and k, delta from the
+    saved output).
+
+    apply(q, k, v, causal, window, scale, cap, impl); shapes as
+    `flash_attention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True,
+                window: Optional[int] = None, scale: Optional[float] = None,
+                cap: float = 0.0, impl: str = "auto"):
+        from repro_torch.kernels import ops  # ops imports this module
+
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, cap=cap, impl=impl)
+        ctx.kw = dict(causal=causal, window=window, scale=scale, cap=cap)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(g, q, k, v, out, **ctx.kw)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None, None, None, None)

@@ -36,6 +36,22 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     return False
 
 
+def hadamard(x, w, b, impl: str = "auto"):
+    """y = x*w + b over the trailing dim, out in x.dtype; see
+    `ref.hadamard_ref`."""
+    if use_kernel(x, impl):
+        return _had.hadamard_affine(x, w, b)
+    return ref.hadamard_ref(x, w, b)
+
+
+def hadamard_affine_bwd(g, x, w, impl: str = "auto"):
+    """(dx = g*w, dw = sum(g*x), db = sum(g)), the sums fp32 over every
+    row; see `ref.hadamard_affine_bwd_ref`."""
+    if use_kernel(g, impl):
+        return _had.hadamard_affine_bwd(g, x, w)
+    return ref.hadamard_affine_bwd_ref(g, x, w)
+
+
 def fused_adapter_norm(x, res, w, b, scale, bias=None, eps: float = 1e-6,
                        impl: str = "auto"):
     """(x*w + b + res, Norm(that)*scale[+bias]); see

@@ -25,7 +25,10 @@ import torch
 
 from repro_torch.common.types import ModelCfg, Slot
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense, dense_init, rms_head_norm
+from repro_torch.kernels.attention import FlashAttention
+from repro_torch.kernels.hadamard import HadamardAffine
+from repro_torch.models.layers import (apply_rope, dense, dense_init,
+                                      gen_device, rms_head_norm)
 
 # tokens per page of the decode cache's block-pool view
 DECODE_PAGE = 16
@@ -39,7 +42,7 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
         "wv": dense_init(gen, d, kvd, cfg.pdtype),
         "wo": dense_init(gen, qd, d, cfg.pdtype),
     }
-    dev = gen.device
+    dev = gen_device(gen)
     if cfg.attn_bias:
         p["bq"] = torch.zeros((qd,), dtype=cfg.pdtype, device=dev)
         p["bk"] = torch.zeros((kvd,), dtype=cfg.pdtype, device=dev)
@@ -89,12 +92,15 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                write_pos: Optional[torch.Tensor] = None,
                kv_lens: Optional[torch.Tensor] = None,
                tables: Optional[torch.Tensor] = None,
-               concat_adapter: Optional[tuple] = None, impl: str = "auto"):
-    """x: (B, S, d). Prefill (cache_len given) or decode (cache and
+               concat_adapter: Optional[tuple] = None, causal: bool = True,
+               impl: str = "auto"):
+    """x: (B, S, d). Prefill (cache_len given), a cache-free forward
+    (neither given; the encoder passes causal=False) or decode (cache and
     write_pos (B,) given, S == 1; kv_lens and tables as `decode_tables`
     builds them, shared by every layer). concat_adapter: (w, b) of an
-    'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O.
-    Returns (y, cache)."""
+    'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O:
+    one (d,) adapter through `HadamardAffine` (kernels #1/#2), per-row
+    (B, d) rows in plain torch. Returns (y, cache)."""
     check_slot(slot)
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -133,9 +139,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         out = out.to(cdt).reshape(B, 1, H * Dh)
         new_cache = cache
     else:  # prefill (or a cache-free forward)
-        out = ops.flash_attention(
+        out = FlashAttention.apply(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, scale=scale, cap=cfg.attn_softcap, impl=impl)
+            causal, None, scale, cfg.attn_softcap, impl)
         out = out.transpose(1, 2).reshape(B, S, H * Dh)
         new_cache = None
         if cache_len is not None:
@@ -151,7 +157,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
             new_cache["v"][:, :S] = v
 
     if concat_adapter is not None:
-        out = apply_hadamard(out, *concat_adapter)
+        w, b = concat_adapter
+        out = (apply_hadamard(out, w, b) if w.dim() == 2
+               else HadamardAffine.apply(out, w, b, impl))
     y = dense(out, p["wo"], cdt)
     if "bo" in p:
         y = y + p["bo"].to(cdt)

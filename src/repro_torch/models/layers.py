@@ -14,12 +14,22 @@ from repro_torch.common.types import ModelCfg
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where init puts its tensors: the generator's device; with no
+    generator, the default device (shapes only, e.g. under
+    `with torch.device("meta")`, as `jax.eval_shape` gives them)."""
+    return gen.device if gen is not None else torch.get_default_device()
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal (+-2 std) times `scale` (0.02), drawn in fp32 on
-    the generator's device, stored in `dtype`."""
+    the generator's device, stored in `dtype`; uninitialised without a
+    generator."""
     scale = 0.02 if scale is None else scale
-    t = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    t = torch.empty((d_in, d_out), dtype=torch.float32, device=gen_device(gen))
+    if gen is None:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)
 
@@ -86,9 +96,9 @@ def mlp_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
     if cfg.gated_mlp:
         p["wg"] = dense_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype)
     if cfg.mlp_bias:
-        p["bi"] = torch.zeros((cfg.d_ff,), dtype=cfg.pdtype, device=gen.device)
-        p["bo"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
-                              device=gen.device)
+        dev = gen_device(gen)
+        p["bi"] = torch.zeros((cfg.d_ff,), dtype=cfg.pdtype, device=dev)
+        p["bo"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=dev)
     return p
 
 

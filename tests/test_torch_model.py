@@ -159,6 +159,6 @@ def test_unported_blocks_raise_naming_the_slice():
         groups=(T.Group((T.Slot("attn", window=8),), 2),))
     with pytest.raises(NotImplementedError, match="ring cache"):
         M.init_params(torch.Generator().manual_seed(0), windowed)
-    with pytest.raises(NotImplementedError, match="BERT"):
+    with pytest.raises(NotImplementedError, match="encdec"):
         M.init_params(torch.Generator().manual_seed(0),
-                      get_smoke("qwen3-0.6b").replace(family="encoder"))
+                      get_smoke("qwen3-0.6b").replace(family="encdec"))
