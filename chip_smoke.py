@@ -7,17 +7,26 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   1. the card and its settings (TF32 off for fp32 matmuls);
   2. build every CUDA kernel from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serve and train paths give it, in fp32 and bf16, with its
-     time, the plain version's time and, where one exists, one PyTorch
-     call's time; the backward of every autograd Function around a kernel
-     against autograd through the plain forward;
+     shapes the serve and train paths give it, in fp32 and bf16 (the
+     dequant matmul also with int8 and fp8 weights), with its time, the
+     plain version's time and, where one exists, one PyTorch call's time;
+     the backward of every autograd Function around a kernel against
+     autograd through the plain forward;
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
+  4b. the same model int8-quantized: prefill and a decode step through the
+     kernels (the dequant matmul in every projection) against the plain
+     path, and, ungated, against the unquantized fp32 model;
   5. single-tenant serving: ServeEngine + Scheduler, 8 requests, 4 slots,
      max_len 512, prompt 128, 32 new tokens, bf16;
   6. multi-tenant serving: the same traffic through a 3-task
      MultiTaskEngine, task ids round-robin;
+  5q, 6q, 5f. the same two runs over an int8-quantized backbone, and the
+     single-tenant one over fp8: 196 dequant-matmul launches (7 per layer)
+     in every decode tick and every prefill, the weight bytes, the peak
+     device memory against the bf16 engine's, and greedy-token agreement
+     with the bf16 run;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
      32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
      every trainable gradient through the kernels against the plain path,
@@ -30,7 +39,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   9. one JSON line of per-kernel results (launch counts from phases 5, 6
      and 8);
   then the card's name and power limit, and the last line,
-  {"ok": true, "device": {...}}.
+  {"ok": true, "device": {...}}. Each phase logs its seconds.
 
 It needs a CUDA device and the repo's `src/` beside it, and imports no JAX.
 The GPUs other than the first are hidden from it: it drives one card.
@@ -99,12 +108,23 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.attention import FlashAttention
     from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
+    from repro_torch.kernels.quant import DequantMatmul
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
+    from repro_torch.quant import quant_summary
     from repro_torch.serving import ServingConfig, make_scheduler
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def phase_done(tag):
+        """Log and keep the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[tag] = now - clock[0]
+        clock[0] = now
+        log(f"[{tag}] phase took {phase_s[tag]:.1f} s")
 
     # -- phase 1: card and settings -----------------------------------------
     smi = subprocess.run(
@@ -122,6 +142,7 @@ def main() -> int:
     _build.library()
     log(f"[2] built {len(_build.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_done("1-2")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -168,16 +189,22 @@ def main() -> int:
 
     # fp32 tolerances: max abs error of an elementwise output; an output
     # summed over rows (dw, db, dscale, dbias) is held to SUM_TOL of its
-    # reference's max abs, since the kernel sums in another order. bf16:
-    # each output within BF16_TOL of its own reference's max abs.
+    # reference's max abs, since the kernel sums in another order; a matmul
+    # (REL_TOL) to its tolerance times its reference's max abs, since its
+    # sums of K products run in another order too. bf16: each output
+    # within BF16_TOL of its own reference's max abs.
     TOL = {"fused_adapter_norm": 1e-5, "flash_attention": 1e-4,
            "paged_attention": 1e-4, "multitask_hadamard": 1e-5,
            "hadamard_affine": 1e-5, "hadamard_affine_bwd": 1e-5,
-           "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4}
+           "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4,
+           "dequant_matmul": 1e-5, "dequant_matmul_bwd": 1e-5}
+    REL_TOL = ("dequant_matmul", "dequant_matmul_bwd")
     SUM_TOL, BF16_TOL = 1e-5, 2e-2
-    # errs: fp32 max abs err of the elementwise outputs, per case; rels:
-    # bf16 worst max abs err / max |ref| over the outputs, per case
-    checks = {name: {"errs": [], "rels": [], "summed": False} for name in TOL}
+    # errs: fp32 max abs err of the elementwise outputs, per case; rel_errs:
+    # the same over max |ref| (REL_TOL kernels); rels: bf16 worst max abs
+    # err / max |ref| over the outputs, per case
+    checks = {name: {"errs": [], "rel_errs": [], "rels": [], "summed": False}
+              for name in TOL}
 
     def compare(name, case, dtype, kernel_fn, plain_fn, summed=()):
         """Kernel against plain version on the same inputs, output by
@@ -190,7 +217,7 @@ def main() -> int:
         check(len(got) == len(want), f"{name} {case}: {len(got)} outputs, "
                                      f"want {len(want)}")
         checks[name]["summed"] |= bool(summed)
-        worst = 0.0
+        worst = worst_rel = 0.0
         for i, (g, w) in enumerate(zip(got, want)):
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{name} {case}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
@@ -203,6 +230,10 @@ def main() -> int:
                 worst = max(worst, e / max(m, 1e-30))
             elif i in summed:
                 tol = SUM_TOL * m
+            elif name in REL_TOL:
+                tol = TOL[name] * m
+                worst = max(worst, e)
+                worst_rel = max(worst_rel, e / max(m, 1e-30))
             else:
                 tol = TOL[name]
                 worst = max(worst, e)
@@ -210,39 +241,50 @@ def main() -> int:
                             f"{e:.3g} > tol {tol:.3g} (max|ref| {m:.3g})")
         key = "errs" if dtype == torch.float32 else "rels"
         checks[name][key].append(worst)
+        if dtype == torch.float32 and name in REL_TOL:
+            checks[name]["rel_errs"].append(worst_rel)
 
     def errors(name):
         """The worst errors of a kernel's checks, for the log."""
         c = checks[name]
         summed = (f"; outputs summed over rows within {SUM_TOL} of their "
                   "max|ref|") if c["summed"] else ""
-        return (f"fp32 max abs err {max(c['errs']):.3g} (tol {TOL[name]}"
-                f"{summed}), bf16 worst max abs err / max|ref| per output "
-                f"{max(c['rels']):.3g} (tol {BF16_TOL})")
+        fp32 = (f"fp32 max abs err {max(c['errs']):.3g}, / max|ref| "
+                f"{max(c['rel_errs']):.3g} (tol {TOL[name]} x max|ref|"
+                if name in REL_TOL else
+                f"fp32 max abs err {max(c['errs']):.3g} (tol {TOL[name]}")
+        return (f"{fp32}{summed}), bf16 worst max abs err / max|ref| per "
+                f"output {max(c['rels']):.3g} (tol {BF16_TOL})")
 
     results = {}
 
     def record(key, name, shape, dtype, kernel_fn, plain_fn, library_fn,
-               bytes_, flops):
+               bytes_, flops, yardstick_fn=None):
         """Time kernel, plain version and library call at one shape of the
-        serve or train path; the bound is the larger of bytes over the
-        memory rate and flops over the peak of `dtype`, the type of the
-        timed inputs."""
+        serve or train path (and, given one, a yardstick that computes
+        something else); the bound is the larger of bytes over the memory
+        rate and flops over the peak of `dtype`, the type of the timed
+        inputs."""
         ms, host_ms = time_ms(kernel_fn)
         plain_ms, plain_host_ms = time_ms(plain_fn)
         lib_ms = lib_host_ms = None
         if library_fn is not None:
             lib_ms, lib_host_ms = time_ms(library_fn)
+        yard = {}
+        if yardstick_fn is not None:
+            yard = dict(zip(("yardstick_ms", "yardstick_host_ms"),
+                            time_ms(yardstick_fn)))
         t_mem = bytes_ / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
         r = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                  host_ms=host_ms, plain_host_ms=plain_host_ms,
                  library_host_ms=lib_host_ms, bytes=bytes_, flops=flops,
                  bound_ms=max(t_mem, t_ops) * 1e3,
-                 bound_by="bytes" if t_mem >= t_ops else "operations")
+                 bound_by="bytes" if t_mem >= t_ops else "operations", **yard)
         results[key] = r
         log(f"[3] {name}: {errors(name)}; {shape}: device ms kernel {ms:.5f}, plain {plain_ms:.5f}, "
-            f"library {lib_ms}, bound {r['bound_ms']:.6f} ({r['bound_by']}); "
+            f"library {lib_ms}, yardstick {yard.get('yardstick_ms')}, "
+            f"bound {r['bound_ms']:.6f} ({r['bound_by']}); "
             f"host ms per eager call kernel {host_ms:.5f}, plain "
             f"{plain_host_ms:.5f}; on {smi}")
 
@@ -379,6 +421,35 @@ def main() -> int:
            # x, y, ids, and the 3 distinct (w, b) rows the ids name
            2 * nbytes(x) + nbytes(tids) + 3 * 2 * d * 4, 2 * x.numel())
 
+    # #7 dequant matmul: every (K, N) of a qwen3-0.6b layer's projections
+    # at M = 1, 4 (decode slots) and 128 (a prefill), and a ragged shape;
+    # fp32 and bf16 activations, int8 and fp8 weights with per-column scales
+    QWEN_KN = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+               (3072, 1024))
+    VALUE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+    def quantized(K, N, vdt, copies=1):
+        """`copies` (values (K, N), scales (1, N)) pairs of a random weight
+        quantized as the engine quantizes one (`quantize_tree`)."""
+        from repro_torch.quant import quantize
+
+        out = []
+        for _ in range(copies):
+            qt = quantize(randn(K, N, scale=0.02),
+                          "int8" if vdt == torch.int8 else "fp8")
+            out.append((qt.values, qt.scales))
+        return out
+
+    dq_shapes = [(m, k, n) for k, n in QWEN_KN for m in (1, 4, 128)]
+    for dt in (torch.float32, bf):
+        for vdt in VALUE_DTYPES:
+            for m, k, n in dq_shapes + [(5, 77, 130)]:
+                x = randn(m, k, dtype=dt)
+                (v, sc), = quantized(k, n, vdt)
+                compare("dequant_matmul", f"M={m} K={k} N={n} {vdt}", dt,
+                        lambda: ops.dequant_matmul(x, v, sc, impl="kernel"),
+                        lambda: ops.dequant_matmul(x, v, sc, impl="ref"))
+
     # #1 hadamard_affine and #2 its backward, hadamard_affine_bwd: the rows
     # of a bert-base train batch (32x128 tokens, d=768), and ragged shapes
     d_tr, n_tr = 768, B_tr * S_tr
@@ -454,7 +525,20 @@ def main() -> int:
                         *t, causal, None, None, 0.0, "kernel"), (q, k, v), (g,)),
                     lambda: grads_of(lambda *t: ops.flash_attention(
                         *t, causal=causal, impl="ref"), (q, k, v), (g,)))
-    for name in ("fused_adapter_norm_bwd", "flash_attention_bwd"):
+    # the backward of DequantMatmul (dx in plain PyTorch, as `_dqmm_bwd`)
+    # against autograd through the plain forward
+    for dt in (f32, bf):
+        for vdt in VALUE_DTYPES:
+            for m, k, n in ((4, 1024, 3072), (128, 3072, 1024), (5, 77, 130)):
+                x, g = randn(m, k, dtype=dt), randn(m, n, dtype=dt)
+                (v, sc), = quantized(k, n, vdt)
+                compare("dequant_matmul_bwd", f"M={m} K={k} N={n} {vdt}", dt,
+                        lambda: grads_of(lambda t: DequantMatmul.apply(
+                            t, v, sc, "kernel"), (x,), (g,)),
+                        lambda: grads_of(lambda t: ref.dequant_matmul_ref(
+                            t, v, sc), (x,), (g,)))
+    for name in ("fused_adapter_norm_bwd", "flash_attention_bwd",
+                 "dequant_matmul_bwd"):
         log(f"[3] {name} (the gradients): {errors(name)}")
 
     # timed at the train shapes, fp32 as bert-base trains. Each timed call
@@ -511,6 +595,61 @@ def main() -> int:
            8 * xrs[0][0].numel())
     del xs, gxs, qkvs, xrs
 
+    # #7 timed at wi's decode (M = 4 slots) and prefill (M = 128) shapes,
+    # bf16 activations and int8 weights as the quantized tick runs it. The
+    # weight copies rotate past the 50 MB L2, which one layer's 15.7 MB of
+    # int8 would otherwise sit in from one replay to the next, as it never
+    # does in a tick. The yardstick is torch.matmul of x with the same
+    # weight already dequantized to bf16: the unquantized path's projection,
+    # not a call that computes this function. The library call, where the
+    # installed torch has one, is its weight-only int8 matmul, which takes
+    # the weight transposed (N, K).
+    K, N = 1024, 3072
+    wq = quantized(K, N, torch.int8, copies=32)
+    wbf = [(v.float().mul(sc).to(bf),) for v, sc in wq[:16]]
+    int8pack = None
+    if hasattr(torch, "_weight_int8pack_mm"):
+        wt = [(v.t().contiguous(), sc.reshape(-1).to(bf)) for v, sc in wq[:16]]
+        try:
+            torch._weight_int8pack_mm(randn(4, K, dtype=bf), *wt[0])
+            int8pack = wt
+            library_note = ("torch._weight_int8pack_mm, weight (N, K) int8, "
+                            "bf16 scales")
+        except (RuntimeError, NotImplementedError) as e:
+            library_note = (f"none: torch._weight_int8pack_mm refused these "
+                            f"CUDA tensors in torch {torch.__version__} "
+                            f"({str(e).splitlines()[0][:160]})")
+    else:
+        library_note = (f"none: torch {torch.__version__} has no weight-only "
+                        "int8 matmul call")
+    log(f"[3] dequant_matmul library call: {library_note}")
+    for key, m in (("dequant_matmul", SERVE["num_slots"]),
+                   ("dequant_matmul@prefill", SERVE["prompt_len"])):
+        x = randn(m, K, dtype=bf)
+        if int8pack is not None:
+            got = torch._weight_int8pack_mm(x, *int8pack[0])
+            want = ops.dequant_matmul(x, *wq[0], impl="ref")
+            log(f"[3] {key} library call max |diff| / max|ref| vs the plain "
+                f"version: {(got.float() - want.float()).abs().max().item() / want.float().abs().max().item():.3g}")
+        record(key, "dequant_matmul",
+               f"x ({m},{K}) bf16 @ int8 values ({K},{N}) (32 copies in "
+               f"turn), fp32 scales (1,{N}) (wi of one layer, "
+               f"{'a 4-slot decode tick' if m == 4 else 'a 128-token prefill'})",
+               bf,
+               rotating(wq, lambda v, sc: ops.dequant_matmul(
+                   x, v, sc, impl="kernel")),
+               rotating(wq, lambda v, sc: ops.dequant_matmul(
+                   x, v, sc, impl="ref")),
+               None if int8pack is None else rotating(
+                   int8pack, lambda w, s_: torch._weight_int8pack_mm(x, w, s_)),
+               # read x, values, scales; write y
+               nbytes(x, *wq[0]) + m * N * 2, 2 * m * K * N,
+               yardstick_fn=rotating(wbf, lambda w: torch.matmul(x, w)))
+        results[key]["library_note"] = library_note
+    del wq, wbf, int8pack
+    torch.cuda.empty_cache()
+    phase_done("3")
+
     # -- phase 4: full-width model in fp32, kernel path vs plain path -------
     cfg32 = launcher.build_config(ARCH).replace(param_dtype="float32",
                                                 compute_dtype="float32")
@@ -550,6 +689,54 @@ def main() -> int:
             f"|diff| / max|ref| = {worst:.3g} (tol 1e-3)")
         del eng, caches, runs
         torch.cuda.empty_cache()
+    phase_done("4")
+
+    # -- phase 4b: the same model int8-quantized, kernel path vs plain path --
+    toks = torch.randint(10, cfg32.vocab_size, (2, 64), generator=gen,
+                         device=dev)
+    tok = torch.randint(10, cfg32.vocab_size, (2, 1), generator=gen,
+                        device=dev)
+    pos = torch.tensor([64, 64], device=dev)
+    runs = {}
+    for quant, impl in (("int8", "auto"), ("int8", "ref"), (None, "auto")):
+        eng = launcher.build_engine(cfg32, seed=1, tasks=0, device=dev,
+                                    quant=quant)
+        _build.reset_launches()
+        with torch.no_grad():
+            lg, caches = M.prefill_lm(eng.params, cfg32, toks, 80, impl=impl)
+            lg2, _ = M.decode_lm(eng.params, cfg32, caches, tok, pos,
+                                 impl=impl)
+        torch.cuda.synchronize()
+        runs[(quant, impl)] = (lg, lg2, _build.launch_counts()["dequant_matmul"])
+        del eng, caches
+        torch.cuda.empty_cache()
+    n_dq = 7 * cfg32.n_layers
+    check(runs[("int8", "auto")][2] == 2 * n_dq,
+          f"phase 4b: {runs[('int8', 'auto')][2]} dequant_matmul launches in "
+          f"a prefill and a decode step, want {2 * n_dq}")
+    check(runs[("int8", "ref")][2] == 0 == runs[(None, "auto")][2],
+          "phase 4b: the plain and the unquantized paths launched #7")
+    worst = vs_fp32 = 0.0
+    for step in range(2):
+        a, r, u = (runs[k][step] for k in (("int8", "auto"), ("int8", "ref"),
+                                           (None, "auto")))
+        check(a.shape == (2, 1, cfg32.vocab_size)
+              and bool(torch.isfinite(a).all()), f"phase 4b logits {a.shape}")
+        diff, top = (a - r).abs().max().item(), r.abs().max().item()
+        check(diff <= 1e-3 * top, f"phase 4b step {step}: |kernel - plain| "
+                                  f"{diff:.3g} > 1e-3 x {top:.3g}")
+        worst = max(worst, diff / top)
+        vs_fp32 = max(vs_fp32, (a - u).abs().max().item() / u.abs().max().item())
+    quant_model = {"kernel_vs_plain": worst, "int8_vs_fp32_ungated": vs_fp32,
+                   "dequant_matmul_launches": runs[("int8", "auto")][2]}
+    log(f"[4b] qwen3-0.6b fp32 int8-quantized, {cfg32.n_layers} layers: "
+        f"prefill + 1 decode step, {runs[('int8', 'auto')][2]} dequant_matmul "
+        f"launches, kernel path vs plain path max |diff| / max|ref| = "
+        f"{worst:.3g} (tol 1e-3); int8 vs unquantized fp32 logits max "
+        f"|diff| / max|ref| = {vs_fp32:.3g} (not gated: random weights)")
+    del runs
+    torch.cuda.empty_cache()
+    phase_done("4b")
 
     def profile_calls(fn, n):
         """Where the time of a call goes: host wall ms per call (each ending
@@ -600,18 +787,29 @@ def main() -> int:
             setattr(eng, name, wrapped)
         return per_call
 
-    # -- phases 5-6: serving at full width, bf16 ----------------------------
+    # -- phases 5-6: serving at full width, bf16; 5q, 6q, 5f: quantized -----
     cfg = launcher.build_config(ARCH)
     launches = {}
     serve_reports = {}
-    for phase, tasks in ((5, 0), (6, TASKS)):
+    tokens_of = {}  # phase -> each request's greedy tokens
+    n_dq = 7 * cfg.n_layers  # quantized projections of one step
+    SERVE_RUNS = (("5", 0, None), ("6", TASKS, None), ("5q", 0, "int8"),
+                  ("6q", TASKS, "int8"), ("5f", 0, "fp8"))
+    for phase, tasks, quant in SERVE_RUNS:
+        # device memory of the engine and of its run: allocated bytes above
+        # what the earlier phases still hold
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         eng = launcher.build_engine(cfg, seed=SERVE["seed"], tasks=tasks,
-                                    device=dev)
+                                    device=dev, quant=quant)
+        torch.cuda.synchronize()
+        weights_bytes = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
         reqs = launcher.make_requests(cfg, SERVE["requests"],
                                       SERVE["prompt_len"], SERVE["new_tokens"],
                                       tasks, SERVE["seed"])
         scfg = ServingConfig(num_slots=SERVE["num_slots"],
-                             max_len=SERVE["max_len"])
+                             max_len=SERVE["max_len"], backbone_quant=quant)
         make_scheduler(eng, scfg).run(reqs[:2])  # warm-up: library init, caches
         sched = make_scheduler(eng, scfg)
         per_call = count_per_call(eng)
@@ -620,6 +818,7 @@ def main() -> int:
         done, rep = sched.run(reqs)
         torch.cuda.synchronize()
         launches[phase] = _build.launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - held
         del eng.prefill, eng.decode_step  # back to the class's methods
         check(len(per_call["decode_step"]) == rep["ticks"],
               f"phase {phase}: {len(per_call['decode_step'])} decode steps "
@@ -642,6 +841,7 @@ def main() -> int:
                   f"{len(c.tokens)} tokens ({c.finish_reason})")
             check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
                   f"phase {phase}: token ids out of range")
+        tokens_of[phase] = {c.request_id: c.tokens for c in done}
         check(all(bool(torch.isfinite(c["k"]).all() and torch.isfinite(c["v"]).all())
                   for c in sched.caches), f"phase {phase}: non-finite KV cache")
         need = (("fused_adapter_norm", "flash_attention", "paged_attention")
@@ -650,6 +850,29 @@ def main() -> int:
         for k in need:
             check(launches[phase][k] > 0,
                   f"phase {phase}: kernel {k} never launched on the serve path")
+        want_dq = [n_dq] if quant else [0]
+        check(per_tick["dequant_matmul"] == want_dq
+              and per_prefill["dequant_matmul"] == want_dq,
+              f"phase {phase}: dequant_matmul per decode tick "
+              f"{per_tick['dequant_matmul']}, per prefill "
+              f"{per_prefill['dequant_matmul']}, want {want_dq}")
+        extra = {"weights_bytes_allocated": weights_bytes,
+                 "peak_bytes_allocated": peak_bytes}
+        if quant:
+            qs = quant_summary(eng.params)
+            base = "5" if tasks == 0 else "6"
+            same = [float((tokens_of[phase][i] == tokens_of[base][i]).mean())
+                    for i in sorted(tokens_of[phase])]
+            extra.update(
+                quant=quant, quant_line=launcher.quant_line(eng),
+                quantized_bytes=qs["quantized_bytes"],
+                dense_bytes_fp32=qs["dense_bytes_fp32"],
+                tree_bytes=qs["total_bytes"],
+                greedy_agreement_with_bf16_ungated=sum(same) / len(same),
+                peak_bytes_vs_bf16=peak_bytes
+                / serve_reports[base]["peak_bytes_allocated"],
+                weights_bytes_vs_bf16=weights_bytes
+                / serve_reports[base]["weights_bytes_allocated"])
         # the profile of a 4-slot decode tick
         slots = SERVE["num_slots"]
         caches = eng.init_slot_caches(slots, SERVE["max_len"])
@@ -660,9 +883,11 @@ def main() -> int:
         del caches
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick)
-        log(f"[{phase}] serve {'single-tenant' if tasks == 0 else f'{tasks}-task bank'}"
-            f" on {smi}: {rep['requests']} requests / {rep['tokens']} tokens, "
+                                    tick=tick, **extra)
+        kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
+            (f", {quant} backbone" if quant else "")
+        log(f"[{phase}] serve {kind} on {smi}: {rep['requests']} requests / "
+            f"{rep['tokens']} tokens, "
             f"{rep['ticks']} ticks, {rep['requests_per_s']:.3f} req/s, "
             f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean/p50/max "
             f"{rep['mean_ttft_s'] * 1e3:.1f}/{rep['ttft_p50_s'] * 1e3:.1f}/"
@@ -671,9 +896,10 @@ def main() -> int:
             f"host s in prefill/decode {rep['prefill_s']:.3f}/"
             f"{rep['decode_s']:.3f}; launches {launches[phase]}; "
             f"per decode tick {per_tick}; per prefill {per_prefill}; "
-            f"decode tick {tick}")
+            f"memory {json.dumps(extra)}; decode tick {tick}")
         del eng, sched
         torch.cuda.empty_cache()
+        phase_done(phase)
 
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
@@ -737,6 +963,7 @@ def main() -> int:
             f"(tol 1e-3)")
         del runs, params
     torch.cuda.empty_cache()
+    phase_done("7")
 
     # -- phase 8: two-stage training at full width, fp32 --------------------
     def count_loop_calls():
@@ -885,6 +1112,7 @@ def main() -> int:
             f"per train step and eval batch as predicted; {json.dumps(rep)}")
         del res
         torch.cuda.empty_cache()
+        phase_done(f"8 {phase}")
 
     # -- phase 9: the kernels line ------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
@@ -901,11 +1129,17 @@ def main() -> int:
                             "src/repro/kernels/attention.py:194"),
         "multitask_hadamard": (csrc + "multitask_hadamard.cu",
                                "src/repro/kernels/multitask.py:26"),
+        "dequant_matmul": (csrc + "dequant_matmul.cu",
+                           "src/repro/kernels/quant.py:44"),
     }
-    by_phase = {"serve_single": launches[5], "serve_multitask": launches[6],
+    serve_name = {"5": "serve_single", "6": "serve_multitask",
+                  "5q": "serve_single_int8", "6q": "serve_multitask_int8",
+                  "5f": "serve_single_fp8"}
+    by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
+    extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
@@ -918,11 +1152,11 @@ def main() -> int:
                                   for p, counts in by_phase.items()},
             # distinct counts per call in the same runs
             "launches_per_decode_tick": {
-                "serve_single": serve_reports[5]["launches_per_decode_tick"][name],
-                "serve_multitask": serve_reports[6]["launches_per_decode_tick"][name]},
+                serve_name[p]: rep["launches_per_decode_tick"][name]
+                for p, rep in serve_reports.items()},
             "launches_per_prefill": {
-                "serve_single": serve_reports[5]["launches_per_prefill"][name],
-                "serve_multitask": serve_reports[6]["launches_per_prefill"][name]},
+                serve_name[p]: rep["launches_per_prefill"][name]
+                for p, rep in serve_reports.items()},
             "launches_per_train_step": {
                 s: sorted({c[name] for c in calls})
                 for s, calls in step_calls.items()},
@@ -932,25 +1166,31 @@ def main() -> int:
             "max_abs_err": max(checks[name]["errs"]), "tol_fp32": TOL[name],
             "max_rel_err_bf16": max(checks[name]["rels"]),
             "tol_bf16_rel": BF16_TOL,
-            **{k: r[k] for k in timed},
+            **{k: r[k] for k in timed + extra_timed if k in r},
             "timed_shape": r["shape"],
         }
-        if name + "@train" in results:
-            t = results[name + "@train"]
-            entry["train_shape_timing"] = dict(
-                {k: t[k] for k in timed}, shape=t["shape"])
-        if name in ("fused_adapter_norm", "flash_attention"):
+        if name in REL_TOL:
+            entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
+        for at in ("train", "prefill"):
+            if f"{name}@{at}" in results:
+                t = results[f"{name}@{at}"]
+                entry[f"{at}_shape_timing"] = dict(
+                    {k: t[k] for k in timed + extra_timed if k in t},
+                    shape=t["shape"])
+        if name in ("fused_adapter_norm", "flash_attention", "dequant_matmul"):
             # the backward of the autograd Function around this kernel
             bwd = checks[name + "_bwd"]
             entry["bwd_max_abs_err"] = max(bwd["errs"])
             entry["bwd_max_rel_err_bf16"] = max(bwd["rels"])
         kernels.append(entry)
-    serve = {("serve_single" if p == 5 else "serve_multitask"): {
+    serve = {serve_name[p]: {
         k: v for k, v in rep.items()
         if k not in ("launches_per_decode_tick", "launches_per_prefill")}
         for p, rep in serve_reports.items()}
+    phase_done("9")
     print(json.dumps({"kernels": kernels, "serve": serve,
-                      "train": train_report, "card": smi}))
+                      "quant_model": quant_model, "train": train_report,
+                      "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()
     check(count == 1, f"{count} CUDA devices visible, want the one it drove")

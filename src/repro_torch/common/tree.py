@@ -1,6 +1,8 @@
 """Path helpers over the port's parameter trees (nested dicts and lists
 of tensors). A leaf's path joins its keys and list indices with '/', e.g.
-'layers/3/adapter/w', so one regex addresses a leaf kind in every layer."""
+'layers/3/adapter/w', so one regex addresses a leaf kind in every layer.
+Anything that is not a dict, list or tuple is a leaf: a quantized weight
+(`quant.QTensor`) is one leaf, never split into its values and scales."""
 from __future__ import annotations
 
 import re
@@ -39,6 +41,13 @@ def mask_from_patterns(tree, patterns: Iterable[str],
 
 def count_params(tree) -> int:
     return sum(leaf.numel() for _, leaf in flatten_with_paths(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf as stored (a QTensor: values + scales);
+    None placeholders count nothing."""
+    return sum(leaf.nbytes for _, leaf in flatten_with_paths(tree)
+               if leaf is not None)
 
 
 def count_masked(tree, mask) -> int:

@@ -10,6 +10,12 @@ not know (or that the config's family does not have) raises. A multi-task
 bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
 layer. `jax_path` names a port leaf by its JAX path, so that one regex
 (a PEFT mask) means the same leaves in both packages.
+
+A quantized backbone carries over too. JAX's QTensor leaves flatten to
+`<leaf>/values` (int8 or float8_e4m3fn, stacked (repeats, K, N)) and
+`<leaf>/scales` (fp32, (repeats, 1, N)); each layer of the port gets its
+own 2-D `QTensor`, and `to_jax_params` stacks them back under the same two
+names.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.common import tree as tu
 from repro_torch.common.types import ModelCfg
+from repro_torch.quant.qtensor import QTensor, quantizable
 
 _NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
 BLOCK_LEAVES = frozenset(
@@ -37,6 +44,7 @@ ENCODER_LEAVES = frozenset(["pos_embed/table", "type_embed/table",
                             "classifier/kernel", "classifier/bias"])
 _BLOCK_RE = re.compile(r"^blocks/g(\d+)/slot(\d+)/(.+)$")
 _LAYER_RE = re.compile(r"^layers/(\d+)/(.+)$")
+_QFIELD_RE = re.compile(r"^(.+)/(values|scales)$")
 
 
 def top_leaves(cfg: ModelCfg) -> frozenset:
@@ -46,12 +54,59 @@ def top_leaves(cfg: ModelCfg) -> frozenset:
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """numpy -> torch, including bfloat16 arrays (numpy's ml_dtypes
-    bfloat16 is read through its 16-bit pattern)."""
+    """numpy -> torch, including ml_dtypes' bfloat16 and float8_e4m3fn
+    arrays, which are read through their bit patterns."""
     a = np.array(a)  # a writable copy that the tensor owns
     if str(a.dtype) == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if str(a.dtype) == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch -> numpy. bf16 comes back as fp32 (numpy has no bfloat16 of
+    its own); float8_e4m3fn as ml_dtypes' type of that name, the one JAX
+    uses, imported only when such a tensor is met."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()
+    if t.dtype == torch.float8_e4m3fn:
+        import ml_dtypes  # numpy's fp8 type, installed beside JAX
+
+        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+    return t.numpy()
+
+
+def _field_leaves(path: str, leaf):
+    """(path, array) pairs of a port leaf in the JAX layout: a QTensor is
+    its two fields."""
+    if isinstance(leaf, QTensor):
+        return [(f"{path}/values", leaf.values), (f"{path}/scales", leaf.scales)]
+    return [(path, leaf)]
+
+
+def _known_leaf(rest: str, known: frozenset) -> bool:
+    """A leaf of `known`, or a field of a quantized one."""
+    m = _QFIELD_RE.match(rest)
+    return rest in known or (m is not None and m.group(1) in known
+                             and quantizable("/" + m.group(1)))
+
+
+def _join_qtensors(tree: dict) -> dict:
+    """Each {"values", "scales"} dict of a quantizable leaf -> a QTensor."""
+    def walk(node, path):
+        if isinstance(node, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+        if not isinstance(node, dict):
+            return node
+        if set(node) == {"values", "scales"} and quantizable("/" + path):
+            return QTensor(node["values"], node["scales"])
+        return {k: walk(v, f"{path}/{k}" if path else k)
+                for k, v in node.items()}
+
+    return walk(tree, "")
 
 
 def _layer_index(cfg: ModelCfg) -> Dict[Tuple[int, int, int], int]:
@@ -107,12 +162,12 @@ def from_jax_params(np_tree: dict, cfg: ModelCfg, device) -> dict:
     for path, leaf in tu.flatten_with_paths(np_tree):
         m = _BLOCK_RE.match(path)
         if m is None:
-            if path not in top_leaves(cfg):
+            if not _known_leaf(path, top_leaves(cfg)):
                 raise KeyError(f"unknown JAX parameter leaf {path!r}")
             _set(out, path, to_tensor(leaf, device))
             continue
         gi, si, rest = int(m.group(1)), int(m.group(2)), m.group(3)
-        if rest not in BLOCK_LEAVES:
+        if not _known_leaf(rest, BLOCK_LEAVES):
             raise KeyError(f"unknown JAX block parameter leaf {path!r}")
         if gi >= len(cfg.groups) or si >= len(cfg.groups[gi].slots):
             raise KeyError(f"JAX leaf {path!r} has no slot in {cfg.name}")
@@ -123,27 +178,26 @@ def from_jax_params(np_tree: dict, cfg: ModelCfg, device) -> dict:
         for r in range(arr.shape[0]):
             _set(layers[index[(gi, r, si)]], rest, to_tensor(arr[r], device))
     out["layers"] = layers
-    return out
+    return _join_qtensors(out)
 
 
 def to_jax_params(params: dict, cfg: ModelCfg) -> dict:
     """The inverse of `from_jax_params`: a JAX-layout tree of numpy arrays
     with each group's layers stacked again (bf16 leaves come back as fp32,
-    numpy having no bfloat16 of its own)."""
-    def np_of(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
+    numpy having no bfloat16 of its own; see `to_numpy`). A QTensor leaf
+    comes back as its `values` and `scales` arrays."""
     out: dict = {}
     for path, leaf in tu.flatten_with_paths(params):
         if not path.startswith("layers/"):
-            _set(out, path, np_of(leaf))
+            for p, t in _field_leaves(path, leaf):
+                _set(out, p, to_numpy(t))
     index = _layer_index(cfg)
     per_leaf: Dict[str, Dict[int, np.ndarray]] = {}
     for (gi, r, si), li in index.items():
         for rest, leaf in tu.flatten_with_paths(params["layers"][li]):
-            per_leaf.setdefault(f"blocks/g{gi}/slot{si}/{rest}", {})[r] = \
-                np_of(leaf)
+            for p, t in _field_leaves(rest, leaf):
+                per_leaf.setdefault(f"blocks/g{gi}/slot{si}/{p}", {})[r] = \
+                    to_numpy(t)
     for path, by_repeat in per_leaf.items():
         _set(out, path, np.stack([by_repeat[r] for r in sorted(by_repeat)]))
     return out

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "librepro_torch_kernels.so"
 
 # dtype codes of csrc/common.cuh (rt::Dtype)
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SIGNATURES = {
@@ -48,6 +49,7 @@ SIGNATURES = {
                            _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "rt_multitask_hadamard": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                               _P),
+    "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
 }
 
 # kernel name -> launches since the last reset (see launch())
@@ -58,6 +60,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
     "paged_attention": 0,
     "multitask_hadamard": 0,
+    "dequant_matmul": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,7 +13,7 @@
 namespace rt {
 
 // dtype codes shared with the Python wrappers (kernels/_build.py)
-enum Dtype { F32 = 0, BF16 = 1, I8 = 2 };
+enum Dtype { F32 = 0, BF16 = 1, I8 = 2, E4M3 = 3 };
 
 // the finite mask value of the Pallas kernels: a fully masked tile gives
 // exp(0) weights that the next valid tile's correction factor wipes out,

@@ -19,6 +19,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import hadamard as _had
 from repro_torch.kernels import multitask as _mt
+from repro_torch.kernels import quant as _quant
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -97,3 +98,11 @@ def multitask_hadamard(x, w_bank, b_bank, task_ids, impl: str = "auto"):
     if use_kernel(x, impl):
         return _mt.multitask_hadamard(x, w_bank, b_bank, task_ids)
     return ref.multitask_hadamard_ref(x, w_bank, b_bank, task_ids)
+
+
+def dequant_matmul(x, values, scales, impl: str = "auto"):
+    """x @ (values * scales) with int8/fp8 values and per-output-column
+    fp32 scales, fp32 sums, out in x.dtype; see `ref.dequant_matmul_ref`."""
+    if use_kernel(x, impl):
+        return _quant.dequant_matmul(x, values, scales)
+    return ref.dequant_matmul_ref(x, values, scales)

@@ -216,3 +216,20 @@ def paged_attention_ref(q, k_pool, v_pool, tables, kv_lens, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bhqd", p, v)
     return out[:, :, 0] if squeeze else out
+
+
+def dequant_matmul_ref(x, values, scales):
+    """x @ (values * scales), as `repro.kernels.ref.dequant_matmul_ref`
+    computes it: widen the weight to fp32, multiply by the per-output-column
+    scales, contract in fp32, cast to x.dtype. x: (M, K); values: (K, N)
+    int8 or float8_e4m3fn; scales: (1, N) or (N,) fp32."""
+    w = _f32(values) * _f32(scales).reshape(1, -1)
+    return (_f32(x) @ w).to(x.dtype)
+
+
+def dequant_matmul_bwd_ref(g, values, scales):
+    """dx of `dequant_matmul_ref`, as JAX's `_dqmm_bwd` computes it: the
+    scales fold into the cotangent before the contraction with valuesᵀ;
+    fp32, out in g.dtype. The weights are frozen and get no gradient."""
+    g32 = _f32(g) * _f32(scales).reshape(1, -1)
+    return (g32 @ _f32(values).T).to(g.dtype)

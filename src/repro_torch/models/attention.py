@@ -27,8 +27,9 @@ from repro_torch.common.types import ModelCfg, Slot
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import FlashAttention
 from repro_torch.kernels.hadamard import HadamardAffine
-from repro_torch.models.layers import (apply_rope, dense, dense_init,
-                                      gen_device, rms_head_norm)
+from repro_torch.models.layers import (apply_rope, dense_init, gen_device,
+                                      rms_head_norm)
+from repro_torch.quant.qtensor import qdense
 
 # tokens per page of the decode cache's block-pool view
 DECODE_PAGE = 16
@@ -106,9 +107,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.cdtype
 
-    q = dense(x, p["wq"], cdt)
-    k = dense(x, p["wk"], cdt)
-    v = dense(x, p["wv"], cdt)
+    q = qdense(x, p["wq"], cdt, impl)
+    k = qdense(x, p["wk"], cdt, impl)
+    v = qdense(x, p["wv"], cdt, impl)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -160,7 +161,7 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         w, b = concat_adapter
         out = (apply_hadamard(out, w, b) if w.dim() == 2
                else HadamardAffine.apply(out, w, b, impl))
-    y = dense(out, p["wo"], cdt)
+    y = qdense(out, p["wo"], cdt, impl)
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y, new_cache

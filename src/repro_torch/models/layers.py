@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.types import ModelCfg
+from repro_torch.quant.qtensor import qdense
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -102,21 +103,16 @@ def mlp_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
     return p
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    """x @ w in the compute dtype (a plain matmul, left to the library as
-    the JAX package leaves it to XLA)."""
-    return torch.matmul(x.to(dtype), w.to(dtype))
-
-
-def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
     cdt = cfg.cdtype
-    h = dense(x, p["wi"], cdt)
+    h = qdense(x, p["wi"], cdt, impl)
     if "bi" in p:
         h = h + p["bi"].to(cdt)
     h = act_fn(cfg.act)(h)
     if cfg.gated_mlp:
-        h = h * dense(x, p["wg"], cdt)
-    y = dense(h, p["wo"], cdt)
+        h = h * qdense(x, p["wg"], cdt, impl)
+    y = qdense(h, p["wo"], cdt, impl)
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y

@@ -20,9 +20,10 @@ import torch
 
 from repro_torch.common.types import ModelCfg
 from repro_torch.models.attention import check_slot, decode_tables
-from repro_torch.models.layers import (apply_norm, dense, dense_init, embed_init,
+from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
+from repro_torch.quant.qtensor import qdense
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
@@ -81,12 +82,14 @@ def embed_tokens(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     return x
 
 
-def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
-    """fp32 logits; the tied head is a plain matmul against the table."""
+def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
+    """fp32 logits; the tied head is a plain matmul against the table (it
+    is never quantized), an untied head goes through `qdense`."""
     if cfg.tie_embeddings:
         logits = torch.matmul(h, params["embed"]["table"].to(cfg.cdtype).T)
     else:
-        logits = dense(h, params["lm_head"]["kernel"], cfg.cdtype)
+        logits = qdense(h, params["lm_head"]["kernel"], cfg.cdtype, impl)
     logits = logits.float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
@@ -121,7 +124,7 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                             task_ids=task_ids, impl=impl)
     lp = S - 1 if last_pos is None else int(last_pos)
     x = apply_norm(params["final_norm"], cfg, x[:, lp:lp + 1])
-    return lm_logits(params, cfg, x), caches
+    return lm_logits(params, cfg, x, impl), caches
 
 
 def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
@@ -140,7 +143,7 @@ def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
                             write_pos=pos, kv_lens=kv_lens, tables=tables,
                             task_ids=task_ids, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params, cfg, x), caches
+    return lm_logits(params, cfg, x, impl), caches
 
 
 def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
@@ -157,7 +160,7 @@ def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens, positions=pos, type_ids=type_ids)
     x, _ = _run_layers(params, cfg, x, q_pos=pos, causal=False, impl=impl)
     pooler = params["pooler"]
-    pooled = torch.tanh(dense(x[:, 0], pooler["kernel"], cfg.cdtype)
+    pooled = torch.tanh(qdense(x[:, 0], pooler["kernel"], cfg.cdtype)
                         + pooler["bias"].to(cfg.cdtype))
     clf = params["classifier"]
     logits = pooled.float() @ clf["kernel"] + clf["bias"]

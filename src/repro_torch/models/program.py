@@ -109,7 +109,7 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         x = x + a
         h = apply_norm(ffn_norm, cfg, x)
 
-    f = apply_mlp(p["mlp"], cfg, h)
+    f = apply_mlp(p["mlp"], cfg, h, impl)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)
     return x + f, cache
@@ -137,4 +137,4 @@ def _post_ln_block(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     else:
         x = apply_norm(attn_norm, cfg, x + a)
     # "N": the post-intermediate norm
-    return apply_norm(p["ffn_norm"], cfg, x + apply_mlp(p["mlp"], cfg, x))
+    return apply_norm(p["ffn_norm"], cfg, x + apply_mlp(p["mlp"], cfg, x, impl))

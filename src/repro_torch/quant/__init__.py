@@ -1,0 +1,33 @@
+"""Quantized frozen backbone (port of `repro.quant`): the QTensor leaf,
+per-channel symmetric int8 / fp8 quantization of the backbone's matmul
+projections, and `qdense`, which routes a QTensor weight through the
+dequant-matmul kernel (`kernels/quant.py`). Serving consumes it as
+`ServeEngine(..., quant="int8")`. The calibration pass and QPEFT training
+arrive with the decoder-LM fine-tuning slice."""
+from repro_torch.quant.qtensor import (
+    QTensor,
+    QUANT_MODES,
+    QUANT_PATTERNS,
+    dequantize_tree,
+    fake_quantize,
+    is_qtensor,
+    qdense,
+    quant_summary,
+    quantization_error,
+    quantize,
+    quantize_tree,
+)
+
+__all__ = [
+    "QTensor",
+    "QUANT_MODES",
+    "QUANT_PATTERNS",
+    "dequantize_tree",
+    "fake_quantize",
+    "is_qtensor",
+    "qdense",
+    "quant_summary",
+    "quantization_error",
+    "quantize",
+    "quantize_tree",
+]

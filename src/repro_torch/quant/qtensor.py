@@ -1,0 +1,234 @@
+"""QTensor: the quantized-weight leaf, and symmetric int8 / fp8
+quantization of a frozen backbone (port of `repro.quant.qtensor`).
+
+A QTensor holds `values` (int8, or float8_e4m3fn) and fp32 `scales`. A
+matmul weight (d_in, d_out) is quantized per output channel: scales are
+(1, d_out), so the contraction dim stays scale-free and the dequant-matmul
+kernel (`kernels/quant.py`, #7) multiplies each finished column sum by its
+scale.
+
+The port keeps one tensor per layer where JAX stacks a group's layers on
+a leading dim; per-channel scales over the contraction dim are the same
+either way, so a quantized layer is byte for byte the slice of JAX's
+stacked leaf. The tree walkers of `common/tree` see a QTensor as one leaf
+(it is neither a dict nor a list), and it answers `numel`, `nbytes` and
+`to(device)` as a tensor would, so counting, byte accounting and placement
+never split it into its fields.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Optional
+
+import torch
+
+from repro_torch.common import tree as tu
+from repro_torch.kernels.quant import DequantMatmul
+
+# finite max of each storage type (e4m3fn has no inf encoding)
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+_STORAGE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+QUANT_MODES = tuple(sorted(_QMAX))
+
+
+def _storage_dtype(mode: str) -> torch.dtype:
+    if mode not in _STORAGE:
+        raise ValueError(f"unknown quantization mode {mode!r} "
+                         f"(known: {QUANT_MODES})")
+    return _STORAGE[mode]
+
+
+@dataclasses.dataclass
+class QTensor:
+    """values: int8/fp8 payload; scales: fp32, broadcastable to values."""
+
+    values: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.values.dim()
+
+    @property
+    def nbytes(self) -> int:
+        return self.values.nbytes + self.scales.nbytes
+
+    def numel(self) -> int:
+        return self.values.numel()
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.values.to(device), self.scales.to(device))
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.values.to(torch.float32)
+                * self.scales.to(torch.float32)).to(dtype)
+
+
+def is_qtensor(v) -> bool:
+    return isinstance(v, QTensor)
+
+
+# ---------------------------------------------------------------------------
+# Quantize / dequantize
+# ---------------------------------------------------------------------------
+
+
+def quantize(x: torch.Tensor, mode: str = "int8", *, axis: Optional[int] = -2,
+             clip: float = 1.0) -> QTensor:
+    """Symmetric quantization of `x`, in JAX's order of operations so that
+    the payload is the same byte for byte: scale = clip * absmax / qmax (a
+    zero scale becomes 1.0), q = clip(x / scale, +-qmax), rounded half to
+    even for int8; the fp8 cast rounds to nearest even.
+
+    axis=-2 (default): one scale per output channel of a (..., d_in, d_out)
+    weight, scales (..., 1, d_out). axis=None: one scale for the tensor."""
+    dtype = _storage_dtype(mode)
+    qmax = _QMAX[mode]
+    x32 = x.to(torch.float32)
+    if axis is None:
+        absmax = x32.abs().amax().reshape((1,) * x32.dim())
+    else:
+        absmax = x32.abs().amax(dim=axis, keepdim=True)
+    scale = clip * absmax / qmax
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(x32 / scale, -qmax, qmax)
+    if mode == "int8":
+        q = torch.round(q)
+    return QTensor(q.to(dtype), scale)
+
+
+def fake_quantize(x: torch.Tensor, mode: str = "int8", *,
+                  axis: Optional[int] = None, clip: float = 1.0):
+    """quantize -> dequantize in one step, fp32 out."""
+    return quantize(x, mode, axis=axis, clip=clip).dequantize(torch.float32)
+
+
+def quantization_error(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Mean-squared dequantization error (fp32 scalar)."""
+    d = x.to(torch.float32) - qt.dequantize(torch.float32)
+    return d.square().mean()
+
+
+# ---------------------------------------------------------------------------
+# The matmul entry point of every projection in models/
+# ---------------------------------------------------------------------------
+
+
+def qdense(x: torch.Tensor, w, dtype, impl: str = "auto") -> torch.Tensor:
+    """x @ w where w is a plain tensor or a QTensor.
+
+    A plain tensor takes the plain path: x and w in the compute dtype, a
+    library matmul. A 2-D QTensor goes through the dequant-matmul kernel
+    (`DequantMatmul`, #7) on x's rows as they come: as JAX's QTensor
+    branch, it does not cast x to `dtype`, and the output is in x.dtype."""
+    if not isinstance(w, QTensor):
+        return torch.matmul(x.to(dtype), w.to(dtype))
+    if w.ndim != 2:
+        raise ValueError(f"qdense expects a 2D QTensor (got "
+                         f"{tuple(w.shape)}): the port keeps one weight per "
+                         "layer")
+    shape = x.shape
+    y = DequantMatmul.apply(x.reshape(-1, shape[-1]), w.values, w.scales,
+                            impl)
+    return y.reshape(*shape[:-1], w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Tree-level quantization (the frozen backbone)
+# ---------------------------------------------------------------------------
+
+# Which leaves a backbone quantization touches: the attention and MLP
+# projections, an untied LM head and a VLM projector. Embedding tables,
+# norms, biases, the encoder's pooler and classifier and every adapter leaf
+# keep their dtype. Each entry is (path regex, match -> call-site tag); the
+# tags name the calibration statistics of the QPEFT slice.
+_QUANT_TABLE = (
+    (r"/(attn|cross)/(wq|wk|wv|wo)$", lambda m: f"attn/{m.group(2)}"),
+    (r"/mlp/(wi|wg|wo)$", lambda m: f"mlp/{m.group(1)}"),
+    (r"(^|/)lm_head/kernel$", lambda m: "lm_head"),
+    (r"(^|/)vlm_proj/kernel$", lambda m: "vlm_proj"),
+)
+
+QUANT_PATTERNS = tuple(p for p, _ in _QUANT_TABLE)
+_QUANT_RES = tuple(re.compile(p) for p in QUANT_PATTERNS)
+_TAG_RES = tuple((re.compile(p), fmt) for p, fmt in _QUANT_TABLE)
+
+
+def quantizable(path: str) -> bool:
+    return any(r.search(path) for r in _QUANT_RES)
+
+
+def tag_of(path: str) -> Optional[str]:
+    for rx, fmt in _TAG_RES:
+        m = rx.search(path)
+        if m:
+            return fmt(m)
+    return None
+
+
+def quantize_tree(params, mode: str = "int8", *, stats=None, patterns=None):
+    """Quantize every backbone matmul leaf of a parameter tree.
+
+    Leaves whose path matches `patterns` (default: QUANT_PATTERNS) and that
+    are floating tensors of two or more dims become QTensors with
+    per-output-channel scales; every other leaf, None and QTensors included,
+    passes through, so the function is idempotent. `stats` (calibration
+    statistics for an activation-weighted clip search) arrives with the
+    QPEFT slice."""
+    if stats:
+        raise NotImplementedError(
+            "quantize_tree(stats=...) arrives with the QPEFT slice (decoder-LM "
+            "fine-tuning): JAX picks one clip per stacked (layers, K, N) leaf, "
+            "so the port's per-layer leaves must be grouped by JAX leaf first")
+    _storage_dtype(mode)
+    regexes = (_QUANT_RES if patterns is None
+               else tuple(re.compile(p) for p in patterns))
+
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2 \
+                or not leaf.is_floating_point():
+            return leaf
+        if not any(r.search(path) for r in regexes):
+            return leaf
+        return quantize(leaf, mode)
+
+    return tu.map_with_path(one, params)
+
+
+def dequantize_tree(tree, dtype=torch.float32):
+    """Inverse of quantize_tree: QTensor leaves -> dense tensors."""
+    return tu.map_with_path(
+        lambda _, v: v.dequantize(dtype) if isinstance(v, QTensor) else v,
+        tree)
+
+
+def quant_summary(tree, leaf_name=None) -> dict:
+    """Byte accounting of a (partly) quantized tree, as JAX reports it.
+
+    quantized_bytes counts QTensor payload + scales, dense_bytes_fp32 what
+    the same leaves cost at fp32, ratio the compression of that set, and
+    total_bytes the whole tree as it stands. `leaf_name` maps a port path
+    to the leaf it belongs to in the JAX layout (`convert.jax_path`), where
+    a group's layers share one stacked leaf: n_quantized_leaves counts
+    those, so both packages report the same count. Without it every
+    per-layer tensor counts."""
+    name = leaf_name or (lambda p: p)
+    quantized = dense_fp32 = 0
+    leaves = set()
+    for path, leaf in tu.flatten_with_paths(tree):
+        if isinstance(leaf, QTensor):
+            leaves.add(name(path))
+            quantized += leaf.nbytes
+            dense_fp32 += leaf.numel() * 4
+    return {
+        "n_quantized_leaves": len(leaves),
+        "quantized_bytes": quantized,
+        "dense_bytes_fp32": dense_fp32,
+        "ratio": dense_fp32 / quantized if quantized else 1.0,
+        "total_bytes": tu.tree_bytes(tree),
+    }

@@ -1,10 +1,11 @@
 """One declarative config for the serving surface (port of
 `repro.serving.config`).
 
-The port serves through the contiguous slot scheduler. The switches of the
+The port serves through the contiguous slot scheduler, over a bf16/fp32
+or an int8/fp8-quantized backbone (`backbone_quant`). The switches of the
 JAX config that turn on features of later slices (paged, spec_k,
-kv_quant, backbone_quant, slo, admission) are kept, and setting any of
-them raises `NotImplementedError` naming the slice that brings it.
+kv_quant, slo, admission) are kept, and setting any of them raises
+`NotImplementedError` naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ _LATER = {
     "paged": (False, "the paged-KV slice"),
     "spec_k": (0, "the speculative-decoding slice"),
     "kv_quant": (None, "the paged-KV slice (int8 KV blocks)"),
-    "backbone_quant": (None, "the quantization slice (dequant_matmul)"),
     "slo": (None, "the observability/admission slice"),
     "admission": (None, "the observability/admission slice"),
 }
@@ -50,6 +50,9 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig.{name} is not ported yet: it arrives "
                     f"with {slice_}")
+        if self.backbone_quant not in (None, "int8", "fp8"):
+            raise ValueError(f"backbone_quant must be None, 'int8' or 'fp8'; "
+                             f"got {self.backbone_quant!r}")
         if self.num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if self.max_len < 1 or self.max_len % DECODE_PAGE:
@@ -63,8 +66,17 @@ class ServingConfig:
 
 
 def make_scheduler(engine, config: ServingConfig):
-    """The scheduler `config` describes, around `engine`."""
+    """The scheduler `config` describes, around `engine`. An engine built
+    with another backbone quantization than `config.backbone_quant` asks
+    for is refused (when the config names one)."""
     from repro_torch.serving.scheduler import Scheduler
+
+    if config.backbone_quant is not None \
+            and getattr(engine, "quant", None) != config.backbone_quant:
+        raise ValueError(
+            f"config expects a backbone_quant={config.backbone_quant!r} "
+            f"engine but the engine was built with "
+            f"quant={getattr(engine, 'quant', None)!r}")
 
     return Scheduler(engine, num_slots=config.num_slots,
                      max_len=config.max_len,

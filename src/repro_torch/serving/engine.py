@@ -6,8 +6,11 @@ serving over a static adapter bank.
 adapter-residual-norm kernel. `MultiTaskEngine` serves a bank of T tasks'
 adapters over one frozen backbone: requests carrying different task ids
 share every decode tick, and each block reads each row's adapter out of
-the bank inside the multitask kernel. The hot-swap `AdapterBank`, folding,
-the paged pool and speculative decoding arrive with later slices.
+the bank inside the multitask kernel. With `quant="int8"` or `"fp8"` either
+engine quantizes the frozen backbone's matmul weights once, at
+construction, and every projection of every step then streams 1-byte
+weights through the dequant-matmul kernel. The hot-swap `AdapterBank`,
+folding, the paged pool and speculative decoding arrive with later slices.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.common.types import ModelCfg
 from repro_torch.core.hadamard import build_bank
 from repro_torch.models import model as M
 from repro_torch.models.attention import DECODE_PAGE
+from repro_torch.quant.qtensor import quantize_tree
 
 
 def check_temperature(temperature) -> float:
@@ -57,10 +61,16 @@ class ServeEngine:
 
     device: where the parameters live and every step runs; `cuda` unless
     given (and with no CUDA present the constructor raises).
+
+    quant: None keeps the parameters as given; "int8"/"fp8" quantizes the
+    backbone's matmul projections (`quantize_tree`) before placement, so the
+    device holds 1 byte per weight. Adapters, norms and the embedding keep
+    their dtype. A tree that already holds QTensors passes through
+    untouched (`quantize_tree` is idempotent).
     """
 
     def __init__(self, cfg: ModelCfg, params: dict, *, fold: bool = False,
-                 device=None):
+                 quant: Optional[str] = None, device=None):
         if fold:
             raise NotImplementedError(
                 "fold=True removes the adapter op, and with it the fused "
@@ -68,6 +78,9 @@ class ServeEngine:
                 "slice")
         self.device = resolve_device(device)
         self.cfg = cfg
+        if quant:
+            params = quantize_tree(params, mode=quant)
+        self.quant = quant
         self.params = tu.map_with_path(lambda _, t: t.to(self.device), params)
 
     # -- the model calls ----------------------------------------------------
@@ -143,12 +156,16 @@ class MultiTaskEngine(ServeEngine):
 
     tasks: per-task parameter trees that share every non-adapter leaf; the
     bank stacks their adapters into (T, d) rows per layer. Every prefill
-    and decode step takes per-row task ids (bank rows)."""
+    and decode step takes per-row task ids (bank rows). quant: as for
+    `ServeEngine`, applied to the bank's tree once it is built; the stacked
+    adapter rows stay as they are."""
 
-    def __init__(self, cfg: ModelCfg, tasks: List[dict], *, device=None):
+    def __init__(self, cfg: ModelCfg, tasks: List[dict], *,
+                 quant: Optional[str] = None, device=None):
         if not tasks:
             raise ValueError("MultiTaskEngine needs at least one task")
-        super().__init__(cfg, build_bank(list(tasks)), device=device)
+        super().__init__(cfg, build_bank(list(tasks)), quant=quant,
+                         device=device)
         self.num_tasks = len(tasks)
 
     def _task_ids(self, task_ids) -> torch.Tensor:

@@ -29,7 +29,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({{"modules": len(names), "bad": bad}}))
+print(json.dumps({{"modules": len(names), "names": names, "bad": bad}}))
 """
 
 
@@ -41,7 +41,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 20, res
+    assert res["modules"] >= 44, res
+    assert {"repro_torch.quant.qtensor", "repro_torch.kernels.quant"} <= \
+        set(res["names"])
     assert res["bad"] == [], f"the port imported {res['bad']}"
 
 

@@ -111,7 +111,6 @@ def test_eos_and_top_k_are_per_request():
 
 @pytest.mark.parametrize("kw", [dict(paged=True), dict(spec_k=4),
                                 dict(kv_quant="int8"),
-                                dict(backbone_quant="int8"),
                                 dict(slo=object()), dict(admission=object())])
 def test_serving_config_features_of_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -127,6 +126,21 @@ def test_serving_config_validates():
         sched.submit(Request(prompt=np.arange(12), max_new_tokens=5))
     with pytest.raises(NotImplementedError, match="fused"):
         ServeEngine(peng.cfg, peng.params, fold=True, device="cpu")
+
+
+@pytest.mark.parametrize("engine_quant,config_quant",
+                         [(None, "int8"), ("fp8", "int8"), ("int8", "fp8")])
+def test_make_scheduler_refuses_an_engine_of_another_quantization(
+        engine_quant, config_quant):
+    _, peng, _ = _engines("tiny", 0)
+    eng = ServeEngine(peng.cfg, peng.params, quant=engine_quant, device="cpu")
+    with pytest.raises(ValueError, match="backbone_quant"):
+        make_scheduler(eng, ServingConfig(num_slots=1, max_len=16,
+                                          backbone_quant=config_quant))
+    # a config that names no quantization takes any engine
+    make_scheduler(eng, ServingConfig(num_slots=1, max_len=16))
+    with pytest.raises(ValueError, match="backbone_quant"):
+        ServingConfig(backbone_quant="int4")
 
 
 def test_multitask_engine_rejects_out_of_range_task_ids():
