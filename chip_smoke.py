@@ -11,13 +11,19 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      dequant matmul also with int8 and fp8 weights), with its time, the
      plain version's time and, where one exists, one PyTorch call's time;
      the backward of every autograd Function around a kernel against
-     autograd through the plain forward;
+     autograd through the plain forward; the masked multitask kernel (#9)
+     also over a shared-w bank and with gated-off rows that are not the
+     identity;
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
   4b. the same model int8-quantized: prefill and a decode step through the
      kernels (the dequant matmul in every projection) against the plain
      path, and, ungated, against the unquantized fp32 model;
+  4c. the fp32 model over a 3-row hot-swap AdapterBank holding a pruned
+     tenant (the paper-0.022 mask, 18 of 28 layers), a dense one and an
+     unloaded row: prefill and four decode steps through #9 against the
+     plain path, and against a static bank (#6) of the same tenants;
   5. single-tenant serving: ServeEngine + Scheduler, 8 requests, 4 slots,
      max_len 512, prompt 128, 32 new tokens, bf16;
   6. multi-tenant serving: the same traffic through a 3-task
@@ -27,6 +33,14 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      in every decode tick and every prefill, the weight bytes, the peak
      device memory against the bf16 engine's, and greedy-token agreement
      with the bf16 run;
+  6s. hot-swap serving, the launcher's lifecycle over the same traffic: 4
+     tenants in an AdapterRegistry on disk (task0 and task2 pruned to
+     paper-0.022 and published packed, task1 and task3 dense), a 3-row
+     bank, task3 published mid-stream, task0 removed at the end; 28 #9
+     launches (and no #6 or #3) in every decode tick and prefill, each
+     resident row's gates equal to its tenant's mask;
+  6w. the launcher's --share-w --prune-to 18 world: 4 pruned tenants with
+     one shared w and a b each, from a bank that stores the w once;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
      32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
      every trainable gradient through the kernels against the plain path,
@@ -36,7 +50,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      'hadamard_concat': finite losses, the trainable count, the launches of
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
-  9. one JSON line of per-kernel results (launch counts from phases 5, 6
+  9. one JSON line of per-kernel results (launch counts from phases 5-6w
      and 8);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
@@ -52,6 +66,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,12 +118,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.attention import FlashAttention
     from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
     from repro_torch.kernels.quant import DequantMatmul
+    from repro_torch.kernels.sparse import MaskedMultitaskHadamard
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
     from repro_torch.quant import quant_summary
@@ -197,7 +214,9 @@ def main() -> int:
            "paged_attention": 1e-4, "multitask_hadamard": 1e-5,
            "hadamard_affine": 1e-5, "hadamard_affine_bwd": 1e-5,
            "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4,
-           "dequant_matmul": 1e-5, "dequant_matmul_bwd": 1e-5}
+           "dequant_matmul": 1e-5, "dequant_matmul_bwd": 1e-5,
+           "masked_multitask_hadamard": 1e-5,
+           "masked_multitask_hadamard_bwd": 1e-5}
     REL_TOL = ("dequant_matmul", "dequant_matmul_bwd")
     SUM_TOL, BF16_TOL = 1e-5, 2e-2
     # errs: fp32 max abs err of the elementwise outputs, per case; rel_errs:
@@ -259,21 +278,21 @@ def main() -> int:
     results = {}
 
     def record(key, name, shape, dtype, kernel_fn, plain_fn, library_fn,
-               bytes_, flops, yardstick_fn=None):
+               bytes_, flops, yardstick_fn=None, iters=20, reps=10):
         """Time kernel, plain version and library call at one shape of the
         serve or train path (and, given one, a yardstick that computes
         something else); the bound is the larger of bytes over the memory
         rate and flops over the peak of `dtype`, the type of the timed
-        inputs."""
-        ms, host_ms = time_ms(kernel_fn)
-        plain_ms, plain_host_ms = time_ms(plain_fn)
+        inputs. iters: calls per CUDA graph (see time_ms)."""
+        ms, host_ms = time_ms(kernel_fn, iters, reps)
+        plain_ms, plain_host_ms = time_ms(plain_fn, iters, reps)
         lib_ms = lib_host_ms = None
         if library_fn is not None:
-            lib_ms, lib_host_ms = time_ms(library_fn)
+            lib_ms, lib_host_ms = time_ms(library_fn, iters, reps)
         yard = {}
         if yardstick_fn is not None:
             yard = dict(zip(("yardstick_ms", "yardstick_host_ms"),
-                            time_ms(yardstick_fn)))
+                            time_ms(yardstick_fn, iters, reps)))
         t_mem = bytes_ / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
         r = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -287,6 +306,11 @@ def main() -> int:
             f"bound {r['bound_ms']:.6f} ({r['bound_by']}); "
             f"host ms per eager call kernel {host_ms:.5f}, plain "
             f"{plain_host_ms:.5f}; on {smi}")
+
+    def rotating(copies, fn):
+        """fn over the next of `copies` at every call."""
+        sets = itertools.cycle(copies)
+        return lambda: fn(*next(sets))
 
     # -- phase 3: each kernel against its plain version ---------------------
     d = 1024
@@ -421,6 +445,63 @@ def main() -> int:
            # x, y, ids, and the 3 distinct (w, b) rows the ids name
            2 * nbytes(x) + nbytes(tids) + 3 * 2 * d * 4, 2 * x.numel())
 
+    # #9 masked multitask Hadamard: the decode (4, 1, 1024) and prefill
+    # (1, 128, 1024) shapes over a 3-row bank, a shared-w bank (one w row),
+    # two requests of 128 and a ragged width; the gates mix 0 and 1 and the
+    # gated-off rows hold values far from the identity, so the gate does
+    # real work
+    gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
+
+    def ids_of(*rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+    mcases = [dict(S=1, d=d, w_rows=TASKS, ids=(0, 2, 1, 2)),
+              dict(S=128, d=d, w_rows=TASKS, ids=(1,)),
+              dict(S=128, d=d, w_rows=TASKS, ids=(0, 1)),
+              dict(S=1, d=d, w_rows=1, ids=(0, 2, 1, 2)),
+              dict(S=5, d=1000, w_rows=TASKS, ids=(2, 1, 0, 1))]
+    for dt in (torch.float32, bf):
+        for c in mcases:
+            x = randn(len(c["ids"]), c["S"], c["d"], dtype=dt)
+            wb = 1 + randn(c["w_rows"], c["d"], scale=0.5)
+            bb = randn(TASKS, c["d"], scale=0.5)
+            ids = ids_of(*c["ids"])
+            compare("masked_multitask_hadamard", str(c), dt,
+                    lambda: ops.masked_multitask_hadamard(
+                        x, wb, bb, gate3, ids, impl="kernel"),
+                    lambda: ops.masked_multitask_hadamard(
+                        x, wb, bb, gate3, ids, impl="ref"))
+    # timed L2-cold, bf16 activations and fp32 rows as the bf16 engine runs
+    # it: every call of the timed CUDA graph takes its own copy of x and of
+    # the bank, the copies together twice the 50 MB L2
+    for key, ids in (("masked_multitask_hadamard", ids_of(0, 2, 1, 2)),
+                     ("masked_multitask_hadamard@prefill", ids_of(1))):
+        S = 1 if key == "masked_multitask_hadamard" else SERVE["prompt_len"]
+        B = ids.numel()
+        per_copy = 2 * B * S * d * 2 + 2 * TASKS * d * 4
+        copies = [(randn(B, S, d, dtype=bf), 1 + randn(TASKS, d, scale=0.1),
+                   randn(TASKS, d, scale=0.1))
+                  for _ in range(-(-100 * 2**20 // per_copy))]
+        x = copies[0][0]
+        n_rows = len(set(ids.tolist()))
+        record(key, "masked_multitask_hadamard",
+               f"x ({B},{S},{d}) bf16, fp32 bank (3,{d}), fp32 gate (3,), "
+               f"ids {ids.tolist()} ({len(copies)} copies in turn; one layer "
+               f"of {'a 4-slot decode tick' if S == 1 else 'a 128-token prefill'})",
+               bf,
+               rotating(copies, lambda x_, w_, b_: ops.masked_multitask_hadamard(
+                   x_, w_, b_, gate3, ids, impl="kernel")),
+               rotating(copies, lambda x_, w_, b_: ops.masked_multitask_hadamard(
+                   x_, w_, b_, gate3, ids, impl="ref")),
+               None,
+               # x, y, ids, the gates and the (w, b) rows the ids name
+               2 * nbytes(x) + nbytes(ids) + TASKS * 4 + n_rows * 2 * d * 4,
+               5 * x.numel(), iters=len(copies), reps=2)
+        results[key]["library_note"] = (
+            "none: the per-row bank gather, the gate and the affine are "
+            "separate calls")
+        del copies
+
     # #7 dequant matmul: every (K, N) of a qwen3-0.6b layer's projections
     # at M = 1, 4 (decode slots) and 128 (a prefill), and a ragged shape;
     # fp32 and bf16 activations, int8 and fp8 weights with per-column scales
@@ -537,18 +618,30 @@ def main() -> int:
                             t, v, sc, "kernel"), (x,), (g,)),
                         lambda: grads_of(lambda t: ref.dequant_matmul_ref(
                             t, v, sc), (x,), (g,)))
+    # the backward of MaskedMultitaskHadamard (dx through #9 on dy with
+    # b = 0, dw/db gated fp32 sums per task by a one-hot matmul) against
+    # autograd through the plain forward
+    for dt in (f32, bf):
+        for ids in (ids_of(0, 2, 1, 2), ids_of(1), ids_of(2, 0)):
+            S = 1 if ids.numel() == 4 else SERVE["prompt_len"]
+            x = randn(ids.numel(), S, d, dtype=dt)
+            g = randn(ids.numel(), S, d, dtype=dt)
+            wb, bb = 1 + randn(TASKS, d, scale=0.5), randn(TASKS, d, scale=0.5)
+            compare("masked_multitask_hadamard_bwd", f"ids={ids.tolist()} "
+                    f"S={S}", dt,
+                    lambda: grads_of(lambda *t: MaskedMultitaskHadamard.apply(
+                        *t, gate3, ids, "kernel"), (x, wb, bb), (g,)),
+                    lambda: grads_of(lambda *t: ops.masked_multitask_hadamard(
+                        *t, gate3, ids, impl="ref"), (x, wb, bb), (g,)),
+                    summed=(1, 2))
     for name in ("fused_adapter_norm_bwd", "flash_attention_bwd",
-                 "dequant_matmul_bwd"):
+                 "dequant_matmul_bwd", "masked_multitask_hadamard_bwd"):
         log(f"[3] {name} (the gradients): {errors(name)}")
 
     # timed at the train shapes, fp32 as bert-base trains. Each timed call
     # takes the next of several copies of its inputs, together over twice
     # the 50 MB L2, so that it reads them from device memory as a train
     # step does (one copy would stay in L2 from one replay to the next)
-    def rotating(copies, fn):
-        sets = itertools.cycle(copies)
-        return lambda: fn(*next(sets))
-
     w, b = 1 + randn(d_tr, scale=0.1), randn(d_tr, scale=0.1)
     xs = [(randn(n_tr, d_tr),) for _ in range(8)]
     record("hadamard_affine", "hadamard_affine",
@@ -738,6 +831,90 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("4b")
 
+    # -- phase 4c: the fp32 model over a hot-swap bank, kernel vs plain -----
+    from repro_torch.serving import AdapterBank, AdapterRegistry, MultiTaskEngine
+    from repro_torch.sparse import apply_layer_mask, preset_mask
+
+    base32 = launcher.build_base(cfg32, 1, dev)
+    dense32, pruned32 = launcher.task_variants(base32, 1, 2)
+    pmask = preset_mask(cfg32)
+    check(int(pmask.sum()) == 18 and pmask[10:].all(),
+          f"phase 4c: paper-0.022 keeps {int(pmask.sum())} of {len(pmask)}")
+    pruned32 = apply_layer_mask(pruned32, cfg32, pmask)
+    with tempfile.TemporaryDirectory() as td:
+        reg = AdapterRegistry(td)
+        reg.publish("pruned", launcher.task_delta(pruned32, cfg32, pmask))
+        reg.publish("dense", launcher.task_delta(dense32, cfg32))
+        hot = MultiTaskEngine(cfg32, AdapterBank(cfg32, base32, 3, reg),
+                              device=dev)
+        rows = [hot.adapter_bank.lookup(n) for n in ("pruned", "dense")]
+    gates = hot.adapter_bank.gate_tensor
+    want_gates = torch.zeros_like(gates)
+    want_gates[:, 0] = torch.as_tensor(pmask, dtype=torch.float32)
+    want_gates[:, 1] = 1.0
+    check(rows == [0, 1] and torch.equal(gates, want_gates),
+          f"phase 4c: rows {rows}, gates per row {gates.sum(0).tolist()}")
+    # the static bank of the same three rows: pruned, dense, identity
+    static = MultiTaskEngine(cfg32, [pruned32, dense32, base32], device=dev)
+    toks = torch.randint(10, cfg32.vocab_size, (3, 64), generator=gen,
+                         device=dev)
+    tids = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    runs = {}
+    for name, model, impl, g in (("kernel", hot, "auto", gates),
+                                 ("plain", hot, "ref", gates),
+                                 ("static", static, "auto", None)):
+        _build.reset_launches()
+        with torch.no_grad():
+            lg, caches = M.prefill_lm(model.params, cfg32, toks, 80,
+                                      task_ids=tids, gates=g, impl=impl)
+            out = [lg]
+            for i in range(4):
+                tok = torch.randint(10, cfg32.vocab_size, (3, 1),
+                                    generator=torch.Generator(device=dev)
+                                    .manual_seed(i), device=dev)
+                pos = torch.full((3,), 64 + i, device=dev)
+                lg, caches = M.decode_lm(model.params, cfg32, caches, tok,
+                                         pos, task_ids=tids, gates=g,
+                                         impl=impl)
+                out.append(lg)
+        torch.cuda.synchronize()
+        runs[name] = (out, _build.launch_counts())
+    n_calls = 5 * cfg32.n_layers
+    for name, k, want in (("kernel", "masked_multitask_hadamard", n_calls),
+                          ("kernel", "multitask_hadamard", 0),
+                          ("kernel", "fused_adapter_norm", 0),
+                          ("plain", "masked_multitask_hadamard", 0),
+                          ("static", "multitask_hadamard", n_calls),
+                          ("static", "masked_multitask_hadamard", 0)):
+        check(runs[name][1][k] == want, f"phase 4c: {name} path launched "
+              f"{k} {runs[name][1][k]} times, want {want}")
+    hot_model = {"rows": rows, "kept_layers": int(pmask.sum()),
+                 "masked_multitask_hadamard_launches": n_calls}
+    for other in ("plain", "static"):
+        worst = 0.0
+        for step, (a, r) in enumerate(zip(runs["kernel"][0], runs[other][0])):
+            check(a.shape == (3, 1, cfg32.vocab_size)
+                  and bool(torch.isfinite(a).all()),
+                  f"phase 4c logits {tuple(a.shape)}")
+            diff, top = (a - r).abs().max().item(), r.abs().max().item()
+            check(diff <= 1e-3 * top, f"phase 4c step {step}: |kernel - "
+                  f"{other}| {diff:.3g} > 1e-3 x {top:.3g}")
+            worst = max(worst, diff / top)
+        hot_model[f"kernel_vs_{other}"] = worst
+    pruned_vs_dense = (runs["kernel"][0][0][0] - runs["kernel"][0][0][1]
+                       ).abs().max().item()
+    log(f"[4c] qwen3-0.6b fp32, {cfg32.n_layers} layers, a 3-row hot-swap "
+        f"bank (pruned tenant, top {int(pmask.sum())} layers; dense tenant; "
+        f"unloaded row): prefill + 4 decode steps, {n_calls} "
+        f"masked_multitask_hadamard launches and no multitask or fused one; "
+        f"kernel path vs plain path max |diff| / max|ref| = "
+        f"{hot_model['kernel_vs_plain']:.3g}, vs the static bank (#6) of the "
+        f"same tenants {hot_model['kernel_vs_static']:.3g} (tol 1e-3); "
+        f"pruned vs dense tenant prefill logits differ by {pruned_vs_dense:.3g}")
+    del base32, dense32, pruned32, hot, static, model, runs, caches, gates
+    torch.cuda.empty_cache()
+    phase_done("4c")
+
     def profile_calls(fn, n):
         """Where the time of a call goes: host wall ms per call (each ending
         in a device sync), the device's busy share of it, and the kernels
@@ -787,7 +964,52 @@ def main() -> int:
             setattr(eng, name, wrapped)
         return per_call
 
+    def check_serve_run(phase, per_call, rep, done, counts, sched, need):
+        """The checks every serve run passes: each request retires with its
+        whole budget of in-range tokens, the KV cache stays finite, every
+        launch happened inside a prefill or a decode step, and each kernel
+        of `need` launched. Returns the distinct launch counts per decode
+        tick and per prefill of each kernel, e.g. {"paged_attention":
+        [28]}."""
+        check(len(per_call["decode_step"]) == rep["ticks"],
+              f"phase {phase}: {len(per_call['decode_step'])} decode steps "
+              f"counted, {rep['ticks']} ticks reported")
+        for k in counts:
+            check(sum(c[k] for calls in per_call.values() for c in calls)
+                  == counts[k],
+                  f"phase {phase}: {k} launched outside prefill and decode")
+        check(len(done) == SERVE["requests"], f"phase {phase}: "
+              f"{len(done)} completions")
+        for c in done:
+            check(len(c.tokens) == SERVE["new_tokens"]
+                  and c.finish_reason == "length",
+                  f"phase {phase}: request {c.request_id} retired with "
+                  f"{len(c.tokens)} tokens ({c.finish_reason})")
+            check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                  f"phase {phase}: token ids out of range")
+        check(all(bool(torch.isfinite(c["k"]).all()
+                       and torch.isfinite(c["v"]).all())
+                  for c in sched.caches), f"phase {phase}: non-finite KV cache")
+        for k in need:
+            check(counts[k] > 0,
+                  f"phase {phase}: kernel {k} never launched on the serve path")
+        return ({k: sorted({c[k] for c in per_call["decode_step"]})
+                 for k in counts},
+                {k: sorted({c[k] for c in per_call["prefill"]})
+                 for k in counts})
+
+    def serve_line(rep):
+        return (f"{rep['requests']} requests / {rep['tokens']} tokens, "
+                f"{rep['ticks']} ticks, {rep['requests_per_s']:.3f} req/s, "
+                f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean/p50/max "
+                f"{rep['mean_ttft_s'] * 1e3:.1f}/{rep['ttft_p50_s'] * 1e3:.1f}/"
+                f"{rep['ttft_max_s'] * 1e3:.1f} ms, token gap p50/max "
+                f"{rep['tpot_p50_s'] * 1e3:.1f}/{rep['tpot_max_s'] * 1e3:.1f} "
+                f"ms, host s in prefill/decode {rep['prefill_s']:.3f}/"
+                f"{rep['decode_s']:.3f}")
+
     # -- phases 5-6: serving at full width, bf16; 5q, 6q, 5f: quantized -----
+    masked_name = "masked_multitask_hadamard"
     cfg = launcher.build_config(ARCH)
     launches = {}
     serve_reports = {}
@@ -820,36 +1042,14 @@ def main() -> int:
         launches[phase] = _build.launch_counts()
         peak_bytes = torch.cuda.max_memory_allocated() - held
         del eng.prefill, eng.decode_step  # back to the class's methods
-        check(len(per_call["decode_step"]) == rep["ticks"],
-              f"phase {phase}: {len(per_call['decode_step'])} decode steps "
-              f"counted, {rep['ticks']} ticks reported")
-        for k in launches[phase]:
-            check(sum(c[k] for calls in per_call.values() for c in calls)
-                  == launches[phase][k],
-                  f"phase {phase}: {k} launched outside prefill and decode")
-        # the distinct per-call counts of this run, e.g. [28] per tick
-        per_tick = {k: sorted({c[k] for c in per_call["decode_step"]})
-                    for k in launches[phase]}
-        per_prefill = {k: sorted({c[k] for c in per_call["prefill"]})
-                       for k in launches[phase]}
-        check(len(done) == SERVE["requests"], f"phase {phase}: "
-              f"{len(done)} completions")
-        for c in done:
-            check(len(c.tokens) == SERVE["new_tokens"]
-                  and c.finish_reason == "length",
-                  f"phase {phase}: request {c.request_id} retired with "
-                  f"{len(c.tokens)} tokens ({c.finish_reason})")
-            check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
-                  f"phase {phase}: token ids out of range")
+        per_tick, per_prefill = check_serve_run(
+            phase, per_call, rep, done, launches[phase], sched,
+            ("fused_adapter_norm", "flash_attention", "paged_attention")
+            if tasks == 0 else
+            ("multitask_hadamard", "flash_attention", "paged_attention"))
         tokens_of[phase] = {c.request_id: c.tokens for c in done}
-        check(all(bool(torch.isfinite(c["k"]).all() and torch.isfinite(c["v"]).all())
-                  for c in sched.caches), f"phase {phase}: non-finite KV cache")
-        need = (("fused_adapter_norm", "flash_attention", "paged_attention")
-                if tasks == 0 else
-                ("multitask_hadamard", "flash_attention", "paged_attention"))
-        for k in need:
-            check(launches[phase][k] > 0,
-                  f"phase {phase}: kernel {k} never launched on the serve path")
+        check(per_tick[masked_name] == [0] == per_prefill[masked_name],
+              f"phase {phase}: {masked_name} launched without a hot-swap bank")
         want_dq = [n_dq] if quant else [0]
         check(per_tick["dequant_matmul"] == want_dq
               and per_prefill["dequant_matmul"] == want_dq,
@@ -886,20 +1086,125 @@ def main() -> int:
                                     tick=tick, **extra)
         kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
             (f", {quant} backbone" if quant else "")
-        log(f"[{phase}] serve {kind} on {smi}: {rep['requests']} requests / "
-            f"{rep['tokens']} tokens, "
-            f"{rep['ticks']} ticks, {rep['requests_per_s']:.3f} req/s, "
-            f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean/p50/max "
-            f"{rep['mean_ttft_s'] * 1e3:.1f}/{rep['ttft_p50_s'] * 1e3:.1f}/"
-            f"{rep['ttft_max_s'] * 1e3:.1f} ms, token gap p50/max "
-            f"{rep['tpot_p50_s'] * 1e3:.1f}/{rep['tpot_max_s'] * 1e3:.1f} ms, "
-            f"host s in prefill/decode {rep['prefill_s']:.3f}/"
-            f"{rep['decode_s']:.3f}; launches {launches[phase]}; "
+        log(f"[{phase}] serve {kind} on {smi}: {serve_line(rep)}; "
+            f"launches {launches[phase]}; "
             f"per decode tick {per_tick}; per prefill {per_prefill}; "
             f"memory {json.dumps(extra)}; decode tick {tick}")
         del eng, sched
         torch.cuda.empty_cache()
         phase_done(phase)
+
+    # -- phases 6s, 6w: hot-swap serving at full width, bf16 ---------------
+    # the launcher's lifecycle over the traffic of phases 5-6: tenants in an
+    # AdapterRegistry on disk, all but the last published up front, the
+    # last once half of the others' requests have completed, task0 removed
+    # at the end; a bank of fewer rows than tenants, so rows are evicted
+    # and loaded mid-run
+    HOT_TASKS, BANK_ROWS = 4, 3
+    hot_base = launcher.build_base(cfg, SERVE["seed"], dev)
+    pmask = preset_mask(cfg)
+    for phase in ("6s", "6w"):
+        share = phase == "6w"
+        variants = launcher.task_variants(hot_base, SERVE["seed"], HOT_TASKS,
+                                          share_w=share)
+        # 6s: task0 and task2 pruned, task1 and task3 dense; 6w: all pruned
+        masks = [pmask if share or t % 2 == 0 else None
+                 for t in range(HOT_TASKS)]
+        variants = [v if m is None else apply_layer_mask(v, cfg, m)
+                    for v, m in zip(variants, masks)]
+        td = tempfile.TemporaryDirectory()
+        registry = AdapterRegistry(td.name)
+        for t in range(HOT_TASKS - 1):
+            registry.publish(f"task{t}", launcher.task_delta(
+                variants[t], cfg, masks[t]))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        eng = launcher.hot_swap_engine(
+            cfg, hot_base, variants, registry, BANK_ROWS, share_w=share,
+            layer_mask=pmask if share else None, device=dev)
+        torch.cuda.synchronize()
+        weights_bytes = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        reqs = launcher.make_requests(cfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      HOT_TASKS, SERVE["seed"], named=True)
+        sched = make_scheduler(eng, ServingConfig(
+            num_slots=SERVE["num_slots"], max_len=SERVE["max_len"]))
+        per_call = count_per_call(eng)
+        hot_name = f"task{HOT_TASKS - 1}"
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        done, rep = launcher.serve_with_runtime_add(
+            sched, reqs, hot_name,
+            lambda: registry.publish(hot_name, launcher.task_delta(
+                variants[-1], cfg, masks[-1])), log=log)
+        torch.cuda.synchronize()
+        launches[phase] = _build.launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - held
+        del eng.prefill, eng.decode_step
+        bank = eng.adapter_bank
+        # each resident row's gates, on the device and on the host, are its
+        # tenant's layer mask
+        dev_gates = bank.gate_tensor.cpu().numpy()
+        for name in bank.resident:
+            t = int(name.removeprefix("task"))
+            want = (masks[t] if masks[t] is not None
+                    else np.ones(cfg.n_layers, bool)).astype(np.float32)
+            row = bank.row_of(name)
+            check((bank.gates()[:, row] == want).all()
+                  and (dev_gates[:, row] == want).all()
+                  and (bank.mask_of(name) == want.astype(bool)).all(),
+                  f"phase {phase}: {name}'s gates in row {row} are not its "
+                  "mask")
+        stats_run = bank.stats()
+        launcher.remove_tenant(registry, eng, "task0", log=log)
+        td.cleanup()
+        stats = bank.stats()
+        lines = launcher.bank_lines(eng)
+        for line in lines:
+            log(f"[{phase}] {line}")
+        check(stats_run["evictions"] >= 1
+              and stats_run["loads"] >= HOT_TASKS,
+              f"phase {phase}: bank {stats_run}, want at least one eviction "
+              f"and {HOT_TASKS} loads")
+        per_tick, per_prefill = check_serve_run(
+            phase, per_call, rep, done, launches[phase], sched,
+            (masked_name, "flash_attention", "paged_attention"))
+        for k, want in ((masked_name, [cfg.n_layers]),
+                        ("multitask_hadamard", [0]),
+                        ("fused_adapter_norm", [0])):
+            check(per_tick[k] == want and per_prefill[k] == want,
+                  f"phase {phase}: {k} per decode tick {per_tick[k]}, per "
+                  f"prefill {per_prefill[k]}, want {want}")
+        check(not share or stats["adapter_bytes"]
+              < serve_reports["6s"]["bank"]["adapter_bytes"],
+              f"phase 6w: shared-w bank bytes {stats['adapter_bytes']} not "
+              "below the dense bank's")
+        slots = SERVE["num_slots"]
+        caches = eng.init_slot_caches(slots, SERVE["max_len"])
+        args = ([[11]] * slots, [140 + i for i in range(slots)])
+        stids = [bank.row_of(n) for n in bank.resident]
+        stids = (stids * slots)[:slots]
+        tick = profile_calls(
+            lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        del caches
+        serve_reports[phase] = dict(
+            rep, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick,
+            bank=stats, bank_during_run=stats_run, bank_lines=lines,
+            weights_bytes_allocated=weights_bytes,
+            peak_bytes_allocated=peak_bytes)
+        kind = ("hot-swap bank, 2 pruned + 2 dense tenants" if not share
+                else "hot-swap shared-w bank, 4 pruned tenants")
+        log(f"[{phase}] serve {kind}, {BANK_ROWS} rows, on {smi}: "
+            f"{serve_line(rep)}; launches {launches[phase]}; per decode tick "
+            f"{per_tick}; per prefill {per_prefill}; bank during the run "
+            f"{stats_run}; engine bytes {weights_bytes}, peak {peak_bytes}; "
+            f"decode tick {tick}")
+        del eng, sched, bank, variants
+        torch.cuda.empty_cache()
+        phase_done(phase)
+    del hot_base
 
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
@@ -1131,10 +1436,13 @@ def main() -> int:
                                "src/repro/kernels/multitask.py:26"),
         "dequant_matmul": (csrc + "dequant_matmul.cu",
                            "src/repro/kernels/quant.py:44"),
+        "masked_multitask_hadamard": (csrc + "masked_multitask_hadamard.cu",
+                                      "src/repro/kernels/sparse.py:50"),
     }
     serve_name = {"5": "serve_single", "6": "serve_multitask",
                   "5q": "serve_single_int8", "6q": "serve_multitask_int8",
-                  "5f": "serve_single_fp8"}
+                  "5f": "serve_single_fp8", "6s": "serve_hot_swap",
+                  "6w": "serve_hot_swap_shared_w"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
@@ -1177,7 +1485,8 @@ def main() -> int:
                 entry[f"{at}_shape_timing"] = dict(
                     {k: t[k] for k in timed + extra_timed if k in t},
                     shape=t["shape"])
-        if name in ("fused_adapter_norm", "flash_attention", "dequant_matmul"):
+        if name in ("fused_adapter_norm", "flash_attention", "dequant_matmul",
+                    "masked_multitask_hadamard"):
             # the backward of the autograd Function around this kernel
             bwd = checks[name + "_bwd"]
             entry["bwd_max_abs_err"] = max(bwd["errs"])
@@ -1189,7 +1498,8 @@ def main() -> int:
         for p, rep in serve_reports.items()}
     phase_done("9")
     print(json.dumps({"kernels": kernels, "serve": serve,
-                      "quant_model": quant_model, "train": train_report,
+                      "quant_model": quant_model, "hot_model": hot_model,
+                      "train": train_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()

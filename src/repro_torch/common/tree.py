@@ -39,6 +39,30 @@ def mask_from_patterns(tree, patterns: Iterable[str],
         lambda path, _: any(r.search(name(path)) for r in regexes), tree)
 
 
+def partition(tree, mask):
+    """Split into (selected, rest) of the same structure: a leaf whose
+    flag in `mask` is True goes to the first, others to the second, and
+    its place in the other tree holds None."""
+    flags = dict(flatten_with_paths(mask))
+    sel = map_with_path(lambda p, v: v if flags[p] else None, tree)
+    rest = map_with_path(lambda p, v: None if flags[p] else v, tree)
+    return sel, rest
+
+
+def merge(a, b):
+    """Inverse of `partition`: the non-None leaf of either tree at each
+    path (`a`'s structure)."""
+    other = dict(flatten_with_paths(b))
+
+    def pick(path, x):
+        y = other.get(path)
+        if x is not None and y is not None:
+            raise ValueError(f"merge: both leaves at {path!r} are set")
+        return y if x is None else x
+
+    return map_with_path(pick, a)
+
+
 def count_params(tree) -> int:
     return sum(leaf.numel() for _, leaf in flatten_with_paths(tree))
 

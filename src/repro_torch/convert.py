@@ -11,6 +11,16 @@ bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
 layer. `jax_path` names a port leaf by its JAX path, so that one regex
 (a PEFT mask) means the same leaves in both packages.
 
+Task deltas (`core.hadamard.extract_delta`) carry over in the layout the
+registry stores. A delta is a partial tree with None holes; in the JAX
+layout its layer leaves are stacked over the group's repeats ((L, d)) or
+are `sparse.PackedRows`, whose mask spans the whole stacked leaf.
+`stack_delta` groups the port's per-layer leaves by `jax_path` into that
+layout and `unstack_delta` splits it back, so a delta packed by the port
+and one packed by JAX hold the same rows under the same masks, and the
+files the two write are the same bytes. `from_jax_delta`/`to_jax_delta`
+move a JAX-layout delta between numpy and torch.
+
 A quantized backbone carries over too. JAX's QTensor leaves flatten to
 `<leaf>/values` (int8 or float8_e4m3fn, stacked (repeats, K, N)) and
 `<leaf>/scales` (fp32, (repeats, 1, N)); each layer of the port gets its
@@ -201,3 +211,116 @@ def to_jax_params(params: dict, cfg: ModelCfg) -> dict:
     for path, by_repeat in per_leaf.items():
         _set(out, path, np.stack([by_repeat[r] for r in sorted(by_repeat)]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# task deltas
+# ---------------------------------------------------------------------------
+
+
+def _sorted_tree(tree):
+    """Dicts with their keys sorted, as JAX's tree functions leave them:
+    the store writes leaves in tree order, so the order decides the
+    bytes."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def stack_delta(delta: dict, cfg: ModelCfg) -> dict:
+    """A per-layer delta (or row tree) in the JAX layout: the leaves of
+    every layer that share a `jax_path` stacked in repeat order, None
+    holes kept, keys sorted. A tree with no "layers" list is taken to be in
+    the JAX layout already and is returned as it is."""
+    if not isinstance(delta.get("layers"), list):
+        return delta
+    position = _layer_position(cfg)
+    out: dict = {}
+    groups: Dict[str, Dict[int, object]] = {}
+    for path, leaf in tu.flatten_with_paths(delta):
+        m = _LAYER_RE.match(path)
+        if m is None:
+            _set(out, path, leaf)
+            continue
+        gi, r, si = position[int(m.group(1))]
+        groups.setdefault(f"blocks/g{gi}/slot{si}/{m.group(2)}", {})[r] = leaf
+    for path, by_repeat in groups.items():
+        leaves = [by_repeat[r] for r in sorted(by_repeat)]
+        if all(v is None for v in leaves):
+            _set(out, path, None)
+        elif any(v is None for v in leaves):
+            raise ValueError(f"{path}: some layers of the group hold the "
+                             "leaf and some do not")
+        else:
+            _set(out, path, torch.stack(leaves))
+    return _sorted_tree(out)
+
+
+def unstack_delta(tree: dict, cfg: ModelCfg) -> dict:
+    """The inverse of `stack_delta`: a dense JAX-layout delta (PackedRows
+    unpacked first, `sparse.unpack_delta`) -> {"layers": [one dict per
+    layer], **top-level leaves}, with each stacked leaf's rows given to
+    its layers as views. Raises ValueError on a leaf whose group or
+    leading dim does not fit `cfg`."""
+    from repro_torch.sparse.prune import is_packed  # sparse imports convert
+
+    index = _layer_index(cfg)
+    layers: List[dict] = [{} for _ in range(len(index))]
+    out: dict = {}
+    for path, leaf in tu.flatten_with_paths(tree):
+        m = _BLOCK_RE.match(path)
+        if m is None:
+            _set(out, path, leaf)
+            continue
+        gi, si, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+        if gi >= len(cfg.groups) or si >= len(cfg.groups[gi].slots):
+            raise ValueError(f"{path} has no slot in {cfg.name}")
+        repeats = cfg.groups[gi].repeats
+        if is_packed(leaf):
+            raise ValueError(f"{path} is a PackedRows leaf; unpack the delta "
+                             "first (sparse.unpack_delta)")
+        if leaf is not None and leaf.shape[0] != repeats:
+            raise ValueError(f"{path}: leading dim {leaf.shape[0]} != group "
+                             f"repeats {repeats}")
+        for r in range(repeats):
+            _set(layers[index[(gi, r, si)]], rest,
+                 None if leaf is None else leaf[r])
+    out["layers"] = layers
+    return out
+
+
+def from_jax_delta(np_tree: dict, device="cpu") -> dict:
+    """A JAX-layout delta with numpy leaves (None holes and JAX
+    PackedRows allowed) -> the same tree with torch leaves and the port's
+    `PackedRows`. JAX's PackedRows is read through its mask, rows and
+    fill, so this module needs no JAX."""
+    from repro_torch.sparse.prune import PackedRows
+
+    def one(_, leaf):
+        if leaf is None:
+            return None
+        if all(hasattr(leaf, a) for a in ("mask", "rows", "fill")):
+            return PackedRows(np.asarray(leaf.mask), np.asarray(leaf.rows),
+                              leaf.fill)
+        return to_tensor(np.asarray(leaf), device)
+
+    return tu.map_with_path(one, np_tree)
+
+
+def to_jax_delta(delta: dict, packed=None) -> dict:
+    """The inverse of `from_jax_delta`: numpy leaves; a port PackedRows
+    becomes packed(mask, rows, fill), with `packed` the JAX PackedRows
+    class the caller passes in (required only when the tree holds one)."""
+    from repro_torch.sparse.prune import is_packed
+
+    def one(path, leaf):
+        if leaf is None:
+            return None
+        if is_packed(leaf):
+            if packed is None:
+                raise ValueError(f"{path} is a PackedRows leaf: pass the "
+                                 "class to build it with (packed=...)")
+            return packed(leaf.mask.numpy(), leaf.rows.numpy(), leaf.fill)
+        return to_numpy(leaf)
+
+    return tu.map_with_path(one, delta)

@@ -15,7 +15,7 @@ Stages (paper §3.2):
   stage 2: reload the head, freeze it, train adapter + FFN-output norm.
 
 The port carries the strategies whose adapter kind is 'none' or
-'hadamard'. LoRA, Houlsby and IA3 adapters and per-layer gating
+'hadamard'. LoRA, Houlsby and IA3 adapters and gated training
 (`layer_gate`) arrive with later slices and raise until then.
 """
 from __future__ import annotations
@@ -139,5 +139,6 @@ def param_stats(params, mask):
 
 def layer_gate(*args, **kwargs):
     raise NotImplementedError(
-        "per-layer gating (paper Table 5) is not ported yet; it arrives "
-        "with the sparse-adapter slice")
+        "gated training of sparse adapters (paper Table 5) is not ported "
+        "yet; it arrives with the Table-5 training slice (the gate tree "
+        "itself is repro_torch.sparse.mask_gate)")

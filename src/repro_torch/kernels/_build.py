@@ -50,6 +50,8 @@ SIGNATURES = {
     "rt_multitask_hadamard": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                               _P),
     "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
+    "rt_masked_multitask_hadamard": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P,
+                                     _P, _I, _I, _I, _I, _P),
 }
 
 # kernel name -> launches since the last reset (see launch())
@@ -61,6 +63,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_attention": 0,
     "multitask_hadamard": 0,
     "dequant_matmul": 0,
+    "masked_multitask_hadamard": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

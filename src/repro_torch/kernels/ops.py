@@ -20,6 +20,7 @@ from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import hadamard as _had
 from repro_torch.kernels import multitask as _mt
 from repro_torch.kernels import quant as _quant
+from repro_torch.kernels import sparse as _sparse
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -98,6 +99,17 @@ def multitask_hadamard(x, w_bank, b_bank, task_ids, impl: str = "auto"):
     if use_kernel(x, impl):
         return _mt.multitask_hadamard(x, w_bank, b_bank, task_ids)
     return ref.multitask_hadamard_ref(x, w_bank, b_bank, task_ids)
+
+
+def masked_multitask_hadamard(x, w_bank, b_bank, gate, task_ids,
+                              impl: str = "auto"):
+    """y[i] = x[i] + gate[t]*(x[i]*(w_bank[t]-1) + b_bank[t]), t clamped
+    into each bank's rows; see `ref.masked_multitask_hadamard_ref`."""
+    if use_kernel(x, impl):
+        return _sparse.masked_multitask_hadamard(x, w_bank, b_bank, gate,
+                                                 task_ids)
+    return ref.masked_multitask_hadamard_ref(x, w_bank, b_bank, gate,
+                                             task_ids)
 
 
 def dequant_matmul(x, values, scales, impl: str = "auto"):

@@ -97,6 +97,24 @@ def multitask_hadamard_ref(x, w_bank, b_bank, task_ids):
     return (_f32(x) * w + b).to(x.dtype)
 
 
+def masked_multitask_hadamard_ref(x, w_bank, b_bank, gate, task_ids):
+    """The masked multitask op of `repro.kernels.ref` (`ref.py:49-59`):
+    y[i] = x[i] + g[t]*(x[i]*(w[t] - 1) + b[t]) with the gate cast to
+    x.dtype first; fp32 math, output in x.dtype (as the Pallas kernel
+    writes it). The gather clamps the task id into each of w_bank, b_bank
+    and gate, as JAX's gather and `select_tasks` clamp: a shared-w bank
+    (one w row) serves every task from its one row."""
+    ids = task_ids.long()
+
+    def rows(t):
+        return _f32(t)[ids.clamp(0, t.shape[0] - 1)]
+
+    w, b = rows(w_bank)[:, None], rows(b_bank)[:, None]
+    g = rows(gate.to(x.dtype))[:, None, None]
+    x32 = _f32(x)
+    return (x32 + g * (x32 * (w - 1.0) + b)).to(x.dtype)
+
+
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
                   scale: Optional[float] = None, cap: float = 0.0):

@@ -11,15 +11,31 @@ byte accounting, as the JAX launcher does. The scheduler admits the
 requests into --num-slots cache slots mid-decode and prints a
 throughput/latency report.
 
+Multi-tenant hot-swap, as the JAX launcher runs it: with --adapter-dir the
+task deltas live in an on-disk AdapterRegistry and requests name their
+adapter; only --bank-size rows are on the device at once (LRU eviction,
+pinned while in flight). Every tenant but the last is published up front;
+the last is published mid-stream, once half of the others' requests have
+completed, and served without rebuilding the engine; `task0` is removed at
+the end. --prune-to K prunes every tenant to its top K layers and
+publishes packed deltas (the paper's 0.022 % variant is K = 2L/3: 18 of
+qwen3-0.6b's 28); --share-w serves the paper's Fig-5 world, one w shared by
+every tenant and a b per tenant, from a bank that stores the w once.
+
   python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8 \
       --num-slots 4 --prompt-len 128 --new-tokens 32 [--tasks 3] \
       [--quant int8]
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8 \
+      --num-slots 4 --prompt-len 128 --new-tokens 32 --tasks 4 \
+      --adapter-dir DIR --bank-size 3 [--prune-to 18] [--share-w]
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional
+import tempfile
+import time
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -29,12 +45,15 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg
 from repro_torch.configs import get, get_smoke
 from repro_torch.core import peft
-from repro_torch.core.hadamard import perturb_adapters
+from repro_torch.core.hadamard import extract_delta, perturb_adapters
 from repro_torch.models import model as M
 from repro_torch.quant import quant_summary
-from repro_torch.serving import (MultiTaskEngine, Request, ServeEngine,
+from repro_torch.serving import (AdapterBank, AdapterRegistry,
+                                 MultiTaskEngine, Request, ServeEngine,
                                  ServingConfig, format_report, make_scheduler)
 from repro_torch.serving.engine import round_to_page
+from repro_torch.sparse import (apply_layer_mask, depth_mask, factorize,
+                                n_layers, prune_delta, shared_w_overlay)
 
 
 def build_config(arch: str, smoke: bool = False) -> ModelCfg:
@@ -42,14 +61,29 @@ def build_config(arch: str, smoke: bool = False) -> ModelCfg:
     return peft.attach(cfg, peft.strategy("hadamard"))
 
 
-def build_params(cfg: ModelCfg, seed: int, tasks: int, device) -> List[dict]:
-    """One backbone from `seed` on `device`, and max(tasks, 1) variants of
-    it whose adapters are perturbed per task (distinct adapters, as if
-    fine-tuned per task)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    base = M.init_params(gen, cfg)
+def build_base(cfg: ModelCfg, seed: int, device) -> dict:
+    """The backbone from `seed` on `device`, its adapters the identity."""
+    return M.init_params(torch.Generator(device=device).manual_seed(seed),
+                         cfg)
+
+
+def task_variants(base: dict, seed: int, tasks: int,
+                  share_w: bool = False) -> List[dict]:
+    """max(tasks, 1) variants of `base` whose adapters are perturbed per
+    task (distinct adapters, as if fine-tuned per task). share_w builds the
+    paper's Fig-5 world: ONE w perturbation common to every task, then a
+    b per task, the regime a shared-w bank serves exactly."""
+    if share_w:
+        stem = perturb_adapters(base, seed * 1000 + 7, leaves=("w",))
+        return [perturb_adapters(stem, seed * 1000 + 100 + t, leaves=("b",))
+                for t in range(max(tasks, 1))]
     return [perturb_adapters(base, seed * 1000 + 100 + t)
             for t in range(max(tasks, 1))]
+
+
+def build_params(cfg: ModelCfg, seed: int, tasks: int, device) -> List[dict]:
+    """`task_variants` of the backbone from `seed`."""
+    return task_variants(build_base(cfg, seed, device), seed, tasks)
 
 
 def build_engine(cfg: ModelCfg, seed: int = 0, tasks: int = 0, device=None,
@@ -76,13 +110,88 @@ def quant_line(engine) -> str:
 
 def make_requests(cfg: ModelCfg, n: int, prompt_len: int, new_tokens: int,
                   tasks: int = 0, seed: int = 0, top_k: int = 0,
-                  temperature: float = 1.0) -> List[Request]:
+                  temperature: float = 1.0,
+                  named: bool = False) -> List[Request]:
+    """n requests, tasks round-robin: by bank row, or with named=True by
+    adapter name ('task<i>', resolved by a hot-swap engine)."""
     rs = np.random.RandomState(seed)
-    return [Request(prompt=rs.randint(10, cfg.vocab_size, size=(prompt_len,)),
-                    max_new_tokens=new_tokens, top_k=top_k,
-                    temperature=temperature, seed=seed + i,
-                    task_id=i % tasks if tasks > 0 else 0)
-            for i in range(n)]
+    reqs = []
+    for i in range(n):
+        task = i % tasks if tasks > 0 else 0
+        reqs.append(Request(
+            prompt=rs.randint(10, cfg.vocab_size, size=(prompt_len,)),
+            max_new_tokens=new_tokens, top_k=top_k, temperature=temperature,
+            seed=seed + i, **({"adapter": f"task{task}"} if named
+                              else {"task_id": task})))
+    return reqs
+
+
+def task_delta(params: dict, cfg: ModelCfg, layer_mask=None) -> dict:
+    """One tenant's registry payload: its delta in the JAX layout, packed
+    under `layer_mask` when given."""
+    delta = convert.stack_delta(extract_delta(params), cfg)
+    return delta if layer_mask is None else prune_delta(delta, cfg,
+                                                        layer_mask)
+
+
+def hot_swap_engine(cfg: ModelCfg, base: dict, variants: List[dict],
+                    registry: AdapterRegistry, bank_size: int, *,
+                    share_w: bool = False, layer_mask=None, device=None,
+                    quant: Optional[str] = None) -> MultiTaskEngine:
+    """A MultiTaskEngine over an AdapterBank of `bank_size` rows that
+    loads its tenants from `registry`. share_w: the bank stores the w that
+    `factorize` finds across `variants` once, and each tenant's b."""
+    bank_base = base
+    if share_w:
+        sa = factorize({f"task{t}": extract_delta(v)
+                        for t, v in enumerate(variants)}, cfg,
+                       mask=layer_mask)
+        bank_base = shared_w_overlay(base, sa, cfg)
+    bank = AdapterBank(cfg, bank_base, bank_size, registry, shared_w=share_w)
+    return MultiTaskEngine(cfg, bank, quant=quant, device=device)
+
+
+def serve_with_runtime_add(sched, requests: List[Request], hot: str,
+                           publish_hot: Callable[[], None], log=print):
+    """The JAX launcher's tenant lifecycle: serve every request but those
+    of `hot`; once half of them have completed, `publish_hot()` and submit
+    the rest mid-stream. Returns (completions in submit order, report)."""
+    early = [r for r in requests if r.adapter != hot]
+    late = [r for r in requests if r.adapter == hot]
+    ticks0, pre0, dec0 = sched._ticks, sched._prefill_s, sched._decode_s
+    t0 = time.perf_counter()
+    ids = [sched.submit(r) for r in early]
+    while sched.pending or sched.active or late:
+        sched.step()
+        if late and len(sched.completions) * 2 >= len(early):
+            publish_hot()
+            log(f"  ++ runtime add: published {hot!r}, submitting "
+                f"{len(late)} request(s) for it mid-stream")
+            ids += [sched.submit(r) for r in late]
+            late = []
+    elapsed = time.perf_counter() - t0
+    done = [sched.completions.pop(i) for i in ids]
+    return done, sched.report(done, elapsed, ticks=sched._ticks - ticks0,
+                              prefill_s=sched._prefill_s - pre0,
+                              decode_s=sched._decode_s - dec0)
+
+
+def remove_tenant(registry: AdapterRegistry, engine: MultiTaskEngine,
+                  name: str, log=print) -> None:
+    """Runtime remove: unpublish `name` and free its bank row."""
+    registry.remove(name)
+    engine.adapter_bank.invalidate(name)
+    log(f"  -- runtime remove: {name!r} unpublished + row freed")
+
+
+def bank_lines(engine: MultiTaskEngine) -> List[str]:
+    """The JAX launcher's bank report lines."""
+    st = engine.adapter_bank.stats()
+    return [f"adapter bank: {st['resident']}/{st['size']} rows resident, "
+            f"{st['loads']} loads, {st['evictions']} evictions",
+            f"bank adapter bytes: {st['adapter_bytes'] / 1024:.1f} KiB"
+            + (" (shared-w: one w row-set for all tenants)"
+               if st["shared_w"] else "")]
 
 
 def main(argv=None):
@@ -100,6 +209,22 @@ def main(argv=None):
                          "rounded up to a multiple of 16)")
     ap.add_argument("--tasks", type=int, default=0,
                     help=">0: multi-task adapter bank with this many tasks")
+    ap.add_argument("--adapter-dir", default="",
+                    help="hot-swap serving: publish and load the task deltas "
+                         "through an AdapterRegistry at this path; requests "
+                         "name their adapter, resolved at admission")
+    ap.add_argument("--bank-size", type=int, default=4,
+                    help="device-resident adapter rows for --adapter-dir "
+                         "(misses load from disk, cold rows are evicted LRU)")
+    ap.add_argument("--prune-to", type=int, default=0,
+                    help="prune every tenant's adapter to its top K layers "
+                         "and publish PACKED deltas (pruned layers serve as "
+                         "the identity); 0 = dense; the paper's 0.022%% "
+                         "preset is K = 2L/3")
+    ap.add_argument("--share-w", action="store_true",
+                    help="shared-w serving (paper Fig 5): the bank stores ONE "
+                         "w row-set and each tenant's insert writes only its "
+                         "b. Requires --adapter-dir")
     ap.add_argument("--top-k", type=int, default=0,
                     help=">0: per-request top-k sampling (greedy otherwise)")
     ap.add_argument("--temperature", type=float, default=1.0,
@@ -114,7 +239,38 @@ def main(argv=None):
 
     quant = args.quant or None
     cfg = build_config(args.arch, args.smoke)
-    engine = build_engine(cfg, args.seed, args.tasks, args.device, quant)
+    if args.share_w and not args.adapter_dir:
+        raise SystemExit("--share-w factorizes the hot-swap bank "
+                         "(pass --adapter-dir)")
+    if args.adapter_dir and args.tasks <= 0:
+        raise SystemExit("--adapter-dir requires --tasks > 0")
+    device = resolve_device(args.device)
+    base = build_base(cfg, args.seed, device)
+    variants = task_variants(base, args.seed, args.tasks, args.share_w)
+    layer_mask = None
+    if args.prune_to:
+        try:
+            layer_mask = depth_mask(cfg, args.prune_to)
+        except ValueError as e:
+            raise SystemExit(f"--prune-to: {e}")
+        # pruned at the source: packed publishing is an exact round trip
+        variants = [apply_layer_mask(v, cfg, layer_mask) for v in variants]
+        print(f"pruned serving: top {args.prune_to}/{n_layers(cfg)} "
+              "layers active, packed deltas published")
+
+    registry = None
+    if args.adapter_dir:
+        registry = AdapterRegistry(args.adapter_dir)
+        for t, params in enumerate(variants[:-1] or variants):
+            registry.publish(f"task{t}", task_delta(params, cfg, layer_mask))
+        engine = hot_swap_engine(cfg, base, variants, registry,
+                                 args.bank_size, share_w=args.share_w,
+                                 layer_mask=layer_mask, device=device,
+                                 quant=quant)
+    elif args.tasks > 0:
+        engine = MultiTaskEngine(cfg, variants, quant=quant, device=device)
+    else:
+        engine = ServeEngine(cfg, variants[0], quant=quant, device=device)
     if quant:
         print(quant_line(engine))
     scfg = ServingConfig(
@@ -125,10 +281,23 @@ def main(argv=None):
         backbone_quant=quant)
     requests = make_requests(cfg, args.requests, args.prompt_len,
                              args.new_tokens, args.tasks, args.seed,
-                             scfg.top_k, scfg.temperature)
-    done, report = make_scheduler(engine, scfg).run(requests)
+                             scfg.top_k, scfg.temperature,
+                             named=registry is not None)
+    sched = make_scheduler(engine, scfg)
+    if registry is not None and args.tasks > 1:
+        hot = f"task{args.tasks - 1}"
+        done, report = serve_with_runtime_add(
+            sched, requests, hot,
+            lambda: registry.publish(hot, task_delta(variants[-1], cfg,
+                                                     layer_mask)))
+        remove_tenant(registry, engine, "task0")
+        for line in bank_lines(engine):
+            print(line)
+    else:
+        done, report = sched.run(requests)
     for c in done:
-        print(f"req{c.request_id} task{c.task_id} prompt={c.prompt_len} "
+        who = c.adapter if c.adapter is not None else f"task{c.task_id}"
+        print(f"req{c.request_id} {who} prompt={c.prompt_len} "
               f"-> {len(c.tokens)} tok ({c.finish_reason}, "
               f"ttft {c.ttft_s * 1e3:.1f}ms): {c.tokens[:8].tolist()}")
     where = (torch.cuda.get_device_name(engine.device)

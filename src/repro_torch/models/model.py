@@ -98,13 +98,14 @@ def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
 
 def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                 write_pos=None, kv_lens=None, tables=None, task_ids=None,
-                causal=True, impl="auto"):
+                gates=None, causal=True, impl="auto"):
     new_caches = []
     for i, (p, slot) in enumerate(zip(params["layers"], cfg.layer_slots())):
         x, c = block_apply(p, cfg, slot, x, q_pos=q_pos,
                            cache=None if caches is None else caches[i],
                            cache_len=cache_len, write_pos=write_pos,
                            kv_lens=kv_lens, tables=tables, task_ids=task_ids,
+                           gate=None if gates is None else gates[i],
                            causal=causal, impl=impl)
         new_caches.append(c)
     return x, new_caches
@@ -112,16 +113,20 @@ def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
 
 def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                cache_len: int, last_pos: Optional[int] = None,
-               task_ids: Optional[torch.Tensor] = None, impl: str = "auto"):
+               task_ids: Optional[torch.Tensor] = None,
+               gates: Optional[torch.Tensor] = None, impl: str = "auto"):
     """tokens (B, S) -> (logits (B, 1, V) at `last_pos` (default the last
     position), caches of length cache_len holding positions 0..S-1).
     A right-padded prompt passes its true last index as last_pos: under
-    causal masking the pad never reaches positions <= last_pos."""
+    causal masking the pad never reaches positions <= last_pos. gates:
+    (L, bank rows) fp32 row gates of a hot-swap bank (`AdapterBank`), on
+    the params' device; with them every block's bank adapter runs the
+    masked multitask op with its layer's row."""
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     q_pos = torch.arange(S, device=tokens.device)
     x, caches = _run_layers(params, cfg, x, q_pos=q_pos, cache_len=cache_len,
-                            task_ids=task_ids, impl=impl)
+                            task_ids=task_ids, gates=gates, impl=impl)
     lp = S - 1 if last_pos is None else int(last_pos)
     x = apply_norm(params["final_norm"], cfg, x[:, lp:lp + 1])
     return lm_logits(params, cfg, x, impl), caches
@@ -129,10 +134,12 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
 
 def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
               token: torch.Tensor, pos: torch.Tensor,
-              task_ids: Optional[torch.Tensor] = None, impl: str = "auto"):
+              task_ids: Optional[torch.Tensor] = None,
+              gates: Optional[torch.Tensor] = None, impl: str = "auto"):
     """One decode step. token (B, 1); pos (B,) per-row absolute positions
     (continuous batching: each cache row is an independent request). The
-    caches are written in place and returned."""
+    caches are written in place and returned. gates: as for
+    `prefill_lm`."""
     B = token.shape[0]
     pos = pos.to(device=token.device, dtype=torch.long)
     L = caches[0]["k"].shape[1]
@@ -141,7 +148,7 @@ def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
     x = embed_tokens(params, cfg, token)
     x, caches = _run_layers(params, cfg, x, q_pos=pos[:, None], caches=caches,
                             write_pos=pos, kv_lens=kv_lens, tables=tables,
-                            task_ids=task_ids, impl=impl)
+                            task_ids=task_ids, gates=gates, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params, cfg, x, impl), caches
 

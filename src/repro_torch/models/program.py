@@ -13,8 +13,11 @@ are exactly `fused_adapter_residual_norm` in its norm form, so the block
 hands the pre-adapter attention output to `FusedAdapterResidualNorm`
 (kernel #3 forward; its backward runs kernel #2). With a multi-task bank
 (adapter leaves (T, d)) the pre-LN block calls `ops.multitask_hadamard`
-with the per-row task ids, then adds the residual and normalises in plain
-torch. The 'attn_concat' placement goes through `apply_attn` (kernels
+with the per-row task ids, or, given the layer's row gates of a hot-swap
+bank, `ops.masked_multitask_hadamard`, then adds the residual and
+normalises in plain torch. The gathers of the other placements clamp each
+task id into the leaf's rows (`core.hadamard.select_rows`), so a shared-w
+bank's single w row serves every request there too. The 'attn_concat' placement goes through `apply_attn` (kernels
 #1/#2); every other block shape (post-norms, no adapter) takes the plain
 path.
 """
@@ -25,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.common.types import ModelCfg, Slot
+from repro_torch.core.hadamard import select_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
 from repro_torch.models.attention import apply_attn, apply_hadamard, attn_init
@@ -65,11 +69,13 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                 write_pos: Optional[torch.Tensor] = None,
                 kv_lens: Optional[torch.Tensor] = None,
                 tables: Optional[torch.Tensor] = None,
-                task_ids: Optional[torch.Tensor] = None, causal: bool = True,
+                task_ids: Optional[torch.Tensor] = None,
+                gate: Optional[torch.Tensor] = None, causal: bool = True,
                 impl: str = "auto"):
     """One block, pre-LN or post-LN (`cfg.ln_placement`). Returns (x,
     cache). task_ids (B,) int32 select each row's bank row when the
-    adapter leaves are a (T, d) bank."""
+    adapter leaves are a (T, d) bank; gate (T,) fp32 gates the bank's rows
+    (a pruned tenant's layer passes through as the identity)."""
     if cfg.ln_placement == "post":
         return _post_ln_block(p, cfg, slot, x, q_pos=q_pos, causal=causal,
                               impl=impl), None
@@ -80,7 +86,8 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         raise ValueError("a multi-task bank needs per-row task_ids")
     concat = None
     if ad is not None and acfg.position == "attn_concat":
-        concat = ((ad["w"][task_ids.long()], ad["b"][task_ids.long()])
+        concat = ((select_rows(ad["w"], task_ids),
+                   select_rows(ad["b"], task_ids))
                   if bank else (ad["w"], ad["b"]))
 
     h = apply_norm(p["attn_norm"], cfg, x)
@@ -91,8 +98,11 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     ffn_norm = p["ffn_norm"]
     if ad is not None and acfg.position == "attn_out" and not cfg.post_norms:
         if bank:
-            a = ops.multitask_hadamard(a, ad["w"], ad["b"], task_ids,
-                                       impl=impl)
+            a = (ops.masked_multitask_hadamard(a, ad["w"], ad["b"], gate,
+                                               task_ids, impl=impl)
+                 if gate is not None else
+                 ops.multitask_hadamard(a, ad["w"], ad["b"], task_ids,
+                                        impl=impl))
             x = x + a
             h = apply_norm(ffn_norm, cfg, x)
         else:
@@ -101,8 +111,8 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                 ffn_norm.get("bias"), cfg.norm_eps, impl)
     else:
         if ad is not None and acfg.position == "attn_out":
-            a = (apply_hadamard(a, ad["w"][task_ids.long()],
-                                ad["b"][task_ids.long()])
+            a = (apply_hadamard(a, select_rows(ad["w"], task_ids),
+                                select_rows(ad["b"], task_ids))
                  if bank else apply_hadamard(a, ad["w"], ad["b"]))
         if cfg.post_norms:
             a = apply_norm(p["post_attn_norm"], cfg, a)

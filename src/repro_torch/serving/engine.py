@@ -1,16 +1,19 @@
 """Serving engines (port of `repro.serving.engine`): prefill and per-row
 decode over slot caches, lock-step generation, and multi-task Hadamard
-serving over a static adapter bank.
+serving over a static or a hot-swap adapter bank.
 
 `ServeEngine` serves one adapter; every block runs the fused
 adapter-residual-norm kernel. `MultiTaskEngine` serves a bank of T tasks'
 adapters over one frozen backbone: requests carrying different task ids
 share every decode tick, and each block reads each row's adapter out of
-the bank inside the multitask kernel. With `quant="int8"` or `"fp8"` either
+the bank inside the multitask kernel. Over a hot-swap `AdapterBank`
+(rows loaded and evicted by name at run time, pruned tenants gated off
+per layer) every step passes the bank's device-resident row gates, and
+each block runs the masked multitask kernel instead. With `quant="int8"` or `"fp8"` either
 engine quantizes the frozen backbone's matmul weights once, at
 construction, and every projection of every step then streams 1-byte
-weights through the dequant-matmul kernel. The hot-swap `AdapterBank`,
-folding, the paged pool and speculative decoding arrive with later slices.
+weights through the dequant-matmul kernel. Folding, the paged pool and
+speculative decoding arrive with later slices.
 """
 from __future__ import annotations
 
@@ -94,13 +97,17 @@ class ServeEngine:
     def _task_ids(self, task_ids) -> Optional[torch.Tensor]:
         return None
 
+    def _gates(self) -> Optional[torch.Tensor]:
+        return None
+
     def prefill(self, tokens, cache_len: int, task_ids=None, last_pos=None):
         """(logits (B, 1, V), fresh caches of cache_len) for same-length
         prompts; last_pos picks the position whose logits return."""
         with torch.no_grad():
             return M.prefill_lm(self.params, self.cfg, self._tokens(tokens),
                                 cache_len, last_pos=last_pos,
-                                task_ids=self._task_ids(task_ids))
+                                task_ids=self._task_ids(task_ids),
+                                gates=self._gates())
 
     def decode_step(self, caches, tok, pos, task_ids=None):
         """One decode step for every row: tok (B, 1), pos (B,) per-row
@@ -114,7 +121,8 @@ class ServeEngine:
             return M.decode_lm(self.params, self.cfg, caches,
                                self._tokens(tok),
                                torch.as_tensor(pos, device=self.device),
-                               task_ids=self._task_ids(task_ids))
+                               task_ids=self._task_ids(task_ids),
+                               gates=self._gates())
 
     def init_slot_caches(self, num_slots: int, cache_len: int):
         """Zeroed slot caches: row i is slot i's private cache region."""
@@ -152,21 +160,60 @@ class ServeEngine:
 
 
 class MultiTaskEngine(ServeEngine):
-    """One frozen backbone + a static bank of per-task Hadamard adapters.
+    """One frozen backbone + a bank of per-task Hadamard adapters.
 
-    tasks: per-task parameter trees that share every non-adapter leaf; the
-    bank stacks their adapters into (T, d) rows per layer. Every prefill
-    and decode step takes per-row task ids (bank rows). quant: as for
-    `ServeEngine`, applied to the bank's tree once it is built; the stacked
-    adapter rows stay as they are."""
+    tasks: either per-task parameter trees that share every non-adapter
+    leaf (a static bank, built once: (T, d) rows per layer) or an
+    `AdapterBank` (hot-swap: rows are loaded and evicted by name at run
+    time through its registry). Every prefill and decode step takes
+    per-row task ids (bank rows). Over an AdapterBank the engine adopts the
+    bank's tree on its device (`AdapterBank.attach`), so a row written
+    between steps is what the next step reads, and each step passes the
+    bank's (L, size) row gates to the model. quant: as for `ServeEngine`,
+    applied to the bank's tree; the adapter rows stay as they are."""
 
-    def __init__(self, cfg: ModelCfg, tasks: List[dict], *,
-                 quant: Optional[str] = None, device=None):
-        if not tasks:
+    def __init__(self, cfg: ModelCfg, tasks, *, quant: Optional[str] = None,
+                 device=None):
+        from repro_torch.serving.registry import AdapterBank
+
+        self.adapter_bank = tasks if isinstance(tasks, AdapterBank) else None
+        if self.adapter_bank is not None:
+            tree, self.num_tasks = tasks.tree, tasks.size
+        elif tasks:
+            tree, self.num_tasks = build_bank(list(tasks)), len(tasks)
+        else:
             raise ValueError("MultiTaskEngine needs at least one task")
-        super().__init__(cfg, build_bank(list(tasks)), quant=quant,
-                         device=device)
-        self.num_tasks = len(tasks)
+        super().__init__(cfg, tree, quant=quant, device=device)
+        if self.adapter_bank is not None:
+            self.adapter_bank.attach(self.params)
+
+    @property
+    def bank(self) -> dict:
+        """The bank tree the steps read (the AdapterBank's live tree)."""
+        return self.params
+
+    # -- adapter-name resolution (scheduler admission) ----------------------
+
+    def has_adapter(self, name: str) -> bool:
+        return (self.adapter_bank is not None
+                and (self.adapter_bank.row_of(name) is not None
+                     or name in self.adapter_bank.registry))
+
+    def acquire_adapter(self, name: str) -> int:
+        """name -> pinned bank row (loaded from the registry on a miss)."""
+        if self.adapter_bank is None:
+            raise ValueError(
+                "engine has a static bank; named-adapter requests need an "
+                "AdapterBank (MultiTaskEngine(cfg, AdapterBank(...)))")
+        return self.adapter_bank.acquire(name)
+
+    def release_adapter(self, name: str) -> None:
+        if self.adapter_bank is not None:
+            self.adapter_bank.release(name)
+
+    def _gates(self) -> Optional[torch.Tensor]:
+        return (None if self.adapter_bank is None
+                else self.adapter_bank.gate_tensor)
 
     def _task_ids(self, task_ids) -> torch.Tensor:
         if task_ids is None:

@@ -12,6 +12,12 @@
   * A slot retires the moment its request finishes (EOS or budget) and is
     reusable at once; a free row still flows through the step, its logits
     are ignored and its cache row is overwritten at the next admission.
+  * A request may name its adapter (`Request.adapter`) instead of a bank
+    row: a hot-swap engine resolves the name at admission, loading the
+    tenant into its `AdapterBank` on a miss, and keeps the row pinned
+    until the request retires. With every row pinned the admission waits
+    for a retirement (the queue keeps its order); a tenant removed between
+    submit and admission gives its request an 'error' completion.
 
 Greedy decoding gives the tokens `ServeEngine.generate` gives for the
 same prompts: every per-row op is independent of the batch.
@@ -27,11 +33,14 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import check_temperature, sample_topk
+from repro_torch.serving.registry import BankFullError
 
 
 @dataclass
 class Request:
-    """One generation request with its own budget, sampling and task."""
+    """One generation request with its own budget, sampling and adapter:
+    a static bank row (`task_id`) or, for a hot-swap engine, an adapter
+    name resolved to a row at admission (`adapter`)."""
 
     prompt: np.ndarray  # (S,) int prompt tokens
     max_new_tokens: int
@@ -40,6 +49,7 @@ class Request:
     seed: Optional[int] = None  # generator seed for top-k sampling
     task_id: int = 0  # adapter-bank row (MultiTaskEngine)
     eos_id: Optional[int] = None  # stop early on this token
+    adapter: Optional[str] = None  # adapter name (hot-swap MultiTaskEngine)
 
 
 @dataclass
@@ -47,10 +57,11 @@ class Completion:
     request_id: int
     tokens: np.ndarray  # generated tokens (includes the EOS token, if any)
     prompt_len: int
-    task_id: int
-    finish_reason: str  # 'eos' | 'length'
+    task_id: int  # bank row the request ran under (resolved, for named)
+    finish_reason: str  # 'eos' | 'length' | 'error' (adapter vanished)
     ttft_s: float  # submit -> first token (includes queueing)
     latency_s: float  # submit -> finished
+    adapter: Optional[str] = None
 
 
 @dataclass
@@ -61,6 +72,7 @@ class _Slot:
     submit_t: float
     tokens: List[int] = field(default_factory=list)
     pos: int = 0  # absolute position of the next decode write
+    row: int = 0  # resolved adapter-bank row (pinned while in flight)
     first_tok_t: float = 0.0
 
 
@@ -97,7 +109,9 @@ class Scheduler:
 
     def submit(self, req: Request) -> int:
         """Queue a request; returns its id. It is admitted on the next tick
-        with a free slot."""
+        with a free slot. A named adapter is checked here (the engine takes
+        names, and the name is bank-resident or published) so the queue
+        never holds a request that can never be admitted."""
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         check_temperature(req.temperature)
@@ -108,6 +122,15 @@ class Scheduler:
             raise ValueError(
                 f"prompt_len {S} + max_new_tokens {req.max_new_tokens} "
                 f"exceeds slot cache length {self.max_len}")
+        if req.adapter is not None:
+            if getattr(self.engine, "adapter_bank", None) is None:
+                raise ValueError(
+                    "request names an adapter but the engine has no "
+                    "AdapterBank (hot-swap MultiTaskEngine required)")
+            if not self.engine.has_adapter(req.adapter):
+                raise KeyError(
+                    f"adapter {req.adapter!r} is neither bank-resident nor "
+                    "published in the registry")
         rid = self._next_id
         self._next_id += 1
         self.queue.append((rid, req, time.perf_counter()))
@@ -116,6 +139,10 @@ class Scheduler:
     @property
     def active(self) -> int:
         return sum(s is not None for s in self.slots)
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue)
 
     def _sample_one(self, logits_row: torch.Tensor, st: _Slot) -> int:
         """One request's token from its (1, 1, V) logits."""
@@ -143,16 +170,25 @@ class Scheduler:
             request_id=st.request_id,
             tokens=np.asarray(st.tokens, np.int64),
             prompt_len=int(np.asarray(st.req.prompt).shape[-1]),
-            task_id=st.req.task_id,
+            task_id=st.row,
             finish_reason=reason,
             ttft_s=st.first_tok_t - st.submit_t,
             latency_s=now - st.submit_t,
+            adapter=st.req.adapter,
         )
+        if st.req.adapter is not None:
+            self.engine.release_adapter(st.req.adapter)  # unpin its row
         self.slots[slot_idx] = None
 
     def _admit_one(self, slot_idx: int, rid: int, req: Request,
                    submit_t: float) -> None:
+        """Admit one request. Raises BankFullError (before any state is
+        touched) when it names an adapter and every bank row is pinned,
+        and KeyError when its adapter is no longer published."""
         t0 = time.perf_counter()
+        row = req.task_id
+        if req.adapter is not None:
+            row = self.engine.acquire_adapter(req.adapter)  # pins the row
         prompt = np.asarray(req.prompt, np.int64).reshape(1, -1)
         S = prompt.shape[1]
         last_pos = None
@@ -163,19 +199,19 @@ class Scheduler:
                 prompt = np.pad(prompt, ((0, 0), (0, padded - S)))
             last_pos = S - 1
         logits, fresh = self.engine.prefill(
-            prompt, self.max_len, task_ids=np.asarray([req.task_id]),
+            prompt, self.max_len, task_ids=np.asarray([row]),
             last_pos=last_pos)
-        for pool, row in zip(self.caches, fresh):
-            pool["k"][slot_idx].copy_(row["k"][0])
-            pool["v"][slot_idx].copy_(row["v"][0])
+        for pool, new in zip(self.caches, fresh):
+            pool["k"][slot_idx].copy_(new["k"][0])
+            pool["v"][slot_idx].copy_(new["v"][0])
         gen = None
         if req.top_k:
             gen = torch.Generator(device=self.engine.device).manual_seed(
                 req.seed if req.seed is not None else rid)
         st = _Slot(request_id=rid, req=req, generator=gen, submit_t=submit_t,
-                   pos=S)
+                   pos=S, row=row)
         self.slots[slot_idx] = st
-        self._task[slot_idx] = req.task_id
+        self._task[slot_idx] = row
         tok = self._sample_one(logits, st)
         self._prefill_s += time.perf_counter() - t0
         if not self._emit(slot_idx, st, tok):
@@ -188,7 +224,26 @@ class Scheduler:
         free = [i for i, s in enumerate(self.slots) if s is None]
         while free and self.queue:
             idx = free.pop()
-            self._admit_one(idx, *self.queue.popleft())
+            rid, req, submit_t = self.queue.popleft()
+            try:
+                self._admit_one(idx, rid, req, submit_t)
+            except KeyError:
+                # the adapter was removed after submit: this request fails,
+                # the stream goes on
+                self.completions[rid] = Completion(
+                    request_id=rid, tokens=np.zeros((0,), np.int64),
+                    prompt_len=int(np.asarray(req.prompt).shape[-1]),
+                    task_id=-1, finish_reason="error", ttft_s=0.0,
+                    latency_s=time.perf_counter() - submit_t,
+                    adapter=req.adapter)
+                free.append(idx)
+                continue
+            except BankFullError:
+                # every row is pinned by requests in flight: wait for one
+                # to retire, keeping the queue's order (skipping ahead
+                # would starve the blocked tenant)
+                self.queue.appendleft((rid, req, submit_t))
+                break
             if self.slots[idx] is None:
                 free.append(idx)
 

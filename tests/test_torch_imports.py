@@ -1,7 +1,9 @@
 """Import hygiene and device resolution of the port.
 
 The port and `chip_smoke.py` run where there is no JAX, so neither may
-import `jax` or anything of `repro`. The check runs in a fresh interpreter
+import `jax` or anything of `repro`; nor `msgpack`, `zstandard` or
+`ml_dtypes`, which the card's machine lacks too (the port keeps its own
+msgpack codec for the checkpoint format). The check runs in a fresh interpreter
 started without PYTHONPATH: `src/sitecustomize.py` imports jax at start-up
 whenever `src` is on PYTHONPATH, which would hide what the port imports.
 """
@@ -28,12 +30,14 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m.split(".")[0] in ("msgpack", "zstandard", "ml_dtypes"))
 print(json.dumps({{"modules": len(names), "names": names, "bad": bad}}))
 """
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    """Every module of the port, and chip_smoke.py, in one fresh process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _PROBE.format(src=str(ROOT / "src"),
@@ -42,8 +46,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["modules"] >= 44, res
-    assert {"repro_torch.quant.qtensor", "repro_torch.kernels.quant"} <= \
-        set(res["names"])
+    assert {"repro_torch.quant.qtensor", "repro_torch.kernels.quant",
+            "repro_torch.kernels.sparse", "repro_torch.sparse.prune",
+            "repro_torch.sparse.shared", "repro_torch.checkpoint.store",
+            "repro_torch.checkpoint._msgpack", "repro_torch.serving.registry"
+            } <= set(res["names"])
     assert res["bad"] == [], f"the port imported {res['bad']}"
 
 
