@@ -13,7 +13,8 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      the backward of every autograd Function around a kernel against
      autograd through the plain forward; the masked multitask kernel (#9)
      also over a shared-w bank and with gated-off rows that are not the
-     identity;
+     identity; the WKV6 recurrence (#8) with its state in and out, at the
+     rwkv6-1.6b decode and prefill shapes and ragged ones;
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -24,6 +25,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      tenant (the paper-0.022 mask, 18 of 28 layers), a dense one and an
      unloaded row: prefill and four decode steps through #9 against the
      plain path, and against a static bank (#6) of the same tenants;
+  4r. the full-width rwkv6-1.6b model (24 layers) in fp32, one adapter and
+     a 3-task bank: a 128-token prefill and four decode steps through the
+     kernels (120 #8 launches) against the plain path, logits and states;
   5. single-tenant serving: ServeEngine + Scheduler, 8 requests, 4 slots,
      max_len 512, prompt 128, 32 new tokens, bf16;
   6. multi-tenant serving: the same traffic through a 3-task
@@ -41,6 +45,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      resident row's gates equal to its tenant's mask;
   6w. the launcher's --share-w --prune-to 18 world: 4 pruned tenants with
      one shared w and a b each, from a bank that stores the w once;
+  5r, 6r. the traffic of 5 and 6 over rwkv6-1.6b in bf16, one adapter and
+     a 3-task bank: 24 #8 launches, and 24 #3 or #6, in every decode tick
+     and prefill, no attention kernel;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
      32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
      every trainable gradient through the kernels against the plain path,
@@ -50,7 +57,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      'hadamard_concat': finite losses, the trainable count, the launches of
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
-  9. one JSON line of per-kernel results (launch counts from phases 5-6w
+  9. one JSON line of per-kernel results (launch counts from phases 5-6r
      and 8);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
@@ -80,6 +87,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH = "qwen3-0.6b"
+RWKV_ARCH = "rwkv6-1.6b"
 SERVE = dict(requests=8, num_slots=4, max_len=512, prompt_len=128,
              new_tokens=32, seed=0)
 TASKS = 3
@@ -216,8 +224,8 @@ def main() -> int:
            "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4,
            "dequant_matmul": 1e-5, "dequant_matmul_bwd": 1e-5,
            "masked_multitask_hadamard": 1e-5,
-           "masked_multitask_hadamard_bwd": 1e-5}
-    REL_TOL = ("dequant_matmul", "dequant_matmul_bwd")
+           "masked_multitask_hadamard_bwd": 1e-5, "wkv6": 1e-5}
+    REL_TOL = ("dequant_matmul", "dequant_matmul_bwd", "wkv6")
     SUM_TOL, BF16_TOL = 1e-5, 2e-2
     # errs: fp32 max abs err of the elementwise outputs, per case; rel_errs:
     # the same over max |ref| (REL_TOL kernels); rels: bf16 worst max abs
@@ -740,6 +748,77 @@ def main() -> int:
                yardstick_fn=rotating(wbf, lambda w: torch.matmul(x, w)))
         results[key]["library_note"] = library_note
     del wq, wbf, int8pack
+
+    # #8 the WKV6 recurrence: o and the final state against the plain
+    # version, relative to their max |ref| (a T-step sum). The serve path's
+    # shapes in its layout ((B, T, H, n) tensors seen as (B, H, T, n)):
+    # a 4-slot decode tick from a random state, written in place as the
+    # decode cache is, and a 128-token prefill from zeros; then a ragged T
+    # and the smoke config's head size 16, contiguous
+    RW = dict(H=32, n=64)  # rwkv6-1.6b: 32 heads of 64
+
+    def wkv_inputs(B, H, T, n, dt, layout="bthn", state=True):
+        def mk(x):
+            x = x if layout == "bhtn" else x.reshape(B, T, H, n).transpose(1, 2)
+            return x.to(dt)
+        rkv = [mk(randn(B, H, T, n) if layout == "bhtn" else randn(B, T, H, n))
+               for _ in range(3)]
+        w = mk(torch.sigmoid(randn(B, H, T, n) if layout == "bhtn"
+                             else randn(B, T, H, n)))
+        u = randn(H, n, scale=0.1)
+        s0 = randn(B, H, n, n, scale=0.3) if state else None
+        return (*rkv, w, u, s0)
+
+    def wkv_on_copy(ins, impl):
+        """ops.wkv6 over ins as the decode path calls it: the final state
+        written over s0, here a copy, so that both sides start from it."""
+        *rkvwu, s0_ = ins
+        return ops.wkv6(*rkvwu, s0=None if s0_ is None else s0_.clone(),
+                        impl=impl)
+
+    wcases = [dict(B=4, T=1, **RW), dict(B=1, T=128, state=False, **RW),
+              dict(B=1, T=128, **RW),
+              dict(B=2, H=3, T=33, n=64, layout="bhtn"),
+              dict(B=2, H=4, T=33, n=16, layout="bhtn"),
+              dict(B=2, H=4, T=1, n=32, layout="bhtn")]
+    for dt in (torch.float32, bf):
+        for c in wcases:
+            ins = wkv_inputs(c["B"], c["H"], c["T"], c["n"], dt,
+                             c.get("layout", "bthn"), c.get("state", True))
+            compare("wkv6", str(c), dt, lambda: wkv_on_copy(ins, "kernel"),
+                    lambda: wkv_on_copy(ins, "ref"))
+    # timed at the decode tick's and the prefill's shapes, fp32 as the time
+    # mix passes them (r, k, v, w cast to fp32 before the recurrence). Each
+    # timed call takes the next of `copies` input sets, together over twice
+    # the 50 MB L2: on the serve path a layer's state and inputs come from
+    # device memory, after the other layers' states and weights have gone
+    # through the cache. The graph holds one call per copy
+    for key, B, T, copies in (("wkv6", SERVE["num_slots"], 1, 48),
+                              ("wkv6@prefill", 1, SERVE["prompt_len"], 24)):
+        sets = [wkv_inputs(B, RW["H"], T, RW["n"], f32, state=T == 1)
+                for _ in range(copies)]
+        # r, k, v, w read and o written; u read
+        io = 5 * B * T * RW["H"] * RW["n"] * 4 + nbytes(sets[0][4])
+        state_bytes = B * RW["H"] * RW["n"] ** 2 * 4
+        record(key, "wkv6",
+               f"r,k,v,w ({B},{RW['H']},{T},{RW['n']}) fp32 in the (B,T,H,n) "
+               f"layout, u ({RW['H']},{RW['n']}), {copies} copies in turn, "
+               + ("the state read and written in place (one layer of a "
+                  "4-slot decode tick)" if T == 1 else
+                  "from a zero state, the state written (one layer of a "
+                  "128-token prefill)"), f32,
+               rotating(sets, lambda *a: ops.wkv6(*a[:5], s0=a[5],
+                                                  impl="kernel")),
+               rotating(sets, lambda *a: ops.wkv6(*a[:5], s0=a[5],
+                                                  impl="ref")),
+               None,
+               # the state written, and read too when there is one
+               io + state_bytes * (2 if T == 1 else 1),
+               # per step n^2 multiply-adds for o and n^2 for the state
+               4 * B * RW["H"] * T * RW["n"] ** 2, iters=copies)
+        del sets
+        results[key]["library_note"] = (
+            "none: no PyTorch call computes the recurrence")
     torch.cuda.empty_cache()
     phase_done("3")
 
@@ -915,6 +994,73 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("4c")
 
+    # -- phase 4r: full-width rwkv6-1.6b in fp32, kernel path vs plain path -
+    # every layer's recurrence through #8 at prefill and at decode (the
+    # state carried in the cache), the adapter seam through #3 (one
+    # adapter) or #6 (a 3-task bank)
+    cfg32r = launcher.build_config(RWKV_ARCH).replace(
+        param_dtype="float32", compute_dtype="float32")
+    Lr = cfg32r.n_layers
+    rwkv_model = {}
+    for tasks in (0, TASKS):
+        eng = launcher.build_engine(cfg32r, seed=1, tasks=tasks, device=dev)
+        toks = torch.randint(10, cfg32r.vocab_size, (2, SERVE["prompt_len"]),
+                             generator=gen, device=dev)
+        tids = torch.tensor([0, TASKS - 1], dtype=torch.int32, device=dev) \
+            if tasks else None
+        runs = {}
+        with torch.no_grad():
+            for impl in ("auto", "ref"):
+                _build.reset_launches()
+                lg, caches = M.prefill_lm(eng.params, cfg32r, toks,
+                                          SERVE["max_len"], task_ids=tids,
+                                          impl=impl)
+                out = [lg]
+                for i in range(4):
+                    tok = torch.randint(10, cfg32r.vocab_size, (2, 1),
+                                        generator=torch.Generator(device=dev)
+                                        .manual_seed(i), device=dev)
+                    pos = torch.full((2,), SERVE["prompt_len"] + i, device=dev)
+                    lg, caches = M.decode_lm(eng.params, cfg32r, caches, tok,
+                                             pos, task_ids=tids, impl=impl)
+                    out.append(lg)
+                torch.cuda.synchronize()
+                runs[impl] = (out, _build.launch_counts(), caches)
+        seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
+        for impl, k, want in (("auto", "wkv6", 5 * Lr), ("auto", seam, 5 * Lr),
+                              ("ref", "wkv6", 0), ("ref", seam, 0)):
+            check(runs[impl][1][k] == want, f"phase 4r (tasks={tasks}): "
+                  f"{impl} path launched {k} {runs[impl][1][k]} times, "
+                  f"want {want}")
+        worst = 0.0
+        for step, (a, r) in enumerate(zip(runs["auto"][0], runs["ref"][0])):
+            check(a.shape == (2, 1, cfg32r.vocab_size)
+                  and bool(torch.isfinite(a).all()),
+                  f"phase 4r logits {tuple(a.shape)}")
+            diff, top = (a - r).abs().max().item(), r.abs().max().item()
+            check(diff <= 1e-3 * top, f"phase 4r step {step} (tasks={tasks}): "
+                  f"|kernel - plain| {diff:.3g} > 1e-3 x {top:.3g}")
+            worst = max(worst, diff / top)
+        state_diff = max(
+            (ca["S"] - cr["S"]).abs().max().item()
+            / cr["S"].abs().max().item()
+            for ca, cr in zip(runs["auto"][2], runs["ref"][2]))
+        check(state_diff <= 1e-3, f"phase 4r: final states differ by "
+                                  f"{state_diff:.3g} of their max")
+        rwkv_model["bank" if tasks else "single"] = {
+            "kernel_vs_plain": worst, "state_kernel_vs_plain": state_diff,
+            "wkv6_launches": runs["auto"][1]["wkv6"],
+            f"{seam}_launches": runs["auto"][1][seam]}
+        log(f"[4r] {RWKV_ARCH} fp32, {Lr} layers, "
+            f"{'bank of %d tasks' % tasks if tasks else 'single adapter'}: "
+            f"a {SERVE['prompt_len']}-token prefill + 4 decode steps, "
+            f"{runs['auto'][1]['wkv6']} wkv6 and {runs['auto'][1][seam]} "
+            f"{seam} launches; kernel path vs plain path max |diff| / "
+            f"max|ref| = {worst:.3g} (tol 1e-3), final states {state_diff:.3g}")
+        del eng, runs, caches
+        torch.cuda.empty_cache()
+    phase_done("4r")
+
     def profile_calls(fn, n):
         """Where the time of a call goes: host wall ms per call (each ending
         in a device sync), the device's busy share of it, and the kernels
@@ -964,9 +1110,11 @@ def main() -> int:
             setattr(eng, name, wrapped)
         return per_call
 
-    def check_serve_run(phase, per_call, rep, done, counts, sched, need):
+    def check_serve_run(phase, per_call, rep, done, counts, sched, need,
+                        run_cfg):
         """The checks every serve run passes: each request retires with its
-        whole budget of in-range tokens, the KV cache stays finite, every
+        whole budget of tokens in `run_cfg`'s vocabulary, every leaf of the
+        slot caches (K/V, or an RWKV6 layer's state) stays finite, every
         launch happened inside a prefill or a decode step, and each kernel
         of `need` launched. Returns the distinct launch counts per decode
         tick and per prefill of each kernel, e.g. {"paged_attention":
@@ -985,11 +1133,12 @@ def main() -> int:
                   and c.finish_reason == "length",
                   f"phase {phase}: request {c.request_id} retired with "
                   f"{len(c.tokens)} tokens ({c.finish_reason})")
-            check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+            check(bool(((c.tokens >= 0)
+                        & (c.tokens < run_cfg.vocab_size)).all()),
                   f"phase {phase}: token ids out of range")
-        check(all(bool(torch.isfinite(c["k"]).all()
-                       and torch.isfinite(c["v"]).all())
-                  for c in sched.caches), f"phase {phase}: non-finite KV cache")
+        check(all(bool(torch.isfinite(leaf.float()).all())
+                  for c in sched.caches for leaf in c.values()),
+              f"phase {phase}: non-finite cache")
         for k in need:
             check(counts[k] > 0,
                   f"phase {phase}: kernel {k} never launched on the serve path")
@@ -1046,7 +1195,7 @@ def main() -> int:
             phase, per_call, rep, done, launches[phase], sched,
             ("fused_adapter_norm", "flash_attention", "paged_attention")
             if tasks == 0 else
-            ("multitask_hadamard", "flash_attention", "paged_attention"))
+            ("multitask_hadamard", "flash_attention", "paged_attention"), cfg)
         tokens_of[phase] = {c.request_id: c.tokens for c in done}
         check(per_tick[masked_name] == [0] == per_prefill[masked_name],
               f"phase {phase}: {masked_name} launched without a hot-swap bank")
@@ -1169,7 +1318,7 @@ def main() -> int:
               f"and {HOT_TASKS} loads")
         per_tick, per_prefill = check_serve_run(
             phase, per_call, rep, done, launches[phase], sched,
-            (masked_name, "flash_attention", "paged_attention"))
+            (masked_name, "flash_attention", "paged_attention"), cfg)
         for k, want in ((masked_name, [cfg.n_layers]),
                         ("multitask_hadamard", [0]),
                         ("fused_adapter_norm", [0])):
@@ -1205,6 +1354,68 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done(phase)
     del hot_base
+
+    # -- phases 5r, 6r: rwkv6-1.6b serving at full width, bf16 -------------
+    # the traffic of phases 5-6 over the attention-free family: every
+    # layer's recurrence through #8 from the slot's state, the adapter seam
+    # through #3 (one adapter) or #6 (a 3-task bank); no attention kernel
+    cfgr = launcher.build_config(RWKV_ARCH)
+    n_r = cfgr.n_layers
+    for phase, tasks in (("5r", 0), ("6r", TASKS)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        eng = launcher.build_engine(cfgr, seed=SERVE["seed"], tasks=tasks,
+                                    device=dev)
+        torch.cuda.synchronize()
+        weights_bytes = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        reqs = launcher.make_requests(cfgr, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      tasks, SERVE["seed"])
+        scfg = ServingConfig(num_slots=SERVE["num_slots"],
+                             max_len=SERVE["max_len"])
+        make_scheduler(eng, scfg).run(reqs[:2])  # warm-up
+        sched = make_scheduler(eng, scfg)
+        state_bytes = sum(leaf.numel() * leaf.element_size()
+                          for c in sched.caches for leaf in c.values())
+        per_call = count_per_call(eng)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        done, rep = sched.run(reqs)
+        torch.cuda.synchronize()
+        launches[phase] = _build.launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - held
+        del eng.prefill, eng.decode_step
+        seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
+        per_tick, per_prefill = check_serve_run(
+            phase, per_call, rep, done, launches[phase], sched,
+            ("wkv6", seam), cfgr)
+        for k in launches[phase]:
+            want = [n_r] if k in ("wkv6", seam) else [0]
+            check(per_tick[k] == want and per_prefill[k] == want,
+                  f"phase {phase}: {k} per decode tick {per_tick[k]}, per "
+                  f"prefill {per_prefill[k]}, want {want}")
+        slots = SERVE["num_slots"]
+        caches = eng.init_slot_caches(slots, SERVE["max_len"])
+        args = ([[11]] * slots, [140 + i for i in range(slots)])
+        stids = [t % max(tasks, 1) for t in range(slots)]
+        tick = profile_calls(
+            lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        del caches
+        extra = {"weights_bytes_allocated": weights_bytes,
+                 "peak_bytes_allocated": peak_bytes,
+                 "state_bytes": state_bytes}
+        serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
+                                    launches_per_prefill=per_prefill,
+                                    tick=tick, **extra)
+        kind = "single-tenant" if tasks == 0 else f"{tasks}-task bank"
+        log(f"[{phase}] serve {RWKV_ARCH} {kind} on {smi}: {serve_line(rep)}; "
+            f"launches {launches[phase]}; per decode tick {per_tick}; per "
+            f"prefill {per_prefill}; memory {json.dumps(extra)}; decode tick "
+            f"{tick}")
+        del eng, sched
+        torch.cuda.empty_cache()
+        phase_done(phase)
 
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
@@ -1438,11 +1649,13 @@ def main() -> int:
                            "src/repro/kernels/quant.py:44"),
         "masked_multitask_hadamard": (csrc + "masked_multitask_hadamard.cu",
                                       "src/repro/kernels/sparse.py:50"),
+        "wkv6": (csrc + "wkv6.cu", "src/repro/kernels/rwkv6.py:47"),
     }
     serve_name = {"5": "serve_single", "6": "serve_multitask",
                   "5q": "serve_single_int8", "6q": "serve_multitask_int8",
                   "5f": "serve_single_fp8", "6s": "serve_hot_swap",
-                  "6w": "serve_hot_swap_shared_w"}
+                  "6w": "serve_hot_swap_shared_w", "5r": "serve_rwkv_single",
+                  "6r": "serve_rwkv_multitask"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
@@ -1499,6 +1712,7 @@ def main() -> int:
     phase_done("9")
     print(json.dumps({"kernels": kernels, "serve": serve,
                       "quant_model": quant_model, "hot_model": hot_model,
+                      "rwkv_model": rwkv_model,
                       "train": train_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)

@@ -1,16 +1,18 @@
 """Architecture registry: --arch <id> resolution for launchers and tests.
 
-The port carries the architectures its slices run: qwen3-0.6b (serving)
-and the paper's own BERT-family encoders (two-stage training). The other
+The port carries the architectures its slices run: qwen3-0.6b and
+rwkv6-1.6b (serving) and the paper's own BERT-family encoders (two-stage
+training). The other
 `repro` configs arrive with the slices that run them.
 """
 from __future__ import annotations
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.configs import bert, qwen3_0_6b
+from repro_torch.configs import bert, qwen3_0_6b, rwkv6_1_6b
 
 ASSIGNED = {
     "qwen3-0.6b": qwen3_0_6b,
+    "rwkv6-1.6b": rwkv6_1_6b,
 }
 
 # the paper's own PLMs (encoder classifiers for the GLUE-style benchmarks)

@@ -45,6 +45,10 @@ BLOCK_LEAVES = frozenset(
     + [f"attn/{w}" for w in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
                              "q_norm", "k_norm")]
     + [f"mlp/{w}" for w in ("wi", "wo", "wg", "bi", "bo")]
+    + [f"rwkv_tm/{w}" for w in ("mu_x", "mu", "lora1", "lora2", "w0", "wA",
+                                "wB", "u", "wr", "wk", "wv", "wg", "wo",
+                                "ln_x_scale", "ln_x_bias")]
+    + [f"rwkv_cm/{w}" for w in ("mu_k", "mu_r", "ck", "cv", "cr")]
     + ["adapter/w", "adapter/b"])
 TOP_LEAVES = frozenset(["embed/table", "final_norm/scale", "final_norm/bias",
                         "lm_head/kernel"])

@@ -36,6 +36,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_long)  # a host array of strides
 SIGNATURES = {
     "rt_hadamard_affine": (_P, _P, _I, _P, _I, _P, _L, _I, _I, _P),
     "rt_hadamard_affine_bwd": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _L, _I,
@@ -52,6 +53,7 @@ SIGNATURES = {
     "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
     "rt_masked_multitask_hadamard": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P,
                                      _P, _I, _I, _I, _I, _P),
+    "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _P),
 }
 
 # kernel name -> launches since the last reset (see launch())
@@ -64,6 +66,7 @@ LAUNCHES: Dict[str, int] = {
     "multitask_hadamard": 0,
     "dequant_matmul": 0,
     "masked_multitask_hadamard": 0,
+    "wkv6": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

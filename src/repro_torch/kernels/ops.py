@@ -20,6 +20,7 @@ from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import hadamard as _had
 from repro_torch.kernels import multitask as _mt
 from repro_torch.kernels import quant as _quant
+from repro_torch.kernels import rwkv6 as _rwkv6
 from repro_torch.kernels import sparse as _sparse
 
 IMPLS = ("auto", "kernel", "ref")
@@ -118,3 +119,14 @@ def dequant_matmul(x, values, scales, impl: str = "auto"):
     if use_kernel(x, impl):
         return _quant.dequant_matmul(x, values, scales)
     return ref.dequant_matmul_ref(x, values, scales)
+
+
+def wkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
+    """The RWKV6 recurrence over (B, H, T, n) r, k, v, w from the state s0
+    (zeros when None); see `ref.wkv6_ref`. Returns (o in r.dtype, the final
+    fp32 state). A given s0 is updated in place to the final state and
+    returned (the decode cache); a caller that keeps s0 passes a copy."""
+    if use_kernel(r, impl):
+        return _rwkv6.wkv6(r, k, v, w, u, s0=s0)
+    o, state = ref.wkv6_ref(r, k, v, w, u, s0)
+    return o, (state if s0 is None else s0.copy_(state))

@@ -251,3 +251,24 @@ def dequant_matmul_bwd_ref(g, values, scales):
     fp32, out in g.dtype. The weights are frozen and get no gradient."""
     g32 = _f32(g) * _f32(scales).reshape(1, -1)
     return (g32 @ _f32(values).T).to(g.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """The RWKV6 recurrence, step by step as `repro.kernels.ref.wkv6_ref`.
+
+    r, k, v, w: (B, H, T, n); u: (H, n); s0: (B, H, n, n) or None (zeros).
+    Per step, in fp32:  o_t = r_t . (S + diag(u) k_t v_t^T);
+    S <- diag(w_t) S + k_t v_t^T.  Returns (o (B, H, T, n) in r.dtype,
+    the final state (B, H, n, n) fp32); s0 is not written.
+    """
+    B, H, T, n = r.shape
+    S = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else _f32(s0))
+    u32 = _f32(u)[None, :, :, None]
+    outs = []
+    for t in range(T):
+        kt, vt, rt, wt = (_f32(x[:, :, t]) for x in (k, v, r, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rt, S + u32 * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(outs, dim=2).to(r.dtype), S

@@ -56,11 +56,11 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 
 
 def check_slot(slot: Slot) -> None:
-    if slot.kind != "attn" or slot.moe or slot.cross_attn:
+    if slot.kind not in ("attn", "rwkv") or slot.moe or slot.cross_attn:
         raise NotImplementedError(
-            f"slot {slot} is not ported: the first slice serves dense "
-            "self-attention decoders; recurrent, RWKV, MoE and cross-attention "
-            "blocks arrive with the other-families slice")
+            f"slot {slot} is not ported: the port serves dense "
+            "self-attention and RWKV6 decoders; recurrent (RG-LRU), MoE and "
+            "cross-attention blocks arrive with the other-families slice")
     if slot.window is not None:
         raise NotImplementedError(
             "local-window attention needs the windowed ring cache, which "

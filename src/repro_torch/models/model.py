@@ -8,7 +8,8 @@ Parameters are a plain dict:
 with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "lm_head" only when embeddings are untied; an encoder adds "pos_embed",
 "type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
-a list with one {"k", "v"} dict per layer. All functions take `impl` and
+a list with one dict per layer: {"k", "v"} for an attention layer, the
+recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. All functions take `impl` and
 hand it to every kernel call ("auto" on the serving and training paths;
 "ref" for the plain versions).
 """
@@ -23,6 +24,7 @@ from repro_torch.models.attention import check_slot, decode_tables
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
+from repro_torch.models.rwkv import rwkv_cache_init
 from repro_torch.quant.qtensor import qdense
 
 
@@ -34,6 +36,18 @@ def _check_cfg(cfg: ModelCfg) -> None:
             "arrive with the other-families slice")
     for slot in cfg.layer_slots():
         check_slot(slot)
+
+
+def has_attention(cfg: ModelCfg) -> bool:
+    """Whether any layer holds a KV cache."""
+    return any(s.kind == "attn" for s in cfg.layer_slots())
+
+
+def has_recurrent_state(cfg: ModelCfg) -> bool:
+    """Whether any layer carries recurrent state (an RWKV6 layer), which
+    takes in every token it sees: a pad token, unlike under causal
+    attention, is not invisible to it."""
+    return any(s.kind == "rwkv" for s in cfg.layer_slots())
 
 
 def init_params(gen: torch.Generator, cfg: ModelCfg) -> dict:
@@ -118,16 +132,22 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     """tokens (B, S) -> (logits (B, 1, V) at `last_pos` (default the last
     position), caches of length cache_len holding positions 0..S-1).
     A right-padded prompt passes its true last index as last_pos: under
-    causal masking the pad never reaches positions <= last_pos. gates:
+    causal masking the pad never reaches positions <= last_pos; a config
+    with recurrent state refuses one, since the state would take the pad
+    in. gates:
     (L, bank rows) fp32 row gates of a hot-swap bank (`AdapterBank`), on
     the params' device; with them every block's bank adapter runs the
     masked multitask op with its layer's row."""
     S = tokens.shape[1]
+    lp = S - 1 if last_pos is None else int(last_pos)
+    if lp != S - 1 and has_recurrent_state(cfg):
+        raise ValueError(
+            f"last_pos {lp} of a {S}-token prompt: a layer's recurrent state "
+            "would take in the tokens after it; prefill the prompt unpadded")
     x = embed_tokens(params, cfg, tokens)
     q_pos = torch.arange(S, device=tokens.device)
     x, caches = _run_layers(params, cfg, x, q_pos=q_pos, cache_len=cache_len,
                             task_ids=task_ids, gates=gates, impl=impl)
-    lp = S - 1 if last_pos is None else int(last_pos)
     x = apply_norm(params["final_norm"], cfg, x[:, lp:lp + 1])
     return lm_logits(params, cfg, x, impl), caches
 
@@ -142,9 +162,11 @@ def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
     `prefill_lm`."""
     B = token.shape[0]
     pos = pos.to(device=token.device, dtype=torch.long)
-    L = caches[0]["k"].shape[1]
-    tables = decode_tables(B, L, token.device)
-    kv_lens = (pos + 1).to(torch.int32)
+    tables = kv_lens = None
+    if has_attention(cfg):
+        L = next(c["k"] for c in caches if "k" in c).shape[1]
+        tables = decode_tables(B, L, token.device)
+        kv_lens = (pos + 1).to(torch.int32)
     x = embed_tokens(params, cfg, token)
     x, caches = _run_layers(params, cfg, x, q_pos=pos[:, None], caches=caches,
                             write_pos=pos, kv_lens=kv_lens, tables=tables,
@@ -176,9 +198,12 @@ def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
 
 def init_decode_caches(cfg: ModelCfg, batch: int, cache_len: int,
                        device) -> List[dict]:
-    """Zeroed per-layer (batch, cache_len, KH, D) K/V caches."""
+    """Zeroed per-layer caches: (batch, cache_len, KH, D) K/V for an
+    attention layer, the recurrent state of `rwkv_cache_init` (no length)
+    for an RWKV6 layer."""
     _check_cfg(cfg)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+    return [rwkv_cache_init(cfg, batch, device) if slot.kind == "rwkv" else
+            {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
-            for _ in cfg.layer_slots()]
+            for slot in cfg.layer_slots()]

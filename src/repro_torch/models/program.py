@@ -17,9 +17,16 @@ with the per-row task ids, or, given the layer's row gates of a hot-swap
 bank, `ops.masked_multitask_hadamard`, then adds the residual and
 normalises in plain torch. The gathers of the other placements clamp each
 task id into the leaf's rows (`core.hadamard.select_rows`), so a shared-w
-bank's single w row serves every request there too. The 'attn_concat' placement goes through `apply_attn` (kernels
-#1/#2); every other block shape (post-norms, no adapter) takes the plain
-path.
+bank's single w row serves every request there too. The 'attn_concat'
+placement goes through `apply_attn` (kernels #1/#2); every other block
+shape (post-norms, no adapter) takes the plain path.
+
+An RWKV6 block (`models/rwkv.py`) has the same seam: its time-mix output
+takes the place of the attention output, and its channel mix that of the
+MLP. JAX applies the Hadamard adapter to the time-mix output under any
+position (`repro/models/program.py:171-174` tests only the kind), and so
+does the port; the adapter's size is d_model there. Its cache is the
+layer's recurrent state, written in place at decode.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
 from repro_torch.models.attention import apply_attn, apply_hadamard, attn_init
 from repro_torch.models.layers import (apply_mlp, apply_norm, gen_device,
                                       mlp_init, norm_init)
+from repro_torch.models.rwkv import (rwkv_channel_mix, rwkv_cm_init,
+                                    rwkv_time_mix, rwkv_tm_init)
 
 
 def adapter_init(cfg: ModelCfg, slot: Slot, device) -> Optional[dict]:
@@ -44,7 +53,8 @@ def adapter_init(cfg: ModelCfg, slot: Slot, device) -> Optional[dict]:
         raise NotImplementedError(
             f"adapter kind {a.kind!r} is not ported: the serving slice "
             "carries the paper's Hadamard adapter")
-    dim = cfg.q_dim if a.position == "attn_concat" else cfg.d_model
+    dim = (cfg.q_dim if a.position == "attn_concat" and slot.kind == "attn"
+           else cfg.d_model)
     # w=1, b=0: the identity - "equivalent to not adding any adapter"
     return {"w": torch.ones((dim,), dtype=torch.float32, device=device),
             "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
@@ -52,8 +62,13 @@ def adapter_init(cfg: ModelCfg, slot: Slot, device) -> Optional[dict]:
 
 def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
     dev = gen_device(gen)
-    p = {"attn_norm": norm_init(cfg, dev), "ffn_norm": norm_init(cfg, dev),
-         "attn": attn_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
+    p = {"attn_norm": norm_init(cfg, dev), "ffn_norm": norm_init(cfg, dev)}
+    if slot.kind == "rwkv":
+        p["rwkv_tm"] = rwkv_tm_init(gen, cfg)
+        p["rwkv_cm"] = rwkv_cm_init(gen, cfg)
+    else:
+        p["attn"] = attn_init(gen, cfg)
+        p["mlp"] = mlp_init(gen, cfg)
     if cfg.post_norms:
         p["post_attn_norm"] = norm_init(cfg, dev)
         p["post_ffn_norm"] = norm_init(cfg, dev)
@@ -79,24 +94,47 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     if cfg.ln_placement == "post":
         return _post_ln_block(p, cfg, slot, x, q_pos=q_pos, causal=causal,
                               impl=impl), None
+    if slot.kind == "rwkv":
+        return _rwkv_block(p, cfg, x, cache=cache, task_ids=task_ids,
+                           gate=gate, impl=impl)
     acfg = cfg.adapter
-    ad = p.get("adapter") if acfg.kind == "hadamard" else None
-    bank = ad is not None and ad["w"].dim() == 2
-    if bank and task_ids is None:
-        raise ValueError("a multi-task bank needs per-row task_ids")
+    ad = _adapter(p, cfg, task_ids)
     concat = None
     if ad is not None and acfg.position == "attn_concat":
         concat = ((select_rows(ad["w"], task_ids),
                    select_rows(ad["b"], task_ids))
-                  if bank else (ad["w"], ad["b"]))
+                  if ad["w"].dim() == 2 else (ad["w"], ad["b"]))
 
     h = apply_norm(p["attn_norm"], cfg, x)
     a, cache = apply_attn(p["attn"], cfg, slot, h, q_pos=q_pos, cache=cache,
                           cache_len=cache_len, write_pos=write_pos,
                           kv_lens=kv_lens, tables=tables,
                           concat_adapter=concat, causal=causal, impl=impl)
+    x, h = _residual_seam(p, cfg, x, a,
+                          ad if acfg.position == "attn_out" else None,
+                          task_ids, gate, impl)
+    f = apply_mlp(p["mlp"], cfg, h, impl)
+    if cfg.post_norms:
+        f = apply_norm(p["post_ffn_norm"], cfg, f)
+    return x + f, cache
+
+
+def _adapter(p: dict, cfg: ModelCfg, task_ids) -> Optional[dict]:
+    """The block's Hadamard adapter (one (d,) pair or a (T, d) bank), or
+    None."""
+    ad = p.get("adapter") if cfg.adapter.kind == "hadamard" else None
+    if ad is not None and ad["w"].dim() == 2 and task_ids is None:
+        raise ValueError("a multi-task bank needs per-row task_ids")
+    return ad
+
+
+def _residual_seam(p: dict, cfg: ModelCfg, x, a, ad, task_ids, gate,
+                   impl: str):
+    """The mixer output `a` through the adapter `ad` (None: no adapter at
+    this seam), the residual add and the ffn norm. Returns (x, h)."""
     ffn_norm = p["ffn_norm"]
-    if ad is not None and acfg.position == "attn_out" and not cfg.post_norms:
+    bank = ad is not None and ad["w"].dim() == 2
+    if ad is not None and not cfg.post_norms:
         if bank:
             a = (ops.masked_multitask_hadamard(a, ad["w"], ad["b"], gate,
                                                task_ids, impl=impl)
@@ -104,25 +142,37 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                  ops.multitask_hadamard(a, ad["w"], ad["b"], task_ids,
                                         impl=impl))
             x = x + a
-            h = apply_norm(ffn_norm, cfg, x)
-        else:
-            x, h = FusedAdapterResidualNorm.apply(
-                a, x, ad["w"], ad["b"], ffn_norm["scale"],
-                ffn_norm.get("bias"), cfg.norm_eps, impl)
-    else:
-        if ad is not None and acfg.position == "attn_out":
-            a = (apply_hadamard(a, select_rows(ad["w"], task_ids),
-                                select_rows(ad["b"], task_ids))
-                 if bank else apply_hadamard(a, ad["w"], ad["b"]))
-        if cfg.post_norms:
-            a = apply_norm(p["post_attn_norm"], cfg, a)
-        x = x + a
-        h = apply_norm(ffn_norm, cfg, x)
+            return x, apply_norm(ffn_norm, cfg, x)
+        return FusedAdapterResidualNorm.apply(
+            a, x, ad["w"], ad["b"], ffn_norm["scale"], ffn_norm.get("bias"),
+            cfg.norm_eps, impl)
+    if ad is not None:
+        a = (apply_hadamard(a, select_rows(ad["w"], task_ids),
+                            select_rows(ad["b"], task_ids))
+             if bank else apply_hadamard(a, ad["w"], ad["b"]))
+    if cfg.post_norms:
+        a = apply_norm(p["post_attn_norm"], cfg, a)
+    x = x + a
+    return x, apply_norm(ffn_norm, cfg, x)
 
-    f = apply_mlp(p["mlp"], cfg, h, impl)
+
+def _rwkv_block(p: dict, cfg: ModelCfg, x: torch.Tensor, *,
+                cache: Optional[dict], task_ids, gate, impl: str):
+    """Pre-LN RWKV6 block: time mix, adapter seam, channel mix, as
+    `repro/models/program.py:156-198`. Returns (x, cache): the given cache
+    written in place, or at prefill the fresh {"S", "tm_prev", "cm_prev"}."""
+    if gate is not None:
+        raise NotImplementedError(
+            "hot-swap adapter banks (row gates) over RWKV6 blocks arrive with "
+            "a later slice")
+    ad = _adapter(p, cfg, task_ids)
+    h = apply_norm(p["attn_norm"], cfg, x)
+    a, tm = rwkv_time_mix(p["rwkv_tm"], cfg, h, cache, impl)
+    x, h = _residual_seam(p, cfg, x, a, ad, task_ids, None, impl)
+    f, cm = rwkv_channel_mix(p["rwkv_cm"], cfg, h, cache)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)
-    return x + f, cache
+    return x + f, (cache if cache is not None else {**tm, **cm})
 
 
 def _post_ln_block(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,

@@ -81,6 +81,10 @@ class ServeEngine:
                 "slice")
         self.device = resolve_device(device)
         self.cfg = cfg
+        if quant and M.has_recurrent_state(cfg):
+            raise NotImplementedError(
+                "a quantized backbone of an RWKV6 config arrives with a later "
+                "slice: the time mix's projections do not go through qdense")
         if quant:
             params = quantize_tree(params, mode=quant)
         self.quant = quant
@@ -111,12 +115,15 @@ class ServeEngine:
 
     def decode_step(self, caches, tok, pos, task_ids=None):
         """One decode step for every row: tok (B, 1), pos (B,) per-row
-        positions. Writes the caches in place; returns (logits, caches)."""
+        positions (bounded by the KV cache's length where the config has
+        attention layers). Writes the caches in place; returns (logits,
+        caches)."""
         pos = np.asarray(pos)
-        L = caches[0]["k"].shape[1]
-        if pos.size and (pos.min() < 0 or pos.max() >= L):
-            raise ValueError(f"decode positions {pos} outside the cache "
-                             f"length {L}")
+        if M.has_attention(self.cfg):
+            L = next(c["k"] for c in caches if "k" in c).shape[1]
+            if pos.size and (pos.min() < 0 or pos.max() >= L):
+                raise ValueError(f"decode positions {pos} outside the cache "
+                                 f"length {L}")
         with torch.no_grad():
             return M.decode_lm(self.params, self.cfg, caches,
                                self._tokens(tok),

@@ -2,7 +2,8 @@
 `repro.serving.scheduler`).
 
   * The scheduler owns `num_slots` cache slots: rows of one pooled decode
-    cache of length `max_len` (`engine.init_slot_caches`).
+    cache of length `max_len` (`engine.init_slot_caches`); an RWKV6
+    layer's row is its recurrent state, of no length.
   * Admission is prefill-on-admit: a queued request is prefilled alone
     (B=1, cache_len=max_len) and its fresh cache row is copied into the
     free slot's row, mid-decode, without touching other slots.
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import model as M
 from repro_torch.serving.engine import check_temperature, sample_topk
 from repro_torch.serving.registry import BankFullError
 
@@ -79,13 +81,20 @@ class _Slot:
 class Scheduler:
     """Continuous batching around a ServeEngine or MultiTaskEngine.
 
-    prefill_bucket: right-pad prompts to a multiple of this before prefill
-    (token-exact for the full-attention configs the port serves)."""
+    prefill_bucket: right-pad prompts to a multiple of this before prefill;
+    token-exact only for full-attention configs, and refused for others
+    (`supports_bucketing`)."""
 
     def __init__(self, engine, *, num_slots: int, max_len: int,
                  prefill_bucket: Optional[int] = None):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
+        if prefill_bucket is not None and not self.supports_bucketing(
+                engine.cfg):
+            raise ValueError(
+                "prefill_bucket requires full-attention slots (windowed "
+                "ring caches and recurrent/rwkv state would fold the pad "
+                "tokens in)")
         self.engine = engine
         self.num_slots = num_slots
         self.max_len = max_len
@@ -104,6 +113,14 @@ class Scheduler:
         self._tok = np.zeros((num_slots,), np.int64)
         self._pos = np.zeros((num_slots,), np.int64)
         self._task = np.zeros((num_slots,), np.int64)
+
+    @staticmethod
+    def supports_bucketing(cfg) -> bool:
+        """Whether right-padding prompts is token-exact for this config:
+        with full attention caches (the port admits no window) the pad is
+        causally invisible at prefill and decode overwrites each position
+        before its row's kv_len reaches it; a recurrent state takes it in."""
+        return not M.has_recurrent_state(cfg)
 
     # -- request lifecycle --------------------------------------------------
 
@@ -202,8 +219,8 @@ class Scheduler:
             prompt, self.max_len, task_ids=np.asarray([row]),
             last_pos=last_pos)
         for pool, new in zip(self.caches, fresh):
-            pool["k"][slot_idx].copy_(new["k"][0])
-            pool["v"][slot_idx].copy_(new["v"][0])
+            for name, leaf in pool.items():  # k, v; or S, tm_prev, cm_prev
+                leaf[slot_idx].copy_(new[name][0])
         gen = None
         if req.top_k:
             gen = torch.Generator(device=self.engine.device).manual_seed(
