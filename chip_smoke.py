@@ -9,9 +9,13 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serve and train paths give it, in fp32 and bf16 (the
      dequant matmul also with int8 and fp8 weights), with its time, the
-     plain version's time and, where one exists, one PyTorch call's time;
-     the backward of every autograd Function around a kernel against
-     autograd through the plain forward; the masked multitask kernel (#9)
+     plain version's time and, where one exists, one PyTorch call's time
+     (flash and paged attention, #4 and #5, L2-cold beside SDPA; #4's
+     log-sum-exp output too; #5 bit-identical across two runs); the
+     backward of every autograd Function around a kernel against autograd
+     through the plain forward (the attention backward tiled as JAX's, over
+     several tiles, and its peak memory at S = 2048); the masked multitask
+     kernel (#9)
      also over a shared-w bank and with gated-off rows that are not the
      identity; the WKV6 recurrence (#8) with its state in and out, at the
      rwkv6-1.6b decode and prefill shapes and ragged ones;
@@ -25,9 +29,11 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      tenant (the paper-0.022 mask, 18 of 28 layers), a dense one and an
      unloaded row: prefill and four decode steps through #9 against the
      plain path, and against a static bank (#6) of the same tenants;
-  4r. the full-width rwkv6-1.6b model (24 layers) in fp32, one adapter and
-     a 3-task bank: a 128-token prefill and four decode steps through the
-     kernels (120 #8 launches) against the plain path, logits and states;
+  4r. the full-width rwkv6-1.6b model (24 layers) in fp32, one adapter, a
+     3-task bank, a 3-row hot-swap bank (pruned, dense and unloaded rows)
+     and an int8 trunk (the LM head alone quantized): a 128-token prefill
+     and four decode steps through the kernels (120 #8 launches; 120 #3,
+     #6 or #9; 5 #7) against the plain path, logits and states;
   5. single-tenant serving: ServeEngine + Scheduler, 8 requests, 4 slots,
      max_len 512, prompt 128, 32 new tokens, bf16;
   6. multi-tenant serving: the same traffic through a 3-task
@@ -45,9 +51,14 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      resident row's gates equal to its tenant's mask;
   6w. the launcher's --share-w --prune-to 18 world: 4 pruned tenants with
      one shared w and a b each, from a bank that stores the w once;
-  5r, 6r. the traffic of 5 and 6 over rwkv6-1.6b in bf16, one adapter and
-     a 3-task bank: 24 #8 launches, and 24 #3 or #6, in every decode tick
-     and prefill, no attention kernel;
+  6rs. 6s's lifecycle over rwkv6-1.6b (task0, task2 pruned to 16 of 24
+     layers): 24 #9 and 24 #8 launches in every decode tick and prefill,
+     no #3, #6 or attention kernel;
+  5r, 6r, 5rq. the traffic of 5 and 6 over rwkv6-1.6b in bf16, one
+     adapter, a 3-task bank, and one adapter over an int8 trunk: 24 #8
+     launches, and 24 #3 or #6, in every decode tick and prefill, no
+     attention kernel; 5rq also one #7 (the LM head) and its engine bytes
+     below 5r's by the head's saving;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
      32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
      every trainable gradient through the kernels against the plain path,
@@ -57,7 +68,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      'hadamard_concat': finite losses, the trainable count, the launches of
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
-  9. one JSON line of per-kernel results (launch counts from phases 5-6r
+  9. one JSON line of per-kernel results (launch counts from phases 5-6rs
      and 8);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
@@ -71,6 +82,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -130,14 +142,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.attention import FlashAttention
+    from repro_torch.kernels.attention import FlashAttention, paged_split_plan
     from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
     from repro_torch.kernels.quant import DequantMatmul
     from repro_torch.kernels.sparse import MaskedMultitaskHadamard
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
     from repro_torch.quant import quant_summary
-    from repro_torch.serving import ServingConfig, make_scheduler
+    from repro_torch.serving import ServeEngine, ServingConfig, make_scheduler
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -165,6 +177,11 @@ def main() -> int:
     # -- phase 2: build -----------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
+    # the port's kernels by name, for the profiles (PyTorch's own kernels
+    # live in anonymous namespaces too)
+    port_kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
+        "".join(p.read_text() for p in _build.sources())))
     log(f"[2] built {len(_build.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_done("1-2")
@@ -365,21 +382,35 @@ def main() -> int:
             k = randn(nb_, kh, c["skv"], D, dtype=dt)
             v = randn(nb_, kh, c["skv"], D, dtype=dt)
             kw = dict(causal=c.get("causal", True), window=c.get("window"),
-                      cap=c.get("cap", 0.0))
+                      cap=c.get("cap", 0.0), return_lse=True)
+            # the output and each row's log-sum-exp (the backward's residual)
             compare("flash_attention", str(c), dt,
                     lambda: ops.flash_attention(q, k, v, impl="kernel", **kw),
                     lambda: ops.flash_attention(q, k, v, impl="ref", **kw))
+    # timed L2-cold at the serve prefill shape: each call of the timed graph
+    # takes its own copy of q, k, v, the copies together over twice the
+    # 50 MB L2, as a prefill finds them after the other layers' weights
     S = SERVE["prompt_len"]
-    q = randn(1, 16, S, 128, dtype=bf)
-    k, v = randn(1, 8, S, 128, dtype=bf), randn(1, 8, S, 128, dtype=bf)
+    per_copy = 2 * (16 + 8 + 8) * S * 128
+    qkvs = [(randn(1, 16, S, 128, dtype=bf), randn(1, 8, S, 128, dtype=bf),
+             randn(1, 8, S, 128, dtype=bf))
+            for _ in range(-(-100 * 2**20 // per_copy))]
+    q, k, v = qkvs[0]
     record("flash_attention", "flash_attention",
-           f"q (1,16,{S},128) over k/v (1,8,{S},128) bf16 causal (one layer "
-           "of a prefill)", bf,
-           lambda: ops.flash_attention(q, k, v, impl="kernel"),
-           lambda: ops.flash_attention(q, k, v, impl="ref"),
-           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True),
-           2 * nbytes(q) + nbytes(k, v), 4 * 16 * 128 * (S * (S + 1) // 2))
+           f"q (1,16,{S},128) over k/v (1,8,{S},128) bf16 causal "
+           f"({len(qkvs)} copies in turn; one layer of a prefill)", bf,
+           rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+               q_, k_, v_, impl="kernel")),
+           rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+               q_, k_, v_, impl="ref")),
+           rotating(qkvs, lambda q_, k_, v_: F.scaled_dot_product_attention(
+               q_, k_, v_, is_causal=True, enable_gqa=True)),
+           2 * nbytes(q) + nbytes(k, v), 4 * 16 * 128 * (S * (S + 1) // 2),
+           iters=len(qkvs), reps=3)
+    results["flash_attention"]["library_note"] = (
+        "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+        "enable_gqa=True)")
+    del qkvs
 
     # #5 paged decode attention: 16 heads over 8, D=128, page 16
     page, nbt, B = 16, 32, 6
@@ -412,24 +443,66 @@ def main() -> int:
                                                 impl="kernel", **kw),
                     lambda: ops.paged_attention(q, kp, vp, tables, kl,
                                                 impl="ref", **kw))
+            # the splits combine in a fixed order, with no atomics
+            runs = [ops.paged_attention(q, kp, vp, tables, kl, impl="kernel",
+                                        **kw) for _ in range(2)]
+            check(torch.equal(*runs), f"paged_attention {c} {dt}: two runs "
+                                      "differ")
+    paged_repeats = 2 * len(pcases)
+    # timed L2-cold at the serve decode shape: each call takes its own copy
+    # of q and of the slot cache (8.4 MB), the copies together over twice
+    # the 50 MB L2. The yardstick is SDPA over the same contiguous cache
+    # with a key-length mask: the same function for these fixed tables,
+    # but it takes no block table
     B, max_len = SERVE["num_slots"], SERVE["max_len"]
     nbt = max_len // page
-    q = randn(B, 16, 128, dtype=bf)
-    kp = randn(B * nbt, page, 8, 128, dtype=bf)
-    vp = randn(B * nbt, page, 8, 128, dtype=bf)
     tables = (torch.arange(B, device=dev, dtype=torch.int32)[:, None] * nbt
               + torch.arange(nbt, device=dev, dtype=torch.int32))
     kl = torch.tensor([129, 140, 150, 160], dtype=torch.int32, device=dev)
     n_keys = int(kl.sum())
+    per_copy = 2 * B * max_len * 8 * 128 * 2
+    pcopies = [(randn(B, 16, 128, dtype=bf),
+                randn(B * nbt, page, 8, 128, dtype=bf),
+                randn(B * nbt, page, 8, 128, dtype=bf))
+               for _ in range(-(-100 * 2**20 // per_copy))]
+    q = pcopies[0][0]
+    key_mask = (torch.arange(max_len, device=dev)[None, :]
+                < kl[:, None])[:, None, None, :]
+
+    def sdpa_slots(q_, kp_, vp_):
+        k_ = kp_.view(B, max_len, 8, 128).transpose(1, 2)
+        v_ = vp_.view(B, max_len, 8, 128).transpose(1, 2)
+        return F.scaled_dot_product_attention(q_[:, :, None], k_, v_,
+                                              attn_mask=key_mask,
+                                              enable_gqa=True)
+
+    got = sdpa_slots(*pcopies[0])[:, :, 0].float()
+    want = ops.paged_attention(*pcopies[0], tables, kl, impl="ref")
+    yard_err = ((got - want).abs().max() / want.abs().max()).item()
+    check(yard_err <= BF16_TOL, f"paged_attention yardstick: SDPA over the "
+                                f"slot cache differs by {yard_err:.3g}")
+    plan = paged_split_plan(B, 16, 8, 1, 128, page, nbt)
     record("paged_attention", "paged_attention",
            f"q ({B},16,128) bf16 over a ({B},{max_len},8,128) bf16 slot cache, "
-           f"kv_lens {kl.tolist()} (one layer of a 4-slot decode tick)", bf,
-           lambda: ops.paged_attention(q, kp, vp, tables, kl, impl="kernel"),
-           lambda: ops.paged_attention(q, kp, vp, tables, kl, impl="ref"),
+           f"kv_lens {kl.tolist()} ({len(pcopies)} copies in turn; one layer "
+           f"of a 4-slot decode tick; {plan['splits']} splits of "
+           f"{plan['pages_per_split']} pages, {plan['blocks']} blocks)", bf,
+           rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+               q_, kp_, vp_, tables, kl, impl="kernel")),
+           rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+               q_, kp_, vp_, tables, kl, impl="ref")),
            None,
            # q, the valid K and V rows, tables, lens, fp32 out
            nbytes(q, tables, kl) + n_keys * 8 * 128 * 2 * 2 + B * 16 * 128 * 4,
-           4 * 16 * 128 * n_keys)
+           4 * 16 * 128 * n_keys, yardstick_fn=rotating(pcopies, sdpa_slots),
+           iters=len(pcopies))
+    results["paged_attention"].update(
+        library_note="none: SDPA takes no block table; the yardstick is SDPA "
+                     "over the contiguous slot cache with a key-length mask "
+                     f"(max |diff| / max|ref| {yard_err:.3g} vs the plain "
+                     "version)",
+        bit_identical_repeats=paged_repeats, split_plan=plan)
+    del pcopies
 
     # #6 multitask Hadamard: (4, S, 1024), T = 3; and a ragged width
     tids = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=dev)
@@ -601,7 +674,10 @@ def main() -> int:
     # plain forward: the encoder's shapes, and a causal grouped one
     fcases = [dict(b=B_tr, h=12, kh=12, sq=S_tr, skv=S_tr, D=64, causal=False),
               dict(b=2, h=12, kh=12, sq=37, skv=300, D=64, causal=False),
-              dict(b=1, h=16, kh=8, sq=128, skv=128, D=128, causal=True)]
+              dict(b=1, h=16, kh=8, sq=128, skv=128, D=128, causal=True),
+              # 3 q chunks of 512 x 2 kv chunks of 1024, ragged
+              dict(b=1, h=16, kh=8, sq=1100, skv=1300, D=128, causal=True),
+              dict(b=1, h=12, kh=12, sq=1300, skv=1300, D=64, causal=False)]
     for dt in (f32, bf):
         for c in fcases:
             q = randn(c["b"], c["h"], c["sq"], c["D"], dtype=dt)
@@ -645,6 +721,36 @@ def main() -> int:
     for name in ("fused_adapter_norm_bwd", "flash_attention_bwd",
                  "dequant_matmul_bwd", "masked_multitask_hadamard_bwd"):
         log(f"[3] {name} (the gradients): {errors(name)}")
+    # the tiled backward's memory at a long sequence: bert-base's heads at
+    # S = 2048, fp32 non-causal, 4 x 2 tiles; the untiled plain backward
+    # holds several (1, 12, 2048, 2048) fp32 buffers of 201 MB each
+    q, k, v, g = (randn(1, 12, 2048, 64) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FlashAttention.apply(*leaves, False, None, None, 0.0, "kernel").backward(g)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - held
+    want = ref.attention_bwd_ref(g, q, k, v,
+                                 ref.attention_ref(q, k, v, causal=False),
+                                 causal=False)
+    bwd_err = max(((t.grad - w).abs().max() / w.abs().max()).item()
+                  for t, w in zip(leaves, want))
+    check(bwd_peak < 256e6, f"tiled attention backward at (1,12,2048,64): "
+                            f"peak {bwd_peak} B above what was held")
+    check(bwd_err <= TOL["flash_attention_bwd"],
+          f"tiled attention backward at (1,12,2048,64): max |diff| / "
+          f"max|ref| {bwd_err:.3g} against the untiled plain backward")
+    tiled_bwd = {"shape": "q, k, v, g (1,12,2048,64) fp32 non-causal",
+                 "peak_bytes_above_held": bwd_peak,
+                 "vs_untiled_max_rel_err": bwd_err}
+    log(f"[3] flash_attention_bwd tiled (q chunks of 512, kv chunks of "
+        f"1024) at (1,12,2048,64) fp32: forward + backward peak "
+        f"{bwd_peak / 1e6:.1f} MB above what was held (limit 256 MB), "
+        f"gradients within {bwd_err:.3g} of max|ref| of the untiled plain "
+        "backward")
+    del q, k, v, g, leaves, want
 
     # timed at the train shapes, fp32 as bert-base trains. Each timed call
     # takes the next of several copies of its inputs, together over twice
@@ -672,16 +778,17 @@ def main() -> int:
            3 * nbytes(gxs[0][0]) + nbytes(w) + 2 * d_tr * 4,
            4 * gxs[0][0].numel())
     qkvs = [tuple(randn(B_tr, 12, S_tr, 64) for _ in range(3))
-            for _ in range(3)]
+            for _ in range(6)]
     record("flash_attention@train", "flash_attention",
-           f"q, k, v ({B_tr},12,{S_tr},64) fp32 (3 copies in turn) "
+           f"q, k, v ({B_tr},12,{S_tr},64) fp32 (6 copies in turn) "
            "non-causal (one layer of a bert-base forward)", f32,
            rotating(qkvs, lambda q, k, v: ops.flash_attention(
                q, k, v, causal=False, impl="kernel")),
            rotating(qkvs, lambda q, k, v: ops.flash_attention(
                q, k, v, causal=False, impl="ref")),
            rotating(qkvs, F.scaled_dot_product_attention),
-           4 * nbytes(qkvs[0][0]), 4 * B_tr * 12 * S_tr * S_tr * 64)
+           4 * nbytes(qkvs[0][0]), 4 * B_tr * 12 * S_tr * S_tr * 64,
+           iters=len(qkvs))
     xrs = [(randn(B_tr, S_tr, d_tr), randn(B_tr, S_tr, d_tr))
            for _ in range(4)]
     scale, bias = randn(d_tr), randn(d_tr)
@@ -997,74 +1104,116 @@ def main() -> int:
     # -- phase 4r: full-width rwkv6-1.6b in fp32, kernel path vs plain path -
     # every layer's recurrence through #8 at prefill and at decode (the
     # state carried in the cache), the adapter seam through #3 (one
-    # adapter) or #6 (a 3-task bank)
+    # adapter), #6 (a 3-task bank) or #9 (a 3-row hot-swap bank holding a
+    # pruned tenant, top 16 of 24 layers, a dense one and an unloaded row);
+    # and over an int8-quantized trunk, where only the untied LM head
+    # matches the quantization table: one #7 per step
     cfg32r = launcher.build_config(RWKV_ARCH).replace(
         param_dtype="float32", compute_dtype="float32")
     Lr = cfg32r.n_layers
     rwkv_model = {}
-    for tasks in (0, TASKS):
-        eng = launcher.build_engine(cfg32r, seed=1, tasks=tasks, device=dev)
+
+    def rwkv_vs_plain(tag, params, tids, gates, want):
+        """A 128-token prefill and 4 decode steps of `params` through the
+        kernels and through the plain versions: logits and final states
+        within 1e-3 of the plain path's max, and the kernel path's launches
+        exactly `want` (every other kernel 0; the plain path none)."""
         toks = torch.randint(10, cfg32r.vocab_size, (2, SERVE["prompt_len"]),
                              generator=gen, device=dev)
-        tids = torch.tensor([0, TASKS - 1], dtype=torch.int32, device=dev) \
-            if tasks else None
         runs = {}
         with torch.no_grad():
             for impl in ("auto", "ref"):
                 _build.reset_launches()
-                lg, caches = M.prefill_lm(eng.params, cfg32r, toks,
+                lg, caches = M.prefill_lm(params, cfg32r, toks,
                                           SERVE["max_len"], task_ids=tids,
-                                          impl=impl)
+                                          gates=gates, impl=impl)
                 out = [lg]
                 for i in range(4):
                     tok = torch.randint(10, cfg32r.vocab_size, (2, 1),
                                         generator=torch.Generator(device=dev)
                                         .manual_seed(i), device=dev)
                     pos = torch.full((2,), SERVE["prompt_len"] + i, device=dev)
-                    lg, caches = M.decode_lm(eng.params, cfg32r, caches, tok,
-                                             pos, task_ids=tids, impl=impl)
+                    lg, caches = M.decode_lm(params, cfg32r, caches, tok, pos,
+                                             task_ids=tids, gates=gates,
+                                             impl=impl)
                     out.append(lg)
                 torch.cuda.synchronize()
                 runs[impl] = (out, _build.launch_counts(), caches)
-        seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
-        for impl, k, want in (("auto", "wkv6", 5 * Lr), ("auto", seam, 5 * Lr),
-                              ("ref", "wkv6", 0), ("ref", seam, 0)):
-            check(runs[impl][1][k] == want, f"phase 4r (tasks={tasks}): "
-                  f"{impl} path launched {k} {runs[impl][1][k]} times, "
-                  f"want {want}")
+        for impl in ("auto", "ref"):
+            for k, n in runs[impl][1].items():
+                w = want.get(k, 0) if impl == "auto" else 0
+                check(n == w, f"phase 4r ({tag}): {impl} path launched {k} "
+                              f"{n} times, want {w}")
         worst = 0.0
         for step, (a, r) in enumerate(zip(runs["auto"][0], runs["ref"][0])):
             check(a.shape == (2, 1, cfg32r.vocab_size)
                   and bool(torch.isfinite(a).all()),
                   f"phase 4r logits {tuple(a.shape)}")
             diff, top = (a - r).abs().max().item(), r.abs().max().item()
-            check(diff <= 1e-3 * top, f"phase 4r step {step} (tasks={tasks}): "
+            check(diff <= 1e-3 * top, f"phase 4r step {step} ({tag}): "
                   f"|kernel - plain| {diff:.3g} > 1e-3 x {top:.3g}")
             worst = max(worst, diff / top)
         state_diff = max(
             (ca["S"] - cr["S"]).abs().max().item()
             / cr["S"].abs().max().item()
             for ca, cr in zip(runs["auto"][2], runs["ref"][2]))
-        check(state_diff <= 1e-3, f"phase 4r: final states differ by "
-                                  f"{state_diff:.3g} of their max")
-        rwkv_model["bank" if tasks else "single"] = {
-            "kernel_vs_plain": worst, "state_kernel_vs_plain": state_diff,
-            "wkv6_launches": runs["auto"][1]["wkv6"],
-            f"{seam}_launches": runs["auto"][1][seam]}
-        log(f"[4r] {RWKV_ARCH} fp32, {Lr} layers, "
-            f"{'bank of %d tasks' % tasks if tasks else 'single adapter'}: "
-            f"a {SERVE['prompt_len']}-token prefill + 4 decode steps, "
-            f"{runs['auto'][1]['wkv6']} wkv6 and {runs['auto'][1][seam]} "
-            f"{seam} launches; kernel path vs plain path max |diff| / "
-            f"max|ref| = {worst:.3g} (tol 1e-3), final states {state_diff:.3g}")
-        del eng, runs, caches
+        check(state_diff <= 1e-3, f"phase 4r ({tag}): final states differ "
+                                  f"by {state_diff:.3g} of their max")
+        launched = {k: n for k, n in runs["auto"][1].items() if n}
+        rwkv_model[tag] = {"kernel_vs_plain": worst,
+                           "state_kernel_vs_plain": state_diff,
+                           "launches": launched}
+        log(f"[4r] {RWKV_ARCH} fp32, {Lr} layers, {tag}: a "
+            f"{SERVE['prompt_len']}-token prefill + 4 decode steps, launches "
+            f"{launched}; kernel path vs plain path max |diff| / max|ref| = "
+            f"{worst:.3g} (tol 1e-3), final states {state_diff:.3g}")
+
+    steps = 5  # the prefill and 4 decode steps
+    for tasks in (0, TASKS):
+        eng = launcher.build_engine(cfg32r, seed=1, tasks=tasks, device=dev)
+        tids = torch.tensor([0, TASKS - 1], dtype=torch.int32, device=dev) \
+            if tasks else None
+        seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
+        rwkv_vs_plain("bank" if tasks else "single", eng.params, tids, None,
+                      {"wkv6": steps * Lr, seam: steps * Lr})
+        del eng
         torch.cuda.empty_cache()
+    base32r = launcher.build_base(cfg32r, 1, dev)
+    dense32r, pruned32r = launcher.task_variants(base32r, 1, 2)
+    pmask_r = preset_mask(cfg32r)
+    check(int(pmask_r.sum()) == 16 and pmask_r[8:].all(),
+          f"phase 4r: paper-0.022 keeps {int(pmask_r.sum())} of {Lr}")
+    pruned32r = apply_layer_mask(pruned32r, cfg32r, pmask_r)
+    with tempfile.TemporaryDirectory() as td:
+        reg = AdapterRegistry(td)
+        reg.publish("pruned", launcher.task_delta(pruned32r, cfg32r, pmask_r))
+        reg.publish("dense", launcher.task_delta(dense32r, cfg32r))
+        hot = MultiTaskEngine(cfg32r, AdapterBank(cfg32r, base32r, 3, reg),
+                              device=dev)
+        rows = [hot.adapter_bank.lookup(n) for n in ("pruned", "dense")]
+    check(rows == [0, 1], f"phase 4r: bank rows {rows}")
+    rwkv_vs_plain("hot_swap", hot.params,
+                  torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                  hot.adapter_bank.gate_tensor,
+                  {"wkv6": steps * Lr,
+                   "masked_multitask_hadamard": steps * Lr})
+    del hot
+    qeng = ServeEngine(cfg32r, dense32r, quant="int8", device=dev)
+    check(quant_summary(qeng.params)["n_quantized_leaves"] == 1,
+          "phase 4r: int8 rwkv6 quantized more than the LM head")
+    rwkv_vs_plain("int8", qeng.params, None, None,
+                  {"wkv6": steps * Lr, "fused_adapter_norm": steps * Lr,
+                   "dequant_matmul": steps})
+    del qeng, base32r, dense32r, pruned32r
+    torch.cuda.empty_cache()
     phase_done("4r")
 
     def profile_calls(fn, n):
         """Where the time of a call goes: host wall ms per call (each ending
-        in a device sync), the device's busy share of it, and the kernels
-        that take the device time, from torch.profiler."""
+        in a device sync), the device's busy share of it, the kernels that
+        take the device time, and the device us per call of each of the
+        port's own kernels (the __global__ functions of csrc/), from
+        torch.profiler."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -1090,10 +1239,17 @@ def main() -> int:
                 launches += e.count
         busy_ms = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+        # summed over a kernel's template instantiations
+        port_us = {}
+        for k, v in dev_us.items():
+            for fn_name in re.findall(r"::(\w+)[<(]", k)[:1]:
+                if fn_name in port_kernels:
+                    port_us[fn_name] = port_us.get(fn_name, 0.0) + v
         return {"ms": call_ms, "device_ms": busy_ms if dev_us else None,
                 "device_busy_share": busy_ms / call_ms if dev_us else None,
                 "device_kernels": launches / n,
-                "top_device_us": [[k[:80], v] for k, v in top]}
+                "top_device_us": [[k[:80], v] for k, v in top],
+                "port_kernel_us": port_us}
 
     def count_per_call(eng):
         """Record each engine prefill's and decode step's own launches in
@@ -1243,38 +1399,44 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done(phase)
 
-    # -- phases 6s, 6w: hot-swap serving at full width, bf16 ---------------
+    # -- phases 6s, 6w, 6rs: hot-swap serving at full width, bf16 ----------
     # the launcher's lifecycle over the traffic of phases 5-6: tenants in an
     # AdapterRegistry on disk, all but the last published up front, the
     # last once half of the others' requests have completed, task0 removed
     # at the end; a bank of fewer rows than tenants, so rows are evicted
-    # and loaded mid-run
+    # and loaded mid-run. 6rs runs 6s's tenants over rwkv6-1.6b: #9 at the
+    # seam of every RWKV6 block, d_model wide
     HOT_TASKS, BANK_ROWS = 4, 3
-    hot_base = launcher.build_base(cfg, SERVE["seed"], dev)
-    pmask = preset_mask(cfg)
-    for phase in ("6s", "6w"):
-        share = phase == "6w"
+    cfgr = launcher.build_config(RWKV_ARCH)
+    hot_base = None
+    for phase, hcfg, share in (("6s", cfg, False), ("6w", cfg, True),
+                               ("6rs", cfgr, False)):
+        if hot_base is None or hot_base_cfg is not hcfg:
+            hot_base, hot_base_cfg = None, hcfg
+            torch.cuda.empty_cache()
+            hot_base = launcher.build_base(hcfg, SERVE["seed"], dev)
+        pmask = preset_mask(hcfg)
         variants = launcher.task_variants(hot_base, SERVE["seed"], HOT_TASKS,
                                           share_w=share)
         # 6s: task0 and task2 pruned, task1 and task3 dense; 6w: all pruned
         masks = [pmask if share or t % 2 == 0 else None
                  for t in range(HOT_TASKS)]
-        variants = [v if m is None else apply_layer_mask(v, cfg, m)
+        variants = [v if m is None else apply_layer_mask(v, hcfg, m)
                     for v, m in zip(variants, masks)]
         td = tempfile.TemporaryDirectory()
         registry = AdapterRegistry(td.name)
         for t in range(HOT_TASKS - 1):
             registry.publish(f"task{t}", launcher.task_delta(
-                variants[t], cfg, masks[t]))
+                variants[t], hcfg, masks[t]))
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         eng = launcher.hot_swap_engine(
-            cfg, hot_base, variants, registry, BANK_ROWS, share_w=share,
+            hcfg, hot_base, variants, registry, BANK_ROWS, share_w=share,
             layer_mask=pmask if share else None, device=dev)
         torch.cuda.synchronize()
         weights_bytes = torch.cuda.memory_allocated() - held
         torch.cuda.reset_peak_memory_stats()
-        reqs = launcher.make_requests(cfg, SERVE["requests"],
+        reqs = launcher.make_requests(hcfg, SERVE["requests"],
                                       SERVE["prompt_len"], SERVE["new_tokens"],
                                       HOT_TASKS, SERVE["seed"], named=True)
         sched = make_scheduler(eng, ServingConfig(
@@ -1286,7 +1448,7 @@ def main() -> int:
         done, rep = launcher.serve_with_runtime_add(
             sched, reqs, hot_name,
             lambda: registry.publish(hot_name, launcher.task_delta(
-                variants[-1], cfg, masks[-1])), log=log)
+                variants[-1], hcfg, masks[-1])), log=log)
         torch.cuda.synchronize()
         launches[phase] = _build.launch_counts()
         peak_bytes = torch.cuda.max_memory_allocated() - held
@@ -1298,7 +1460,7 @@ def main() -> int:
         for name in bank.resident:
             t = int(name.removeprefix("task"))
             want = (masks[t] if masks[t] is not None
-                    else np.ones(cfg.n_layers, bool)).astype(np.float32)
+                    else np.ones(hcfg.n_layers, bool)).astype(np.float32)
             row = bank.row_of(name)
             check((bank.gates()[:, row] == want).all()
                   and (dev_gates[:, row] == want).all()
@@ -1316,12 +1478,23 @@ def main() -> int:
               and stats_run["loads"] >= HOT_TASKS,
               f"phase {phase}: bank {stats_run}, want at least one eviction "
               f"and {HOT_TASKS} loads")
+        rwkv_run = M.has_recurrent_state(hcfg)
         per_tick, per_prefill = check_serve_run(
             phase, per_call, rep, done, launches[phase], sched,
-            (masked_name, "flash_attention", "paged_attention"), cfg)
-        for k, want in ((masked_name, [cfg.n_layers]),
-                        ("multitask_hadamard", [0]),
-                        ("fused_adapter_norm", [0])):
+            (masked_name, "wkv6") if rwkv_run else
+            (masked_name, "flash_attention", "paged_attention"), hcfg)
+        L_h = hcfg.n_layers
+        want_both = {masked_name: [L_h], "multitask_hadamard": [0],
+                     "fused_adapter_norm": [0],
+                     "wkv6": [L_h] if rwkv_run else [0]}
+        if rwkv_run:
+            want_both.update(flash_attention=[0], paged_attention=[0])
+            widths = {tuple(p["adapter"]["w"].shape)
+                      for p in eng.params["layers"]}
+            check(widths == {(BANK_ROWS, hcfg.d_model)},
+                  f"phase {phase}: bank adapter rows {widths}, want "
+                  f"({BANK_ROWS}, d_model={hcfg.d_model})")
+        for k, want in want_both.items():
             check(per_tick[k] == want and per_prefill[k] == want,
                   f"phase {phase}: {k} per decode tick {per_tick[k]}, per "
                   f"prefill {per_prefill[k]}, want {want}")
@@ -1343,8 +1516,9 @@ def main() -> int:
             bank=stats, bank_during_run=stats_run, bank_lines=lines,
             weights_bytes_allocated=weights_bytes,
             peak_bytes_allocated=peak_bytes)
-        kind = ("hot-swap bank, 2 pruned + 2 dense tenants" if not share
-                else "hot-swap shared-w bank, 4 pruned tenants")
+        kind = (("hot-swap bank, 2 pruned + 2 dense tenants" if not share
+                 else "hot-swap shared-w bank, 4 pruned tenants")
+                + (f", {RWKV_ARCH}" if rwkv_run else ""))
         log(f"[{phase}] serve {kind}, {BANK_ROWS} rows, on {smi}: "
             f"{serve_line(rep)}; launches {launches[phase]}; per decode tick "
             f"{per_tick}; per prefill {per_prefill}; bank during the run "
@@ -1355,17 +1529,18 @@ def main() -> int:
         phase_done(phase)
     del hot_base
 
-    # -- phases 5r, 6r: rwkv6-1.6b serving at full width, bf16 -------------
+    # -- phases 5r, 6r, 5rq: rwkv6-1.6b serving at full width, bf16 -------
     # the traffic of phases 5-6 over the attention-free family: every
     # layer's recurrence through #8 from the slot's state, the adapter seam
-    # through #3 (one adapter) or #6 (a 3-task bank); no attention kernel
-    cfgr = launcher.build_config(RWKV_ARCH)
+    # through #3 (one adapter) or #6 (a 3-task bank); no attention kernel.
+    # 5rq quantizes the trunk to int8: the untied LM head is the one leaf
     n_r = cfgr.n_layers
-    for phase, tasks in (("5r", 0), ("6r", TASKS)):
+    for phase, tasks, quant in (("5r", 0, None), ("6r", TASKS, None),
+                                ("5rq", 0, "int8")):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         eng = launcher.build_engine(cfgr, seed=SERVE["seed"], tasks=tasks,
-                                    device=dev)
+                                    device=dev, quant=quant)
         torch.cuda.synchronize()
         weights_bytes = torch.cuda.memory_allocated() - held
         torch.cuda.reset_peak_memory_stats()
@@ -1373,7 +1548,7 @@ def main() -> int:
                                       SERVE["prompt_len"], SERVE["new_tokens"],
                                       tasks, SERVE["seed"])
         scfg = ServingConfig(num_slots=SERVE["num_slots"],
-                             max_len=SERVE["max_len"])
+                             max_len=SERVE["max_len"], backbone_quant=quant)
         make_scheduler(eng, scfg).run(reqs[:2])  # warm-up
         sched = make_scheduler(eng, scfg)
         state_bytes = sum(leaf.numel() * leaf.element_size()
@@ -1387,11 +1562,16 @@ def main() -> int:
         peak_bytes = torch.cuda.max_memory_allocated() - held
         del eng.prefill, eng.decode_step
         seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
+        # the untied LM head, the one leaf the table quantizes, is one #7 a
+        # step: prefill takes logits at the last position only
+        want_of = {"wkv6": [n_r], seam: [n_r],
+                   "dequant_matmul": [1] if quant else [0]}
         per_tick, per_prefill = check_serve_run(
             phase, per_call, rep, done, launches[phase], sched,
-            ("wkv6", seam), cfgr)
+            [k for k, w in want_of.items() if w != [0]], cfgr)
+        tokens_of[phase] = {c.request_id: c.tokens for c in done}
         for k in launches[phase]:
-            want = [n_r] if k in ("wkv6", seam) else [0]
+            want = want_of.get(k, [0])
             check(per_tick[k] == want and per_prefill[k] == want,
                   f"phase {phase}: {k} per decode tick {per_tick[k]}, per "
                   f"prefill {per_prefill[k]}, want {want}")
@@ -1405,10 +1585,29 @@ def main() -> int:
         extra = {"weights_bytes_allocated": weights_bytes,
                  "peak_bytes_allocated": peak_bytes,
                  "state_bytes": state_bytes}
+        if quant:
+            qs = quant_summary(eng.params)
+            check(qs["n_quantized_leaves"] == 1,
+                  f"phase {phase}: {qs['n_quantized_leaves']} quantized "
+                  "leaves, want the LM head alone")
+            head = cfgr.d_model * cfgr.vocab_size
+            # the head's bf16 bytes against its int8 values and fp32 scales
+            saved = head * 2 - qs["quantized_bytes"]
+            drop = serve_reports["5r"]["weights_bytes_allocated"] - weights_bytes
+            check(abs(drop - saved) <= 2**20,
+                  f"phase {phase}: engine bytes fell by {drop} against 5r's, "
+                  f"want the head's {saved}")
+            same = [float((tokens_of[phase][i] == tokens_of["5r"][i]).mean())
+                    for i in sorted(tokens_of[phase])]
+            extra.update(quant=quant, quant_line=launcher.quant_line(eng),
+                         quantized_bytes=qs["quantized_bytes"],
+                         engine_bytes_saved_vs_bf16=drop,
+                         greedy_agreement_with_bf16_ungated=sum(same) / len(same))
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
                                     tick=tick, **extra)
-        kind = "single-tenant" if tasks == 0 else f"{tasks}-task bank"
+        kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
+            (f", {quant} backbone" if quant else "")
         log(f"[{phase}] serve {RWKV_ARCH} {kind} on {smi}: {serve_line(rep)}; "
             f"launches {launches[phase]}; per decode tick {per_tick}; per "
             f"prefill {per_prefill}; memory {json.dumps(extra)}; decode tick "
@@ -1655,12 +1854,15 @@ def main() -> int:
                   "5q": "serve_single_int8", "6q": "serve_multitask_int8",
                   "5f": "serve_single_fp8", "6s": "serve_hot_swap",
                   "6w": "serve_hot_swap_shared_w", "5r": "serve_rwkv_single",
-                  "6r": "serve_rwkv_multitask"}
+                  "6r": "serve_rwkv_multitask",
+                  "5rq": "serve_rwkv_single_int8",
+                  "6rs": "serve_rwkv_hot_swap"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
-    extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note")
+    extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
+                   "split_plan", "bit_identical_repeats")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
@@ -1698,6 +1900,8 @@ def main() -> int:
                 entry[f"{at}_shape_timing"] = dict(
                     {k: t[k] for k in timed + extra_timed if k in t},
                     shape=t["shape"])
+        if name == "flash_attention":
+            entry["bwd_tiled_long_sequence"] = tiled_bwd
         if name in ("fused_adapter_norm", "flash_attention", "dequant_matmul",
                     "masked_multitask_hadamard"):
             # the backward of the autograd Function around this kernel

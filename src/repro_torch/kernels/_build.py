@@ -44,10 +44,11 @@ SIGNATURES = {
     "rt_hadamard_affine_chunk_rows": (),
     "rt_fused_adapter_norm": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
                               _I, _I, _F, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F,
-                           _I, _I, _I, _P),
-    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
+                           _F, _I, _I, _I, _P),
+    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+                           _P),
     "rt_multitask_hadamard": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                               _P),
     "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),

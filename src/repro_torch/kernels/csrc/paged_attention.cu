@@ -1,4 +1,4 @@
-// Paged decode attention, forward.
+// Paged decode attention, forward: split over the keys ("flash-decoding").
 //
 // Replaces: src/repro/kernels/attention.py::paged_attention_tpu (the
 // pl.pallas_call of _paged_kernel).
@@ -11,199 +11,479 @@
 //   is valid when li < ring, p >= 0 and p <= the query's position.
 //
 // Bound on the H100: memory. A decode step reads every valid K/V element
-// once for a handful of flops per element (2*G*Sq multiply-adds per K or V
-// element), far below the card's flop/byte balance point.
+// once for 2*G*Sq multiply-adds per element, far below the card's
+// flop/byte balance point. At the serve shape (4 slots, 8 kv heads, 140
+// valid keys of 128 bf16) that is 1.2 MB, 0.4 us at 3.35 TB/s: what sets
+// the time is latency, how many loads are in flight at once and on how
+// many SMs.
 //
-// Design. One block per (kv head, sequence): the G*Sq query rows that share
-// a kv head are staged once, so each K/V page crosses device memory once per
-// sequence and kv head, and GQA costs no repeated reads. The block reads its
-// own table row and walks only the pages that can hold a valid key
-// (ceil(kv_len/page) for linear validity, ceil(ring/page) for a ring), so a
-// 512-slot cache at kv_len 140 costs 9 pages, not 32. Per page: the page's
-// K and V are widened to fp32 in shared memory (int8 times its per-token
-// scale), one thread per (row, key) forms a score, one thread per row runs
-// the online-softmax update in fp32, and one thread per (row, column)
-// updates the accumulator, kept in shared memory so any G*Sq fits. Finite
-// NEG_INF as in the Pallas kernel. C's % truncates toward zero, so the
-// ring's floor mod is written ((x % r) + r) % r.
+// Design. The keys of a row are cut into splits of `pps` pages (32 keys),
+// and the grid is (splits, KH x row chunks, B): at the serve shape 16 x 8
+// x 4 = 512 blocks, of which the ~5 splits per row that hold valid keys
+// do work. The grid is sized on the host from nbt and page alone (never
+// from kv_lens, which lies on the card); a split past its row's last
+// valid key exits at once, having read only kv_len and its block ids (no
+// device-memory traffic). The first keys' block ids load beside kv_len,
+// then the query rows and every K/V load of the split are in flight at
+// once (4 keys per lane group at 2 rows a block): the loads stay raw until
+// all are issued, since widening one as it is loaded would wait for it.
+// Exponentials use the hardware's ex2 (__expf).
+// Inside a split each warp takes keys in groups of LPK lanes, each lane a
+// 16-byte load of K and of V (8 bf16, 4 fp32 or 16 int8 values), so a
+// 128-wide bf16 row is 16 lanes and a warp instruction reads two keys. The
+// query rows of the kv head (G*Sq of them, up to RM per block) stay in
+// registers in fp32; a score is the lane's partial dot product reduced by
+// shuffles across its group; int8 keys take their per-token scale after
+// the dot product, int8 values theirs on the weight. Each lane group runs
+// its own online softmax in registers over the keys it saw, skipping masked
+// keys (they would add exp(NEG_INF - m) = 0 in the reference); the groups
+// merge by shuffles, the warps through shared memory, in a fixed order.
+// No K/V staging in shared memory and no barrier inside the key loop.
+//
+// The partials (acc, m, l) of the splits that hold keys go to an fp32
+// scratch of (B, H, Sq, splits, D + 2) that the wrapper allocates; a
+// second kernel, one block per query row, finds from kv_lens how many
+// splits hold keys (a prefix) and folds them in index order, loading a
+// chunk of 8 splits in one round trip. It is a programmatic dependent
+// launch: its launch overlaps the split grid, and it waits for that grid's
+// writes before it reads them. No atomics: a run repeats bit for bit. Both kernels start
+// from the one C entry. C's % truncates toward zero, so the ring's floor
+// mod is ((x % r) + r) % r.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+// one 16-byte load, kept raw until it is widened to fp32: the loads of
+// every key a lane takes are issued before any of them is used
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void widen(uint4 v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void widen(uint4 v, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+template <> struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void widen(uint4 v, float* out) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
+  }
+};
+
+// the lane layout of a (TKV, D) instantiation, mirrored by
+// kernels/attention.py::paged_split_plan
+template <typename TKV, int D> struct Layout {
+  static constexpr int VEC = Vec<TKV>::N;                       // values a lane loads
+  static constexpr int LPK = (D / VEC < 32) ? D / VEC : 32;     // lanes per key
+  static constexpr int CPL = D / (VEC * LPK);                   // loads per lane and row
+  static constexpr int KPW = 32 / LPK;                          // keys per warp instruction
+  static constexpr int RBIG = 64 / (VEC * CPL);                 // rows a block takes at most
+};
+
+template <typename TKV, int D, int RM>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(
+    const void* __restrict__ q, int q_bf16, const TKV* __restrict__ k_pool,
     const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ tables,
-    const int* __restrict__ kv_lens, float* __restrict__ out, int H, int KH,
-    int sq, int D, int page, int nbt, int window, int ring, float scale,
-    float cap) {
-  const int G = H / KH, R = G * sq;
+    const int* __restrict__ kv_lens, float* __restrict__ part, int H, int KH,
+    int sq, int page, int nbt, int window, int ring, float scale, float cap,
+    int pps, int splits, int row_chunks) {
+  using L = Layout<TKV, D>;
+  constexpr int VEC = L::VEC, LPK = L::LPK, CPL = L::CPL, KPW = L::KPW;
+  constexpr int NG = kWarps * KPW;  // lane groups of the block
+  constexpr int W = VEC * CPL;      // values of a row a lane holds
+  constexpr int U = RM <= 2 ? 4 : 2;  // keys a lane group has in flight
   extern __shared__ float sm[];
-  float* qsm = sm;                   // R x D
-  float* acc = qsm + R * D;          // R x D
-  float* ksm = acc + R * D;          // page x (D + 1)
-  float* vsm = ksm + page * (D + 1);  // page x D
-  float* psm = vsm + page * D;       // R x page: scores, then weights
-  float* mrow = psm + R * page;      // R running maxima
-  float* lrow = mrow + R;            // R running sums
-  float* crow = lrow + R;            // R correction factors of this page
+  float* red_acc = sm;                          // kWarps x RM x D
+  float* red_m = red_acc + kWarps * RM * D;     // kWarps x RM
+  float* red_l = red_m + kWarps * RM;           // kWarps x RM
 
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, kh = blockIdx.y / row_chunks;
+  const int rc = blockIdx.y % row_chunks, b = blockIdx.z;
+  const int G = H / KH, R = G * sq, r0 = rc * RM;
+  const int nrows = min(RM, R - r0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // let the combine kernel launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int len = kv_lens[b];
-  // row r = g*sq + i is query i of head kh*G + g; q and out are (B,H,sq,D)
-  const long qbase = (static_cast<long>(b) * H + kh * G) * sq * D;
+  const int stride = splits * (D + 2);
+  // row r of this block is query i = (r0 + r) % sq of head kh*G + (r0+r)/sq;
+  // q, out and the partials are indexed by (b, head, i)
+  auto row_index = [&](int r) {
+    const int rr = r0 + r;
+    return (static_cast<long>(b) * H + kh * G + rr / sq) * sq + rr % sq;
+  };
 
-  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    qsm[e] = rt::to_f32(q[qbase + e]);
-    acc[e] = 0.f;
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    mrow[r] = rt::NEG_INF;
-    lrow[r] = 0.f;
-  }
-
+  // the first keys' block ids load beside kv_len: they do not depend on
+  // it, so the K/V loads start one L2 round trip after the launch
+  const int grp = warp * KPW + lane / LPK;  // this lane's key group
+  const int gl = lane % LPK;                // its lane within the group
+  const int k0 = split * pps * page;
+  const long tab = static_cast<long>(b) * nbt;
+  int blk0[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    blk0[u] = tables[tab + min((k0 + grp + NG * u) / page, nbt - 1)];
+  // the keys this split may hold: from its first page to page p1 of the
+  // row, cut at the last key any query can see
   const int n_pages = window > 0 ? (ring + page - 1) / page
                                  : min(nbt, (len + page - 1) / page);
-  for (int j = 0; j < n_pages; ++j) {
-    __syncthreads();  // the previous page is consumed (and q is staged)
-    const long blk = tables[static_cast<long>(b) * nbt + j];
-    for (int e = threadIdx.x; e < page * D; e += blockDim.x) {
-      const int t = e / D, c = e % D;
-      const long tok = (blk * page + t) * KH + kh;  // (block, token, head)
-      float kv = rt::to_f32(k_pool[tok * D + c]);
-      float vv = rt::to_f32(v_pool[tok * D + c]);
-      if (k_scales != nullptr) {
-        kv *= k_scales[tok];
-        vv *= v_scales[tok];
-      }
-      ksm[t * (D + 1) + c] = kv;
-      vsm[t * D + c] = vv;
-    }
-    __syncthreads();
+  const int p1 = min(split * pps + pps, n_pages);
+  const int khi = min(p1 * page, window > 0 ? ring : len);
+  if (k0 >= khi) {  // an empty partial: the combine reads none of it
+    return;
+  }
+  // the query rows, unconditionally (a row past the block's last repeats
+  // row 0 and is never used), so that every load issues before any widens
+  float qr[RM][W];
+  long qrow[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) qrow[r] = row_index(r < nrows ? r : 0) * D;
+  if (q_bf16) {
+    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+    __nv_bfloat16 raw[RM][W];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          raw[r][c * VEC + e] = qb[qrow[r] + (gl + LPK * c) * VEC + e];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int e = 0; e < W; ++e) qr[r][e] = __bfloat162float(raw[r][e]);
+  } else {
+    const float* qf = static_cast<const float*>(q);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          qr[r][c * VEC + e] = qf[qrow[r] + (gl + LPK * c) * VEC + e];
+  }
+  // each row's query position, for the masks
+  int qpos[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int i = (r0 + r) % sq;
+    qpos[r] = window > 0 ? len - (sq - 1) + i : len - sq + i;
+  }
 
-    for (int e = threadIdx.x; e < R * page; e += blockDim.x) {
-      const int r = e / page, t = e % page, i = r % sq;
-      const float* qr = qsm + r * D;
-      const float* kr = ksm + t * (D + 1);
-      float s = 0.f;
-      for (int c = 0; c < D; ++c) s += qr[c] * kr[c];
-      s *= scale;
-      if (cap > 0.f) s = tanhf(s / cap) * cap;
-      const int li = j * page + t;
-      bool valid;
+  float m[RM], l[RM], acc[RM][W];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = rt::NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < W; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int base = k0; base < khi; base += NG * U) {
+    uint4 kraw[U][CPL], vraw[U][CPL];
+    float ks[U], vs[U];
+    int key[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      key[u] = base + grp + NG * u;
+      ks[u] = vs[u] = 1.f;
+      if (key[u] < khi) {
+        const long blk = base == k0 ? blk0[u] : tables[tab + key[u] / page];
+        const long tok = (blk * page + key[u] % page) * KH + kh;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const long off = tok * D + (gl + LPK * c) * VEC;
+          kraw[u][c] = load16(k_pool + off);
+          vraw[u][c] = load16(v_pool + off);
+        }
+        if (k_scales != nullptr) {
+          ks[u] = __ldg(k_scales + tok);
+          vs[u] = __ldg(v_scales + tok);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) kraw[u][c] = vraw[u][c] = make_uint4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kv[W], vv[W];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        Vec<TKV>::widen(kraw[u][c], kv + c * VEC);
+        Vec<TKV>::widen(vraw[u][c], vv + c * VEC);
+      }
+      float s[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < W; ++e) d = fmaf(qr[r][e], kv[e], d);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[r] = d;
+      }
+      const int li = key[u];
+      if (li >= khi) continue;  // the whole lane group agrees
+      int kpos = 0;
       if (window > 0) {
         const int x = len - li;
-        const int p = len - ((x % ring) + ring) % ring;
-        valid = li < ring && p >= 0 && p <= len - (sq - 1) + i;
-      } else {
-        valid = li <= len - sq + i;
+        kpos = len - ((x % ring) + ring) % ring;
       }
-      psm[e] = valid ? s : rt::NEG_INF;
-    }
-    __syncthreads();
-
-    for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      float* pr = psm + r * page;
-      float mx = mrow[r];
-      for (int t = 0; t < page; ++t) mx = fmaxf(mx, pr[t]);
-      float sum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float p = expf(pr[t] - mx);
-        pr[t] = p;
-        sum += p;
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const bool valid = r < nrows &&
+            (window > 0 ? (kpos >= 0 && kpos <= qpos[r]) : li <= qpos[r]);
+        if (!valid) continue;
+        float sv = s[r] * ks[u] * scale;
+        if (cap > 0.f) sv = tanhf(sv / cap) * cap;
+        const float m_new = fmaxf(m[r], sv);
+        const float corr = __expf(m[r] - m_new);
+        const float p = __expf(sv - m_new);
+        l[r] = l[r] * corr + p;
+        m[r] = m_new;
+        const float pv = p * vs[u];
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[r][e] = fmaf(pv, vv[e], acc[r][e] * corr);
       }
-      const float corr = expf(mrow[r] - mx);
-      lrow[r] = lrow[r] * corr + sum;
-      mrow[r] = mx;
-      crow[r] = corr;
     }
-    __syncthreads();
+  }
 
-    for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-      const int r = e / D, c = e % D;
-      const float* pr = psm + r * page;
-      float a = acc[e] * crow[r];
-      for (int t = 0; t < page; ++t) a += pr[t] * vsm[t * D + c];
-      acc[e] = a;
+  // merge the lane groups of the warp (butterfly, every lane ends with the
+  // warp's sums), then the warps in order through shared memory
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mx = fmaxf(m[r], mo);
+      const float a = __expf(m[r] - mx), c = __expf(mo - mx);
+      l[r] = l[r] * a + lo * c;
+      m[r] = mx;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+        acc[r][e] = acc[r][e] * a + ao * c;
+      }
+    }
+  }
+  if (lane < LPK) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          red_acc[(warp * RM + r) * D + (gl + LPK * c) * VEC + e] = acc[r][c * VEC + e];
+      if (lane == 0) {
+        red_m[warp * RM + r] = m[r];
+        red_l[warp * RM + r] = l[r];
+      }
     }
   }
   __syncthreads();
-
-  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    const float l = lrow[e / D];
-    out[qbase + e] = acc[e] / (l > 0.f ? l : 1.f);
+  for (int e = threadIdx.x; e < nrows * (D + 2); e += blockDim.x) {
+    const int r = e / (D + 2), c = e % (D + 2);
+    float mx = rt::NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w * RM + r]);
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = __expf(red_m[w * RM + r] - mx);
+      v += (c < D ? red_acc[(w * RM + r) * D + c]
+                  : c == D ? 0.f : red_l[w * RM + r]) * wt;
+    }
+    part[row_index(r) * stride + split * (D + 2) + c] = c == D ? mx : v;
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const float* k_scales, const float* v_scales,
-                   const int* tables, const int* kv_lens, float* out, int B,
-                   int H, int KH, int sq, int D, int page, int nbt, int window,
-                   int ring, float scale, float cap, cudaStream_t stream) {
+// the splits of a row that hold keys: a prefix, as the split kernel cuts
+// them (the others wrote nothing)
+__device__ __forceinline__ int active_splits(int len, int page, int nbt,
+                                             int window, int ring, int pps,
+                                             int splits) {
+  const int n_pages = window > 0 ? (ring + page - 1) / page
+                                 : min(nbt, (len + page - 1) / page);
+  const int khi = min(n_pages * page, window > 0 ? ring : len);
+  return min(splits, (khi + pps * page - 1) / (pps * page));
+}
+
+// one block per query row, a thread per output column: the row's active
+// splits in chunks of kChunk, each chunk's m, l and acc loaded at once (one
+// round trip for a chunk), folded in index order with the running max
+// rescaled as in the split kernel. Every thread repeats the weights, so no
+// barrier is needed. Launched as a programmatic dependent of the split
+// kernel: its launch and its kv_len load overlap that grid
+constexpr int kChunk = 8;
+
+__global__ void __launch_bounds__(kThreads) paged_combine_kernel(
+    const float* __restrict__ part, const int* __restrict__ kv_lens,
+    float* __restrict__ out, int H, int sq, int D, int page, int nbt,
+    int window, int ring, int pps, int splits) {
+  const long row = blockIdx.x;
+  const int b = static_cast<int>(row / (static_cast<long>(H) * sq));
+  const int n = active_splits(kv_lens[b], page, nbt, window, ring, pps,
+                              splits);
+  const float* pr = part + row * splits * (D + 2);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float mx = rt::NEG_INF, lsum = 0.f, a = 0.f;
+    for (int s0 = 0; s0 < n; s0 += kChunk) {
+      float ms[kChunk], ls[kChunk], av[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float* ps = pr + (s0 + j) * (D + 2);
+        const bool in = s0 + j < n;
+        ms[j] = in ? ps[D] : rt::NEG_INF;
+        ls[j] = in ? ps[D + 1] : 0.f;
+        av[j] = in ? ps[c] : 0.f;
+      }
+      float cm = mx;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (ls[j] > 0.f) cm = fmaxf(cm, ms[j]);
+      const float corr = __expf(mx - cm);
+      lsum *= corr;
+      a *= corr;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float w = ls[j] > 0.f ? __expf(ms[j] - cm) : 0.f;
+        lsum = fmaf(w, ls[j], lsum);
+        a = fmaf(w, av[j], a);
+      }
+      mx = cm;
+    }
+    out[row * D + c] = lsum > 0.f ? a / lsum : 0.f;
+  }
+}
+
+template <typename TKV, int D>
+cudaError_t launch(const void* q, int q_bf16, const void* k_pool,
+                   const void* v_pool, const float* k_scales,
+                   const float* v_scales, const int* tables, const int* kv_lens,
+                   float* out, float* part, int B, int H, int KH, int sq,
+                   int page, int nbt, int window, int ring, float scale,
+                   float cap, int pps, int splits, int rows_per_block,
+                   cudaStream_t stream) {
+  using L = Layout<TKV, D>;
   const int R = (H / KH) * sq;
-  const size_t smem = sizeof(float) * (2 * R * D + page * (D + 1) + page * D
-                                       + R * page + 3 * R);
-  auto kernel = paged_attention_kernel<TQ, TKV>;
-  cudaError_t err = rt::allow_smem(kernel, smem);
+  const int row_chunks = (R + rows_per_block - 1) / rows_per_block;
+  const dim3 grid(splits, KH * row_chunks, B);
+  const size_t smem = sizeof(float) * kWarps * rows_per_block * (D + 2);
+  const TKV* kp = static_cast<const TKV*>(k_pool);
+  const TKV* vp = static_cast<const TKV*>(v_pool);
+  if (rows_per_block == 2) {
+    paged_split_kernel<TKV, D, 2><<<grid, kThreads, smem, stream>>>(
+        q, q_bf16, kp, vp, k_scales, v_scales, tables, kv_lens, part, H, KH, sq,
+        page, nbt, window, ring, scale, cap, pps, splits, row_chunks);
+  } else if (rows_per_block == L::RBIG) {
+    paged_split_kernel<TKV, D, L::RBIG><<<grid, kThreads, smem, stream>>>(
+        q, q_bf16, kp, vp, k_scales, v_scales, tables, kv_lens, part, H, KH, sq,
+        page, nbt, window, ring, scale, cap, pps, splits, row_chunks);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid(KH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), k_scales, v_scales, tables, kv_lens, out,
-      H, KH, sq, D, page, nbt, window, ring, scale, cap);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * sq);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_combine_kernel, part, kv_lens, out, H,
+                            sq, D, page, nbt, window, ring, pps, splits);
 }
 
-template <typename TQ>
-cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k_pool,
-                        const void* v_pool, const float* k_scales,
-                        const float* v_scales, const int* tables,
-                        const int* kv_lens, float* out, int B, int H, int KH,
-                        int sq, int D, int page, int nbt, int window, int ring,
-                        float scale, float cap, cudaStream_t stream) {
-  switch (kv_dtype) {
-    case rt::F32:
-      return launch<TQ, float>(q, k_pool, v_pool, k_scales, v_scales, tables,
-                               kv_lens, out, B, H, KH, sq, D, page, nbt, window,
-                               ring, scale, cap, stream);
-    case rt::BF16:
-      return launch<TQ, __nv_bfloat16>(q, k_pool, v_pool, k_scales, v_scales,
-                                       tables, kv_lens, out, B, H, KH, sq, D,
-                                       page, nbt, window, ring, scale, cap,
-                                       stream);
-    case rt::I8:
-      return launch<TQ, int8_t>(q, k_pool, v_pool, k_scales, v_scales, tables,
-                                kv_lens, out, B, H, KH, sq, D, page, nbt, window,
-                                ring, scale, cap, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <typename TKV>
+cudaError_t dispatch_d(int D, const void* q, int q_bf16, const void* k_pool,
+                       const void* v_pool, const float* k_scales,
+                       const float* v_scales, const int* tables,
+                       const int* kv_lens, float* out, float* part, int B,
+                       int H, int KH, int sq, int page, int nbt, int window,
+                       int ring, float scale, float cap, int pps, int splits,
+                       int rows_per_block, cudaStream_t s) {
+#define RT_PAGED_LAUNCH(DD)                                                    \
+  launch<TKV, DD>(q, q_bf16, k_pool, v_pool, k_scales, v_scales, tables,      \
+                  kv_lens, out, part, B, H, KH, sq, page, nbt, window, ring,  \
+                  scale, cap, pps, splits, rows_per_block, s)
+  switch (D) {
+    case 64: return RT_PAGED_LAUNCH(64);
+    case 128: return RT_PAGED_LAUNCH(128);
+    case 256: return RT_PAGED_LAUNCH(256);
+    default: return cudaErrorInvalidValue;
   }
+#undef RT_PAGED_LAUNCH
 }
 
 }  // namespace
 
+// part: fp32 scratch of (B, H, sq, splits, D + 2); pps pages per split;
+// rows_per_block: 2, or Layout<kv dtype, D>::RBIG
 extern "C" int rt_paged_attention(const void* q, const void* k_pool,
                                   const void* v_pool, const void* k_scales,
                                   const void* v_scales, const void* tables,
-                                  const void* kv_lens, void* out, int B, int H,
-                                  int KH, int sq, int D, int page, int nbt,
-                                  int window, int ring, float scale, float cap,
-                                  int q_dtype, int kv_dtype, void* stream) {
+                                  const void* kv_lens, void* out, void* part,
+                                  int B, int H, int KH, int sq, int D, int page,
+                                  int nbt, int window, int ring, float scale,
+                                  float cap, int pps, int splits,
+                                  int rows_per_block, int q_dtype,
+                                  int kv_dtype, void* stream) {
   if (B == 0) return cudaSuccess;
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
   float* o = static_cast<float*>(out);
+  float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == rt::BF16)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, ks, vs, tb,
-                                      kl, o, B, H, KH, sq, D, page, nbt, window,
-                                      ring, scale, cap, s);
-  return dispatch_kv<float>(kv_dtype, q, k_pool, v_pool, ks, vs, tb, kl, o, B,
-                            H, KH, sq, D, page, nbt, window, ring, scale, cap, s);
+  const int q_bf16 = q_dtype == rt::BF16;
+  switch (kv_dtype) {
+    case rt::F32:
+      return dispatch_d<float>(D, q, q_bf16, k_pool, v_pool, ks, vs, tb, kl, o,
+                               pt, B, H, KH, sq, page, nbt, window, ring, scale,
+                               cap, pps, splits, rows_per_block, s);
+    case rt::BF16:
+      return dispatch_d<__nv_bfloat16>(D, q, q_bf16, k_pool, v_pool, ks, vs, tb,
+                                       kl, o, pt, B, H, KH, sq, page, nbt,
+                                       window, ring, scale, cap, pps, splits,
+                                       rows_per_block, s);
+    case rt::I8:
+      return dispatch_d<int8_t>(D, q, q_bf16, k_pool, v_pool, ks, vs, tb, kl, o,
+                                pt, B, H, KH, sq, page, nbt, window, ring,
+                                scale, cap, pps, splits, rows_per_block, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -69,14 +69,16 @@ def fused_adapter_norm(x, res, w, b, scale, bias=None, eps: float = 1e-6,
 def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, cap: float = 0.0,
-                    impl: str = "auto"):
+                    impl: str = "auto", return_lse: bool = False):
     """q (B, H, Sq, D) over k, v (B, KH, Skv, D), GQA by kv head h // G;
-    see `ref.attention_ref`."""
+    with return_lse also each row's fp32 (B, H, Sq) log-sum-exp. See
+    `ref.attention_ref`."""
     if use_kernel(q, impl):
         return _attn.flash_attention(q, k, v, causal=causal, window=window,
-                                     scale=scale, cap=cap)
+                                     scale=scale, cap=cap,
+                                     return_lse=return_lse)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, cap=cap)
+                             scale=scale, cap=cap, return_lse=return_lse)
 
 
 def paged_attention(q, k_pool, v_pool, tables, kv_lens,

@@ -117,11 +117,14 @@ def masked_multitask_hadamard_ref(x, w_bank, b_bank, gate, task_ids):
 
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
-                  scale: Optional[float] = None, cap: float = 0.0):
+                  scale: Optional[float] = None, cap: float = 0.0,
+                  return_lse: bool = False):
     """Dense attention. q: (B, H, Sq, D); k, v: (B, KH, Skv, D) with
     H = KH*G; query head h reads kv head h // G (the repeat
     `ops.flash_attention(impl="jnp")` does in JAX). Queries are
-    right-aligned at i + (Skv - Sq). Returns q.dtype."""
+    right-aligned at i + (Skv - Sq). Returns q.dtype, and with return_lse
+    also the fp32 (B, H, Sq) log-sum-exp of each row's masked scores (the
+    residual the JAX flash forward hands its backward)."""
     B, H, Sq, D = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     G = H // KH
@@ -140,7 +143,8 @@ def attention_ref(q, k, v, *, causal: bool = True,
         m = m & (qp - kp < window)
     s = torch.where(m, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def attention_bwd_ref(g, q, k, v, out, *, causal: bool = True,
@@ -150,7 +154,10 @@ def attention_bwd_ref(g, q, k, v, out, *, causal: bool = True,
     backward's `tile_ds` writes it (`repro/models/flash.py:182-282`) over
     one tile that holds every key: P is recomputed from q and k, and
     delta = sum(g*out) per query row. Returns (dq, dk, dv) in the dtypes
-    of q, k, v; a kv head's dk/dv sum over its G query heads."""
+    of q, k, v; a kv head's dk/dv sum over its G query heads. Untiled:
+    it holds fp32 (B, H, Sq, Skv) buffers, so it is the plain version the
+    tiled backward (`attention.flash_attention_bwd`) is held to, not a
+    training path."""
     B, H, Sq, D = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     G = H // KH

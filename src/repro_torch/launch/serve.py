@@ -29,11 +29,17 @@ every tenant and a b per tenant, from a bank that stores the w once.
       --num-slots 4 --prompt-len 128 --new-tokens 32 --tasks 4 \
       --adapter-dir DIR --bank-size 3 [--prune-to 18] [--share-w]
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 8 \
-      --num-slots 4 --prompt-len 128 --new-tokens 32 [--tasks 3]
+      --num-slots 4 --prompt-len 128 --new-tokens 32 [--tasks 3] \
+      [--quant int8]
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 8 \
+      --num-slots 4 --prompt-len 128 --new-tokens 32 --tasks 4 \
+      --adapter-dir DIR --bank-size 3 [--prune-to 16]
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
 
-An RWKV6 architecture serves one adapter or a static bank; --quant and
---adapter-dir over it arrive with a later slice.
+An RWKV6 architecture serves in every mode: its time and channel mixes
+match no projection of the quantization table, so --quant quantizes its
+untied LM head alone, as the JAX launcher does; its adapter is d_model wide
+and hot-swaps like an attention block's.
 """
 from __future__ import annotations
 
@@ -244,13 +250,6 @@ def main(argv=None):
 
     quant = args.quant or None
     cfg = build_config(args.arch, args.smoke)
-    if args.adapter_dir and M.has_recurrent_state(cfg):
-        # refused before the registry is written; --quant is refused by
-        # the engine
-        raise NotImplementedError(
-            f"{args.arch}: --adapter-dir (hot-swap) over an RWKV6 backbone "
-            "arrives with a later slice; serve it with one adapter or a "
-            "static bank (--tasks N)")
     if args.share_w and not args.adapter_dir:
         raise SystemExit("--share-w factorizes the hot-swap bank "
                          "(pass --adapter-dir)")

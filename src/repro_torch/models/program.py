@@ -161,14 +161,10 @@ def _rwkv_block(p: dict, cfg: ModelCfg, x: torch.Tensor, *,
     """Pre-LN RWKV6 block: time mix, adapter seam, channel mix, as
     `repro/models/program.py:156-198`. Returns (x, cache): the given cache
     written in place, or at prefill the fresh {"S", "tm_prev", "cm_prev"}."""
-    if gate is not None:
-        raise NotImplementedError(
-            "hot-swap adapter banks (row gates) over RWKV6 blocks arrive with "
-            "a later slice")
     ad = _adapter(p, cfg, task_ids)
     h = apply_norm(p["attn_norm"], cfg, x)
     a, tm = rwkv_time_mix(p["rwkv_tm"], cfg, h, cache, impl)
-    x, h = _residual_seam(p, cfg, x, a, ad, task_ids, None, impl)
+    x, h = _residual_seam(p, cfg, x, a, ad, task_ids, gate, impl)
     f, cm = rwkv_channel_mix(p["rwkv_cm"], cfg, h, cache)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)

@@ -12,7 +12,8 @@ per layer) every step passes the bank's device-resident row gates, and
 each block runs the masked multitask kernel instead. With `quant="int8"` or `"fp8"` either
 engine quantizes the frozen backbone's matmul weights once, at
 construction, and every projection of every step then streams 1-byte
-weights through the dequant-matmul kernel. Folding, the paged pool and
+weights through the dequant-matmul kernel (over an RWKV6 config only its
+untied LM head matches the quantization table). Folding, the paged pool and
 speculative decoding arrive with later slices.
 """
 from __future__ import annotations
@@ -81,10 +82,6 @@ class ServeEngine:
                 "slice")
         self.device = resolve_device(device)
         self.cfg = cfg
-        if quant and M.has_recurrent_state(cfg):
-            raise NotImplementedError(
-                "a quantized backbone of an RWKV6 config arrives with a later "
-                "slice: the time mix's projections do not go through qdense")
         if quant:
             params = quantize_tree(params, mode=quant)
         self.quant = quant

@@ -456,13 +456,10 @@ def publish(registry, by, w, tenant, name):
         registry.publish(name, launcher.task_delta(pv, w["pcfg"], m))
 
 
-@pytest.mark.parametrize("by,kind", [("jax", "mixed"), ("port", "shared")])
-def test_hot_swap_lifecycle_is_token_identical_to_jax(world, jax_zlib, by,
-                                                      kind):
-    """Each package serves the tenants the other (or it) published: a 3-row
-    bank over 4 tenants, the last published mid-stream, task0 removed at
-    the end; greedy tokens and bank counts equal JAX's."""
-    w = world
+def assert_lifecycle_matches_jax(w, by, kind):
+    """Each package serves the tenants `by` published over the backbone of
+    `w`: a 3-row bank over 4 tenants, the last published mid-stream, task0
+    removed at the end; greedy tokens and bank counts equal JAX's."""
     ts, jbase, pbase = tenants(w, kind)
     share = kind == "shared"
     rs = np.random.RandomState(9)
@@ -516,6 +513,15 @@ def test_hot_swap_lifecycle_is_token_identical_to_jax(world, jax_zlib, by,
     assert pst["evictions"] >= 1
     np.testing.assert_array_equal(peng.adapter_bank.gates(),
                                   jeng.adapter_bank.gates())
+
+
+@pytest.mark.parametrize("by,kind", [("jax", "mixed"), ("port", "shared")])
+def test_hot_swap_lifecycle_is_token_identical_to_jax(world, jax_zlib, by,
+                                                      kind):
+    """Each package serves the tenants the other (or it) published: a 3-row
+    bank over 4 tenants, the last published mid-stream, task0 removed at
+    the end; greedy tokens and bank counts equal JAX's."""
+    assert_lifecycle_matches_jax(world, by, kind)
 
 
 @pytest.mark.parametrize("kind", ["mixed", "shared"])

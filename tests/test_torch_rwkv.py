@@ -6,8 +6,14 @@ moved off the identity by `perturb_adapters`, so a missing adapter seam
 shows) and carried into the port by `convert.from_jax_params`. On the CPU
 `ops.wkv6` takes its plain version, `ref.wkv6_ref`; that is held to the
 Pallas kernel #8 in interpret mode, and every layer above it to JAX.
+The serving modes JAX offers over RWKV6 hold too: an int8 or fp8 backbone
+(the untied LM head is the one leaf JAX's table quantizes) and hot-swap
+tenants from a registry (pruned or shared-w, with runtime add, eviction
+and removal), token for token.
 """
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.checkpoint.store as jstore
 from repro.configs import get as jax_get
 from repro.configs import get_smoke as jax_get_smoke
 from repro.core import hadamard as jhad
@@ -23,12 +30,16 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import model as JM
 from repro.models import rwkv as jrwkv
+from repro.quant import qtensor as jq
 from repro.serving import MultiTaskEngine as JMultiTaskEngine
 from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JServeEngine
 from repro.serving import ServingConfig as JServingConfig
 from repro.serving import make_scheduler as jmake_scheduler
+from repro.serving.registry import AdapterBank as JAdapterBank
+from repro.serving.registry import AdapterRegistry as JAdapterRegistry
 from repro_torch import convert
+from repro_torch.common import tree as tu
 from repro_torch.configs import get, get_smoke
 from repro_torch.core import peft
 from repro_torch.kernels import ops, ref
@@ -36,10 +47,15 @@ from repro_torch.kernels import rwkv6 as krwkv6
 from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.models import rwkv
-from repro_torch.serving import (MultiTaskEngine, Request, ServeEngine,
+from repro_torch.quant import qtensor as tq
+from repro_torch.quant import quant_summary
+from repro_torch.serving import (AdapterBank, AdapterRegistry,
+                                 MultiTaskEngine, Request, ServeEngine,
                                  ServingConfig, make_scheduler)
 from repro_torch.serving.scheduler import Scheduler
 from test_torch_model import KEY, np_tree, port_cfg
+from test_torch_registry import (assert_lifecycle_matches_jax, publish,
+                                 tenants)
 
 ARCH = "rwkv6-1.6b"
 MAX_LEN = 32
@@ -389,23 +405,128 @@ def test_prefill_bucket_is_refused_for_recurrent_state():
                      MAX_LEN, last_pos=5)
 
 
-def test_hot_swap_gates_and_quant_over_rwkv_raise_naming_the_slice():
-    pcfg = port_cfg(jax_cfg())
-    params = M.init_params(torch.Generator().manual_seed(0), pcfg)
-    gates = torch.ones((pcfg.n_layers, 2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        M.prefill_lm(params, pcfg, torch.zeros((1, 4), dtype=torch.long),
-                     MAX_LEN, task_ids=torch.zeros(1, dtype=torch.int32),
-                     gates=gates)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServeEngine(pcfg, params, quant="int8", device="cpu")
+@pytest.fixture
+def jax_zlib(monkeypatch):
+    """JAX's store writes zlib, as it does where `zstandard` is absent."""
+    monkeypatch.setattr(jstore, "zstandard", None)
 
 
-@pytest.mark.parametrize("flags", [["--quant", "int8"],
-                                   ["--tasks", "2", "--adapter-dir", "x"]])
-def test_serve_launcher_refuses_quant_and_hot_swap_for_rwkv(flags):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
+def _quant_engines(mode):
+    jcfg = jax_cfg()
+    pcfg = port_cfg(jcfg)
+    params = jax_params(jcfg)
+    return (JServeEngine(jcfg, params, quant=mode),
+            ServeEngine(pcfg, convert.from_jax_params(np_tree(params), pcfg,
+                                                      "cpu"),
+                        quant=mode, device="cpu"), pcfg)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_rwkv_engine_logits_and_summary_match_jax(mode):
+    """JAX's quantization table matches no time- or channel-mix leaf: of an
+    RWKV6 tree it quantizes the untied LM head alone, and so does the port,
+    byte for byte; prefill and decode logits within 1e-4."""
+    jeng, peng, pcfg = _quant_engines(mode)
+    want = jq.quant_summary(jeng.params)
+    got = quant_summary(peng.params, lambda p: convert.jax_path(p, pcfg))
+    assert got == want and got["n_quantized_leaves"] == 1
+    assert [p for p, v in tu.flatten_with_paths(peng.params)
+            if tq.is_qtensor(v)] == ["lm_head/kernel"]
+    assert serve.quant_line(peng).startswith(f"{mode} backbone: 1 matmul "
+                                             "leaves")
+    rs = np.random.RandomState(7)
+    B, S = 2, 9
+    tokens = rs.randint(0, pcfg.vocab_size, (B, S))
+    want, jcaches = jeng.prefill(jnp.asarray(tokens), MAX_LEN)
+    got, caches = peng.prefill(tokens, MAX_LEN)
+    close(got.numpy(), want, 1e-4)
+    pos = np.array([S, S])
+    for step in range(3):
+        tok = rs.randint(0, pcfg.vocab_size, (B, 1))
+        want, jcaches = jeng.decode_step(jcaches, jnp.asarray(tok),
+                                         jnp.asarray(pos + step, jnp.int32))
+        got, caches = peng.decode_step(caches, tok, pos + step)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_rwkv_scheduler_greedy_tokens_match_jax(mode):
+    jeng, peng, pcfg = _quant_engines(mode)
+    traffic = _traffic(pcfg.vocab_size, 0)
+    jdone, _ = jmake_scheduler(jeng, JServingConfig(
+        num_slots=2, max_len=MAX_LEN, backbone_quant=mode)).run(
+        [JRequest(**r) for r in traffic])
+    pdone, report = make_scheduler(peng, ServingConfig(
+        num_slots=2, max_len=MAX_LEN, backbone_quant=mode)).run(
+        [Request(**r) for r in traffic])
+    assert report["requests"] == len(traffic)
+    for j, p, r in zip(jdone, pdone, traffic):
+        assert p.finish_reason == "length"
+        assert len(p.tokens) == r["max_new_tokens"]
+        np.testing.assert_array_equal(p.tokens, np.asarray(j.tokens))
+
+
+@pytest.fixture(scope="module")
+def rwkv_world():
+    """The rwkv6 smoke backbone (JAX and port copies) and 4 JAX task
+    variants with their port copies, in the shape the registry tests'
+    helpers take."""
+    jcfg = jax_cfg()
+    pcfg = port_cfg(jcfg)
+    jbase = JM.init_params(KEY, jcfg)
+    jvars = [jhad.perturb_adapters(jbase, jax.random.fold_in(KEY, t),
+                                   scale=0.2) for t in range(4)]
+    return dict(jcfg=jcfg, pcfg=pcfg, jbase=jbase,
+                pbase=convert.from_jax_params(np_tree(jbase), pcfg, "cpu"),
+                jvars=jvars,
+                pvars=[convert.from_jax_params(np_tree(v), pcfg, "cpu")
+                       for v in jvars])
+
+
+@pytest.mark.parametrize("by,kind", [("jax", "mixed"), ("port", "shared")])
+def test_rwkv_hot_swap_lifecycle_is_token_identical_to_jax(rwkv_world,
+                                                           jax_zlib, by,
+                                                           kind):
+    """Hot-swap over RWKV6 blocks, as JAX serves it: tenants pruned to the
+    top layer (or sharing one w) in a 3-row bank over 4 tenants, the last
+    published mid-stream, task0 removed at the end; greedy tokens, bank
+    counts and gates equal JAX's. The adapter rows are d_model wide."""
+    w = rwkv_world
+    assert tuple(w["pbase"]["layers"][0]["adapter"]["w"].shape) == (
+        w["pcfg"].d_model,)
+    assert_lifecycle_matches_jax(w, by, kind)
+
+
+def test_rwkv_hot_swap_logits_match_jax(rwkv_world, jax_zlib):
+    """A bank holding a pruned and a dense tenant over RWKV6 blocks: the
+    gated masked op at every seam, prefill and decode logits within 1e-4
+    of JAX's."""
+    w = rwkv_world
+    ts, jbase, pbase = tenants(w, "mixed")
+    with tempfile.TemporaryDirectory() as td:
+        jreg = JAdapterRegistry(td)
+        for t in (0, 1):
+            publish(jreg, "jax", w, ts[t], f"task{t}")
+        jbank = JAdapterBank(w["jcfg"], jbase, 3, jreg)
+        pbank = AdapterBank(w["pcfg"], pbase, 3, AdapterRegistry(td))
+        rows = [jbank.lookup(f"task{t}") for t in (0, 1)]
+        assert [pbank.lookup(f"task{t}") for t in (0, 1)] == rows
+    np.testing.assert_array_equal(pbank.gates(), jbank.gates())
+    jeng = JMultiTaskEngine(w["jcfg"], jbank)
+    peng = MultiTaskEngine(w["pcfg"], pbank, device="cpu")
+    toks = np.random.RandomState(4).randint(0, w["pcfg"].vocab_size, (2, 7))
+    jl, jc = jeng.prefill(toks, MAX_LEN, task_ids=rows)
+    pl, pc = peng.prefill(toks, MAX_LEN, task_ids=rows)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-4)
+    for i in range(2):
+        tok = np.array(jnp.argmax(jl[:, -1], -1))[:, None]
+        jl, jc = jeng.decode_step(jc, jnp.asarray(tok),
+                                  jnp.full((2,), 7 + i, jnp.int32),
+                                  task_ids=rows)
+        pl, pc = peng.decode_step(pc, tok, np.full((2,), 7 + i),
+                                  task_ids=rows)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -419,4 +540,32 @@ def test_serve_launcher_rwkv6_smoke_on_the_cpu(tasks, capsys):
                 "--tasks", str(tasks)])
     out = capsys.readouterr().out
     assert "served 8 requests / 64 tokens" in out and "cpu" in out
+    assert out.count("tok (length") == 8
+
+
+@pytest.mark.parametrize("flags", [["--quant", "int8"],
+                                   ["--quant", "fp8", "--tasks", "3"]])
+def test_serve_launcher_rwkv6_quant_on_the_cpu(flags, capsys):
+    serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
+    out = capsys.readouterr().out
+    mode = flags[1]
+    assert f"{mode} backbone: 1 matmul leaves" in out
+    assert "served 8 requests / 64 tokens" in out
+    assert out.count("tok (length") == 8
+
+
+@pytest.mark.parametrize("share_w", [False, True])
+def test_serve_launcher_rwkv6_hot_swap_on_the_cpu(share_w, capsys):
+    with tempfile.TemporaryDirectory() as td:
+        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--tasks",
+                    "4", "--adapter-dir", td, "--bank-size", "3",
+                    "--prune-to", "1"] + (["--share-w"] if share_w else []))
+        assert sorted(os.listdir(td)) == ["task1", "task2", "task3"]
+    out = capsys.readouterr().out
+    assert "pruned serving: top 1/2 layers active" in out
+    assert "++ runtime add: published 'task3'" in out
+    assert "-- runtime remove: 'task0' unpublished + row freed" in out
+    assert "adapter bank: 3/3 rows resident, 4 loads, 1 evictions" in out
+    assert ("(shared-w: one w row-set for all tenants)" in out) == share_w
+    assert "served 8 requests / 64 tokens" in out
     assert out.count("tok (length") == 8
