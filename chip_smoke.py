@@ -18,7 +18,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      kernel (#9)
      also over a shared-w bank and with gated-off rows that are not the
      identity; the WKV6 recurrence (#8) with its state in and out, at the
-     rwkv6-1.6b decode and prefill shapes and ragged ones;
+     rwkv6-1.6b decode and prefill shapes, ragged T and w with exact 0s
+     and 1s; #7 and #8 bit-identical across two runs of every case, #7
+     also timed at the rwkv6 head's decode shape, and the plan each timed
+     row ran (`split_plan`);
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -54,6 +57,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   6rs. 6s's lifecycle over rwkv6-1.6b (task0, task2 pruned to 16 of 24
      layers): 24 #9 and 24 #8 launches in every decode tick and prefill,
      no #3, #6 or attention kernel;
+  each serve phase also profiles a decode tick and a 128-token prefill,
+     and fails if #7 or #8 ran in either and no __global__ function of its
+     source shows device time;
   5r, 6r, 5rq. the traffic of 5 and 6 over rwkv6-1.6b in bf16, one
      adapter, a 3-task bank, and one adapter over an int8 trunk: 24 #8
      launches, and 24 #3 or #6, in every decode tick and prefill, no
@@ -144,7 +150,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.attention import FlashAttention, paged_split_plan
     from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
-    from repro_torch.kernels.quant import DequantMatmul
+    from repro_torch.kernels.quant import DequantMatmul, dequant_matmul_plan
+    from repro_torch.kernels.rwkv6 import wkv6_plan
     from repro_torch.kernels.sparse import MaskedMultitaskHadamard
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
@@ -178,10 +185,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     # the port's kernels by name, for the profiles (PyTorch's own kernels
-    # live in anonymous namespaces too)
-    port_kernels = set(re.findall(
+    # live in anonymous namespaces too), and by source: #7 and #8 launch one
+    # of several __global__ functions by plan
+    source_kernels = {p.name: set(re.findall(
         r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
-        "".join(p.read_text() for p in _build.sources())))
+        p.read_text())) for p in _build.sources()}
+    port_kernels = set().union(*source_kernels.values())
     log(f"[2] built {len(_build.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_done("1-2")
@@ -602,7 +611,10 @@ def main() -> int:
             out.append((qt.values, qt.scales))
         return out
 
-    dq_shapes = [(m, k, n) for k, n in QWEN_KN for m in (1, 4, 128)]
+    # the rwkv6-1.6b LM head's decode shapes, (1|4, 2048) @ (2048, 65536):
+    # a wide N that no qwen3 projection has (mma_stream with no K split)
+    dq_shapes = [(m, k, n) for k, n in QWEN_KN for m in (1, 4, 128)] \
+        + [(m, 2048, 65536) for m in (1, 4)]
     for dt in (torch.float32, bf):
         for vdt in VALUE_DTYPES:
             for m, k, n in dq_shapes + [(5, 77, 130)]:
@@ -611,6 +623,21 @@ def main() -> int:
                 compare("dequant_matmul", f"M={m} K={k} N={n} {vdt}", dt,
                         lambda: ops.dequant_matmul(x, v, sc, impl="kernel"),
                         lambda: ops.dequant_matmul(x, v, sc, impl="ref"))
+    # every sum in a fixed order, no atomics: two runs give the same bits,
+    # at the decode and prefill shapes of the served projections and the
+    # rwkv6 head's decode shape
+    dq_repeats = 0
+    for dt in (torch.float32, bf):
+        for vdt in VALUE_DTYPES:
+            for m, k, n in [(m, k, n) for k, n in QWEN_KN for m in (4, 128)] \
+                    + [(4, 2048, 65536)]:
+                x = randn(m, k, dtype=dt)
+                (v, sc), = quantized(k, n, vdt)
+                runs = [ops.dequant_matmul(x, v, sc, impl="kernel")
+                        for _ in range(2)]
+                check(torch.equal(*runs), f"dequant_matmul M={m} K={k} N={n} "
+                                          f"{vdt} {dt}: two runs differ")
+                dq_repeats += 1
 
     # #1 hadamard_affine and #2 its backward, hadamard_affine_bwd: the rows
     # of a bert-base train batch (32x128 tokens, d=768), and ragged shapes
@@ -804,46 +831,56 @@ def main() -> int:
     del xs, gxs, qkvs, xrs
 
     # #7 timed at wi's decode (M = 4 slots) and prefill (M = 128) shapes,
-    # bf16 activations and int8 weights as the quantized tick runs it. The
-    # weight copies rotate past the 50 MB L2, which one layer's 15.7 MB of
-    # int8 would otherwise sit in from one replay to the next, as it never
-    # does in a tick. The yardstick is torch.matmul of x with the same
-    # weight already dequantized to bf16: the unquantized path's projection,
-    # not a call that computes this function. The library call, where the
-    # installed torch has one, is its weight-only int8 matmul, which takes
-    # the weight transposed (N, K).
-    K, N = 1024, 3072
-    wq = quantized(K, N, torch.int8, copies=32)
-    wbf = [(v.float().mul(sc).to(bf),) for v, sc in wq[:16]]
-    int8pack = None
-    if hasattr(torch, "_weight_int8pack_mm"):
-        wt = [(v.t().contiguous(), sc.reshape(-1).to(bf)) for v, sc in wq[:16]]
-        try:
-            torch._weight_int8pack_mm(randn(4, K, dtype=bf), *wt[0])
-            int8pack = wt
-            library_note = ("torch._weight_int8pack_mm, weight (N, K) int8, "
-                            "bf16 scales")
-        except (RuntimeError, NotImplementedError) as e:
-            library_note = (f"none: torch._weight_int8pack_mm refused these "
-                            f"CUDA tensors in torch {torch.__version__} "
-                            f"({str(e).splitlines()[0][:160]})")
-    else:
-        library_note = (f"none: torch {torch.__version__} has no weight-only "
-                        "int8 matmul call")
-    log(f"[3] dequant_matmul library call: {library_note}")
-    for key, m in (("dequant_matmul", SERVE["num_slots"]),
-                   ("dequant_matmul@prefill", SERVE["prompt_len"])):
+    # bf16 activations and int8 weights as the quantized tick runs it, and
+    # at the rwkv6 head's decode shape (x (4, 2048) @ int8 (2048, 65536),
+    # 134 MB: the streaming rate). The weight copies rotate past the 50 MB
+    # L2, which one layer's 15.7 MB of int8 would otherwise sit in from one
+    # replay to the next, as it never does in a tick. The yardstick is
+    # torch.matmul of x with the same weight already dequantized to bf16:
+    # the unquantized path's projection, not a call that computes this
+    # function. The library call, where the installed torch has one, is its
+    # weight-only int8 matmul, which takes the weight transposed (N, K).
+    library_note = None
+    for key, m, K, N, copies in (
+            ("dequant_matmul", SERVE["num_slots"], 1024, 3072, 32),
+            ("dequant_matmul@prefill", SERVE["prompt_len"], 1024, 3072, 32),
+            ("dequant_matmul@head", SERVE["num_slots"], 2048, 65536, 2)):
+        wq = quantized(K, N, torch.int8, copies=copies)
+        wbf = [(v.float().mul(sc).to(bf),) for v, sc in wq[:max(2, copies // 2)]]
         x = randn(m, K, dtype=bf)
+        int8pack, note = None, None
+        if hasattr(torch, "_weight_int8pack_mm"):
+            wt = [(v.t().contiguous(), sc.reshape(-1).to(bf))
+                  for v, sc in wq[:max(2, copies // 2)]]
+            try:
+                torch._weight_int8pack_mm(x, *wt[0])
+                int8pack = wt
+                note = ("torch._weight_int8pack_mm, weight (N, K) int8, bf16 "
+                        "scales")
+            except (RuntimeError, NotImplementedError) as e:
+                note = (f"none: torch._weight_int8pack_mm refused these CUDA "
+                        f"tensors in torch {torch.__version__} "
+                        f"({str(e).splitlines()[0][:160]})")
+        else:
+            note = (f"none: torch {torch.__version__} has no weight-only int8 "
+                    "matmul call")
+        if library_note != note:
+            log(f"[3] dequant_matmul library call: {note}")
+            library_note = note
         if int8pack is not None:
             got = torch._weight_int8pack_mm(x, *int8pack[0])
             want = ops.dequant_matmul(x, *wq[0], impl="ref")
             log(f"[3] {key} library call max |diff| / max|ref| vs the plain "
                 f"version: {(got.float() - want.float()).abs().max().item() / want.float().abs().max().item():.3g}")
+        plan = dequant_matmul_plan(m, K, N, bf, torch.int8)
+        what = {"dequant_matmul": "wi of one layer, a 4-slot decode tick",
+                "dequant_matmul@prefill": "wi of one layer, a 128-token prefill",
+                "dequant_matmul@head": "the rwkv6-1.6b LM head, a 4-slot "
+                                       "decode tick"}[key]
         record(key, "dequant_matmul",
-               f"x ({m},{K}) bf16 @ int8 values ({K},{N}) (32 copies in "
-               f"turn), fp32 scales (1,{N}) (wi of one layer, "
-               f"{'a 4-slot decode tick' if m == 4 else 'a 128-token prefill'})",
-               bf,
+               f"x ({m},{K}) bf16 @ int8 values ({K},{N}) ({copies} copies in "
+               f"turn), fp32 scales (1,{N}) ({what}; {plan['kernel']}, "
+               f"{math.prod(plan['grid'])} blocks, cluster {plan['cluster']})", bf,
                rotating(wq, lambda v, sc: ops.dequant_matmul(
                    x, v, sc, impl="kernel")),
                rotating(wq, lambda v, sc: ops.dequant_matmul(
@@ -852,26 +889,36 @@ def main() -> int:
                    int8pack, lambda w, s_: torch._weight_int8pack_mm(x, w, s_)),
                # read x, values, scales; write y
                nbytes(x, *wq[0]) + m * N * 2, 2 * m * K * N,
-               yardstick_fn=rotating(wbf, lambda w: torch.matmul(x, w)))
-        results[key]["library_note"] = library_note
-    del wq, wbf, int8pack
+               yardstick_fn=rotating(wbf, lambda w: torch.matmul(x, w)),
+               iters=max(copies, 16), reps=10 if copies > 2 else 5)
+        results[key].update(library_note=note, split_plan=plan,
+                            bit_identical_repeats=dq_repeats)
+        del wq, wbf, int8pack
+        torch.cuda.empty_cache()
 
     # #8 the WKV6 recurrence: o and the final state against the plain
     # version, relative to their max |ref| (a T-step sum). The serve path's
     # shapes in its layout ((B, T, H, n) tensors seen as (B, H, T, n)):
     # a 4-slot decode tick from a random state, written in place as the
-    # decode cache is, and a 128-token prefill from zeros; then a ragged T
-    # and the smoke config's head size 16, contiguous
+    # decode cache is, and a 128-token prefill from zeros; then ragged T
+    # (not a multiple of the chunk), the smoke config's head size 16,
+    # contiguous, and w holding exact 0s and 1s (w = exp(-exp(x)) underflows
+    # to 0 and rounds to 1: a log-space chunked form would give NaN)
     RW = dict(H=32, n=64)  # rwkv6-1.6b: 32 heads of 64
 
-    def wkv_inputs(B, H, T, n, dt, layout="bthn", state=True):
+    def wkv_inputs(B, H, T, n, dt, layout="bthn", state=True, zeros=False):
         def mk(x):
             x = x if layout == "bhtn" else x.reshape(B, T, H, n).transpose(1, 2)
             return x.to(dt)
         rkv = [mk(randn(B, H, T, n) if layout == "bhtn" else randn(B, T, H, n))
                for _ in range(3)]
-        w = mk(torch.sigmoid(randn(B, H, T, n) if layout == "bhtn"
-                             else randn(B, T, H, n)))
+        w = torch.sigmoid(randn(B, H, T, n) if layout == "bhtn"
+                          else randn(B, T, H, n))
+        if zeros:  # exact 0s and 1s, in a band of i and at some steps
+            w[..., :5] = 0.0
+            w[..., 5:9] = 1.0
+            (w[:, :, 3::7] if layout == "bhtn" else w[:, 3::7]).zero_()
+        w = mk(w)
         u = randn(H, n, scale=0.1)
         s0 = randn(B, H, n, n, scale=0.3) if state else None
         return (*rkv, w, u, s0)
@@ -887,13 +934,28 @@ def main() -> int:
               dict(B=1, T=128, **RW),
               dict(B=2, H=3, T=33, n=64, layout="bhtn"),
               dict(B=2, H=4, T=33, n=16, layout="bhtn"),
-              dict(B=2, H=4, T=1, n=32, layout="bhtn")]
+              dict(B=2, H=4, T=1, n=32, layout="bhtn"),
+              dict(B=1, T=128, zeros=True, **RW),
+              dict(B=1, T=128, state=False, zeros=True, **RW),
+              dict(B=2, H=3, T=37, n=64, layout="bhtn", zeros=True),
+              dict(B=2, H=3, T=37, n=64, layout="bhtn", state=False,
+                   zeros=True),
+              dict(B=2, H=4, T=70, n=32, layout="bhtn", zeros=True),
+              dict(B=2, H=4, T=21, n=16, layout="bhtn", state=False,
+                   zeros=True)]
+    wkv_repeats = 0
     for dt in (torch.float32, bf):
         for c in wcases:
             ins = wkv_inputs(c["B"], c["H"], c["T"], c["n"], dt,
-                             c.get("layout", "bthn"), c.get("state", True))
+                             c.get("layout", "bthn"), c.get("state", True),
+                             c.get("zeros", False))
             compare("wkv6", str(c), dt, lambda: wkv_on_copy(ins, "kernel"),
                     lambda: wkv_on_copy(ins, "ref"))
+            # a fixed summation order and no atomics: the same bits twice
+            (o1, s1), (o2, s2) = (wkv_on_copy(ins, "kernel") for _ in range(2))
+            check(torch.equal(o1, o2) and torch.equal(s1, s2),
+                  f"wkv6 {c} {dt}: two runs differ")
+            wkv_repeats += 1
     # timed at the decode tick's and the prefill's shapes, fp32 as the time
     # mix passes them (r, k, v, w cast to fp32 before the recurrence). Each
     # timed call takes the next of `copies` input sets, together over twice
@@ -924,8 +986,10 @@ def main() -> int:
                # per step n^2 multiply-adds for o and n^2 for the state
                4 * B * RW["H"] * T * RW["n"] ** 2, iters=copies)
         del sets
-        results[key]["library_note"] = (
-            "none: no PyTorch call computes the recurrence")
+        results[key].update(
+            library_note="none: no PyTorch call computes the recurrence",
+            split_plan=wkv6_plan(B, RW["H"], T, RW["n"]),
+            bit_identical_repeats=wkv_repeats)
     torch.cuda.empty_cache()
     phase_done("3")
 
@@ -1251,6 +1315,26 @@ def main() -> int:
                 "top_device_us": [[k[:80], v] for k, v in top],
                 "port_kernel_us": port_us}
 
+    def check_profiled(phase, tick, per_tick):
+        """#7 and #8 run one of several kernels by plan: a tick that
+        launched either shows device time for the __global__ functions of
+        its source, summed over them, in the tick's profile."""
+        for name in ("dequant_matmul", "wkv6"):
+            if any(per_tick[name]):
+                found = source_kernels[name + ".cu"]
+                us = sum(tick["port_kernel_us"].get(k, 0.0) for k in found)
+                check(us > 0, f"phase {phase}: {name} launched "
+                              f"{per_tick[name]} a tick, but the tick's "
+                              f"profile shows no device time in "
+                              f"{sorted(found)}")
+
+    def profile_prefill(eng):
+        """profile_calls of one 128-token prefill into fresh caches, as the
+        scheduler admits a request (bank row 0)."""
+        prompt = np.full((1, SERVE["prompt_len"]), 11, np.int64)
+        return profile_calls(lambda: eng.prefill(
+            prompt, SERVE["max_len"], task_ids=np.asarray([0])), 3)
+
     def count_per_call(eng):
         """Record each engine prefill's and decode step's own launches in
         the run that follows: wraps the two methods on this instance and
@@ -1385,10 +1469,13 @@ def main() -> int:
         stids = [t % max(tasks, 1) for t in range(slots)]
         tick = profile_calls(
             lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        check_profiled(phase, tick, per_tick)
         del caches
+        pre = profile_prefill(eng)
+        check_profiled(phase, pre, per_prefill)
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick, **extra)
+                                    tick=tick, prefill=pre, **extra)
         kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
             (f", {quant} backbone" if quant else "")
         log(f"[{phase}] serve {kind} on {smi}: {serve_line(rep)}; "
@@ -1509,10 +1596,13 @@ def main() -> int:
         stids = (stids * slots)[:slots]
         tick = profile_calls(
             lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        check_profiled(phase, tick, per_tick)
         del caches
+        pre = profile_prefill(eng)
+        check_profiled(phase, pre, per_prefill)
         serve_reports[phase] = dict(
             rep, launches_per_decode_tick=per_tick,
-            launches_per_prefill=per_prefill, tick=tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre,
             bank=stats, bank_during_run=stats_run, bank_lines=lines,
             weights_bytes_allocated=weights_bytes,
             peak_bytes_allocated=peak_bytes)
@@ -1581,7 +1671,10 @@ def main() -> int:
         stids = [t % max(tasks, 1) for t in range(slots)]
         tick = profile_calls(
             lambda: eng.decode_step(caches, *args, task_ids=stids), 8)
+        check_profiled(phase, tick, per_tick)
         del caches
+        pre = profile_prefill(eng)
+        check_profiled(phase, pre, per_prefill)
         extra = {"weights_bytes_allocated": weights_bytes,
                  "peak_bytes_allocated": peak_bytes,
                  "state_bytes": state_bytes}
@@ -1605,7 +1698,7 @@ def main() -> int:
                          greedy_agreement_with_bf16_ungated=sum(same) / len(same))
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick, **extra)
+                                    tick=tick, prefill=pre, **extra)
         kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
             (f", {quant} backbone" if quant else "")
         log(f"[{phase}] serve {RWKV_ARCH} {kind} on {smi}: {serve_line(rep)}; "
@@ -1894,7 +1987,7 @@ def main() -> int:
         }
         if name in REL_TOL:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
-        for at in ("train", "prefill"):
+        for at in ("train", "prefill", "head"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(

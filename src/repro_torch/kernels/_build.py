@@ -51,10 +51,12 @@ SIGNATURES = {
                            _P),
     "rt_multitask_hadamard": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                               _P),
-    "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
+    "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P),
     "rt_masked_multitask_hadamard": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P,
                                      _P, _I, _I, _I, _I, _P),
-    "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _P),
+    "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _I,
+                _I, _I, _I, _P),
 }
 
 # kernel name -> launches since the last reset (see launch())

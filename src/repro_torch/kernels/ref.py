@@ -279,3 +279,52 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         outs.append(torch.einsum("bhi,bhij->bhj", rt, S + u32 * kv))
         S = wt[..., :, None] * S + kv
     return torch.stack(outs, dim=2).to(r.dtype), S
+
+
+def wkv6_chunked_ref(r, k, v, w, u, s0=None, L: int = 16):
+    """The recurrence of `wkv6_ref` in chunks of L steps, the form of the
+    chunked kernel in `csrc/wkv6.cu`; for tests and `chip_smoke.py`, never
+    on a served path. Per (b, h) and chunk from t0, with the state S_c at
+    t0, A_t = prod_{t0<=tau<t} w_tau and D[s,t] = prod_{s<tau<t} w_tau:
+
+      o_t     = (r_t * A_t) S_c + sum_{t0<=s<t} (sum_i r_t k_s D[s,t]) v_s
+                + (sum_i r_t u k_t) v_t
+      S_{c+1} = diag(A_{t0+L}) S_c + sum_s diag(D[s,t0+L]) k_s v_s^T
+
+    The decays are running products, never exp of differences of
+    cumulative logs: w underflows to exact zeros, where those would give
+    NaN. fp32; returns (o in r.dtype, the final fp32 state); s0 is not
+    written."""
+    B, H, T, n = r.shape
+    S = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else _f32(s0).clone())
+    r32, k32, v32, w32 = (_f32(x) for x in (r, k, v, w))
+    u32 = _f32(u)[None, :, None, :]
+    outs = []
+    for t0 in range(0, T, L):
+        rc, kc, vc, wc = (x[:, :, t0:t0 + L] for x in (r32, k32, v32, w32))
+        Lc = rc.shape[2]
+        # A[:, :, t] = prod of w over [t0, t0 + t): A[..., 0] = 1
+        A = [torch.ones_like(wc[:, :, 0])]
+        for t in range(Lc):
+            A.append(A[-1] * wc[:, :, t])
+        A = torch.stack(A, dim=2)  # (B, H, Lc + 1, n)
+        # D[:, :, s, t] = prod of w over (s, t), for s < t <= Lc
+        D = torch.zeros((B, H, Lc, Lc + 1, n), dtype=torch.float32,
+                        device=r.device)
+        for s in range(Lc):
+            d = torch.ones_like(wc[:, :, 0])
+            for t in range(s + 1, Lc + 1):
+                D[:, :, s, t] = d
+                if t < Lc:
+                    d = d * wc[:, :, t]
+        # P[t, s] = sum_i r_t k_s D[s, t] for s < t; the bonus on s == t
+        P = torch.einsum("bhti,bhsi,bhsti->bhts", rc, kc, D[:, :, :, :Lc])
+        P = torch.tril(P, diagonal=-1) + torch.diag_embed(
+            (rc * u32 * kc).sum(-1))
+        o = (torch.einsum("bhti,bhij->bhtj", rc * A[:, :, :Lc], S)
+             + torch.einsum("bhts,bhsj->bhtj", P, vc))
+        outs.append(o)
+        kd = kc * D[:, :, torch.arange(Lc), Lc]
+        S = A[:, :, Lc, :, None] * S + torch.einsum("bhsi,bhsj->bhij", kd, vc)
+    return torch.cat(outs, dim=2).to(r.dtype), S

@@ -7,6 +7,8 @@ interpret mode; `DequantMatmul`'s dx with `jax.vjp` of `dequant_matmul_tpu`;
 and `quantize_tree`, `quant_summary` and `convert` with their JAX
 counterparts on the qwen3 smoke tree. All inputs come from numpy seeds.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -192,6 +194,112 @@ def test_cpu_tensors_take_the_plain_dequant_matmul_without_a_launch():
         tops.dequant_matmul(x, values, scales, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         tquant.dequant_matmul(x, values, scales)
+
+
+# ---------------------------------------------------------------------------
+# #7 on the tensor cores: the widening is exact, and the plan
+# ---------------------------------------------------------------------------
+
+
+def test_every_int8_value_widens_to_bf16_exactly():
+    """The tensor-core kernels feed bf16 weights to mma.sync: every int8
+    value is exact in bf16, and the kernel's widening (the fp32 magic
+    number 0x4B000000 | (b ^ 0x80), less 2^23 + 128) gives it back."""
+    b = np.arange(256, dtype=np.uint32)
+    signed = b.astype(np.uint8).view(np.int8).astype(np.float32)
+    magic = ((b ^ 0x80) | 0x4B000000).view(np.float32) - np.float32(8388736.0)
+    np.testing.assert_array_equal(magic, signed)
+    values = torch.from_numpy(signed.astype(np.int8))
+    np.testing.assert_array_equal(
+        values.to(torch.bfloat16).to(torch.float32).numpy(), signed)
+
+
+def test_every_finite_e4m3_value_widens_to_bf16_exactly():
+    """Every finite e4m3 value survives e4m3 -> f16 (the kernel's
+    cvt.rn.f16x2.e4m3x2) -> fp32 -> bf16 unchanged."""
+    bits = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    f32 = bits.view(torch.float8_e4m3fn).to(torch.float32)
+    finite = torch.isfinite(f32)
+    assert int(finite.sum()) == 254  # all but the two NaN patterns
+    f32 = f32[finite]
+    via_f16 = f32.to(torch.float16).to(torch.float32)
+    assert torch.equal(via_f16, f32)
+    assert torch.equal(via_f16.to(torch.bfloat16).to(torch.float32), f32)
+
+
+# the served paths' (M, K, N): qwen3-0.6b's seven projections at a 4-slot
+# decode tick and a 128-token prefill (and M = 1), the rwkv6-1.6b head
+QWEN_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+           (3072, 1024)]
+SERVED = ([(m, k, n) for k, n in QWEN_KN for m in (1, 4, 128)]
+          + [(4, 2048, 65536), (128, 2048, 65536), (5, 77, 130)])
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mkn", SERVED)
+def test_dequant_matmul_plan_covers_every_output_once(mkn, x_dtype):
+    """The grid, cluster and K rows a part that the C entry point launches
+    as they are: every output tile once, and K parts that reach K."""
+    M, K, N = mkn
+    dt = getattr(torch, x_dtype)
+    plan = tquant.dequant_matmul_plan(M, K, N, dt, torch.int8)
+    tm, tn = plan["tile"]
+    gx, gy, gz = plan["grid"]
+    cluster, kpp = plan["cluster"], plan["k_per_part"]
+    # output tiles: every column and row once, no tile wholly outside
+    assert gx * tn >= N and (gx - 1) * tn < N
+    if plan["kernel"] in ("ffma_tiled", "mma_tiled"):
+        assert gy * tm >= M and (gy - 1) * tm < M
+        assert gz == cluster
+        k_parts = cluster
+    else:  # all M rows in each block, the cluster's ranks along y
+        assert tm == M and gy == cluster and gz == 1
+        k_parts = cluster * (tquant.STREAM_WARPS if plan["kernel"] == "mma_stream"
+                             else tquant.FFMA_WARPS)
+    # the K parts cover K, in whole MMA steps (16 rows) or K tiles
+    assert k_parts * kpp >= K
+    if plan["kernel"] == "mma_stream":
+        assert kpp % tquant.STREAM_K == 0
+    if plan["kernel"] == "mma_tiled":
+        assert kpp % tquant.TILE_K == 0
+    assert 1 <= cluster <= tquant.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("mkn", SERVED)
+def test_dequant_matmul_plan_keeps_fp32_off_the_tensor_cores(mkn):
+    M, K, N = mkn
+    for vdt in tquant.VALUE_DTYPES:
+        f32 = tquant.dequant_matmul_plan(M, K, N, torch.float32, vdt)
+        bf = tquant.dequant_matmul_plan(M, K, N, torch.bfloat16, vdt)
+        assert not f32["tensor_cores"] and f32["kernel"].startswith("ffma")
+        assert bf["tensor_cores"] and bf["kernel"].startswith("mma")
+        assert bf["kernel"] == ("mma_stream" if M <= tquant.MAX_SMALL_M
+                                else "mma_tiled")
+
+
+@pytest.mark.parametrize("mkn", SERVED)
+def test_dequant_matmul_plan_fills_the_card_where_the_shape_allows(mkn):
+    """bf16: the K split puts its target of blocks on the card (a full
+    wave of 132 for the tiled kernel; STREAM_BLOCKS for the decode one,
+    the fill that timed fastest), unless the cluster cap or K's depth
+    (a step a warp, two K tiles a rank) stops it first."""
+    M, K, N = mkn
+    plan = tquant.dequant_matmul_plan(M, K, N, torch.bfloat16, torch.int8)
+    blocks = math.prod(plan["grid"])
+    cdiv = lambda a, b: -(-a // b)
+    if plan["kernel"] == "mma_stream":
+        strips = cdiv(N, tquant.STRIP)
+        cap = max(1, min(tquant.MAX_CLUSTER,
+                         cdiv(K, tquant.STREAM_K) // tquant.STREAM_WARPS))
+        want = min(tquant.STREAM_BLOCKS, strips * cap)
+    else:
+        tm, tn = plan["tile"]
+        tiles = cdiv(M, tm) * cdiv(N, tn)
+        cap = max(1, min(tquant.MAX_CLUSTER, cdiv(K, tquant.TILE_K) // 2))
+        want = min(tquant.SMS, tiles * cap)
+    assert blocks >= want
+    if (M, K, N) in [(128, k, n) for k, n in QWEN_KN] + [(4, 2048, 65536)]:
+        assert blocks >= tquant.SMS
 
 
 # ---------------------------------------------------------------------------

@@ -128,6 +128,71 @@ def test_wkv6_ref_decay_property():
     close(got.numpy(), pallas, 1e-5)
 
 
+def wkv_zero_one_inputs(B, H, T, n, seed):
+    """wkv_inputs with exact 0s and 1s in w: a band of i held at 0, one at
+    1, and every step t = 3 mod 7 at 0 (w = exp(-exp(x)) underflows to 0
+    and rounds to 1; a log-space chunked form would give NaN)."""
+    r, k, v, w, u = wkv_inputs(B, H, T, n, seed)
+    w[..., :3] = 0.0
+    w[..., 3:6] = 1.0
+    w[:, :, 3::7] = 0.0
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("L", [16, 32])
+@pytest.mark.parametrize("T", [1, 7, 16, 33, 128])
+def test_wkv6_chunked_ref_matches_the_step_ref_and_pallas(T, L, state, n):
+    """The chunked form (the CUDA kernel's arithmetic for long T) against
+    the step-by-step plain version, and from a zero state against the
+    Pallas kernel in interpret mode; fp32, within 1e-5 of max |ref|."""
+    r, k, v, w, u = wkv_zero_one_inputs(1, 2, T, n, seed=T + L + n)
+    s0 = ((0.3 * np.random.RandomState(T).randn(1, 2, n, n)).astype(
+        np.float32) if state else None)
+    args = [t(a) for a in (r, k, v, w, u)]
+    s0_t = None if s0 is None else t(s0)
+    got, got_S = ref.wkv6_chunked_ref(*args, s0_t, L)
+    want, want_S = ref.wkv6_ref(*args, s0_t)
+    assert torch.isfinite(got).all() and torch.isfinite(got_S).all()
+    close(got.numpy(), want.numpy(), 1e-5)
+    close(got_S.numpy(), want_S.numpy(), 1e-5)
+    if s0 is not None:
+        assert torch.equal(s0_t, t(s0))  # s0 is not written
+    else:
+        pallas = jops.wkv6(*(jnp.asarray(a) for a in (r, k, v, w, u)),
+                           impl="interpret", chunk=L)
+        close(got.numpy(), pallas, 1e-5)
+
+
+# the served paths' (B, H, T, n): rwkv6-1.6b (32 heads of 64) at a 4- and
+# 8-slot decode tick, prefills on both sides of the chunked threshold, of
+# 128 tokens and longer; the smoke config's heads of 16 and 32
+SERVED_WKV = [(4, 32, 1, 64), (1, 32, 128, 64), (1, 32, 512, 64),
+              (2, 4, 33, 16), (4, 4, 1, 16), (2, 4, 7, 32), (8, 32, 1, 64),
+              (1, 32, 15, 64), (1, 32, 16, 64), (1, 32, 2048, 64),
+              (2, 4, 128, 16), (1, 4, 16, 32)]
+
+
+@pytest.mark.parametrize("bhtn", SERVED_WKV)
+def test_wkv6_plan_covers_every_head_and_column_once(bhtn):
+    """The kernel, chunk, column group and blocks that the C entry point
+    launches as they are: one block for every (b, h) and group of value
+    columns."""
+    B, H, T, n = bhtn
+    plan = krwkv6.wkv6_plan(B, H, T, n)
+    J = plan["col_group"]
+    assert n % J == 0 and plan["blocks"] == B * H * (n // J)
+    if T < krwkv6.CHUNKED_MIN_T:  # decode: the step kernel, a column a thread
+        assert plan["kernel"] == "step" and J == n and plan["chunk"] == 0
+        return
+    # the carry runs once a chunk, not once a step
+    assert plan["kernel"] == "chunked" and plan["chunk"] == krwkv6.CHUNK
+    assert -(-T // plan["chunk"]) < T
+    if (B, H, T, n) == (1, 32, 128, 64):  # 4 column groups a head: 128
+        assert plan["blocks"] == 128 and J == 16
+
+
 # ---------------------------------------------------------------------------
 # (b) the state in and out
 # ---------------------------------------------------------------------------
