@@ -5,7 +5,9 @@
 
 Phases (any failed check exits non-zero; no phase catches its own failure):
   1. the card and its settings (TF32 off for fp32 matmuls);
-  2. build every CUDA kernel from the sources in this checkout;
+  2. build every CUDA kernel from the sources in this checkout, and report
+     each source's registers and spill bytes from ptxas (#3 and #9, which
+     hold rows in registers, must spill nothing);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serve and train paths give it, in fp32 and bf16 (the
      dequant matmul also with int8 and fp8 weights), with its time, the
@@ -19,9 +21,18 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      also over a shared-w bank and with gated-off rows that are not the
      identity; the WKV6 recurrence (#8) with its state in and out, at the
      rwkv6-1.6b decode and prefill shapes, ragged T and w with exact 0s
-     and 1s; #7 and #8 bit-identical across two runs of every case, #7
-     also timed at the rwkv6 head's decode shape, and the plan each timed
-     row ran (`split_plan`);
+     and 1s; #3 and #9 at the edges of their plans (one warp or two a row,
+     a short last block, widths past a row in registers, ragged widths,
+     pointers off the 16-byte grid, fp32/bf16 parameter mixes, ids out of
+     range); #3, #7, #8 and #9 bit-identical across two runs of every
+     case, #7 also timed at the rwkv6 head's decode shape, #3 at the serve
+     shape L2-cold and L2-warm, at rwkv6's seam and under the other plan of
+     4 rows, beside F.rms_norm/F.layer_norm of x alone, and the plan each
+     timed row ran (`split_plan`); first the launch floor, an in-place add
+     on a one-element tensor, which every row of the kernels line carries
+     (`floor_ms`), and for #3 and #9 a torch.profiler trace of a timed
+     graph's replay (each kernel's span, and start to start) beside the
+     floor's;
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -75,7 +86,8 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs
-     and 8);
+     and 8, and each kernel's device us per decode tick and per prefill
+     from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
 
@@ -84,6 +96,7 @@ The GPUs other than the first are hidden from it: it drives one card.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -147,12 +160,14 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, hadamard, ops, ref
     from repro_torch.kernels.attention import FlashAttention, paged_split_plan
-    from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
+    from repro_torch.kernels._build import aligned16
+    from repro_torch.kernels.hadamard import (MAX_D, FusedAdapterResidualNorm,
+                                              fused_norm_plan)
     from repro_torch.kernels.quant import DequantMatmul, dequant_matmul_plan
     from repro_torch.kernels.rwkv6 import wkv6_plan
-    from repro_torch.kernels.sparse import MaskedMultitaskHadamard
+    from repro_torch.kernels.sparse import MaskedMultitaskHadamard, masked_plan
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
     from repro_torch.quant import quant_summary
@@ -193,12 +208,46 @@ def main() -> int:
     port_kernels = set().union(*source_kernels.values())
     log(f"[2] built {len(_build.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    # each source's kernel instances, their most registers and their spill
+    # bytes, from ptxas's report (nvcc -Xptxas -v) kept beside the library
+    ptxas = {}
+    for src in _build.sources():
+        if src.suffix == ".cu":
+            text = (_build.build_dir() / (src.stem + ".log")).read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                text)
+            ptxas[src.name] = dict(instances=len(regs),
+                                   max_registers=max(regs, default=0),
+                                   spill_bytes=sum(int(a) + int(b)
+                                                   for a, b in spills))
+    for src in ("fused_adapter_norm.cu", "masked_multitask_hadamard.cu"):
+        check(ptxas[src]["instances"] > 0 and ptxas[src]["spill_bytes"] == 0,
+              f"{src}: ptxas {ptxas[src]}, want instances and no spill bytes")
+    log(f"[2] ptxas per source: {ptxas}")
     phase_done("1-2")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def graph_of(fn, iters):
+        """A CUDA graph of `iters` calls of fn, captured after warm-up calls
+        on a side stream, replayed once."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return graph
 
     def time_ms(fn, iters=20, reps=10):
         """(device ms per call, host ms per call). The device time comes
@@ -216,18 +265,7 @@ def main() -> int:
         end.record()
         end.synchronize()
         eager = start.elapsed_time(end) / (iters * reps)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
+        graph = graph_of(fn, iters)
         start.record()
         for _ in range(reps):
             graph.replay()
@@ -348,30 +386,160 @@ def main() -> int:
 
     # -- phase 3: each kernel against its plain version ---------------------
     d = 1024
-    bf = torch.bfloat16
-    # #3 fused adapter-residual-norm: rows x 1024, both norm forms
-    for dt in (torch.float32, bf):
-        for rows, width in ((4, d), (128, d), (1000, d), (7, 4000)):
-            x, res = randn(rows, width, dtype=dt), randn(rows, width, dtype=dt)
-            w, b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
-            scale, bias = randn(width, dtype=dt), randn(width, dtype=dt)
-            for bi in (None, bias):
-                kw = dict(bias=bi, eps=1e-6)
-                compare("fused_adapter_norm",
-                        f"rows={rows} d={width} ln={bi is not None}",
-                        dt,
+    bf, f32 = torch.bfloat16, torch.float32
+    # the launch floor: the smallest PyTorch kernel, an in-place add on a
+    # one-element tensor, in the same harness. A kernel whose bytes take
+    # nanoseconds is judged against it, not against its byte bound
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1.0))[0]
+
+    def trace_graph(fn, iters):
+        """Where a timed call's time goes: torch.profiler over one replay of
+        a CUDA graph of `iters` calls of fn, one kernel each: their mean
+        device span and the mean time from one's start to the next's, in
+        us. The profiler adds to both: compare with the floor's, traced
+        alike."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        graph = graph_of(fn, iters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        # the profiler may drop an event of thousands; the means are over
+        # the kernels it saw
+        check(0.9 * iters <= len(spans) <= iters, f"trace: {len(spans)} "
+              f"kernels in the replay of a graph of {iters} calls")
+        return dict(kernel_span_us=sum(e - s for s, e in spans) / len(spans),
+                    start_to_start_us=(spans[-1][0] - spans[0][0])
+                    / (len(spans) - 1), kernels_seen=len(spans))
+
+    floor_trace = trace_graph(lambda: one.add_(1.0), 200)
+    log(f"[3] launch floor: {floor_ms:.5f} device ms per call (an in-place "
+        f"add on a one-element tensor; traced: a {floor_trace['kernel_span_us']:.3f} "
+        f"us span, {floor_trace['start_to_start_us']:.3f} us start to start) "
+        f"on {smi}")
+
+    def offset_view(*shape, dtype):
+        """A contiguous tensor whose data starts one element past an
+        allocation: no 16-byte access lines up with it."""
+        return randn(math.prod(shape) + 1, dtype=dtype)[1:].view(*shape)
+
+    # #3 fused adapter-residual-norm against its plain version at the
+    # edges of `fused_norm_plan`: warp_row on 1 warp a row (768, 1024) and
+    # on 2 (2048), one row and a row count that is not a multiple of the
+    # rows a block takes (4099 at 4 a block); split_row at widths over
+    # 4096 (up to MAX_D) and at a ragged one (4000: no whole 16-byte
+    # vectors a lane); x and res one element off the 16-byte grid (vec =
+    # 1); w, b, scale and bias in fp32/bf16 mixes; RMSNorm (eps 1e-6),
+    # rwkv6's LayerNorm (1e-5) and bert's (1e-12). Two calls on the same
+    # inputs give the same bytes
+    fan_cases = [dict(rows=r, d=wd) for r, wd in (
+        (4, d), (128, d), (1000, d), (7, 4000), (1, 768), (4099, 768),
+        (13, 2048), (1, 2048), (3, 5000), (2, MAX_D))]
+    fan_cases += [dict(rows=5, d=wd, mix=mix) for wd in (768, d, 2048)
+                  for mix in ((bf, f32, f32, bf), (f32, bf, bf, f32))]
+    fan_cases += [dict(rows=4, d=wd, offset=True) for wd in (d, 2048)]
+    fan_plans, fan_repeats = set(), 0
+    for dt in (f32, bf):
+        for c in fan_cases:
+            rows, width = c["rows"], c["d"]
+            mk = functools.partial(offset_view if c.get("offset") else randn,
+                                   rows, width, dtype=dt)
+            x, res = mk(), mk()
+            wdt, bdt, sdt, cdt = c.get("mix", (f32, f32, dt, dt))
+            w = (1 + randn(width, scale=0.1)).to(wdt)
+            b = randn(width, scale=0.1).to(bdt)
+            scale, bias = randn(width, dtype=sdt), randn(width, dtype=cdt)
+            plan = fused_norm_plan(rows, width, dt, aligned16(x, res, w, b,
+                                                              scale, bias))
+            fan_plans.add((plan["kernel"], plan["vec"] > 1,
+                           plan["warps_per_row"] if plan["kernel"] == "warp_row"
+                           else None, rows % plan["rows_per_block"] != 0))
+            extra = {k: v for k, v in c.items() if k not in ("rows", "d")}
+            for bi, eps in ((None, 1e-6), (bias, 1e-5), (bias, 1e-12)):
+                kw = dict(bias=bi, eps=eps)
+                case = (f"rows={rows} d={width} ln={bi is not None} eps={eps} "
+                        f"{extra} plan={plan}")
+                compare("fused_adapter_norm", case, dt,
                         lambda: ops.fused_adapter_norm(x, res, w, b, scale,
                                                        impl="kernel", **kw),
                         lambda: ops.fused_adapter_norm(x, res, w, b, scale,
                                                        impl="ref", **kw))
-    x, res = randn(4, 1, d, dtype=bf), randn(4, 1, d, dtype=bf)
-    w, b, scale = 1 + randn(d, scale=0.1), randn(d, scale=0.1), randn(d, dtype=bf)
-    record("fused_adapter_norm", "fused_adapter_norm",
-           "x,res (4,1,1024) bf16, fp32 w/b, RMSNorm (one layer of a 4-slot "
-           "decode tick)", bf,
-           lambda: ops.fused_adapter_norm(x, res, w, b, scale, impl="kernel"),
-           lambda: ops.fused_adapter_norm(x, res, w, b, scale, impl="ref"),
-           None, nbytes(x, res, w, b, scale) + 2 * nbytes(x), 8 * x.numel())
+                (xn1, h1), (xn2, h2) = (ops.fused_adapter_norm(
+                    x, res, w, b, scale, impl="kernel", **kw) for _ in range(2))
+                check(torch.equal(xn1, xn2) and torch.equal(h1, h2),
+                      f"fused_adapter_norm {case} {dt}: two runs differ")
+                fan_repeats += 1
+    for want in (("warp_row", True, 1, False), ("warp_row", True, 2, False),
+                 ("warp_row", True, 1, True), ("split_row", True, None, False),
+                 ("split_row", False, None, False)):
+        check(want in fan_plans, f"fused_adapter_norm: no case ran the plan "
+                                 f"{want} (kernel, vec > 1, warps a row, a "
+                                 f"last block short of rows); ran {fan_plans}")
+    # timed L2-cold at the serve shape (4, 1, 1024) bf16, fp32 w/b, RMSNorm,
+    # and at rwkv6's seam (4, 1, 2048) bf16, LayerNorm with bf16 scale and
+    # bias: each call of the timed graph takes its own copy of x and res,
+    # the copies together twice the 50 MB L2. Beside them: the serve shape
+    # L2-warm (one copy, as PRs 11-17 timed it), the other plan of 4 rows
+    # (one block for all of them, where the plan gives each row its own),
+    # and the yardstick, F.rms_norm or F.layer_norm of x alone: a norm that
+    # reads one tensor and writes one, less work than #3, not a twin
+    fan_note = ("none: rms_norm/layer_norm take no adapter affine or residual; "
+                "the yardstick is F.rms_norm (serve) or F.layer_norm (rwkv "
+                "seam, train) of x alone, which reads one tensor and writes one")
+    for key, width, ln, eps in (("fused_adapter_norm", d, False, 1e-6),
+                                ("fused_adapter_norm@rwkv", 2048, True, 1e-5)):
+        rows = SERVE["num_slots"]
+        xrs = [(randn(rows, 1, width, dtype=bf), randn(rows, 1, width, dtype=bf))
+               for _ in range(-(-100 * 2**20 // (2 * rows * width * 2)))]
+        w, b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+        scale = randn(width, dtype=bf)
+        bias = randn(width, dtype=bf) if ln else None
+        x = xrs[0][0]
+        plan = fused_norm_plan(rows, width, bf)
+        one_block = dict(plan, rows_per_block=rows, blocks=1)
+
+        def fan(x_, res_, impl="kernel", plan=None):
+            if plan is not None:
+                return hadamard.fused_adapter_residual_norm(
+                    x_, res_, w, b, scale, bias=bias, eps=eps, plan=plan)
+            return ops.fused_adapter_norm(x_, res_, w, b, scale, bias=bias,
+                                          eps=eps, impl=impl)
+
+        def yard(x_, res_):
+            if ln:
+                return F.layer_norm(x_, (width,), scale, bias, eps)
+            return F.rms_norm(x_, (width,), scale, eps)
+
+        record(key, "fused_adapter_norm",
+               f"x,res ({rows},1,{width}) bf16 ({len(xrs)} copies in turn), "
+               f"fp32 w/b, bf16 scale{'/bias, LayerNorm' if ln else ', RMSNorm'}"
+               f" (one layer of a 4-slot {'rwkv6 ' if ln else ''}decode tick; "
+               f"{plan['kernel']}, {plan['warps_per_row']} warp(s) a row, "
+               f"{plan['blocks']} blocks)", bf,
+               rotating(xrs, fan), rotating(xrs, functools.partial(fan, impl="ref")),
+               None, nbytes(x, x, w, b, scale, bias) + 2 * nbytes(x),
+               8 * x.numel(), yardstick_fn=rotating(xrs, yard),
+               iters=len(xrs), reps=2)
+        x_, res_ = xrs[0]
+        results[key].update(
+            trace=trace_graph(rotating(xrs, fan), len(xrs)),
+            ms_l2_warm=time_ms(lambda: fan(x_, res_))[0],
+            alt_plan=dict(plan=one_block,
+                          ms=time_ms(rotating(xrs, functools.partial(
+                              fan, plan=one_block)), len(xrs), 2)[0],
+                          ms_l2_warm=time_ms(lambda: fan(x_, res_,
+                                                         plan=one_block))[0]),
+            library_note=fan_note, split_plan=plan,
+            bit_identical_repeats=fan_repeats)
+        log(f"[3] {key}: L2-warm {results[key]['ms_l2_warm']:.5f} ms; one "
+            f"block for the {rows} rows {results[key]['alt_plan']['ms']:.5f} "
+            f"L2-cold, {results[key]['alt_plan']['ms_l2_warm']:.5f} L2-warm; "
+            f"floor {floor_ms:.5f}; traced L2-cold {results[key]['trace']}")
+        del xrs
 
     # #4 flash attention: (1,16,S,128) q over (1,8,S,128) k/v
     # the serve shapes, then the other masks, head dims and group sizes
@@ -545,22 +713,43 @@ def main() -> int:
     def ids_of(*rows):
         return torch.tensor(rows, dtype=torch.int32, device=dev)
 
+    # at the edges of `masked_plan` too: ids out of range (clamped into each
+    # row count), rwkv6's width, a width with no whole 16-byte vectors (999)
+    # and x one element off the 16-byte grid (both vec = 1). Two calls on
+    # the same inputs give the same bytes
     mcases = [dict(S=1, d=d, w_rows=TASKS, ids=(0, 2, 1, 2)),
               dict(S=128, d=d, w_rows=TASKS, ids=(1,)),
               dict(S=128, d=d, w_rows=TASKS, ids=(0, 1)),
               dict(S=1, d=d, w_rows=1, ids=(0, 2, 1, 2)),
-              dict(S=5, d=1000, w_rows=TASKS, ids=(2, 1, 0, 1))]
+              dict(S=5, d=1000, w_rows=TASKS, ids=(2, 1, 0, 1)),
+              dict(S=1, d=d, w_rows=TASKS, ids=(-1, 2, 7, 1)),
+              dict(S=3, d=d, w_rows=1, ids=(5, -3)),
+              dict(S=1, d=2048, w_rows=TASKS, ids=(0, 2, 1, 2)),
+              dict(S=3, d=999, w_rows=TASKS, ids=(2, 0, 1)),
+              dict(S=2, d=d, w_rows=TASKS, ids=(1, 2), offset=True)]
+    mm_vecs, mm_repeats = set(), 0
     for dt in (torch.float32, bf):
         for c in mcases:
-            x = randn(len(c["ids"]), c["S"], c["d"], dtype=dt)
+            shape = (len(c["ids"]), c["S"], c["d"])
+            x = (offset_view if c.get("offset") else randn)(*shape, dtype=dt)
             wb = 1 + randn(c["w_rows"], c["d"], scale=0.5)
             bb = randn(TASKS, c["d"], scale=0.5)
             ids = ids_of(*c["ids"])
-            compare("masked_multitask_hadamard", str(c), dt,
+            plan = masked_plan(*shape, dt, aligned16(x, wb, bb))
+            mm_vecs.add(plan["vec"] > 1)
+            compare("masked_multitask_hadamard", f"{c} plan={plan}", dt,
                     lambda: ops.masked_multitask_hadamard(
                         x, wb, bb, gate3, ids, impl="kernel"),
                     lambda: ops.masked_multitask_hadamard(
                         x, wb, bb, gate3, ids, impl="ref"))
+            runs = [ops.masked_multitask_hadamard(x, wb, bb, gate3, ids,
+                                                  impl="kernel")
+                    for _ in range(2)]
+            check(torch.equal(*runs), f"masked_multitask_hadamard {c} {dt}: "
+                                      "two runs differ")
+            mm_repeats += 1
+    check(mm_vecs == {True, False}, f"masked_multitask_hadamard: the cases "
+                                    f"ran vec > 1: {mm_vecs}, want both")
     # timed L2-cold, bf16 activations and fp32 rows as the bf16 engine runs
     # it: every call of the timed CUDA graph takes its own copy of x and of
     # the bank, the copies together twice the 50 MB L2
@@ -587,9 +776,15 @@ def main() -> int:
                # x, y, ids, the gates and the (w, b) rows the ids name
                2 * nbytes(x) + nbytes(ids) + TASKS * 4 + n_rows * 2 * d * 4,
                5 * x.numel(), iters=len(copies), reps=2)
-        results[key]["library_note"] = (
-            "none: the per-row bank gather, the gate and the affine are "
-            "separate calls")
+        results[key].update(
+            library_note="none: the per-row bank gather, the gate and the "
+                         "affine are separate calls",
+            split_plan=masked_plan(B, S, d, bf),
+            bit_identical_repeats=mm_repeats,
+            trace=trace_graph(rotating(
+                copies, lambda x_, w_, b_: ops.masked_multitask_hadamard(
+                    x_, w_, b_, gate3, ids, impl="kernel")), len(copies)))
+        log(f"[3] {key}: traced L2-cold {results[key]['trace']}")
         del copies
 
     # #7 dequant matmul: every (K, N) of a qwen3-0.6b layer's projections
@@ -642,7 +837,6 @@ def main() -> int:
     # #1 hadamard_affine and #2 its backward, hadamard_affine_bwd: the rows
     # of a bert-base train batch (32x128 tokens, d=768), and ragged shapes
     d_tr, n_tr = 768, B_tr * S_tr
-    f32 = torch.float32
     for dt in (f32, bf):
         for rows, width in ((n_tr, d_tr), (1000, d_tr), (7, 4000)):
             x, g = randn(rows, width, dtype=dt), randn(rows, width, dtype=dt)
@@ -819,15 +1013,25 @@ def main() -> int:
     xrs = [(randn(B_tr, S_tr, d_tr), randn(B_tr, S_tr, d_tr))
            for _ in range(4)]
     scale, bias = randn(d_tr), randn(d_tr)
+    plan = fused_norm_plan(n_tr, d_tr, f32)
     record("fused_adapter_norm@train", "fused_adapter_norm",
            f"x, res ({B_tr},{S_tr},{d_tr}) fp32 (4 copies in turn), "
-           "LayerNorm (one layer of a bert-base forward, hadamard)", f32,
+           "LayerNorm (one layer of a bert-base forward, hadamard; "
+           f"{plan['kernel']}, {plan['rows_per_block']} rows a block)", f32,
            rotating(xrs, lambda x, res: ops.fused_adapter_norm(
                x, res, w, b, scale, bias=bias, eps=1e-12, impl="kernel")),
            rotating(xrs, lambda x, res: ops.fused_adapter_norm(
                x, res, w, b, scale, bias=bias, eps=1e-12, impl="ref")),
            None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale, bias),
-           8 * xrs[0][0].numel())
+           8 * xrs[0][0].numel(),
+           yardstick_fn=rotating(xrs, lambda x, res: F.layer_norm(
+               x, (d_tr,), scale, bias, 1e-12)))
+    results["fused_adapter_norm@train"].update(
+        library_note=fan_note, split_plan=plan,
+        bit_identical_repeats=fan_repeats,
+        trace=trace_graph(rotating(xrs, lambda x, res: ops.fused_adapter_norm(
+            x, res, w, b, scale, bias=bias, eps=1e-12, impl="kernel")), 20))
+    log(f"[3] fused_adapter_norm@train: traced {results['fused_adapter_norm@train']['trace']}")
     del xs, gxs, qkvs, xrs
 
     # #7 timed at wi's decode (M = 4 slots) and prefill (M = 128) shapes,
@@ -1955,12 +2159,15 @@ def main() -> int:
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
-                   "split_plan", "bit_identical_repeats")
+                   "split_plan", "bit_identical_repeats", "ms_l2_warm",
+                   "alt_plan", "trace")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "floor_ms": floor_ms, "floor_trace": floor_trace,
+            "ptxas": ptxas[Path(src).name],
             # every check failure has already exited; these all passed
             "check": "pass",
             "launches": sum(counts[name] for counts in by_phase.values()),
@@ -1979,6 +2186,14 @@ def main() -> int:
             "launches_per_eval_batch": {
                 s: sorted({c[name] for c in calls})
                 for s, calls in eval_calls.items()},
+            # from the serve runs' profiles, summed over the source's
+            # __global__ functions
+            **{f"device_us_per_{call}": {
+                serve_name[p]: sum(rep[key]["port_kernel_us"].get(k, 0.0)
+                                   for k in source_kernels[Path(src).name])
+                for p, rep in serve_reports.items()}
+               for call, key in (("decode_tick", "tick"),
+                                 ("prefill", "prefill"))},
             "max_abs_err": max(checks[name]["errs"]), "tol_fp32": TOL[name],
             "max_rel_err_bf16": max(checks[name]["rels"]),
             "tol_bf16_rel": BF16_TOL,
@@ -1987,7 +2202,7 @@ def main() -> int:
         }
         if name in REL_TOL:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
-        for at in ("train", "prefill", "head"):
+        for at in ("train", "prefill", "head", "rwkv"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(

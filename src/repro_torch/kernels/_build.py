@@ -6,7 +6,9 @@ source with nvcc for sm_90a (one nvcc per source, all started together),
 links one shared library into `build/repro_torch/<hash>/` at the root of
 the checkout, keyed by a hash of the sources and flags, and loads it with
 ctypes. Nothing is compiled when the package is imported, and the CPU path
-never builds. A failed build raises with nvcc's output.
+never builds. A failed build raises with nvcc's output; a build that
+succeeds keeps each source's output (ptxas's registers and spills of every
+kernel instance) beside the library, in `<source stem>.log`.
 
 `launch(name, ...)` is the only place a kernel is started: it makes the C
 call, raises on a CUDA error, and adds one to that kernel's launch count.
@@ -28,12 +30,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 # dtype codes of csrc/common.cuh (rt::Dtype)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3}
+SMS = 132  # the H100's streaming multiprocessors, which the plans fill
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_long)  # a host array of strides
@@ -43,7 +46,7 @@ SIGNATURES = {
                                _P),
     "rt_hadamard_affine_chunk_rows": (),
     "rt_fused_adapter_norm": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
-                              _I, _I, _F, _I, _P),
+                              _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
                            _F, _I, _I, _I, _P),
     "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -54,7 +57,7 @@ SIGNATURES = {
     "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P),
     "rt_masked_multitask_hadamard": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P,
-                                     _P, _I, _I, _I, _I, _P),
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _I,
                 _I, _I, _I, _P),
 }
@@ -111,10 +114,11 @@ def _compile(out: Path) -> None:
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failures = []
-        for cmd, _, proc in procs:
+        for cmd, obj, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failures.append(f"$ {' '.join(cmd)}\n{log.decode(errors='replace')}")
+            (out.parent / (obj.stem + ".log")).write_bytes(log)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         tmp_lib = Path(tmp) / LIB_NAME
@@ -128,6 +132,12 @@ def _compile(out: Path) -> None:
         os.replace(tmp_lib, out)  # atomic: a concurrent loader sees all or none
 
 
+def build_dir() -> Path:
+    """Where the library of the checkout's sources is built, with each
+    source's nvcc output."""
+    return BUILD_ROOT / _source_hash()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from the checkout's sources on
     first use."""
@@ -135,7 +145,7 @@ def library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        out = BUILD_ROOT / _source_hash() / LIB_NAME
+        out = build_dir() / LIB_NAME
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
             _compile(out)
@@ -188,6 +198,17 @@ def check_inputs(name: str, *tensors: Optional[torch.Tensor],
             raise ValueError(f"{name}: the kernel takes contiguous tensors "
                              f"(got shape {tuple(t.shape)}, strides "
                              f"{t.stride()})")
+
+
+def full_vec(dtype) -> int:
+    """Elements of `dtype` in one 16-byte access: 8 bf16, 4 fp32."""
+    return 16 // dtype.itemsize
+
+
+def aligned16(*tensors: Optional[torch.Tensor]) -> bool:
+    """Does every given tensor's data start on a 16-byte boundary (so
+    that a kernel may load it 16 bytes at a time)?"""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
 def check_dtype(name: str, what: str, t: torch.Tensor, allowed) -> int:

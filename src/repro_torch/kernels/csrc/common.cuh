@@ -37,6 +37,88 @@ __device__ __forceinline__ float load_vec(const void* p, int is_bf16, long i) {
                  : static_cast<const float*>(p)[i];
 }
 
+// BYTES bytes at p into 32-bit words, with the widest loads they allow (16
+// bytes at most each) through the read-only path; the caller guarantees
+// the alignment. BYTES == 2 fills the low half of w[0].
+template <int BYTES>
+__device__ __forceinline__ void load_bytes(const void* p, uint32_t* w) {
+  if constexpr (BYTES >= 16) {
+    static_assert(BYTES % 16 == 0, "whole 16-byte loads");
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 t = __ldg(static_cast<const uint4*>(p) + i);
+      w[4 * i] = t.x; w[4 * i + 1] = t.y; w[4 * i + 2] = t.z; w[4 * i + 3] = t.w;
+    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 t = __ldg(static_cast<const uint2*>(p));
+    w[0] = t.x; w[1] = t.y;
+  } else if constexpr (BYTES == 4) {
+    w[0] = __ldg(static_cast<const unsigned int*>(p));
+  } else {
+    static_assert(BYTES == 2, "2, 4, 8 or a multiple of 16 bytes");
+    w[0] = __ldg(static_cast<const unsigned short*>(p));
+  }
+}
+
+template <int BYTES>
+__device__ __forceinline__ void store_bytes(void* p, const uint32_t* w) {
+  if constexpr (BYTES >= 16) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i)
+      static_cast<uint4*>(p)[i] = make_uint4(w[4 * i], w[4 * i + 1],
+                                             w[4 * i + 2], w[4 * i + 3]);
+  } else if constexpr (BYTES == 8) {
+    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (BYTES == 4) {
+    *static_cast<unsigned int*>(p) = w[0];
+  } else {
+    *static_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0]);
+  }
+}
+
+// VEC consecutive elements of an fp32 or bf16 vector, held as loaded and
+// widened only when read: fp32 as VEC words, bf16 as packed pairs (VEC == 1:
+// the low half of one word). The dtype is branched on once per load and
+// once per read, never inside the load; bf16 widens exactly by a shift.
+template <int VEC>
+struct Raw {
+  uint32_t w[VEC];
+
+  __device__ __forceinline__ void load(const void* p, bool bf16, long i) {
+    if (bf16) load_bytes<VEC * 2>(static_cast<const __nv_bfloat16*>(p) + i, w);
+    else load_bytes<VEC * 4>(static_cast<const float*>(p) + i, w);
+  }
+  __device__ __forceinline__ float get(bool bf16, int j) const {
+    if (!bf16) return __uint_as_float(w[j]);
+    const uint32_t pair = w[j >> 1];
+    return __uint_as_float((j & 1) ? (pair & 0xffff0000u) : (pair << 16));
+  }
+};
+
+// v[0..VEC) rounded once to T and stored as one access of VEC elements
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  uint32_t w[(VEC * sizeof(T) + 3) / 4];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) w[j] = __float_as_uint(v[j]);
+  } else if constexpr (VEC == 1) {
+    w[0] = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 2) {
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(v[j], v[j + 1]);
+      w[j / 2] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+  }
+  store_bytes<VEC * sizeof(T)>(p, w);
+}
+
+// host side: may a 16-byte access start at p?
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -45,18 +127,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Block-wide sum, returned to every thread. scratch: >= 32 floats of shared
-// memory; the leading barrier lets consecutive calls reuse it.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[wid] = v;
-  __syncthreads();
-  return warp_sum(lane < nw ? scratch[lane] : 0.f);
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in per kernel

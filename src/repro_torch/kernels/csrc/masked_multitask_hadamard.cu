@@ -17,46 +17,38 @@
 // what the serving path computes. (The Pallas kernel, given such a bank,
 // would index its w BlockSpec out of range.)
 //
-// Bound on the H100: memory. Five flops per element against one element
-// read and one written, two orders of magnitude below the card's flop/byte
-// balance point. Grid: y covers the batch (one request per blockIdx.y),
-// x strides over the request's S*d elements. Each block reads its row's
-// task id and gate once; each thread moves 4 adjacent elements with one
-// 16-byte (fp32) or 8-byte (bf16) load and store where d is a multiple of
-// 4 and the rows are aligned, as hadamard_affine.cu does. The bank rows
-// (kilobytes) stay in L1/L2. The formula is computed as written, in fp32,
-// with separately rounded operations and no branch on g, so a non-finite
-// input gives what the Pallas kernel gives; the result is rounded once to
-// x's dtype.
+// Bound on the H100. Five flops per element against one element read and
+// one written: memory, at a prefill's 128 rows. At a decode tick's 4 rows
+// of 1024 it moves ~16 KB, whose byte time is out of reach: the time is the
+// launch plus the longest chain of dependent loads, which the design keeps
+// to max(x, id -> bank rows). Every thread owns one vector of `vec`
+// elements (16 bytes of x: 8 bf16 or 4 fp32; 1 element where d is ragged
+// or a pointer takes no 16-byte access), issues its x load first, then
+// reads the task id and the gate itself (a broadcast load through L1: no
+// shared memory, no barrier) and loads its w and b elements as 16-byte
+// vectors of the bank rows (kilobytes, in L1/L2). The grid, from the
+// wrapper's plan (sparse.masked_plan), gives each request blockIdx.y and
+// blocks of `threads` threads that cover its S*d elements once. The formula
+// is computed as written, in fp32, with separately rounded operations and
+// no branch on g, so a non-finite input gives what the Pallas kernel
+// gives; the result is rounded once to x's dtype.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kVec = 4;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ void load4(const float* p, float v[kVec]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[kVec]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[kVec]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[kVec]) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
+struct MaskedArgs {
+  const void* x;
+  const void* w_bank;
+  const void* b_bank;
+  const float* gate;
+  const int* task_ids;
+  void* y;
+  bool w_bf16, b_bf16;
+  int n_w, n_b, n_gate;
+  int sd, d;  // elements of a request, and of a row
+};
 
 __device__ __forceinline__ int clamp_row(int t, int n) {
   return t < 0 ? 0 : (t >= n ? n - 1 : t);
@@ -69,84 +61,71 @@ __device__ __forceinline__ float masked_affine(float x, float w, float b,
   return __fadd_rn(x, __fmul_rn(g, __fadd_rn(__fmul_rn(x, __fsub_rn(w, 1.f)), b)));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) masked_multitask_kernel(
-    const T* __restrict__ x, const void* w_bank, int w_bf16, int n_w,
-    const void* b_bank, int b_bf16, int n_b, const float* __restrict__ gate,
-    int n_gate, const int* __restrict__ task_ids, T* __restrict__ y, long sd,
-    int d, int vec) {
-  __shared__ int s_row[2];
-  __shared__ float s_gate;
+template <typename T, int VEC>
+__global__ void masked_multitask_kernel(const MaskedArgs a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int req = blockIdx.y;
-  if (threadIdx.x == 0) {
-    const int t = task_ids[req];
-    s_row[0] = clamp_row(t, n_w);
-    s_row[1] = clamp_row(t, n_b);
-    s_gate = gate[clamp_row(t, n_gate)];
-  }
-  __syncthreads();
-  const long wofs = static_cast<long>(s_row[0]) * d;
-  const long bofs = static_cast<long>(s_row[1]) * d;
-  const float g = s_gate;
-  const T* xr = x + req * sd;
-  T* yr = y + req * sd;
-  const long stride = static_cast<long>(gridDim.x) * blockDim.x;
-  if (vec) {
-    // d % 4 == 0: the 4 elements of a thread lie in one row of d
-    for (long e = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
-         e < sd; e += stride * kVec) {
-      const int c = static_cast<int>(e % d);
-      float v[kVec];
-      load4(xr + e, v);
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (e >= a.sd) return;
+  const long at = static_cast<long>(req) * a.sd + e;
+  rt::Raw<VEC> xv;
+  xv.load(a.x, kBf16, at);  // first: it does not wait for the task id
+  const int t = __ldg(a.task_ids + req);
+  const int c = e % a.d;  // d % VEC == 0: the vector lies in one row
+  rt::Raw<VEC> wv, bv;
+  wv.load(a.w_bank, a.w_bf16, static_cast<long>(clamp_row(t, a.n_w)) * a.d + c);
+  bv.load(a.b_bank, a.b_bf16, static_cast<long>(clamp_row(t, a.n_b)) * a.d + c);
+  const float g = __ldg(a.gate + clamp_row(t, a.n_gate));
+  float v[VEC];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j)
-        v[j] = masked_affine(v[j], rt::load_vec(w_bank, w_bf16, wofs + c + j),
-                             rt::load_vec(b_bank, b_bf16, bofs + c + j), g);
-      store4(yr + e, v);
-    }
-    return;
-  }
-  for (long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; e < sd;
-       e += stride) {
-    const int c = static_cast<int>(e % d);
-    yr[e] = rt::from_f32<T>(masked_affine(rt::to_f32(xr[e]),
-                                          rt::load_vec(w_bank, w_bf16, wofs + c),
-                                          rt::load_vec(b_bank, b_bf16, bofs + c), g));
-  }
+  for (int j = 0; j < VEC; ++j)
+    v[j] = masked_affine(xv.get(kBf16, j), wv.get(a.w_bf16, j),
+                         bv.get(a.b_bf16, j), g);
+  rt::store_vec<T, VEC>(static_cast<T*>(a.y) + at, v);
 }
 
+// the plan checked (every element of every request once), then launched
 template <typename T>
-cudaError_t launch(const void* x, const void* w_bank, int w_bf16, int n_w,
-                   const void* b_bank, int b_bf16, int n_b, const float* gate,
-                   int n_gate, const int* task_ids, void* y, int B, long sd,
-                   int d, cudaStream_t stream) {
-  const size_t align = kVec * sizeof(T);
-  const int vec = d % kVec == 0 && reinterpret_cast<uintptr_t>(x) % align == 0 &&
-                  reinterpret_cast<uintptr_t>(y) % align == 0;
-  const long work = vec ? sd / kVec : sd;
-  long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 1024) blocks = 1024;
-  dim3 grid(static_cast<unsigned>(blocks), B);
-  masked_multitask_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w_bank, w_bf16, n_w, b_bank, b_bf16, n_b, gate,
-      n_gate, task_ids, static_cast<T*>(y), sd, d, vec);
+cudaError_t launch(const MaskedArgs& a, int B, int vec, int threads,
+                   int blocks, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec != 1 && vec != kVec) return cudaErrorInvalidValue;
+  if (a.d % vec != 0) return cudaErrorInvalidValue;
+  if (vec > 1 && !(rt::aligned16(a.x) && rt::aligned16(a.y) &&
+                   rt::aligned16(a.w_bank) && rt::aligned16(a.b_bank)))
+    return cudaErrorInvalidValue;
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || blocks % B != 0)
+    return cudaErrorInvalidValue;
+  const long per_request = blocks / B;  // blocks along x, for each request
+  const long vecs = a.sd / vec;
+  if (per_request * threads < vecs || (per_request - 1) * threads >= vecs)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(per_request), B);
+  if (vec == 1)
+    masked_multitask_kernel<T, 1><<<grid, threads, 0, s>>>(a);
+  else
+    masked_multitask_kernel<T, kVec><<<grid, threads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// vec, threads, blocks: the plan (sparse.masked_plan), refused unless its
+// blocks (blocks / B along x for each request) cover every element once
 extern "C" int rt_masked_multitask_hadamard(
     const void* x, const void* w_bank, int w_bf16, int n_w, const void* b_bank,
     int b_bf16, int n_b, const void* gate, int n_gate, const void* task_ids,
-    void* y, int B, int S, int d, int dtype, void* stream) {
+    void* y, int B, int S, int d, int dtype, int vec, int threads, int blocks,
+    void* stream) {
   if (B == 0 || S == 0 || d == 0) return cudaSuccess;
   const long sd = static_cast<long>(S) * d;
-  const float* g = static_cast<const float*>(gate);
-  const int* tids = static_cast<const int*>(task_ids);
+  // element offsets within a request are 32-bit, with room for a last block
+  if (sd > 0x7fff0000L || B > 65535) return cudaErrorInvalidValue;
+  const MaskedArgs a{x, w_bank, b_bank, static_cast<const float*>(gate),
+                     static_cast<const int*>(task_ids), y, w_bf16 != 0,
+                     b_bf16 != 0, n_w, n_b, n_gate, static_cast<int>(sd), d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::BF16)
-    return launch<__nv_bfloat16>(x, w_bank, w_bf16, n_w, b_bank, b_bf16, n_b, g,
-                                 n_gate, tids, y, B, sd, d, s);
-  return launch<float>(x, w_bank, w_bf16, n_w, b_bank, b_bf16, n_b, g, n_gate,
-                       tids, y, B, sd, d, s);
+    return launch<__nv_bfloat16>(a, B, vec, threads, blocks, s);
+  return launch<float>(a, B, vec, threads, blocks, s);
 }

@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import (check_dtype, check_inputs, launch,
+from repro_torch.kernels._build import (SMS, aligned16, check_dtype,
+                                        check_inputs, full_vec, launch,
                                         library, ptr)
 from repro_torch.kernels.ref import fused_adapter_residual_norm_bwd_ref
 
@@ -25,7 +26,49 @@ AFFINE = "hadamard_affine"
 AFFINE_BWD = "hadamard_affine_bwd"
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 VEC_DTYPES = (torch.float32, torch.bfloat16)
-MAX_D = 56 * 1024  # the fp32 row must fit the block's shared memory
+MAX_D = 56 * 1024  # split_row: the fp32 row must fit the block's shared memory
+
+# fused_adapter_norm.cu's kernels, by the code its C entry point takes
+NORM_KERNELS = {"warp_row": 0, "split_row": 1}
+WARP_ROW_WARPS = (1, 2, 4)  # warp_row: the warps a row may span
+MAX_LANE_ELEMS = 32        # warp_row: elements of a row a lane holds, at most
+WARP_ROW_THREADS = 128     # warp_row: threads of a block, at most
+SPLIT_LANE_VECS = 4        # split_row: vectors of a row a thread aims at
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fused_norm_plan(n: int, d: int, dtype=torch.bfloat16,
+                    aligned: bool = True) -> dict:
+    """The launch of `fused_adapter_norm.cu` for n rows of d elements of
+    `dtype`, from shapes alone: the kernel, `vec` (elements a load: 16
+    bytes, or 1 where d is not a multiple of that or `aligned` is False, a
+    pointer that takes no 16-byte access), `warps_per_row`,
+    `rows_per_block` and `blocks`, which the C entry point launches as they
+    are (it refuses a plan that does not cover every row once).
+
+    `warp_row` holds a row in registers, at most MAX_LANE_ELEMS elements a
+    lane, on the fewest of WARP_ROW_WARPS warps that split it into whole
+    16-byte vectors a lane: 1 warp for qwen3's 1024 bf16 and bert-base's
+    768 fp32, 2 for rwkv6's 2048 bf16. Rows share a block, up to
+    WARP_ROW_THREADS threads, only as far as the rows still give every SM
+    a block. Other widths (ragged, over 4096, or vec = 1) take `split_row`:
+    a block a row, the fp32 row in shared memory, warps enough for
+    SPLIT_LANE_VECS vectors a thread, at most 32."""
+    full = full_vec(dtype)
+    vec = full if aligned and d % full == 0 else 1
+    if vec > 1:
+        for wpr in WARP_ROW_WARPS:
+            lanes = 32 * wpr
+            if d % (lanes * vec) == 0 and d // lanes <= MAX_LANE_ELEMS:
+                rpb = max(1, min(WARP_ROW_THREADS // lanes, n // SMS))
+                return dict(kernel="warp_row", vec=vec, warps_per_row=wpr,
+                            rows_per_block=rpb, blocks=_cdiv(n, rpb))
+    wpr = min(32, max(1, _cdiv(d // vec, 32 * SPLIT_LANE_VECS)))
+    return dict(kernel="split_row", vec=vec, warps_per_row=wpr,
+                rows_per_block=1, blocks=n)
 
 
 def _check_vec(name: str, what: str, v: torch.Tensor, d: int) -> int:
@@ -36,11 +79,15 @@ def _check_vec(name: str, what: str, v: torch.Tensor, d: int) -> int:
 
 
 def fused_adapter_residual_norm(x, res, w, b, scale, *, eps: float = 1e-6,
-                                bias: Optional[torch.Tensor] = None):
+                                bias: Optional[torch.Tensor] = None,
+                                plan: Optional[dict] = None):
     """x_new = x*w + b + res; h = RMSNorm(x_new)*scale, or
     LayerNorm(x_new)*scale + bias when `bias` is given. x, res: (..., d)
     of one dtype (fp32 or bf16); w, b, scale[, bias]: (d,) fp32 or bf16.
-    Returns (x_new, h) in x.dtype. CUDA tensors only."""
+    Returns (x_new, h) in x.dtype. CUDA tensors only. The launch is
+    `fused_norm_plan`'s, 16-byte loads where every pointer allows them, or
+    `plan` where one is given (to time another; the C entry point refuses
+    a plan that does not cover every row once)."""
     check_inputs(NAME, x, res, w, b, scale, bias)
     code = check_dtype(NAME, "x", x, ACT_DTYPES)
     if res.dtype != x.dtype or res.shape != x.shape:
@@ -54,11 +101,15 @@ def fused_adapter_residual_norm(x, res, w, b, scale, *, eps: float = 1e-6,
              for what, v in vecs.items()}
     xn = torch.empty_like(x)
     h = torch.empty_like(x)
+    n = x.numel() // d
+    plan = plan or fused_norm_plan(n, d, x.dtype,
+                                   aligned16(x, res, w, b, scale, bias, xn, h))
     launch(NAME, "rt_fused_adapter_norm",
            x.data_ptr(), res.data_ptr(), w.data_ptr(), codes["w"],
            b.data_ptr(), codes["b"], scale.data_ptr(), codes["scale"],
            ptr(bias), codes["bias"], xn.data_ptr(), h.data_ptr(),
-           x.numel() // d, d, float(eps), code)
+           n, d, float(eps), code, NORM_KERNELS[plan["kernel"]], plan["vec"],
+           plan["warps_per_row"], plan["rows_per_block"], plan["blocks"])
     return xn, h
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import check_dtype, check_inputs, launch
+from repro_torch.kernels._build import SMS, check_dtype, check_inputs, launch
 from repro_torch.kernels.ref import dequant_matmul_bwd_ref
 
 NAME = "dequant_matmul"
@@ -21,7 +21,6 @@ VALUE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 # dequant_matmul.cu's kernels, by the code its C entry point takes
 KERNELS = {"ffma_small": 0, "ffma_tiled": 1, "mma_stream": 2, "mma_tiled": 3}
-SMS = 132            # the H100's streaming multiprocessors
 MAX_SMALL_M = 8      # rows that take the decode kernels
 MAX_CLUSTER = 8      # the portable cluster size: the split-K ranks
 STRIP = 128          # mma_stream and ffma_small: columns of a block

@@ -13,18 +13,42 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import check_dtype, check_inputs, launch
+from repro_torch.kernels._build import (aligned16, check_dtype, check_inputs,
+                                        full_vec, launch)
 
 NAME = "masked_multitask_hadamard"
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 BANK_DTYPES = (torch.float32, torch.bfloat16)
+MAX_THREADS = 256  # threads of a block, at most
+
+
+def masked_plan(B: int, S: int, d: int, dtype=torch.bfloat16,
+                aligned: bool = True) -> dict:
+    """The launch of `masked_multitask_hadamard.cu` for x (B, S, d) of
+    `dtype`, from shapes alone: `vec` (elements a thread: one 16-byte
+    load, or 1 where d is not a multiple of that or `aligned` is False, a
+    pointer that takes no 16-byte access), `threads` a block and `blocks`
+    in all, B * blocks_per_request, which the C entry point launches as
+    they are (it refuses a plan that does not cover every element once).
+
+    A block spans a row of d (128 threads for 1024 bf16, 256 for fp32), at
+    most MAX_THREADS: a 4-slot decode tick runs a block per request, a
+    128-token prefill ~128 blocks, about one an SM."""
+    full = full_vec(dtype)
+    vec = full if aligned and d % full == 0 else 1
+    vecs = S * d // vec  # vectors of a request
+    row = min(vecs, -(-d // vec))  # vectors of a row, at most the request's
+    threads = min(MAX_THREADS, 32 * -(-row // 32))
+    return dict(vec=vec, threads=threads, blocks=B * -(-vecs // threads))
 
 
 def masked_multitask_hadamard(x, w_bank, b_bank, gate, task_ids):
     """y[i] = x[i] + gate[t]*(x[i]*(w_bank[t] - 1) + b_bank[t]), t =
     task_ids[i] clamped into each bank's rows. x: (B, S, d) fp32 or bf16;
     w_bank: (Tw, d), b_bank: (Tb, d) fp32 or bf16; gate: (Tg,) fp32;
-    task_ids: (B,) int32. fp32 math, y in x.dtype. CUDA tensors only."""
+    task_ids: (B,) int32. fp32 math, y in x.dtype. CUDA tensors only. The
+    launch is `masked_plan`'s, 16-byte loads where every pointer allows
+    them."""
     check_inputs(NAME, x, w_bank, b_bank, gate, task_ids)
     code = check_dtype(NAME, "x", x, ACT_DTYPES)
     w_code = check_dtype(NAME, "w_bank", w_bank, BANK_DTYPES)
@@ -43,10 +67,12 @@ def masked_multitask_hadamard(x, w_bank, b_bank, gate, task_ids):
         raise ValueError(f"{NAME}: task_ids must be int32 ({B},); got "
                          f"{task_ids.dtype} {tuple(task_ids.shape)}")
     y = torch.empty_like(x)
+    plan = masked_plan(B, S, d, x.dtype, aligned16(x, y, w_bank, b_bank))
     launch(NAME, "rt_masked_multitask_hadamard",
            x.data_ptr(), w_bank.data_ptr(), w_code, w_bank.shape[0],
            b_bank.data_ptr(), b_code, b_bank.shape[0], gate.data_ptr(),
-           gate.shape[0], task_ids.data_ptr(), y.data_ptr(), B, S, d, code)
+           gate.shape[0], task_ids.data_ptr(), y.data_ptr(), B, S, d, code,
+           plan["vec"], plan["threads"], plan["blocks"])
     return y
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
+from repro_torch.kernels import hadamard as thad
 from repro_torch.kernels import ops as tops
 
 
@@ -52,6 +53,88 @@ def test_fused_adapter_norm_matches_pallas(shape, layernorm):
                                   eps=1e-6)
     for g, wt in zip(got, want):
         _close(g, wt, 1e-5)
+
+
+# #3's plan: the launch of fused_adapter_norm.cu from shapes alone
+FAN_WIDTHS = [768, 1000, 1024, 2048, 4000, thad.MAX_D]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 4, 7, 4096])
+@pytest.mark.parametrize("d", FAN_WIDTHS)
+def test_fused_norm_plan_covers_every_row_once(d, n, dtype):
+    """What the C entry point checks before it launches the plan as it
+    is: every row once, every element of a row once, and warp_row's rows
+    in registers of at most MAX_LANE_ELEMS elements a lane."""
+    dt = getattr(torch, dtype)
+    plan = thad.fused_norm_plan(n, d, dt)
+    vec, wpr = plan["vec"], plan["warps_per_row"]
+    rpb, blocks = plan["rows_per_block"], plan["blocks"]
+    assert vec in (1, _build.full_vec(dt)) and d % vec == 0
+    assert rpb >= 1 and blocks * rpb >= n and (blocks - 1) * rpb < n
+    if plan["kernel"] == "warp_row":
+        lanes = 32 * wpr
+        assert vec > 1 and wpr in thad.WARP_ROW_WARPS
+        assert d % (lanes * vec) == 0  # whole vectors, the same count a lane
+        assert d // lanes <= thad.MAX_LANE_ELEMS
+        assert rpb * lanes <= thad.WARP_ROW_THREADS
+    else:
+        assert plan["kernel"] == "split_row"
+        assert rpb == 1 and blocks == n and 1 <= wpr <= 32
+
+
+@pytest.mark.parametrize("d,dtype,warps", [
+    (768, "float32", 1),     # bert-base, trained in fp32
+    (1024, "bfloat16", 1),   # qwen3-0.6b, served in bf16
+    (2048, "bfloat16", 2),   # rwkv6-1.6b, served in bf16
+    (1024, "float32", 1), (2048, "float32", 2)])  # the fp32 parity models
+def test_fused_norm_plan_holds_the_served_widths_in_registers(d, dtype, warps):
+    dt = getattr(torch, dtype)
+    for n in (1, 4, 128, 4096):
+        plan = thad.fused_norm_plan(n, d, dt)
+        assert plan["kernel"] == "warp_row" and plan["warps_per_row"] == warps
+        assert plan["vec"] == _build.full_vec(dt)
+    # a 4-slot decode tick: a block a row; a bert-base train step (4096
+    # rows): several rows a block, with every SM still given blocks
+    assert thad.fused_norm_plan(4, d, dt)["blocks"] == 4
+    train = thad.fused_norm_plan(4096, d, dt)
+    assert train["rows_per_block"] > 1 and train["blocks"] >= _build.SMS
+
+
+@pytest.mark.parametrize("d", [4000, 5000, thad.MAX_D])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_plan_sends_wide_and_ragged_rows_to_split_row(d, dtype):
+    dt = getattr(torch, dtype)
+    plan = thad.fused_norm_plan(7, d, dt)
+    assert plan["kernel"] == "split_row" and plan["vec"] == _build.full_vec(dt)
+
+
+@pytest.mark.parametrize("d,aligned", [(999, True), (1001, True), (1024, False),
+                                       (2048, False), (768, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_plan_loads_one_element_at_a_time_off_the_grid(d, aligned,
+                                                                  dtype):
+    """A width that is no whole number of 16-byte vectors, or a pointer
+    that takes no 16-byte access, gives vec = 1 (and split_row)."""
+    plan = thad.fused_norm_plan(4, d, getattr(torch, dtype), aligned)
+    assert plan["vec"] == 1 and plan["kernel"] == "split_row"
+
+
+def test_aligned16_sees_a_storage_offset():
+    base = torch.zeros(4 * 1024 + 8)
+    assert _build.aligned16(base, None)
+    assert not _build.aligned16(base[1:].view(-1)[:4096].view(4, 1024))
+    assert _build.aligned16(base[4:])  # 4 fp32 = 16 bytes in
+
+
+@pytest.mark.parametrize("plan", [None, dict(kernel="warp_row", vec=4,
+                                            warps_per_row=1, rows_per_block=1,
+                                            blocks=2)])
+def test_fused_norm_wrapper_refuses_cpu_tensors(plan):
+    with pytest.raises(ValueError, match="CUDA"):
+        thad.fused_adapter_residual_norm(
+            torch.zeros(2, 128), torch.zeros(2, 128), torch.ones(128),
+            torch.zeros(128), torch.ones(128), plan=plan)
 
 
 # ---------------------------------------------------------------------------

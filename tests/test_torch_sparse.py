@@ -42,6 +42,8 @@ from repro_torch.configs import get
 from repro_torch.core import hadamard as had
 from repro_torch.core import peft
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse as tsparse
+from repro_torch.kernels._build import full_vec
 from repro_torch.kernels.sparse import MaskedMultitaskHadamard
 from repro_torch.serving import (AdapterBank, AdapterRegistry,
                                  MultiTaskEngine, Request, ServingConfig,
@@ -495,6 +497,49 @@ def test_masked_op_gates_reduce_to_multitask_and_identity():
     assert yb.dtype == torch.bfloat16
     assert torch.equal(yb, ref.masked_multitask_hadamard_ref(
         xb.float(), wb, bb, ones, tids).to(torch.bfloat16))
+
+
+# #9's plan: the launch of masked_multitask_hadamard.cu from shapes alone
+MASKED_SHAPES = [(4, 1, 1024), (1, 128, 1024), (4, 1, 2048), (1, 128, 2048),
+                 (4, 5, 1000), (2, 3, 999), (7, 1, 768), (1, 4096, 768),
+                 (3, 4, 8)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MASKED_SHAPES)
+def test_masked_plan_covers_every_element_once(shape, dtype, aligned):
+    """What the C entry point checks before it launches the plan as it
+    is: whole vectors within a row, and each request's blocks (blocks / B
+    along x) covering its S*d elements once, none wholly idle."""
+    B, S, d = shape
+    dt = getattr(torch, dtype)
+    plan = tsparse.masked_plan(B, S, d, dt, aligned)
+    vec, threads, blocks = plan["vec"], plan["threads"], plan["blocks"]
+    assert vec == (full_vec(dt) if aligned and d % full_vec(dt) == 0 else 1)
+    assert d % vec == 0
+    assert threads % 32 == 0 and 32 <= threads <= tsparse.MAX_THREADS
+    assert blocks % B == 0
+    per, vecs = blocks // B, S * d // vec
+    assert per * threads >= vecs and (per - 1) * threads < vecs
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((4, 1, 1024), "bfloat16", dict(vec=8, threads=128, blocks=4)),
+    ((1, 128, 1024), "bfloat16", dict(vec=8, threads=128, blocks=128)),
+    ((4, 1, 1024), "float32", dict(vec=4, threads=256, blocks=4)),
+    ((4, 1, 2048), "bfloat16", dict(vec=8, threads=256, blocks=4))])
+def test_masked_plan_sizes_the_served_shapes(shape, dtype, want):
+    """A decode tick: a block a request, a thread a 16-byte vector; a
+    128-token prefill: about one block an SM."""
+    assert tsparse.masked_plan(*shape, getattr(torch, dtype)) == want
+
+
+def test_masked_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tsparse.masked_multitask_hadamard(
+            torch.zeros(1, 2, 8), torch.ones(2, 8), torch.zeros(2, 8),
+            torch.ones(2), torch.zeros(1, dtype=torch.int32))
 
 
 def test_masked_function_gradients_match_jax_vjp():
