@@ -6,14 +6,23 @@
 Phases (any failed check exits non-zero; no phase catches its own failure):
   1. the card and its settings (TF32 off for fp32 matmuls);
   2. build every CUDA kernel from the sources in this checkout, and report
-     each source's registers and spill bytes from ptxas (#3 and #9, which
-     hold rows in registers, must spill nothing);
+     each source's registers and spill bytes from ptxas (#3, #6 and #9,
+     which hold their data in registers, must spill nothing);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serve and train paths give it, in fp32 and bf16 (the
      dequant matmul also with int8 and fp8 weights), with its time, the
      plain version's time and, where one exists, one PyTorch call's time
      (flash and paged attention, #4 and #5, L2-cold beside SDPA; #4's
-     log-sum-exp output too; #5 bit-identical across two runs); the
+     log-sum-exp output too; #5 bit-identical across two runs, and on
+     rows whose queries see no key: kv_len 0, kv_len under Sq, windowed,
+     int8, each in a batch whose other rows see keys); the multitask
+     kernel (#6) at the edges of the plan it shares with #9 (decode,
+     rwkv6's seam, prefills, two requests, widths 1000 and 999, x off the
+     16-byte grid, fp32/bf16 activations over fp32/bf16 banks), equal to
+     its plain version byte for byte and across two runs, its C entry
+     refusing plans that do not cover every element once, timed L2-cold at
+     the decode, prefill and rwkv6 seam shapes with a trace of each (and
+     L2-warm at decode); the
      backward of every autograd Function around a kernel against autograd
      through the plain forward (the attention backward tiled as JAX's, over
      several tiles, and its peak memory at S = 2048); the masked multitask
@@ -221,7 +230,8 @@ def main() -> int:
                                    max_registers=max(regs, default=0),
                                    spill_bytes=sum(int(a) + int(b)
                                                    for a, b in spills))
-    for src in ("fused_adapter_norm.cu", "masked_multitask_hadamard.cu"):
+    for src in ("fused_adapter_norm.cu", "masked_multitask_hadamard.cu",
+                "multitask_hadamard.cu"):
         check(ptxas[src]["instances"] > 0 and ptxas[src]["spill_bytes"] == 0,
               f"{src}: ptxas {ptxas[src]}, want instances and no spill bytes")
     log(f"[2] ptxas per source: {ptxas}")
@@ -427,6 +437,9 @@ def main() -> int:
         allocation: no 16-byte access lines up with it."""
         return randn(math.prod(shape) + 1, dtype=dtype)[1:].view(*shape)
 
+    def ids_of(*rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
     # #3 fused adapter-residual-norm against its plain version at the
     # edges of `fused_norm_plan`: warp_row on 1 warp a row (768, 1024) and
     # on 2 (2048), one row and a row count that is not a multiple of the
@@ -598,6 +611,21 @@ def main() -> int:
                         device=dev)
     pcases = [dict(), dict(window=100), dict(int8=True), dict(sq=5),
               dict(sq=5, window=100), dict(cap=30.0), dict(int8=True, sq=5)]
+    # rows whose queries see no key, to which the kernel gives the plain
+    # version's (and the Pallas kernel's) mean of V over the row's table:
+    # kv_len 0 (every query of the row), kv_len 1 and 2 under Sq = 3 (the
+    # queries before the first key), a ring of 100 at kv_len 0 and 1, a
+    # ring of 2 slots under 3 queries (the first query of every row), int8
+    # pools, a soft cap; the batch's other rows see keys
+    keyless_lens = torch.tensor([0, 1, 2, 129, 300, 512], dtype=torch.int32,
+                                device=dev)
+    pcases += [dict(keyless=True), dict(sq=3, keyless=True),
+               dict(sq=3, window=100, keyless=True),
+               dict(sq=3, window=2, keyless=True),
+               dict(int8=True, keyless=True),
+               dict(int8=True, sq=3, keyless=True),
+               dict(int8=True, sq=3, window=2, keyless=True),
+               dict(sq=3, cap=30.0, keyless=True)]
     for dt in (torch.float32, bf):
         for c in pcases:
             sq = c.get("sq", 1)
@@ -614,7 +642,16 @@ def main() -> int:
             else:
                 kp = randn(nb, page, 8, 128, dtype=dt)
                 vp = randn(nb, page, 8, 128, dtype=dt)
-            kl = lens.clamp(min=sq)
+            kl = keyless_lens if c.get("keyless") else lens.clamp(min=sq)
+            if c.get("keyless"):
+                # query 0 of row 0 sees no key: its mean of V is far from
+                # the zeros a kernel that skipped its keys would give
+                mean = ops.paged_attention(q, kp, vp, tables, kl, impl="ref",
+                                           **kw)[0]
+                mean = mean if sq == 1 else mean[:, 0]
+                check(mean.abs().max().item() > 100 * TOL["paged_attention"],
+                      f"paged_attention {c}: the key-less row's mean is "
+                      f"{mean.abs().max().item():.3g}, too small to check")
             compare("paged_attention", str(c), dt,
                     lambda: ops.paged_attention(q, kp, vp, tables, kl,
                                                 impl="kernel", **kw),
@@ -626,6 +663,7 @@ def main() -> int:
             check(torch.equal(*runs), f"paged_attention {c} {dt}: two runs "
                                       "differ")
     paged_repeats = 2 * len(pcases)
+    paged_keyless = 2 * sum(bool(c.get("keyless")) for c in pcases)
     # timed L2-cold at the serve decode shape: each call takes its own copy
     # of q and of the slot cache (8.4 MB), the copies together over twice
     # the 50 MB L2. The yardstick is SDPA over the same contiguous cache
@@ -678,30 +716,123 @@ def main() -> int:
                      "over the contiguous slot cache with a key-length mask "
                      f"(max |diff| / max|ref| {yard_err:.3g} vs the plain "
                      "version)",
-        bit_identical_repeats=paged_repeats, split_plan=plan)
+        bit_identical_repeats=paged_repeats, keyless_cases=paged_keyless,
+        split_plan=plan)
     del pcopies
 
-    # #6 multitask Hadamard: (4, S, 1024), T = 3; and a ragged width
-    tids = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=dev)
-    for dt in (torch.float32, bf):
-        for s, width in ((1, d), (128, d), (5, 1000)):
-            x = randn(4, s, width, dtype=dt)
-            wb = 1 + randn(TASKS, width, scale=0.1)
-            bb = randn(TASKS, width, scale=0.1)
-            compare("multitask_hadamard", f"S={s} d={width}", dt,
-                    lambda: ops.multitask_hadamard(x, wb, bb, tids,
-                                                   impl="kernel"),
-                    lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="ref"))
-    x = randn(4, 1, d, dtype=bf)
-    wb, bb = 1 + randn(TASKS, d, scale=0.1), randn(TASKS, d, scale=0.1)
-    record("multitask_hadamard", "multitask_hadamard",
-           "x (4,1,1024) bf16, fp32 bank (3,1024) (one layer of a 4-slot "
-           "decode tick)", bf,
-           lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="kernel"),
-           lambda: ops.multitask_hadamard(x, wb, bb, tids, impl="ref"),
-           None,
-           # x, y, ids, and the 3 distinct (w, b) rows the ids name
-           2 * nbytes(x) + nbytes(tids) + 3 * 2 * d * 4, 2 * x.numel())
+    # #6 multitask Hadamard at the edges of `masked_plan`, the plan it
+    # shares with #9: the decode tick (4, 1, 1024), rwkv6's seam (4, 1,
+    # 2048), prefills (1, 128, 1024 | 2048), two and four requests of 128,
+    # width 1000 (125 vectors a row: a block spans rows), width 999 (no
+    # whole 16-byte vectors) and x one element off the 16-byte grid (both
+    # vec = 1); fp32 and bf16 activations over fp32 and bf16 banks. The kernel
+    # rounds as the plain version does, so every case holds to it byte for
+    # byte, and two calls give the same bytes
+    tcases = [dict(S=1, d=d, ids=(0, 2, 1, 2)),
+              dict(S=1, d=2048, ids=(0, 2, 1, 2)),
+              dict(S=128, d=d, ids=(1,)), dict(S=128, d=2048, ids=(2,)),
+              dict(S=128, d=d, ids=(0, 1)),
+              dict(S=128, d=d, ids=(0, 2, 1, 2)),
+              dict(S=5, d=1000, ids=(2, 1, 0, 1)),
+              dict(S=3, d=999, ids=(2, 0, 1)),
+              dict(S=2, d=d, ids=(1, 2), offset=True)]
+    mt_vecs, mt_repeats = set(), 0
+    for dt in (f32, bf):
+        for bank_dt in (f32, bf):
+            for c in tcases:
+                shape = (len(c["ids"]), c["S"], c["d"])
+                x = (offset_view if c.get("offset") else randn)(*shape,
+                                                                dtype=dt)
+                wb = (1 + randn(TASKS, c["d"], scale=0.5)).to(bank_dt)
+                bb = randn(TASKS, c["d"], scale=0.5).to(bank_dt)
+                ids = ids_of(*c["ids"])
+                plan = masked_plan(*shape, dt, aligned16(x, wb, bb))
+                mt_vecs.add(plan["vec"] > 1)
+                case = f"{c} bank {bank_dt} plan={plan}"
+                runs = [ops.multitask_hadamard(x, wb, bb, ids, impl="kernel")
+                        for _ in range(2)]
+                want = ops.multitask_hadamard(x, wb, bb, ids, impl="ref")
+                compare("multitask_hadamard", case, dt, lambda: runs[0],
+                        lambda: want)
+                check(torch.equal(runs[0], want), f"multitask_hadamard {case} "
+                      f"{dt}: not the plain version's bytes")
+                check(torch.equal(*runs), f"multitask_hadamard {case} {dt}: "
+                                          "two runs differ")
+                mt_repeats += 1
+    check(mt_vecs == {True, False}, f"multitask_hadamard: the cases ran vec "
+                                    f"> 1: {mt_vecs}, want both")
+    # the C entry point launches a plan as it is given, and refuses one that
+    # leaves elements out (no block, half the threads), holds an idle block,
+    # does not split evenly over the requests or takes 4 bf16 a thread
+    x, wb, bb = randn(4, 1, d, dtype=bf), randn(TASKS, d), randn(TASKS, d)
+    y, ids = torch.empty_like(x), ids_of(0, 2, 1, 2)
+    good = masked_plan(4, 1, d, bf)
+    bad_plans = [dict(good, blocks=good["blocks"] - 4),
+                 dict(good, blocks=good["blocks"] + 4),
+                 dict(good, threads=good["threads"] // 2),
+                 dict(good, blocks=5), dict(good, vec=4)]
+    launched_before = _build.launch_counts()["multitask_hadamard"]
+    for bad in bad_plans:
+        try:
+            _build.launch("multitask_hadamard", "rt_multitask_hadamard",
+                          x.data_ptr(), wb.data_ptr(), 0, bb.data_ptr(), 0,
+                          ids.data_ptr(), y.data_ptr(), 4, 1, d, TASKS, 1,
+                          bad["vec"], bad["threads"], bad["blocks"])
+        except RuntimeError:
+            continue
+        fail(f"multitask_hadamard: the C entry point launched the plan {bad}")
+    check(_build.launch_counts()["multitask_hadamard"] == launched_before,
+          "multitask_hadamard: a refused plan was counted as a launch")
+    # #6 timed L2-cold, bf16 x and fp32 bank rows as the bf16 engine runs
+    # it, at the 4-slot decode tick, a 128-token prefill and rwkv6's seam:
+    # every call of the timed graph takes its own copy of x and of the
+    # bank, the copies together twice the 50 MB L2 (as #9's rows), with a
+    # trace of one replay; beside the decode row, its one-copy L2-warm
+    # time, the one earlier versions of this script took
+    for key, B, S, width, what in (
+            ("multitask_hadamard", 4, 1, d, "a 4-slot decode tick"),
+            ("multitask_hadamard@prefill", 1, SERVE["prompt_len"], d,
+             "a 128-token prefill"),
+            ("multitask_hadamard@rwkv", 4, 1, 2048,
+             "a 4-slot rwkv6 decode tick")):
+        ids = ids_of(0, 2, 1, 2) if B == 4 else ids_of(1)
+        per_copy = 2 * B * S * width * 2 + 2 * TASKS * width * 4
+        copies = [(randn(B, S, width, dtype=bf),
+                   1 + randn(TASKS, width, scale=0.1),
+                   randn(TASKS, width, scale=0.1))
+                  for _ in range(-(-100 * 2**20 // per_copy))]
+        x = copies[0][0]
+        plan = masked_plan(B, S, width, bf)
+
+        def kern(x_, w_, b_, ids=ids):
+            return ops.multitask_hadamard(x_, w_, b_, ids, impl="kernel")
+
+        def plain(x_, w_, b_, ids=ids):
+            return ops.multitask_hadamard(x_, w_, b_, ids, impl="ref")
+
+        record(key, "multitask_hadamard",
+               f"x ({B},{S},{width}) bf16, fp32 bank (3,{width}), ids "
+               f"{ids.tolist()} ({len(copies)} copies in turn; one layer "
+               f"of {what}; masked_plan {plan['blocks']} blocks of "
+               f"{plan['threads']})",
+               bf, rotating(copies, kern), rotating(copies, plain), None,
+               # x, y, ids, and the distinct (w, b) rows the ids name
+               2 * nbytes(x) + nbytes(ids)
+               + len(set(ids.tolist())) * 2 * width * 4,
+               2 * x.numel(), iters=len(copies), reps=2)
+        results[key].update(
+            library_note="none: the bank gather and the affine are two "
+                         "calls",
+            split_plan=plan,
+            trace=trace_graph(rotating(copies, kern), len(copies)))
+        if key == "multitask_hadamard":
+            results[key]["ms_l2_warm"] = time_ms(
+                lambda: kern(*copies[0]))[0]
+        log(f"[3] {key}: L2-warm {results[key].get('ms_l2_warm')}; "
+            f"floor {floor_ms:.5f}; traced L2-cold {results[key]['trace']}")
+        del copies
+    results["multitask_hadamard"].update(bit_identical_repeats=mt_repeats,
+                                         refused_plans=len(bad_plans))
 
     # #9 masked multitask Hadamard: the decode (4, 1, 1024) and prefill
     # (1, 128, 1024) shapes over a 3-row bank, a shared-w bank (one w row),
@@ -709,9 +840,6 @@ def main() -> int:
     # gated-off rows hold values far from the identity, so the gate does
     # real work
     gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
-
-    def ids_of(*rows):
-        return torch.tensor(rows, dtype=torch.int32, device=dev)
 
     # at the edges of `masked_plan` too: ids out of range (clamped into each
     # row count), rwkv6's width, a width with no whole 16-byte vectors (999)
@@ -2160,7 +2288,7 @@ def main() -> int:
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
                    "split_plan", "bit_identical_repeats", "ms_l2_warm",
-                   "alt_plan", "trace")
+                   "alt_plan", "trace", "refused_plans", "keyless_cases")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]

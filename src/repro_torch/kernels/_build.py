@@ -53,7 +53,7 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
                            _P),
     "rt_multitask_hadamard": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                              _P),
+                              _I, _I, _I, _P),
     "rt_dequant_matmul": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P),
     "rt_masked_multitask_hadamard": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P,

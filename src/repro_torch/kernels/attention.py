@@ -130,9 +130,17 @@ def paged_attention(q, k_pool, v_pool, tables, kv_lens, *,
                     k_scales=None, v_scales=None):
     """q: (B, H, D) or (B, H, Sq, D), fp32 or bf16; pools (num_blocks,
     page, KH, D), fp32/bf16, or int8 with fp32 per-token scales
-    (num_blocks, page, KH, 1), D in {64, 128, 256}; tables (B, nbt) int32;
-    kv_lens (B,) int32, at least Sq (every query sees a key). Returns fp32
-    of q's shape. CUDA only."""
+    (num_blocks, page, KH, 1), D in {64, 128, 256}; tables (B, nbt) int32,
+    a valid block id in every entry; kv_lens (B,) int32, as
+    `ref.paged_attention_ref` reads them. A query row that sees no key
+    (linear: kv_len - Sq + i < 0, kv_len = 0 included; ring window: no
+    slot holds a position in [0, its own]) gives the fp32 mean of V,
+    dequantized, over every one of the nbt*page keys its table names, as
+    the Pallas kernel does. Such a row is summed by one block of the
+    combine kernel, each thread walking all nbt*page keys in order with a
+    table lookup a key: its time grows with the whole table, not with
+    kv_len, so a caller that sends many of them at long contexts should
+    time it first. Returns fp32 of q's shape. CUDA only."""
     check_inputs(PAGED, q, k_pool, v_pool, tables, kv_lens, k_scales,
                  v_scales)
     q_code = check_dtype(PAGED, "q", q, ACT_DTYPES)

@@ -119,6 +119,32 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// a row index clamped into [0, n), as jnp.take clamps
+__device__ __forceinline__ int clamp_row(int t, int n) {
+  return t < 0 ? 0 : (t >= n ? n - 1 : t);
+}
+
+// host side: the grid of a per-request elementwise plan
+// (sparse.masked_plan): B requests of sd elements in rows of d, each
+// request blocks / B blocks of `threads` threads along x (blockIdx.y the
+// request), a thread `vec` consecutive elements, 1 or `full` (one 16-byte
+// access of the activations). False where the plan does not cover every
+// element of every request once, where 16-byte accesses would cross a row
+// or start off the 16-byte grid (`aligned`: every pointer on it)
+inline bool request_grid(long sd, int d, int B, int vec, int full, int threads,
+                         int blocks, bool aligned, dim3* grid) {
+  if (B > 65535 || (vec != 1 && vec != full)) return false;
+  if (d % vec != 0 || (vec > 1 && !aligned)) return false;
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || blocks % B != 0)
+    return false;
+  const long per_request = blocks / B;
+  const long vecs = sd / vec;
+  if (per_request * threads < vecs || (per_request - 1) * threads >= vecs)
+    return false;
+  *grid = dim3(static_cast<unsigned>(per_request), B);
+  return true;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

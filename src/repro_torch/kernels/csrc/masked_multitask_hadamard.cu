@@ -50,10 +50,6 @@ struct MaskedArgs {
   int sd, d;  // elements of a request, and of a row
 };
 
-__device__ __forceinline__ int clamp_row(int t, int n) {
-  return t < 0 ? 0 : (t >= n ? n - 1 : t);
-}
-
 // x + g*(x*(w - 1) + b), each operation rounded on its own as the plain
 // version rounds it
 __device__ __forceinline__ float masked_affine(float x, float w, float b,
@@ -73,9 +69,9 @@ __global__ void masked_multitask_kernel(const MaskedArgs a) {
   const int t = __ldg(a.task_ids + req);
   const int c = e % a.d;  // d % VEC == 0: the vector lies in one row
   rt::Raw<VEC> wv, bv;
-  wv.load(a.w_bank, a.w_bf16, static_cast<long>(clamp_row(t, a.n_w)) * a.d + c);
-  bv.load(a.b_bank, a.b_bf16, static_cast<long>(clamp_row(t, a.n_b)) * a.d + c);
-  const float g = __ldg(a.gate + clamp_row(t, a.n_gate));
+  wv.load(a.w_bank, a.w_bf16, static_cast<long>(rt::clamp_row(t, a.n_w)) * a.d + c);
+  bv.load(a.b_bank, a.b_bf16, static_cast<long>(rt::clamp_row(t, a.n_b)) * a.d + c);
+  const float g = __ldg(a.gate + rt::clamp_row(t, a.n_gate));
   float v[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j)
@@ -89,18 +85,12 @@ template <typename T>
 cudaError_t launch(const MaskedArgs& a, int B, int vec, int threads,
                    int blocks, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  if (vec != 1 && vec != kVec) return cudaErrorInvalidValue;
-  if (a.d % vec != 0) return cudaErrorInvalidValue;
-  if (vec > 1 && !(rt::aligned16(a.x) && rt::aligned16(a.y) &&
-                   rt::aligned16(a.w_bank) && rt::aligned16(a.b_bank)))
+  const bool aligned = rt::aligned16(a.x) && rt::aligned16(a.y) &&
+                       rt::aligned16(a.w_bank) && rt::aligned16(a.b_bank);
+  dim3 grid;
+  if (!rt::request_grid(a.sd, a.d, B, vec, kVec, threads, blocks,
+                        aligned, &grid))
     return cudaErrorInvalidValue;
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || blocks % B != 0)
-    return cudaErrorInvalidValue;
-  const long per_request = blocks / B;  // blocks along x, for each request
-  const long vecs = a.sd / vec;
-  if (per_request * threads < vecs || (per_request - 1) * threads >= vecs)
-    return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(per_request), B);
   if (vec == 1)
     masked_multitask_kernel<T, 1><<<grid, threads, 0, s>>>(a);
   else
@@ -120,7 +110,7 @@ extern "C" int rt_masked_multitask_hadamard(
   if (B == 0 || S == 0 || d == 0) return cudaSuccess;
   const long sd = static_cast<long>(S) * d;
   // element offsets within a request are 32-bit, with room for a last block
-  if (sd > 0x7fff0000L || B > 65535) return cudaErrorInvalidValue;
+  if (sd > 0x7fff0000L) return cudaErrorInvalidValue;
   const MaskedArgs a{x, w_bank, b_bank, static_cast<const float*>(gate),
                      static_cast<const int*>(task_ids), y, w_bf16 != 0,
                      b_bf16 != 0, n_w, n_b, n_gate, static_cast<int>(sd), d};

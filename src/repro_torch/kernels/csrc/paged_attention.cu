@@ -49,6 +49,14 @@
 // writes before it reads them. No atomics: a run repeats bit for bit. Both kernels start
 // from the one C entry. C's % truncates toward zero, so the ring's floor
 // mod is ((x % r) + r) % r.
+//
+// A query row that sees no key (linear: kv_len - Sq + i < 0; ring: no slot
+// holds a position in [0, qpos]) gets what the Pallas kernel gives it:
+// every one of its nbt*page scores is NEG_INF, every weight exp(0) = 1, so
+// its output is the mean of V (dequantized) over every key its table names.
+// The combine kernel finds such a row from kv_len alone and sums V over the
+// table in key order, ignoring the partials; a row that sees a key takes
+// the partials' path unchanged.
 #include "common.cuh"
 
 namespace {
@@ -335,24 +343,60 @@ __device__ __forceinline__ int active_splits(int len, int page, int nbt,
   return min(splits, (khi + pps * page - 1) / (pps * page));
 }
 
+// does query i of Sq, the row's last at kv_len (linear) or write position
+// kv_len (ring), see a key? Linear: key 0 once its position is >= 0. Ring:
+// the slots hold positions kv_len - ring + 1 .. kv_len, those >= 0
+__device__ __forceinline__ bool sees_a_key(int len, int i, int sq, int window,
+                                           int ring) {
+  if (window > 0) {
+    const int qpos = len - (sq - 1) + i;
+    return qpos >= 0 && qpos >= len - ring + 1;
+  }
+  return len - sq + i >= 0;
+}
+
 // one block per query row, a thread per output column: the row's active
 // splits in chunks of kChunk, each chunk's m, l and acc loaded at once (one
 // round trip for a chunk), folded in index order with the running max
 // rescaled as in the split kernel. Every thread repeats the weights, so no
 // barrier is needed. Launched as a programmatic dependent of the split
-// kernel: its launch and its kv_len load overlap that grid
+// kernel: its launch and its kv_len load overlap that grid. A row that
+// sees no key takes the mean of V over its table instead
 constexpr int kChunk = 8;
 
+template <typename TKV>
 __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     const float* __restrict__ part, const int* __restrict__ kv_lens,
-    float* __restrict__ out, int H, int sq, int D, int page, int nbt,
-    int window, int ring, int pps, int splits) {
+    const int* __restrict__ tables, const TKV* __restrict__ v_pool,
+    const float* __restrict__ v_scales, float* __restrict__ out, int H,
+    int KH, int sq, int D, int page, int nbt, int window, int ring, int pps,
+    int splits) {
   const long row = blockIdx.x;
   const int b = static_cast<int>(row / (static_cast<long>(H) * sq));
-  const int n = active_splits(kv_lens[b], page, nbt, window, ring, pps,
-                              splits);
+  const int len = kv_lens[b];
+  const bool keyed = sees_a_key(len, static_cast<int>(row % sq), sq, window,
+                                ring);
+  const int n = active_splits(len, page, nbt, window, ring, pps, splits);
   const float* pr = part + row * splits * (D + 2);
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (!keyed) {
+    // the mean of V over the row's nbt*page keys, summed in key order
+    const int kh = static_cast<int>((row / sq) % H) / (H / KH);
+    const long tab = static_cast<long>(b) * nbt;
+    const int size = nbt * page;
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float sum = 0.f;
+      for (int li = 0; li < size; ++li) {
+        const long tok =
+            (static_cast<long>(tables[tab + li / page]) * page + li % page) * KH + kh;
+        float v = rt::to_f32(v_pool[tok * D + c]);
+        if (v_scales != nullptr) v = __fmul_rn(v, v_scales[tok]);
+        sum = __fadd_rn(sum, v);
+      }
+      out[row * D + c] = __fdiv_rn(sum, static_cast<float>(size));
+    }
+    return;
+  }
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float mx = rt::NEG_INF, lsum = 0.f, a = 0.f;
     for (int s0 = 0; s0 < n; s0 += kChunk) {
@@ -422,8 +466,9 @@ cudaError_t launch(const void* q, int q_bf16, const void* k_pool,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, paged_combine_kernel, part, kv_lens, out, H,
-                            sq, D, page, nbt, window, ring, pps, splits);
+  return cudaLaunchKernelEx(&cfg, paged_combine_kernel<TKV>, part, kv_lens,
+                            tables, vp, v_scales, out, H, KH, sq, D, page, nbt,
+                            window, ring, pps, splits);
 }
 
 template <typename TKV>

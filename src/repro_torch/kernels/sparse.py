@@ -24,8 +24,9 @@ MAX_THREADS = 256  # threads of a block, at most
 
 def masked_plan(B: int, S: int, d: int, dtype=torch.bfloat16,
                 aligned: bool = True) -> dict:
-    """The launch of `masked_multitask_hadamard.cu` for x (B, S, d) of
-    `dtype`, from shapes alone: `vec` (elements a thread: one 16-byte
+    """The launch of `masked_multitask_hadamard.cu` and of
+    `multitask_hadamard.cu` (one layout: a thread a vector of x, a request
+    blockIdx.y) for x (B, S, d) of `dtype`, from shapes alone: `vec` (elements a thread: one 16-byte
     load, or 1 where d is not a multiple of that or `aligned` is False, a
     pointer that takes no 16-byte access), `threads` a block and `blocks`
     in all, B * blocks_per_request, which the C entry point launches as

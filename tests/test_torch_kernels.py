@@ -14,6 +14,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import hadamard as thad
+from repro_torch.kernels import multitask as tmt
 from repro_torch.kernels import ops as tops
 
 
@@ -192,10 +193,20 @@ def _int8(pool):
 @pytest.mark.parametrize("case", [
     dict(), dict(window=12), dict(window=8, cap=30.0), dict(int8=True),
     dict(int8=True, window=12), dict(sq=3), dict(sq=3, window=12),
+    # rows whose queries see no key: kv_len 0, and kv_len below Sq (the
+    # batch's last row sees keys); a ring of 2 slots under 3 queries hides
+    # every key from the first query of every row
+    dict(keyless=True), dict(sq=3, keyless=True),
+    dict(sq=3, window=12, keyless=True), dict(sq=3, window=2, keyless=True),
+    dict(int8=True, keyless=True), dict(int8=True, sq=3, keyless=True),
+    dict(int8=True, sq=3, window=2, keyless=True),
+    dict(sq=3, cap=30.0, keyless=True),
 ])
 def test_paged_attention_matches_pallas(case):
     sq = case.get("sq", 1)
     q, kp, vp, tables, lens = _pool(20 + sq, sq=sq)
+    if case.get("keyless"):
+        lens[:2] = (0, sq - 1 if sq > 1 else 0)
     kw = dict(window=case.get("window"), cap=case.get("cap", 0.0))
     jkw, tkw = dict(kw), dict(kw)
     if case.get("int8"):
@@ -217,7 +228,9 @@ def test_paged_attention_matches_pallas(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,S,d,T", [(4, 6, 32, 3), (2, 1, 128, 5)])
+# the last two: a ragged width (no whole 16-byte vectors) and rwkv6's
+@pytest.mark.parametrize("B,S,d,T", [(4, 6, 32, 3), (2, 1, 128, 5),
+                                     (3, 2, 999, 3), (4, 1, 2048, 3)])
 def test_multitask_hadamard_matches_pallas(B, S, d, T):
     x = _rand((B, S, d), 30)
     wb, bb = 1 + _rand((T, d), 31, 0.2), _rand((T, d), 32, 0.2)
@@ -227,6 +240,13 @@ def test_multitask_hadamard_matches_pallas(B, S, d, T):
                                    impl="interpret")
     got = tops.multitask_hadamard(_t(x), _t(wb), _t(bb), _t(tids))
     _close(got, want, 1e-6)
+
+
+def test_multitask_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tmt.multitask_hadamard(torch.zeros(1, 2, 8), torch.ones(2, 8),
+                               torch.zeros(2, 8),
+                               torch.zeros(1, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -502,7 +502,7 @@ def test_masked_op_gates_reduce_to_multitask_and_identity():
 # #9's plan: the launch of masked_multitask_hadamard.cu from shapes alone
 MASKED_SHAPES = [(4, 1, 1024), (1, 128, 1024), (4, 1, 2048), (1, 128, 2048),
                  (4, 5, 1000), (2, 3, 999), (7, 1, 768), (1, 4096, 768),
-                 (3, 4, 8)]
+                 (3, 4, 8), (2, 128, 1024), (2, 128, 2048)]
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -528,11 +528,54 @@ def test_masked_plan_covers_every_element_once(shape, dtype, aligned):
     ((4, 1, 1024), "bfloat16", dict(vec=8, threads=128, blocks=4)),
     ((1, 128, 1024), "bfloat16", dict(vec=8, threads=128, blocks=128)),
     ((4, 1, 1024), "float32", dict(vec=4, threads=256, blocks=4)),
-    ((4, 1, 2048), "bfloat16", dict(vec=8, threads=256, blocks=4))])
+    ((4, 1, 2048), "bfloat16", dict(vec=8, threads=256, blocks=4)),
+    ((1, 128, 2048), "bfloat16", dict(vec=8, threads=256, blocks=128)),
+    ((2, 128, 1024), "bfloat16", dict(vec=8, threads=128, blocks=256)),
+    ((2, 3, 999), "bfloat16", dict(vec=1, threads=256, blocks=24))])
 def test_masked_plan_sizes_the_served_shapes(shape, dtype, want):
     """A decode tick: a block a request, a thread a 16-byte vector; a
     128-token prefill: about one block an SM."""
     assert tsparse.masked_plan(*shape, getattr(torch, dtype)) == want
+
+
+# #6 (kernels/multitask.py) launches #9's plan: the shapes both serve, a
+# ragged width and x off the 16-byte grid
+WRAPPER_SHAPES = [((4, 1, 1024), "bfloat16", True),
+                  ((4, 1, 2048), "bfloat16", True),
+                  ((1, 128, 1024), "bfloat16", True),
+                  ((1, 128, 2048), "bfloat16", True),
+                  ((4, 1, 1024), "float32", True),
+                  ((2, 3, 999), "bfloat16", True),
+                  ((4, 1, 1024), "bfloat16", False)]
+
+
+@pytest.mark.parametrize("shape,dtype,aligned", WRAPPER_SHAPES)
+@pytest.mark.parametrize("wrapper", ["masked_multitask_hadamard",
+                                     "multitask_hadamard"])
+def test_both_wrappers_launch_the_masked_plan(monkeypatch, wrapper, shape,
+                                              dtype, aligned):
+    """What each wrapper hands its C entry point: masked_plan's vec,
+    threads and blocks, with vec = 1 where x starts off the 16-byte grid."""
+    from repro_torch.kernels import multitask as tmt
+
+    mod = tsparse if wrapper == "masked_multitask_hadamard" else tmt
+    launched = []
+    monkeypatch.setattr(mod, "check_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(mod, "launch", lambda *a: launched.append(a))
+    B, S, d = shape
+    dt = getattr(torch, dtype)
+    x = torch.zeros(B * S * d + 1, dtype=dt)[0 if aligned else 1:]
+    x = x[:B * S * d].view(B, S, d)
+    banks = (torch.ones(3, d), torch.zeros(3, d))
+    ids = torch.zeros(B, dtype=torch.int32)
+    if mod is tsparse:
+        tsparse.masked_multitask_hadamard(x, *banks, torch.ones(3), ids)
+    else:
+        tmt.multitask_hadamard(x, *banks, ids)
+    (args,) = launched
+    assert args[0] == wrapper
+    assert dict(zip(("vec", "threads", "blocks"), args[-3:])) \
+        == tsparse.masked_plan(B, S, d, dt, aligned)
 
 
 def test_masked_wrapper_refuses_cpu_tensors():
