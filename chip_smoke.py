@@ -41,7 +41,12 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      on a one-element tensor, which every row of the kernels line carries
      (`floor_ms`), and for #3 and #9 a torch.profiler trace of a timed
      graph's replay (each kernel's span, and start to start) beside the
-     floor's;
+     floor's; then the four kernels of a qwen3-0.6b fine-tuning step at
+     its shapes (16 x 128 tokens, bf16): #3 and its backward, #2 on the
+     fp32 cotangent the norm VJP hands it and through HadamardAffine, #4
+     causal over 16 heads on 8 with its log-sum-exp, #7 at M = 2048, each
+     against its plain version and timed L2-cold (#4 beside SDPA, #3
+     beside F.rms_norm of x alone);
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -89,13 +94,28 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
      every trainable gradient through the kernels against the plain path,
      for the 'hadamard' (attn_out) and 'hadamard_concat' strategies;
+  7d. the full-width qwen3-0.6b decoder in fp32 on one batch of 4x128
+     `lm_batches` tokens with perturbed adapters: logits, lm_loss and every
+     trainable gradient through the kernels against the plain path, over
+     the plain trunk and an int8 one (#7 in every projection), the
+     launches of the loss and its gradients as predicted; and with
+     ce_chunk=32, the loss and gradients against the unchunked ones;
   8. the paper's two-stage fine-tune of bert-base on sst2 (seq 128, batch
      32, 30 steps per stage) for 'hadamard', then stage 2 alone for
      'hadamard_concat': finite losses, the trainable count, the launches of
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
-  9. one JSON line of per-kernel results (launch counts from phases 5-6rs
-     and 8, and each kernel's device us per decode tick and per prefill
+  8d. decoder-LM fine-tuning of qwen3-0.6b in bf16, 16x128 `lm_batches`
+     tokens a step: 30 steps of 'hadamard' (the loss of one fixed batch
+     falls, and every trainable leaf moves), 10 over an
+     int8 trunk calibrated on 2 batches, 10 over fp8, 6 with microbatch=2,
+     and a resume (6 steps saving at step 3; a fresh state restored from
+     step 3 takes steps 4-6, held to the unbroken run): finite losses,
+     the trainable count (86,016 of 596,107,264), the launches of every
+     step as predicted, step rates, peak device bytes and a
+     torch.profiler breakdown of a step;
+  9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
+     8 and 8d, and each kernel's device us per decode tick and per prefill
      from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
@@ -137,6 +157,15 @@ TRAIN = dict(arch="bert-base", task="sst2", batch=32, seq=128, steps=30,
 # bert-base's stage-2 trainable count under 'hadamard' (adapter w and b
 # plus the ffn-output LayerNorm of 12 layers), as the JAX package counts it
 BERT_BASE_TRAINABLE = (36_864, 109_503_746)
+# qwen3-0.6b's trainable count under 'hadamard' (adapter w and b, fp32, and
+# the ffn-output RMSNorm scale, bf16, of 28 layers), as the JAX package
+# counts it (jax.eval_shape of its init)
+QWEN3_TRAINABLE = (86_016, 596_107_264)
+# decoder-LM fine-tuning of qwen3-0.6b in bf16 on the synthetic Markov
+# corpus (`lm_corpus`, 200,000 tokens): steps of batch x seq tokens
+LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
+                microbatch_steps=6, resume_steps=6, save_every=3,
+                calibrate_batches=2)
 
 
 def log(msg: str) -> None:
@@ -173,6 +202,7 @@ def main() -> int:
     from repro_torch.kernels.attention import FlashAttention, paged_split_plan
     from repro_torch.kernels._build import aligned16
     from repro_torch.kernels.hadamard import (MAX_D, FusedAdapterResidualNorm,
+                                              HadamardAffine,
                                               fused_norm_plan)
     from repro_torch.kernels.quant import DequantMatmul, dequant_matmul_plan
     from repro_torch.kernels.rwkv6 import wkv6_plan
@@ -1323,6 +1353,139 @@ def main() -> int:
             split_plan=wkv6_plan(B, RW["H"], T, RW["n"]),
             bit_identical_repeats=wkv_repeats)
     torch.cuda.empty_cache()
+
+    # the train_lm shapes: a qwen3-0.6b fine-tuning step in bf16 (phase
+    # 8d), 16 x 128 tokens. #3's forward and its backward (the norm VJP in
+    # plain torch, then #2 on the fp32 cotangent it hands on and the bf16
+    # adapter input), #2 also through HadamardAffine on a bf16 cotangent,
+    # #4 causal over 16 heads on 8 with its log-sum-exp, #7 at M = 2048;
+    # each kernel against its plain version, each backward against
+    # autograd through the plain forward, every output within BF16_TOL of
+    # its own max |ref|
+    B_lm, S_lm = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    n_lm, shp_lm = B_lm * S_lm, (B_lm, S_lm, d)
+    w, b = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
+    scale_lm = 1 + randn(d, dtype=bf, scale=0.1)
+    x, res = randn(*shp_lm, dtype=bf), randn(*shp_lm, dtype=bf)
+    g_xn, g_h = randn(*shp_lm, dtype=bf), randn(*shp_lm, dtype=bf)
+    lm_case = f"{shp_lm} bf16, fp32 w/b, bf16 scale, RMSNorm (train_lm)"
+    compare("fused_adapter_norm", lm_case, bf,
+            lambda: ops.fused_adapter_norm(x, res, w, b, scale_lm, eps=1e-6,
+                                           impl="kernel"),
+            lambda: ops.fused_adapter_norm(x, res, w, b, scale_lm, eps=1e-6,
+                                           impl="ref"))
+    compare("fused_adapter_norm_bwd", lm_case, bf,
+            lambda: grads_of(lambda *t: FusedAdapterResidualNorm.apply(
+                *t, None, 1e-6, "kernel"), (x, res, w, b, scale_lm),
+                (g_xn, g_h)),
+            lambda: grads_of(lambda *t: ref.fused_adapter_residual_norm_ref(
+                *t, eps=1e-6), (x, res, w, b, scale_lm), (g_xn, g_h)))
+    gt, xa = randn(n_lm, d), randn(n_lm, d, dtype=bf)
+    compare("hadamard_affine_bwd", f"g ({n_lm},{d}) fp32, x bf16 (train_lm)",
+            bf, lambda: ops.hadamard_affine_bwd(gt, xa, w, impl="kernel"),
+            lambda: ops.hadamard_affine_bwd(gt, xa, w, impl="ref"))
+    ga = randn(n_lm, d, dtype=bf)
+    compare("hadamard_affine_bwd", f"HadamardAffine ({n_lm},{d}) bf16 "
+            "(train_lm)", bf,
+            lambda: grads_of(lambda *t: HadamardAffine.apply(*t, "kernel"),
+                             (xa, w, b), (ga,)),
+            lambda: grads_of(ref.hadamard_ref, (xa, w, b), (ga,)))
+    qkv_lm = dict(q=(B_lm, 16, S_lm, 128), k=(B_lm, 8, S_lm, 128),
+                  v=(B_lm, 8, S_lm, 128))
+    q, k, v = (randn(*qkv_lm[n], dtype=bf) for n in "qkv")
+    compare("flash_attention", "train_lm causal GQA 16/8 with lse", bf,
+            lambda: ops.flash_attention(q, k, v, return_lse=True,
+                                        impl="kernel"),
+            lambda: ops.flash_attention(q, k, v, return_lse=True, impl="ref"))
+    del x, res, g_xn, g_h, gt, xa, ga, q, k, v
+
+    # timed L2-cold at these shapes: each call takes the next of copies
+    # that together pass twice the 50 MB L2
+    xrs = [(randn(*shp_lm, dtype=bf), randn(*shp_lm, dtype=bf))
+           for _ in range(8)]
+    plan = fused_norm_plan(n_lm, d, bf)
+    record("fused_adapter_norm@train_lm", "fused_adapter_norm",
+           f"x, res {shp_lm} bf16 (8 copies in turn), fp32 w/b, bf16 scale, "
+           f"RMSNorm (one layer of a qwen3-0.6b train_lm forward; "
+           f"{plan['kernel']}, {plan['rows_per_block']} rows a block)", bf,
+           rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+               x_, r_, w, b, scale_lm, eps=1e-6, impl="kernel")),
+           rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+               x_, r_, w, b, scale_lm, eps=1e-6, impl="ref")),
+           None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale_lm),
+           8 * xrs[0][0].numel(),
+           yardstick_fn=rotating(xrs, lambda x_, r_: F.rms_norm(
+               x_, (d,), scale_lm, 1e-6)))
+    results["fused_adapter_norm@train_lm"].update(
+        library_note=fan_note, split_plan=plan)
+    gxs = [(randn(n_lm, d), randn(n_lm, d, dtype=bf)) for _ in range(8)]
+    record("hadamard_affine_bwd@train_lm", "hadamard_affine_bwd",
+           f"g ({n_lm},{d}) fp32, x ({n_lm},{d}) bf16 (8 copies in turn), "
+           "fp32 w (one layer of a qwen3-0.6b train_lm backward, under #3)",
+           f32,
+           rotating(gxs, lambda g_, x_: ops.hadamard_affine_bwd(
+               g_, x_, w, impl="kernel")),
+           rotating(gxs, lambda g_, x_: ops.hadamard_affine_bwd(
+               g_, x_, w, impl="ref")),
+           None,
+           # read g, x, w; write dx (fp32), dw, db
+           2 * nbytes(gxs[0][0]) + nbytes(gxs[0][1], w) + 2 * d * 4,
+           4 * n_lm * d)
+    qkvs = [tuple(randn(*qkv_lm[n], dtype=bf) for n in "qkv")
+            for _ in range(6)]
+    record("flash_attention@train_lm", "flash_attention",
+           f"q {qkv_lm['q']} over k/v {qkv_lm['k']} bf16 causal, with lse "
+           f"({len(qkvs)} copies in turn; one layer of a qwen3-0.6b train_lm "
+           "forward)", bf,
+           rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+               q_, k_, v_, return_lse=True, impl="kernel")),
+           rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+               q_, k_, v_, return_lse=True, impl="ref")),
+           rotating(qkvs, lambda q_, k_, v_: F.scaled_dot_product_attention(
+               q_, k_, v_, is_causal=True, enable_gqa=True)),
+           # read q, k, v; write out and the fp32 lse
+           2 * nbytes(qkvs[0][0]) + nbytes(*qkvs[0][1:]) + B_lm * 16 * S_lm * 4,
+           4 * B_lm * 16 * 128 * (S_lm * (S_lm + 1) // 2),
+           iters=len(qkvs), reps=5)
+    results["flash_attention@train_lm"]["library_note"] = (
+        "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+        "enable_gqa=True), no lse")
+    del xrs, gxs, qkvs
+    wq = quantized(d, 3072, torch.int8, copies=32)
+    wbf = [(v_.float().mul(sc).to(bf),) for v_, sc in wq[:16]]
+    x = randn(n_lm, d, dtype=bf)
+    compare("dequant_matmul", f"M={n_lm} K={d} N=3072 int8 (train_lm)", bf,
+            lambda: ops.dequant_matmul(x, *wq[0], impl="kernel"),
+            lambda: ops.dequant_matmul(x, *wq[0], impl="ref"))
+    int8pack, lm_note = None, library_note
+    if library_note.startswith("torch._weight_int8pack_mm"):
+        packed = [(v_.t().contiguous(), sc.reshape(-1).to(bf))
+                  for v_, sc in wq[:16]]
+        try:
+            torch._weight_int8pack_mm(x, *packed[0])
+            int8pack = packed
+        except (RuntimeError, NotImplementedError) as e:
+            lm_note = (f"none: torch._weight_int8pack_mm refused M={n_lm} "
+                       f"({str(e).splitlines()[0][:160]})")
+    plan = dequant_matmul_plan(n_lm, d, 3072, bf, torch.int8)
+    record("dequant_matmul@train_lm", "dequant_matmul",
+           f"x ({n_lm},{d}) bf16 @ int8 values ({d},3072) (32 copies in "
+           f"turn), fp32 scales (1,3072) (wi of one layer, a qwen3-0.6b "
+           f"train_lm forward; {plan['kernel']}, {math.prod(plan['grid'])} "
+           f"blocks, cluster {plan['cluster']})", bf,
+           rotating(wq, lambda v_, sc: ops.dequant_matmul(x, v_, sc,
+                                                          impl="kernel")),
+           rotating(wq, lambda v_, sc: ops.dequant_matmul(x, v_, sc,
+                                                          impl="ref")),
+           None if int8pack is None else rotating(
+               int8pack, lambda w_, s_: torch._weight_int8pack_mm(x, w_, s_)),
+           nbytes(x, *wq[0]) + n_lm * 3072 * 2, 2 * n_lm * d * 3072,
+           yardstick_fn=rotating(wbf, lambda w_: torch.matmul(x, w_)),
+           iters=32, reps=5)
+    results["dequant_matmul@train_lm"].update(library_note=lm_note,
+                                              split_plan=plan)
+    del wq, wbf, int8pack, x
+    torch.cuda.empty_cache()
     phase_done("3")
 
     # -- phase 4: full-width model in fp32, kernel path vs plain path -------
@@ -2105,6 +2268,133 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("7")
 
+    # -- phase 7d: full-width qwen3-0.6b in fp32, the train path's kernels
+    # against the plain path ------------------------------------------------
+    def per_call(counts):
+        """A launch dict with every kernel, zero where not given."""
+        return {k: counts.get(k, 0) for k in _build.LAUNCHES}
+
+    from repro_torch.convert import jax_path
+    from repro_torch.data.synthetic import lm_batches, lm_corpus
+
+    lm_strat = peft.strategy("hadamard")
+    qwen32 = peft.attach(get_arch(ARCH), lm_strat).replace(
+        param_dtype="float32", compute_dtype="float32")
+    Lq = qwen32.n_layers
+    corpus = lm_corpus(qwen32.vocab_size, 200_000, seed=LM_TRAIN["seed"])
+    B7 = 4
+    batch7 = loop.to_device(next(lm_batches(corpus, 1, B7, LM_TRAIN["seq"],
+                                            seed=LM_TRAIN["seed"] + 7)), dev)
+    params = perturb_adapters(
+        M.init_params(torch.Generator(device=dev).manual_seed(1), qwen32),
+        seed=2, scale=0.2)
+    fa, fl, ab, dq = ("fused_adapter_norm", "flash_attention",
+                      "hadamard_affine_bwd", "dequant_matmul")
+    want_lm = {None: per_call({fa: Lq, fl: Lq, ab: Lq}),
+               "int8": per_call({fa: Lq, fl: Lq, ab: Lq, dq: 7 * Lq})}
+    lm_leaves = {f"layers/{i}/{leaf}" for i in range(Lq)
+                 for leaf in ("adapter/w", "adapter/b", "ffn_norm/scale")}
+    lm_model, unchunked = {}, None
+    for variant, cfg_v, quant in (("fp32", qwen32, None),
+                                  ("int8", qwen32, "int8"),
+                                  ("fp32 ce_chunk=32",
+                                   qwen32.replace(ce_chunk=32), None)):
+        runs = {}
+        for impl in (("auto",) if cfg_v.ce_chunk else ("auto", "ref")):
+            state = make_state(None, cfg_v, lm_strat, OptimCfg(),
+                               params=params, quant=quant)
+            torch.cuda.synchronize()
+            before = _build.launch_counts()
+            loss, _, grads = loss_and_grads(cfg_v, state, batch7, impl)
+            after = _build.launch_counts()
+            with torch.no_grad():
+                logits = M.forward_lm(state["params"], cfg_v,
+                                      batch7["tokens"], impl=impl)
+            runs[impl] = (logits, loss.item(), grads,
+                          {k: after[k] - before[k] for k in after})
+            del state
+        lg, loss_k, gk, launched = runs["auto"]
+        check(launched == want_lm[quant], f"phase 7d {variant}: the loss and "
+              f"its gradients launched {launched}, predicted {want_lm[quant]}")
+        check(lg.shape == (B7, LM_TRAIN["seq"], qwen32.vocab_size) and
+              bool(torch.isfinite(lg).all()), f"phase 7d {variant}: logits "
+              f"{tuple(lg.shape)}, finite {bool(torch.isfinite(lg).all())}")
+        check(set(gk) == lm_leaves, f"phase 7d {variant}: trainable leaves "
+              f"{sorted(set(gk) ^ lm_leaves)[:6]}")
+        rep = {"launches": {k: v for k, v in launched.items() if v}}
+        if cfg_v.ce_chunk:
+            # the chunked CE against the unchunked one, both through the
+            # kernels: the same loss and gradients up to summation order
+            loss_u, g_u = unchunked
+            rep["loss_rel_vs_unchunked"] = abs(loss_k - loss_u) / abs(loss_u)
+            check(rep["loss_rel_vs_unchunked"] <= 1e-5, f"phase 7d {variant}: "
+                  f"loss {loss_k} vs unchunked {loss_u}")
+            # the gradient as one vector over the trainable leaves,
+            # |g_chunked - g| / |g| <= 1e-5, and leaf by leaf, max|diff|
+            # over the leaf's max|g| <= 1e-4. The head's GEMMs run at
+            # another M a chunk, so cuBLAS sums the 151,936-long
+            # contraction of the backward in another split: each element
+            # moves by fp32 rounding, which a leaf of small gradients
+            # shows most (1.36e-5 at the worst on an H100). The leaf
+            # limit sits below what a fault reads that the loss and the
+            # vector norm barely see: the last chunk's logits rounded to
+            # bf16 read 5.4e-4 on the worst leaf (qwen3 smoke, CPU)
+            sq_d = sum((gk[p] - g_u[p]).double().square().sum().item()
+                       for p in lm_leaves)
+            sq_g = sum(g_u[p].double().square().sum().item()
+                       for p in lm_leaves)
+            rep["grad_rel_vs_unchunked"] = math.sqrt(sq_d / sq_g)
+            leaf_rel = {p: (gk[p] - g_u[p]).abs().max().item()
+                        / g_u[p].abs().max().item() for p in lm_leaves}
+            worst_leaf = max(leaf_rel, key=leaf_rel.get)
+            rep["grad_worst_leaf_max_rel_vs_unchunked"] = leaf_rel[worst_leaf]
+            rep["grad_worst_leaf"] = worst_leaf
+            check(rep["grad_rel_vs_unchunked"] <= 1e-5, f"phase 7d {variant}: "
+                  f"|g - g_unchunked| / |g_unchunked| "
+                  f"{rep['grad_rel_vs_unchunked']:.3g} > 1e-5")
+            check(leaf_rel[worst_leaf] <= 1e-4, f"phase 7d {variant}: "
+                  f"gradient {worst_leaf} max|diff| / its max|g_unchunked| "
+                  f"{leaf_rel[worst_leaf]:.3g} > 1e-4")
+            log(f"[7d] {ARCH} fp32, {Lq} layers, ce_chunk=32 through the "
+                f"kernels vs unchunked: loss rel "
+                f"{rep['loss_rel_vs_unchunked']:.3g} (tol 1e-5), gradient of "
+                f"{len(lm_leaves)} leaves |diff| / |ref| "
+                f"{rep['grad_rel_vs_unchunked']:.3g} (tol 1e-5); worst leaf "
+                f"{worst_leaf} max|diff| / its max|ref| "
+                f"{leaf_rel[worst_leaf]:.3g} (tol 1e-4)")
+        else:
+            lr_, loss_r, gr, _ = runs["ref"]
+            diff, top = (lg - lr_).abs().max().item(), lr_.abs().max().item()
+            check(diff <= 1e-3 * top, f"phase 7d {variant}: |kernel - plain| "
+                  f"logits {diff:.3g} > 1e-3 x {top:.3g}")
+            loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+            check(math.isfinite(loss_k) and loss_rel <= 1e-5,
+                  f"phase 7d {variant}: loss {loss_k} vs plain {loss_r}")
+            worst = 0.0
+            for path in sorted(lm_leaves):
+                e = (gk[path] - gr[path]).abs().max().item()
+                m = gr[path].abs().max().item()
+                check(bool(torch.isfinite(gk[path]).all()) and e <= 1e-3 * m,
+                      f"phase 7d {variant}: gradient {path} max abs err "
+                      f"{e:.3g} > 1e-3 x {m:.3g}")
+                worst = max(worst, e / m)
+            rep.update(logits_rel=diff / top, loss=loss_k, loss_plain=loss_r,
+                       loss_rel=loss_rel, grad_worst_rel=worst)
+            if quant is None:
+                unchunked = (loss_k, gk)
+            log(f"[7d] {ARCH} {variant}, {Lq} layers, hadamard, one "
+                f"{B7}x{LM_TRAIN['seq']} lm_batches batch: kernel path vs "
+                f"plain path logits max |diff| / max|ref| {diff / top:.3g} "
+                f"(tol 1e-3), lm_loss {loss_k:.6f} vs {loss_r:.6f} (rel "
+                f"{loss_rel:.3g}, tol 1e-5), {len(lm_leaves)} gradient "
+                f"leaves, worst max|diff| / max|ref| {worst:.3g} (tol 1e-3); "
+                f"launches of the loss and its gradients {rep['launches']}")
+        lm_model[variant] = rep
+        del runs, lg, gk
+    del params, unchunked, batch7
+    torch.cuda.empty_cache()
+    phase_done("7d")
+
     # -- phase 8: two-stage training at full width, fp32 --------------------
     def count_loop_calls():
         """Wrap the train loop's step and eval builders for one run: each
@@ -2135,10 +2425,6 @@ def main() -> int:
             loop.build_train_step, loop.build_eval_step = originals
         return runs, restore
 
-    def per_call(counts):
-        """A launch dict with every kernel, zero where not given."""
-        return {k: counts.get(k, 0) for k in _build.LAUNCHES}
-
     flash, fused = "flash_attention", "fused_adapter_norm"
     aff, aff_bwd = "hadamard_affine", "hadamard_affine_bwd"
     # predicted launches per train step and per eval batch: the forward
@@ -2164,14 +2450,15 @@ def main() -> int:
             check(c == want, f"phase 8 {phase}: {stage} call {i} launched "
                              f"{c}, predicted {want}")
 
-    def rates(hist):
+    def rates(hist, tokens=B_tr * S_tr):
         """Step rates of a stage from its history (each step timed to a
-        device sync); the first step, which warms the caches, apart."""
+        device sync) of `tokens` a step; the first step, which warms the
+        caches, apart."""
         s = [h["step_s"] for h in hist[1:]]
         mean = sum(s) / len(s)
         return {"first_step_ms": hist[0]["step_s"] * 1e3,
                 "host_ms_per_step": mean * 1e3, "steps_per_s": 1 / mean,
-                "tokens_per_s": B_tr * S_tr / mean,
+                "tokens_per_s": tokens / mean,
                 "losses": [h["loss"] for h in hist]}
 
     def profile_steps(cfg_s, strat, params):
@@ -2254,6 +2541,205 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done(f"8 {phase}")
 
+    # -- phase 8d: decoder-LM fine-tuning of qwen3-0.6b in bf16 ------------
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.quant import calibrate
+    from repro_torch.train.losses import loss_for
+    from repro_torch.train.steps import restore_state
+
+    lm_cfg = peft.attach(get_arch(ARCH), lm_strat)  # bf16, as JAX's defaults
+    Bl, Sl = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    base = M.init_params(
+        torch.Generator(device=dev).manual_seed(LM_TRAIN["seed"]), lm_cfg)
+    # predicted launches of every train step, from the code: the forward
+    # runs #3 at each layer's adapter seam and #4 in each layer's
+    # attention, the backward #2 under each #3 (the attention backward is
+    # plain torch, the tied head a matmul); a quantized trunk adds #7 in
+    # each of a layer's 7 projections (dx is plain torch); microbatch=2
+    # runs all of it twice
+    want_bf = per_call({fa: Lq, fl: Lq, ab: Lq})
+    want_q = per_call({fa: Lq, fl: Lq, ab: Lq, dq: 7 * Lq})
+    lm_report, lm_launches = {}, {}
+
+    def lm_batches_of(n, seed=LM_TRAIN["seed"]):
+        return lm_batches(corpus, n, Bl, Sl, seed=seed)
+
+    def probe_loss(state, batch):
+        with torch.no_grad():
+            return loss_for(lm_cfg)(lm_cfg, state["params"], batch)[0].item()
+
+    def lm_run(tag, steps_, want, total=None, microbatch=0, state=None,
+               batches=None, manager=None, save_every=0, profile=True,
+               probe=None):
+        """`steps_` steps of `run_train` from `base` (or `state`), each
+        step's own launches counted and held to `want`; the trainable
+        count, finite losses, rates, the run's peak device bytes and,
+        with `profile`, a torch.profiler breakdown of two more steps.
+        Given a `probe` batch, also its loss before and after the steps
+        (outside the launch counts) and the trainable leaves that the
+        steps left as they were."""
+        ocfg = OptimCfg(lr=LM_TRAIN["lr"], total_steps=total or steps_)
+        if state is None:
+            state = make_state(None, lm_cfg, lm_strat, ocfg, params=base)
+        plain_step = build_train_step(lm_cfg, ocfg, microbatch=microbatch)
+        calls = []
+        if probe is not None:
+            probe_before = probe_loss(state, probe)
+            start = {p: t.detach().clone()
+                     for p, t in state["trainable"].items()}
+
+        def counted(st, batch):
+            before = _build.launch_counts()
+            out = plain_step(st, batch)
+            after = _build.launch_counts()
+            calls.append({k: after[k] - before[k] for k in after})
+            return out
+
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        state, hist = loop.run_train(
+            state, counted, batches if batches is not None
+            else lm_batches_of(steps_), steps=steps_, log_every=10,
+            manager=manager, save_every=save_every, log=log)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        lm_launches[tag] = _build.launch_counts()
+        check(len(calls) == steps_, f"phase 8d {tag}: {len(calls)} steps "
+                                    f"counted, want {steps_}")
+        for i, c in enumerate(calls):
+            check(c == want, f"phase 8d {tag}: step {i} launched {c}, "
+                             f"predicted {want}")
+        for k, total_k in lm_launches[tag].items():
+            check(sum(c[k] for c in calls) == total_k,
+                  f"phase 8d {tag}: {k} launched outside the train steps")
+        pstats = peft.param_stats(state["params"], peft.trainable_mask(
+            state["params"], lm_strat, 2, cfg=lm_cfg))
+        check((pstats["trainable"], pstats["total"]) == QWEN3_TRAINABLE,
+              f"phase 8d {tag}: trainable {pstats['trainable']} of "
+              f"{pstats['total']}, want {QWEN3_TRAINABLE}")
+        rep = dict(rates(hist, Bl * Sl), steps=steps_,
+                   launches_per_step={k: v for k, v in want.items() if v},
+                   trainable=pstats["trainable"], total=pstats["total"],
+                   percent=pstats["percent"], peak_bytes=peak,
+                   held_bytes_before=held)
+        check(all(math.isfinite(v) for v in rep["losses"]),
+              f"phase 8d {tag}: non-finite loss {rep['losses']}")
+        if probe is not None:
+            rep["probe_loss_before"] = probe_before
+            rep["probe_loss_after"] = probe_loss(state, probe)
+            rep["leaves_unmoved"] = sorted(
+                p for p, t in state["trainable"].items()
+                if torch.equal(t, start[p]))
+            del start
+        if profile:
+            batch = loop.to_device(next(lm_batches_of(1, seed=99)), dev)
+            rep["profile"] = profile_calls(lambda: plain_step(state, batch), 2)
+        lm_report[tag] = rep
+        step_calls[f"train_lm_{tag}"] = calls
+        log(f"[8d] {tag} on {smi}: {ARCH} bf16, {steps_} steps of {Bl}x{Sl} "
+            f"lm_batches tokens; trainable {pstats['trainable']:,} of "
+            f"{pstats['total']:,} ({pstats['percent']:.4f}%); launches per "
+            f"step as predicted {rep['launches_per_step']}; "
+            f"{json.dumps(rep)}")
+        return state, rep
+
+    # (a) the adapter on the bf16 trunk: the loss falls. The steps' own
+    # losses are of different batches and fall by about their spread, so
+    # the loss of one fixed batch (the first step's, the run is
+    # deterministic) is taken before and after the steps, and every
+    # trainable leaf, the bf16 norm scales included, must have moved
+    probe = loop.to_device(next(lm_batches_of(1)), dev)
+    state, rep = lm_run("hadamard", LM_TRAIN["steps"], want_bf, probe=probe)
+    first, last = rep["losses"][:5], rep["losses"][-5:]
+    check(sum(last) / 5 < sum(first) / 5, f"phase 8d hadamard: the last 5 "
+          f"losses' mean {sum(last) / 5} is not below the first 5's "
+          f"{sum(first) / 5}")
+    check(rep["probe_loss_after"] < rep["probe_loss_before"],
+          f"phase 8d hadamard: the fixed batch's loss went from "
+          f"{rep['probe_loss_before']} to {rep['probe_loss_after']}")
+    check(not rep["leaves_unmoved"], f"phase 8d hadamard: "
+          f"{len(rep['leaves_unmoved'])} trainable leaves never moved "
+          f"{rep['leaves_unmoved'][:4]}")
+    log(f"[8d] hadamard: the fixed batch's loss {rep['probe_loss_before']:.6f}"
+        f" -> {rep['probe_loss_after']:.6f} over {LM_TRAIN['steps']} steps; "
+        f"every one of {len(state['trainable'])} trainable leaves moved")
+    del state, probe
+    # (b) QPEFT over an int8 trunk whose clips come from calibration on 2
+    # batches drawn from seed + 1, as the launcher draws them
+    t0 = time.perf_counter()
+    stats = calibrate(lm_cfg, base, lm_batches_of(
+        LM_TRAIN["calibrate_batches"], seed=LM_TRAIN["seed"] + 1),
+        max_batches=LM_TRAIN["calibrate_batches"])
+    cal_s = time.perf_counter() - t0
+    check(sorted(stats) == sorted(f"{g}/{w}" for g, ws in (
+        ("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wi", "wg", "wo")))
+        for w in ws), f"phase 8d: calibrated tags {sorted(stats)}")
+    for quant, tag in (("int8", "int8_calibrated"), ("fp8", "fp8")):
+        t0 = time.perf_counter()
+        state = make_state(None, lm_cfg, lm_strat, OptimCfg(
+            lr=LM_TRAIN["lr"], total_steps=LM_TRAIN["quant_steps"]),
+            params=base, quant=quant,
+            quant_stats=stats if quant == "int8" else None)
+        quant_s = time.perf_counter() - t0
+        qs = quant_summary(state["params"],
+                           leaf_name=lambda p: jax_path(p, lm_cfg))
+        qline = (f"quantized trunk: {qs['n_quantized_leaves']} leaves, "
+                 f"{qs['dense_bytes_fp32'] / 2**20:.1f} MiB fp32 -> "
+                 f"{qs['quantized_bytes'] / 2**20:.1f} MiB "
+                 f"({qs['ratio']:.2f}x)")
+        check(qs["n_quantized_leaves"] == 7, f"phase 8d {tag}: {qline}")
+        log(f"[8d] {tag}: {qline}; quantized in {quant_s:.1f} s"
+            + (f" after calibrating {len(stats)} call sites over "
+               f"{LM_TRAIN['calibrate_batches']} batches in {cal_s:.1f} s"
+               if quant == "int8" else ""))
+        state, rep = lm_run(tag, LM_TRAIN["quant_steps"], want_q, state=state)
+        rep.update(quant_line=qline, quant_summary=qs, quantize_s=quant_s)
+        if quant == "int8":
+            rep["calibrate_s"] = cal_s
+        del state
+    # (d) gradient accumulation over 2 slices of each batch
+    state, _ = lm_run("microbatch2", LM_TRAIN["microbatch_steps"],
+                      {k: 2 * v for k, v in want_bf.items()}, microbatch=2)
+    del state
+    # (e) checkpointed resume: an unbroken run saving every 3 steps, then a
+    # fresh state restored from step 3 takes steps 4-6 on the same batches
+    n_r, k_r = LM_TRAIN["resume_steps"], LM_TRAIN["save_every"]
+    with tempfile.TemporaryDirectory() as ckdir:
+        mgr = CheckpointManager(ckdir, keep=3)
+        whole, rep_w = lm_run("resume_unbroken", n_r, want_bf, manager=mgr,
+                              save_every=k_r, profile=False)
+        check(mgr.steps() == list(range(k_r, n_r + 1, k_r)),
+              f"phase 8d resume: snapshots {mgr.steps()}")
+        restored, meta = mgr.restore(k_r)
+        fresh = make_state(None, lm_cfg, lm_strat, OptimCfg(
+            lr=LM_TRAIN["lr"], total_steps=n_r), params=base)
+        restore_state(fresh, restored)
+        check(fresh["step"] == k_r == meta["step"], f"phase 8d resume: "
+              f"restored step {fresh['step']}, meta {meta}")
+        fresh, rep_r = lm_run(
+            "resume_from_3", n_r - k_r, want_bf, total=n_r, state=fresh,
+            batches=itertools.islice(lm_batches_of(n_r), k_r, None),
+            profile=False)
+    got, want = rep_r["losses"], rep_w["losses"][k_r:]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    leaves_equal = all(torch.equal(fresh["trainable"][p], t)
+                       for p, t in whole["trainable"].items())
+    check(rel <= 1e-5, f"phase 8d resume: steps {k_r + 1}-{n_r} losses {got} "
+                       f"vs unbroken {want}")
+    lm_report["resume"] = {"losses_resumed": got, "losses_unbroken": want,
+                           "bit_for_bit_losses": got == want,
+                           "max_rel_loss_diff": rel,
+                           "trainable_leaves_bit_for_bit": leaves_equal}
+    log(f"[8d] resume on {smi}: steps {k_r + 1}-{n_r} restored from step "
+        f"{k_r}: losses {got} vs unbroken {want}; bit for bit "
+        f"{got == want} (max rel diff {rel:.3g}, limit 1e-5); trainable "
+        f"leaves after step {n_r} bit for bit {leaves_equal}")
+    del whole, fresh, base, corpus
+    torch.cuda.empty_cache()
+    phase_done("8d")
+
     # -- phase 9: the kernels line ------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2283,7 +2769,8 @@ def main() -> int:
                   "5rq": "serve_rwkv_single_int8",
                   "6rs": "serve_rwkv_hot_swap"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
-                **train_launches}
+                **train_launches,
+                **{f"train_lm_{t}": c for t, c in lm_launches.items()}}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
@@ -2330,7 +2817,7 @@ def main() -> int:
         }
         if name in REL_TOL:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
-        for at in ("train", "prefill", "head", "rwkv"):
+        for at in ("train", "train_lm", "prefill", "head", "rwkv"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(
@@ -2353,7 +2840,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": serve,
                       "quant_model": quant_model, "hot_model": hot_model,
                       "rwkv_model": rwkv_model,
-                      "train": train_report,
+                      "train": train_report, "lm_model": lm_model,
+                      "train_lm": lm_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()

@@ -199,6 +199,6 @@ class TrainCfg:
     seq_len: int = 128
     steps: int = 100
     eval_every: int = 50
-    microbatch: int = 0  # gradient accumulation: not ported, must stay 0
+    microbatch: int = 0  # 0 = no gradient accumulation
     seed: int = 0
     log_every: int = 10

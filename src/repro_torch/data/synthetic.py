@@ -15,7 +15,9 @@ Labels are functions of token content so models can genuinely learn them:
     copy vs. random second segment; mnli adds a half-overlap neutral class;
     stsb's score is the Jaccard overlap scaled to [0, 5]).
 
-The LM corpus helpers arrive with decoder-LM fine-tuning.
+The LM corpus (`lm_corpus`, `lm_batches`) is a seeded order-2 Markov
+stream over a sparse candidate table, for decoder-LM fine-tuning: a model
+can learn it, so the loss falls.
 """
 from __future__ import annotations
 
@@ -139,3 +141,35 @@ class TaskData:
         n = len(self.eval["labels"])
         for s in range(0, n - batch_size + 1, batch_size):
             yield {k: v[s : s + batch_size] for k, v in self.eval.items()}
+
+
+def lm_corpus(vocab_size: int, n_tokens: int, seed: int = 0,
+              order: int = 2) -> np.ndarray:
+    """Synthetic LM corpus with learnable Markov structure."""
+    rng = np.random.default_rng(seed)
+    # sparse transition table: each context maps to a small candidate set
+    n_ctx = 4096
+    cands = rng.integers(FIRST_CONTENT_TOKEN, vocab_size, size=(n_ctx, 4))
+    toks = np.empty(n_tokens, np.int32)
+    toks[:order] = rng.integers(FIRST_CONTENT_TOKEN, vocab_size, size=order)
+    h = 0
+    for i in range(order, n_tokens):
+        h = (h * 1000003 + int(toks[i - 1])) % n_ctx
+        if rng.random() < 0.1:  # noise
+            toks[i] = rng.integers(FIRST_CONTENT_TOKEN, vocab_size)
+        else:
+            toks[i] = cands[h, rng.integers(0, 4)]
+    return toks
+
+
+def lm_batches(corpus: np.ndarray, steps: int, batch_size: int, seq_len: int,
+               seed: int = 0) -> Iterator[dict]:
+    """`steps` batches of `batch_size` windows of the corpus at random
+    starts: tokens (B, S) and labels, the same windows one token on."""
+    rng = np.random.default_rng(seed)
+    max_start = len(corpus) - seq_len - 1
+    for _ in range(steps):
+        starts = rng.integers(0, max_start, size=batch_size)
+        toks = np.stack([corpus[s : s + seq_len] for s in starts])
+        labs = np.stack([corpus[s + 1 : s + seq_len + 1] for s in starts])
+        yield {"tokens": toks.astype(np.int32), "labels": labs.astype(np.int32)}

@@ -1,11 +1,21 @@
-"""Training launcher of the port: the paper's two-stage fine-tune of a
-BERT-family encoder on a synthetic GLUE-style task.
+"""Training launcher of the port: decoder-LM fine-tuning with a PEFT
+strategy on the synthetic Markov corpus (optionally over an int8/fp8
+trunk, QPEFT, and with checkpoints), or the paper's two-stage fine-tune
+of a BERT-family encoder on a synthetic GLUE-style task.
 
-The backbone is random, made from --seed on the device. Stage 1 trains
-the classification head; stage 2 injects the --peft strategy's adapter,
-reloads the head and tunes the strategy's leaves. Both stages run --steps
-steps of --batch sequences of --seq tokens.
+The backbone is random, made from --seed on the device. A decoder trains
+--steps steps of --batch windows of --seq tokens of `lm_corpus`; with
+--quant the frozen trunk is quantized after the PEFT partition, with
+activation-weighted clips from --calibrate-batches batches of calibration
+(0: plain absmax); with --ckpt-dir every --save-every-th step is saved
+and --resume starts from the newest snapshot. An encoder runs stage 1
+(the classification head) and stage 2 (the --peft strategy's adapter on
+the reloaded head), --steps steps each.
 
+  python -m repro_torch.launch.train --arch qwen3-0.6b --peft hadamard \\
+      --steps 30 --batch 16 --seq 128 [--quant int8 --calibrate-batches 2]
+  python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu \\
+      --steps 12 --batch 8 --seq 32 [--ckpt-dir D --save-every 6 --resume]
   python -m repro_torch.launch.train --arch bert-base --task sst2 \\
       --steps 30 --batch 32 --seq 128
   python -m repro_torch.launch.train --arch bert-tiny --task sst2 --smoke \\
@@ -15,21 +25,27 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.common.device import resolve_device
 from repro_torch.common.types import OptimCfg, TrainCfg
-from repro_torch.configs import PAPER, get, get_smoke
+from repro_torch.configs import get, get_smoke
+from repro_torch.convert import jax_path
 from repro_torch.core import peft
-from repro_torch.data.synthetic import TASKS, TaskData
-from repro_torch.train.loop import two_stage_finetune
+from repro_torch.data.synthetic import TASKS, TaskData, lm_batches, lm_corpus
+from repro_torch.models import model as M
+from repro_torch.quant import calibrate, quant_summary
+from repro_torch.train.loop import StepWatchdog, run_train, two_stage_finetune
+from repro_torch.train.losses import loss_for
+from repro_torch.train.steps import build_train_step, make_state, restore_state
 
 # options of the JAX launcher that arrive with later slices
 LATER = {
-    "quant": "the quantization slice (QPEFT)",
-    "prune_to": "the sparse-adapter slice",
+    "prune_to": "the sparse-adapter slice (gated training)",
     "compress_grads": "the optimizer-state slice",
-    "quant_moments": "the optimizer-state slice",
+    "quant_moments": "the optimizer-state slice (moment quantization)",
     "mesh": "the distributed slice (torch.distributed)",
-    "ckpt_dir": "the checkpoint-interop slice",
 }
 
 
@@ -41,19 +57,28 @@ def main(argv=None):
     ap.add_argument("--peft", default="hadamard",
                     choices=sorted(peft.STRATEGIES))
     ap.add_argument("--task", default=None, choices=sorted(TASKS),
-                    help="GLUE-style task (default sst2)")
+                    help="GLUE-style task (encoder archs, default sst2)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--quant", default="")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--quant", default="", choices=["", "int8", "fp8"],
+                    help="QPEFT: quantize the frozen trunk (int8/fp8) and "
+                         "train the adapter on top of it (decoder-LM path; "
+                         "needs a frozen-trunk strategy)")
+    ap.add_argument("--calibrate-batches", type=int, default=0,
+                    help="with --quant: run this many batches of "
+                         "activation-statistics calibration before "
+                         "quantizing (0 = plain absmax scales)")
     ap.add_argument("--prune-to", type=int, default=0)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--quant-moments", default="")
     ap.add_argument("--mesh", default="")
-    ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
 
     for opt, slice_ in LATER.items():
@@ -62,25 +87,71 @@ def main(argv=None):
                 f"--{opt.replace('_', '-')} is not ported yet; it arrives "
                 f"with {slice_}")
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
-    if cfg.family != "encoder":
-        raise NotImplementedError(
-            f"{args.arch} is a {cfg.family}: the port trains the paper's "
-            f"encoders ({', '.join(sorted(PAPER))}); decoder-LM fine-tuning "
-            "is the next training slice")
+    strat = peft.strategy(args.peft)
     device = resolve_device(args.device)
-    task = args.task or "sst2"
-    data = TaskData(task, cfg.vocab_size, seq_len=args.seq, seed=args.seed)
-    tc = TrainCfg(optim=OptimCfg(lr=args.lr, total_steps=args.steps),
-                  steps=args.steps, batch_size=args.batch, seq_len=args.seq,
-                  log_every=10)
-    res = two_stage_finetune(args.seed, cfg, args.peft, data, stage1=tc,
-                             stage2=tc, metric=TASKS[task].metric,
-                             device=device)
-    stats = res.get("param_stats")
-    if stats is not None:
-        print(f"trainable {stats['trainable']:,} of {stats['total']:,} "
-              f"({stats['percent']:.4f}%)")
-    print(f"final {TASKS[task].metric}: {res['final_metric']:.4f}")
+    ocfg = OptimCfg(lr=args.lr, total_steps=args.steps)
+
+    if cfg.family == "encoder":
+        if args.quant:
+            raise SystemExit("--quant targets the decoder-LM path; the "
+                             "two-stage encoder recipe manages its own "
+                             "states (quantize post-training for serving)")
+        task = args.task or "sst2"
+        data = TaskData(task, cfg.vocab_size, seq_len=args.seq, seed=args.seed)
+        tc = TrainCfg(optim=ocfg, steps=args.steps, batch_size=args.batch,
+                      seq_len=args.seq, log_every=10)
+        res = two_stage_finetune(args.seed, cfg, args.peft, data, stage1=tc,
+                                 stage2=tc, metric=TASKS[task].metric,
+                                 device=device)
+        stats = res.get("param_stats")
+        if stats is not None:
+            print(f"trainable {stats['trainable']:,} of {stats['total']:,} "
+                  f"({stats['percent']:.4f}%)")
+        print(f"final {TASKS[task].metric}: {res['final_metric']:.4f}")
+        return
+
+    # decoder-family LM fine-tuning with PEFT
+    cfg = peft.attach(cfg, strat)
+    loss_for(cfg)  # a family or layer the port does not train raises here
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(args.seed)
+
+    corpus = lm_corpus(cfg.vocab_size, 200_000, seed=args.seed)
+    batches = lm_batches(corpus, args.steps, args.batch, args.seq,
+                         seed=args.seed)
+    params = stats = None
+    if args.quant and args.calibrate_batches:
+        params = M.init_params(gen(), cfg)
+        cal = lm_batches(corpus, args.calibrate_batches, args.batch,
+                         args.seq, seed=args.seed + 1)
+        stats = calibrate(cfg, params, cal,
+                          max_batches=args.calibrate_batches)
+        print(f"calibrated {len(stats)} call sites over "
+              f"{args.calibrate_batches} batches")
+    state = make_state(gen(), cfg, strat, ocfg, params=params,
+                       quant=args.quant or None, quant_stats=stats)
+    del params
+    if args.quant:
+        qs = quant_summary(state["params"],
+                           leaf_name=lambda p: jax_path(p, cfg))
+        print(f"quantized trunk: {qs['n_quantized_leaves']} leaves, "
+              f"{qs['dense_bytes_fp32'] / 2**20:.1f} MiB fp32 -> "
+              f"{qs['quantized_bytes'] / 2**20:.1f} MiB "
+              f"({qs['ratio']:.2f}x)")
+    manager = None
+    if args.ckpt_dir:
+        manager = CheckpointManager(args.ckpt_dir, keep=3)
+        if args.resume and manager.latest() is not None:
+            restored, meta = manager.restore()
+            restore_state(state, restored)
+            print(f"resumed from step {meta['step']}")
+    step = build_train_step(cfg, ocfg)
+    state, hist = run_train(state, step, batches, steps=args.steps,
+                            log_every=10, manager=manager,
+                            save_every=args.save_every,
+                            watchdog=StepWatchdog())
+    print(f"final loss: {hist[-1]['loss']:.4f}")
 
 
 if __name__ == "__main__":

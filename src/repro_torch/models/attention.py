@@ -107,9 +107,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.cdtype
 
-    q = qdense(x, p["wq"], cdt, impl)
-    k = qdense(x, p["wk"], cdt, impl)
-    v = qdense(x, p["wv"], cdt, impl)
+    q = qdense(x, p["wq"], cdt, impl, tag="attn/wq")
+    k = qdense(x, p["wk"], cdt, impl, tag="attn/wk")
+    v = qdense(x, p["wv"], cdt, impl, tag="attn/wv")
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -161,7 +161,7 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         w, b = concat_adapter
         out = (apply_hadamard(out, w, b) if w.dim() == 2
                else HadamardAffine.apply(out, w, b, impl))
-    y = qdense(out, p["wo"], cdt, impl)
+    y = qdense(out, p["wo"], cdt, impl, tag="attn/wo")
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y, new_cache

@@ -106,13 +106,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
               impl: str = "auto") -> torch.Tensor:
     cdt = cfg.cdtype
-    h = qdense(x, p["wi"], cdt, impl)
+    h = qdense(x, p["wi"], cdt, impl, tag="mlp/wi")
     if "bi" in p:
         h = h + p["bi"].to(cdt)
     h = act_fn(cfg.act)(h)
     if cfg.gated_mlp:
-        h = h * qdense(x, p["wg"], cdt, impl)
-    y = qdense(h, p["wo"], cdt, impl)
+        h = h * qdense(x, p["wg"], cdt, impl, tag="mlp/wg")
+    y = qdense(h, p["wo"], cdt, impl, tag="mlp/wo")
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y

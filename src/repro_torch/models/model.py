@@ -1,5 +1,6 @@
 """Model families (port of `repro.models.model`): the decoder LM (init,
-embedding, tied head, prefill and per-row decode) and the BERT-style
+embedding, tied head, the teacher-forced training forward, prefill and
+per-row decode) and the BERT-style
 encoder classifier (learned positions, segment embeddings, post-LN
 blocks, pooler and classifier).
 
@@ -103,7 +104,8 @@ def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
     if cfg.tie_embeddings:
         logits = torch.matmul(h, params["embed"]["table"].to(cfg.cdtype).T)
     else:
-        logits = qdense(h, params["lm_head"]["kernel"], cfg.cdtype, impl)
+        logits = qdense(h, params["lm_head"]["kernel"], cfg.cdtype, impl,
+                        tag="lm_head")
     logits = logits.float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
@@ -123,6 +125,40 @@ def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                            causal=causal, impl=impl)
         new_caches.append(c)
     return x, new_caches
+
+
+def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+                   impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) -> final-norm hidden states (B, S, d) of the
+    teacher-forced causal forward (training), as JAX's `forward_hidden`;
+    the logits are left to the caller, so the loss can compute them in
+    sequence chunks (cfg.ce_chunk). No caches are made. Autograd runs
+    through the kernels' Functions: the adapter seam (#3 forward; the
+    norm VJP in plain torch, then #2), attention (#4 forward; the tiled
+    plain backward) and, over a quantized trunk, every projection (#7
+    forward; dx in plain torch).
+
+    JAX wraps each layer in `jax.checkpoint` under cfg.remat, which
+    trades memory for recompute and changes no number; the port keeps
+    every layer's activations (qwen3-0.6b at 16 x 128 tokens fits the
+    card's memory) and reads no remat option. An RWKV6 layer runs #8,
+    which has no backward: its forward serves calibration and eval, and
+    `train.losses.loss_for` refuses to train it."""
+    _check_cfg(cfg)
+    if cfg.family != "decoder":
+        raise ValueError(f"forward_hidden needs a decoder config, got "
+                         f"family {cfg.family!r}")
+    x = embed_tokens(params, cfg, tokens)
+    q_pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _ = _run_layers(params, cfg, x, q_pos=q_pos, causal=True, impl=impl)
+    return apply_norm(params["final_norm"], cfg, x)
+
+
+def forward_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+               impl: str = "auto") -> torch.Tensor:
+    """Teacher-forced full-sequence fp32 logits (B, S, V) (training)."""
+    return lm_logits(params, cfg, forward_hidden(params, cfg, tokens, impl),
+                     impl)
 
 
 def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,

@@ -41,9 +41,12 @@ def global_norm(grads: Tree) -> torch.Tensor:
 
 def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[Tree, torch.Tensor]:
+    """Scale every gradient by min(1, max_norm / norm) in fp32: JAX's fp32
+    scale promotes a bf16 gradient to fp32, so the product is not rounded
+    back to bf16 before AdamW reads it."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
+    return {k: g.float() * scale for k, g in grads.items()}, norm
 
 
 @torch.no_grad()

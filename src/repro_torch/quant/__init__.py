@@ -1,9 +1,11 @@
 """Quantized frozen backbone (port of `repro.quant`): the QTensor leaf,
 per-channel symmetric int8 / fp8 quantization of the backbone's matmul
 projections, and `qdense`, which routes a QTensor weight through the
-dequant-matmul kernel (`kernels/quant.py`). Serving consumes it as
-`ServeEngine(..., quant="int8")`. The calibration pass and QPEFT training
-arrive with the decoder-LM fine-tuning slice."""
+dequant-matmul kernel (`kernels/quant.py`), and the activation-statistics
+calibration pass (`calibrate`) whose statistics pick each leaf's clip.
+Serving consumes it as `ServeEngine(..., quant="int8")`, QPEFT training as
+`train.steps.make_state(..., quant=..., quant_stats=...)`."""
+from repro_torch.quant.calibrate import calibrate, collect_stats
 from repro_torch.quant.qtensor import (
     QTensor,
     QUANT_MODES,
@@ -22,6 +24,8 @@ __all__ = [
     "QTensor",
     "QUANT_MODES",
     "QUANT_PATTERNS",
+    "calibrate",
+    "collect_stats",
     "dequantize_tree",
     "fake_quantize",
     "is_qtensor",

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.common import tree as tu
 from repro_torch.kernels.quant import DequantMatmul
+from repro_torch.quant.calibrate import collecting, observe
 
 # finite max of each storage type (e4m3fn has no inf encoding)
 _QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -119,14 +120,21 @@ def quantization_error(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def qdense(x: torch.Tensor, w, dtype, impl: str = "auto") -> torch.Tensor:
+def qdense(x: torch.Tensor, w, dtype, impl: str = "auto", *,
+           tag: Optional[str] = None) -> torch.Tensor:
     """x @ w where w is a plain tensor or a QTensor.
 
     A plain tensor takes the plain path: x and w in the compute dtype, a
-    library matmul. A 2-D QTensor goes through the dequant-matmul kernel
-    (`DequantMatmul`, #7) on x's rows as they come: as JAX's QTensor
-    branch, it does not cast x to `dtype`, and the output is in x.dtype."""
+    library matmul; under an active calibration collector
+    (`calibrate.collect_stats`) a call with a `tag` (the call site:
+    'attn/wq', 'mlp/wi', 'lm_head', ...) first adds x's per-input-channel
+    sum of squares to that tag's statistics. A 2-D QTensor goes through the
+    dequant-matmul kernel (`DequantMatmul`, #7) on x's rows as they come:
+    as JAX's QTensor branch, it does not cast x to `dtype`, and the output
+    is in x.dtype."""
     if not isinstance(w, QTensor):
+        if tag is not None and collecting():
+            observe(tag, x)
         return torch.matmul(x.to(dtype), w.to(dtype))
     if w.ndim != 2:
         raise ValueError(f"qdense expects a 2D QTensor (got "
@@ -145,8 +153,8 @@ def qdense(x: torch.Tensor, w, dtype, impl: str = "auto") -> torch.Tensor:
 # Which leaves a backbone quantization touches: the attention and MLP
 # projections, an untied LM head and a VLM projector. Embedding tables,
 # norms, biases, the encoder's pooler and classifier and every adapter leaf
-# keep their dtype. Each entry is (path regex, match -> call-site tag); the
-# tags name the calibration statistics of the QPEFT slice.
+# keep their dtype. Each entry is (path regex, match -> call-site tag): the
+# tag under which `qdense` collects the leaf's calibration statistics.
 _QUANT_TABLE = (
     (r"/(attn|cross)/(wq|wk|wv|wo)$", lambda m: f"attn/{m.group(2)}"),
     (r"/mlp/(wi|wg|wo)$", lambda m: f"mlp/{m.group(1)}"),
@@ -171,31 +179,80 @@ def tag_of(path: str) -> Optional[str]:
     return None
 
 
-def quantize_tree(params, mode: str = "int8", *, stats=None, patterns=None):
+_CLIP_GRID = (1.0, 0.95, 0.9, 0.85, 0.8, 0.7)
+
+
+def _best_clip(leaf: torch.Tensor, mode: str, act_sq) -> float:
+    """Activation-weighted clipping search, as JAX's `_best_clip`: the clip
+    ratio of _CLIP_GRID minimizing sum_k m_k * (W - deq(Q(W)))^2_k, m the
+    calibration pass's per-input-channel mean square. `leaf` is one
+    (K, N) weight or a stack (..., K, N) of the layers that JAX stacks in
+    one leaf; the error sums over all of it, so the stack gets one clip.
+    Statistics of another width give 1.0."""
+    w32 = leaf.to(torch.float32)
+    m = torch.as_tensor(act_sq, dtype=torch.float32, device=w32.device)
+    if tuple(m.shape) != (w32.shape[-2],):
+        return 1.0
+    weights = m.reshape((1,) * (w32.dim() - 2) + (-1, 1))
+    best, best_err = 1.0, None
+    for c in _CLIP_GRID:
+        deq = quantize(w32, mode, clip=c).dequantize(torch.float32)
+        err = float((weights * (w32 - deq).square()).sum())
+        if best_err is None or err < best_err:
+            best, best_err = c, err
+    return best
+
+
+def quantize_tree(params, mode: str = "int8", *, stats=None, patterns=None,
+                  cfg=None):
     """Quantize every backbone matmul leaf of a parameter tree.
 
     Leaves whose path matches `patterns` (default: QUANT_PATTERNS) and that
     are floating tensors of two or more dims become QTensors with
     per-output-channel scales; every other leaf, None and QTensors included,
-    passes through, so the function is idempotent. `stats` (calibration
-    statistics for an activation-weighted clip search) arrives with the
-    QPEFT slice."""
-    if stats:
-        raise NotImplementedError(
-            "quantize_tree(stats=...) arrives with the QPEFT slice (decoder-LM "
-            "fine-tuning): JAX picks one clip per stacked (layers, K, N) leaf, "
-            "so the port's per-layer leaves must be grouped by JAX leaf first")
+    passes through, so the function is idempotent and a PEFT-partitioned
+    frozen tree (None at the trainable leaves) quantizes directly.
+
+    `stats` ({tag: (d_in,) activation mean square}, from
+    `calibrate.calibrate`) gives each leaf whose tag has statistics an
+    activation-weighted clip (`_best_clip`) in place of plain absmax. JAX
+    searches one clip per stacked (layers, K, N) leaf; the port's leaves
+    are per layer, so with stats the model's `cfg` is needed to name the
+    JAX leaf of each path (`convert.jax_path`): the leaves of one name are
+    stacked and searched as one, and each is then quantized with that
+    clip."""
     _storage_dtype(mode)
+    if stats and cfg is None:
+        raise ValueError(
+            "quantize_tree(stats=...) needs the model's cfg: JAX picks one "
+            "clip per stacked (layers, K, N) leaf, so the per-layer leaves "
+            "are searched by the JAX leaf they make (convert.jax_path)")
     regexes = (_QUANT_RES if patterns is None
                else tuple(re.compile(p) for p in patterns))
 
+    def wanted(path, leaf):
+        return (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+                and leaf.is_floating_point()
+                and any(r.search(path) for r in regexes))
+
+    clips = {}
+    if stats:
+        from repro_torch.convert import jax_path  # convert imports this module
+
+        groups = {}
+        for path, leaf in tu.flatten_with_paths(params):
+            if wanted(path, leaf) and tag_of(path) in stats:
+                groups.setdefault(jax_path(path, cfg), []).append((path, leaf))
+        for members in groups.values():
+            stack = torch.stack([leaf for _, leaf in members])
+            clip = _best_clip(stack, mode, stats[tag_of(members[0][0])])
+            del stack
+            clips.update((path, clip) for path, _ in members)
+
     def one(path, leaf):
-        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2 \
-                or not leaf.is_floating_point():
+        if not wanted(path, leaf):
             return leaf
-        if not any(r.search(path) for r in regexes):
-            return leaf
-        return quantize(leaf, mode)
+        return quantize(leaf, mode, clip=clips.get(path, 1.0))
 
     return tu.map_with_path(one, params)
 

@@ -1,5 +1,6 @@
-"""Training loops (port of `repro.train.loop`): the single-stage runner,
-evaluation and the paper's two-stage recipe, with the straggler watchdog.
+"""Training loops (port of `repro.train.loop`): the single-stage runner
+(with its checkpoint cadence), evaluation and the paper's two-stage
+recipe, with the straggler watchdog.
 
 Batches come from the data as numpy dicts and move to the state's device
 here. Each step ends in a device sync, so its wall time is the step's own
@@ -20,7 +21,7 @@ from repro_torch.core import peft
 from repro_torch.models import model as M
 from repro_torch.train import metrics as metrics_mod
 from repro_torch.train.steps import (build_eval_step, build_train_step,
-                                     make_state, merged_params)
+                                     make_state, merged_params, state_tree)
 
 
 class StepWatchdog:
@@ -74,11 +75,14 @@ def _device_of(params) -> torch.device:
 
 
 def run_train(state, step_fn, batches: Iterable, *, steps: int,
-              log_every: int = 0, watchdog: Optional[StepWatchdog] = None,
+              log_every: int = 0, manager=None, save_every: int = 0,
+              watchdog: Optional[StepWatchdog] = None,
               log: Callable[[str], None] = print):
     """Run `steps` steps. Returns (state, history): one dict of floats per
     step, its metrics plus `step_s`, the step's wall time up to a device
-    sync."""
+    sync. With a `manager` (`checkpoint.CheckpointManager`) and
+    `save_every`, every save_every-th step of this run saves the state
+    (`steps.state_tree`) under the state's step count, as JAX does."""
     device = _device_of(state["params"])
     history = []
     it = iter(batches)
@@ -97,6 +101,8 @@ def run_train(state, step_fn, batches: Iterable, *, steps: int,
         if log_every and (i + 1) % log_every == 0:
             log(f"step {i+1}/{steps} loss={hm['loss']:.4f} "
                 f"gnorm={hm['grad_norm']:.3f}")
+        if manager is not None and save_every and (i + 1) % save_every == 0:
+            manager.save(state["step"], state_tree(state))
     return state, history
 
 

@@ -1,8 +1,10 @@
-"""Loss functions (port of `repro.train.losses`, the encoder classifier
-subset; the LM losses arrive with decoder-LM fine-tuning)."""
+"""Loss functions (port of `repro.train.losses`): the decoder LM's
+next-token cross-entropy (whole or in sequence chunks) and the encoder
+classifier's loss."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.types import ModelCfg
 from repro_torch.models import model as M
@@ -15,6 +17,53 @@ def cross_entropy(logits, labels, ignore_index: int = -100):
     ll = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels != ignore_index).float()
     return ((lse - ll) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def chunked_cross_entropy(cfg: ModelCfg, params, h, labels, chunk: int,
+                          impl: str = "auto"):
+    """CE computed in sequence chunks so the O(S x V) logits never fully
+    materialize: h (B, S, d) final-norm states, labels (B, S). S is padded
+    to a multiple of the chunk with zero states and ignored labels. Each
+    chunk runs under `torch.utils.checkpoint`, so the backward recomputes
+    its logits (JAX: `jax.checkpoint` with `nothing_saveable`); the sums
+    add up chunk by chunk in fp32, in JAX's order."""
+    B, S, d = h.shape
+    c = min(chunk, S)
+    nc = (S + c - 1) // c
+    pad = nc * c - S
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+
+    def body(h_c, l_c):
+        logits = M.lm_logits(params, cfg, h_c, impl).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, l_c.clamp(min=0).long()[..., None])[..., 0]
+        mask = (l_c != -100).float()
+        return ((lse - ll) * mask).sum(), mask.sum()
+
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        n_c, m_c = checkpoint(body, h[:, sl], labels[:, sl],
+                              use_reentrant=False)
+        nll, cnt = nll + n_c, cnt + m_c
+    return nll / cnt.clamp(min=1.0)
+
+
+def lm_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
+    """(loss, metrics) of next-token prediction on one batch of tokens and
+    labels (B, S); over cfg.ce_chunk-token chunks when it is set. A dense
+    decoder has no auxiliary loss: aux is 0, as in JAX."""
+    labels = batch["labels"]
+    h = M.forward_hidden(params, cfg, batch["tokens"], impl)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.ce_chunk:
+        loss = chunked_cross_entropy(cfg, params, h, labels, cfg.ce_chunk,
+                                     impl) + aux
+    else:
+        loss = cross_entropy(M.lm_logits(params, cfg, h, impl), labels) + aux
+    return loss, {"ce": loss, "aux": aux}
 
 
 def classification_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
@@ -33,8 +82,16 @@ def classification_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
 
 
 def loss_for(cfg: ModelCfg):
-    if cfg.family != "encoder":
+    """The loss of the config's family: `lm_loss` for a decoder,
+    `classification_loss` for an encoder. Families and layers the port
+    does not train raise, naming the slice that brings them."""
+    if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
-            f"no {cfg.family} loss yet: the port trains encoder classifiers; "
-            "decoder-LM fine-tuning is the next training slice")
-    return classification_loss
+            f"no {cfg.family} loss yet: encdec (whisper) and VLM backbones "
+            "arrive with the other-families slice")
+    if any(s.kind == "rwkv" for s in cfg.layer_slots()):
+        raise NotImplementedError(
+            f"{cfg.name}: decoder-LM training of an RWKV6 stack needs a "
+            "backward of the WKV6 recurrence (#8 has none; JAX differentiates its jnp twin), "
+            "which arrives with the rwkv6 training slice")
+    return {"decoder": lm_loss, "encoder": classification_loss}[cfg.family]

@@ -1,17 +1,19 @@
 """Train-step builder (port of `repro.train.steps`): PEFT partition,
-clipping, AdamW.
+gradient accumulation, clipping, AdamW; QPEFT (a quantized frozen trunk
+under a trainable adapter).
 
 The state is a dict:
   step:      int, steps taken
   params:    the whole parameter tree; the leaves the strategy's mask
              selects have requires_grad=True, every other leaf False, so
-             autograd reaches only what is trained
+             autograd reaches only what is trained (a quantized leaf is a
+             QTensor, frozen by construction)
   trainable: {path: tensor}, the same tensor objects as in `params`
   opt:       AdamW moments over `trainable`
-A step updates the state in place and returns it.
+A step updates the state in place and returns it. `state_tree` is what a
+checkpoint of it holds, `restore_state` puts one back.
 
-Gradient accumulation (`microbatch`), gradient compression, quantized
-moments are not ported yet and raise.
+Gradient compression and quantized moments are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.models import model as M
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                     clip_by_global_norm, global_norm)
 from repro_torch.optim.schedule import lr_at
+from repro_torch.quant import is_qtensor, quantize_tree
 from repro_torch.train.losses import loss_for
 
 _LATER = "the optimizer-state slice (gradient compression, quantized moments)"
@@ -42,21 +45,52 @@ def check_optim(ocfg: OptimCfg) -> None:
                 f"it arrives with {_LATER}")
 
 
+def _copy(leaf):
+    if is_qtensor(leaf):
+        return type(leaf)(leaf.values.clone(), leaf.scales.clone())
+    return leaf.detach().clone()
+
+
 def make_state(gen: Optional[torch.Generator], cfg: ModelCfg,
                strat: peft.Strategy, ocfg: OptimCfg, stage: int = 2,
-               params=None) -> dict:
+               params=None, quant: Optional[str] = None,
+               quant_stats=None) -> dict:
     """A fresh train state. Given `params`, the state holds copies of them
     (the step updates in place; the caller's tree stays as it was), else
-    new parameters from `gen`."""
+    new parameters from `gen`.
+
+    quant="int8"/"fp8" enables QPEFT, as in JAX: after the PEFT partition
+    the frozen leaves alone are quantized (`quantize_tree`, with the
+    activation-weighted clips of `quant_stats` from `calibrate` when
+    given, one clip per JAX leaf), so the forward streams int8/fp8 weights
+    through the dequant matmul (#7) while the trainable leaves keep their
+    dtype and exact gradients. It raises ValueError when a trainable leaf
+    is already quantized, or when nothing was quantized (a strategy that
+    trains the backbone matmuls)."""
     check_optim(ocfg)
     if params is None:
         params = M.init_params(gen, cfg)
     else:
-        params = tu.map_with_path(lambda _, t: t.detach().clone(), params)
-    flags = dict(tu.flatten_with_paths(
-        peft.trainable_mask(params, strat, stage, cfg=cfg)))
+        params = tu.map_with_path(lambda _, t: _copy(t), params)
+    mask = peft.trainable_mask(params, strat, stage, cfg=cfg)
+    flags = dict(tu.flatten_with_paths(mask))
+    if quant:
+        if any(is_qtensor(leaf) and flags[path]
+               for path, leaf in tu.flatten_with_paths(params)):
+            raise ValueError("trainable subtree contains quantized leaves")
+        trained, frozen = tu.partition(params, mask)
+        frozen = quantize_tree(frozen, quant, stats=quant_stats, cfg=cfg)
+        if not any(is_qtensor(leaf)
+                   for _, leaf in tu.flatten_with_paths(frozen)):
+            raise ValueError(
+                f"quant={quant!r} quantized nothing: strategy "
+                f"{strat.name!r} trains the backbone matmuls (QPEFT needs "
+                "a frozen trunk)")
+        params = tu.merge(trained, frozen)
     trainable = {}
     for path, leaf in tu.flatten_with_paths(params):
+        if is_qtensor(leaf):
+            continue
         leaf.requires_grad_(flags[path])
         if flags[path]:
             trainable[path] = leaf
@@ -64,6 +98,60 @@ def make_state(gen: Optional[torch.Generator], cfg: ModelCfg,
     decay = [p for p, t in trainable.items() if jax_ndim(p, t) >= 2]
     return {"step": 0, "params": params, "trainable": trainable,
             "opt": adamw_init(trainable, decay)}
+
+
+def state_tree(state: dict) -> dict:
+    """What a checkpoint of the state holds, as a nested dict of tensors
+    for `checkpoint.store`: the step, the trainable leaves by path and the
+    AdamW moments and count. The frozen trunk is not written: no step
+    changes it, and `make_state` rebuilds it from the same seed (and
+    calibration) before `restore_state` puts a checkpoint back."""
+    def scalar(n):
+        return torch.tensor(n, dtype=torch.int32)
+
+    opt = state["opt"]
+    return {"step": scalar(state["step"]),
+            "trainable": dict(state["trainable"]),
+            "opt": {"m": dict(opt["m"]), "v": dict(opt["v"]),
+                    "count": scalar(opt["count"])}}
+
+
+_INTEROP = ("reading another layout (a checkpoint the JAX package wrote, "
+            "its layers stacked) arrives with the checkpoint-interop slice")
+
+
+@torch.no_grad()
+def restore_state(state: dict, restored: dict) -> dict:
+    """Put a loaded checkpoint (`state_tree`'s layout, from
+    `CheckpointManager.restore`) into `state`, in place: each trainable
+    leaf and moment takes the checkpoint's values by path, cast to its
+    dtype on its device; the step and the optimizer's count take the
+    checkpoint's. Returns the state.
+
+    The checkpoint must hold exactly the state's paths at the state's
+    shapes, or ValueError: a checkpoint of another strategy or model, or
+    one the JAX package wrote, would otherwise resume at its step with
+    fresh adapters and moments."""
+    live = dict(tu.flatten_with_paths(state_tree(state)))
+    flat = dict(tu.flatten_with_paths(restored))
+    missing = sorted(set(live) - set(flat))
+    extra = sorted(set(flat) - set(live))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint does not hold this train state: {len(missing)} of "
+            f"its paths missing (first {missing[:2]}), {len(extra)} paths "
+            f"not in it (first {extra[:2]}); {_INTEROP}")
+    shapes = [p for p, t in live.items()
+              if tuple(flat[p].shape) != tuple(t.shape)]
+    if shapes:
+        raise ValueError(f"checkpoint shapes differ from the state's at "
+                         f"{shapes[:2]}; {_INTEROP}")
+    for path, t in live.items():
+        if path not in ("step", "opt/count"):
+            t.copy_(flat[path])
+    state["step"] = int(flat["step"])
+    state["opt"]["count"] = int(flat["opt/count"])
+    return state
 
 
 def merged_params(state: dict) -> dict:
@@ -87,16 +175,37 @@ def loss_and_grads(cfg: ModelCfg, state: dict, batch: dict,
 def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0):
     """Returns step(state, batch) -> (state, metrics), metrics a dict of
     0-dim tensors (loss, grad_norm and the loss's own scalars) and the
-    step's learning rate."""
-    if microbatch:
-        raise NotImplementedError("gradient accumulation (microbatch) is not "
-                                  "ported yet; it arrives with decoder-LM "
-                                  "fine-tuning")
+    step's learning rate.
+
+    microbatch=n accumulates the gradient over n slices of the batch's
+    leading dim, as JAX's scan does: each slice's gradients add up in fp32,
+    the sum is scaled by 1/n, and the loss and metrics are the slices'
+    means."""
     check_optim(ocfg)
     loss_for(cfg)  # a family the port does not train raises here
 
+    def compute_grads(state, batch):
+        if not microbatch:
+            return loss_and_grads(cfg, state, batch)
+        n = microbatch
+        acc = {p: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+               for p, t in state["trainable"].items()}
+        acc_l, mets = None, []
+        for j in range(n):
+            mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[j]
+                  for k, v in batch.items()}
+            loss, metrics, grads = loss_and_grads(cfg, state, mb)
+            acc = {p: acc[p] + grads[p] for p in acc}
+            loss = loss.detach()
+            acc_l = loss if acc_l is None else acc_l + loss
+            mets.append({k: v.detach() for k, v in metrics.items()
+                         if v.dim() == 0})
+        means = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+        return (acc_l / n, means,
+                {p: g * (1.0 / n) for p, g in acc.items()})
+
     def step(state, batch):
-        loss, metrics, grads = loss_and_grads(cfg, state, batch)
+        loss, metrics, grads = compute_grads(state, batch)
         if ocfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
         else:
@@ -113,15 +222,18 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0):
 
 
 def build_eval_step(cfg: ModelCfg):
-    """Returns eval(params, batch) -> predictions (class ids, or logit 0 of
-    a regression config)."""
-    if cfg.family != "encoder":
-        raise NotImplementedError("the port evaluates encoder classifiers; "
-                                  "decoder-LM eval arrives with decoder-LM "
-                                  "fine-tuning")
+    """Returns eval(params, batch) -> predictions: class ids (or logit 0 of
+    a regression config) of an encoder, each position's argmax token of a
+    decoder LM."""
+    if cfg.family not in ("encoder", "decoder"):
+        raise NotImplementedError(
+            f"evaluating a {cfg.family} model is not ported: it arrives "
+            "with the other-families slice")
 
     @torch.no_grad()
     def eval_step(params, batch):
+        if cfg.family == "decoder":
+            return M.forward_lm(params, cfg, batch["tokens"]).argmax(-1)
         logits, _, _ = M.forward_encoder(params, cfg, batch["tokens"],
                                          batch.get("type_ids"))
         if cfg.is_regression:

@@ -386,5 +386,5 @@ def test_convert_carries_a_jax_quantized_tree_both_ways(mode):
 def test_quantize_tree_stats_waits_for_the_qpeft_slice():
     _, pcfg, jtree = _smoke()
     ported = convert.from_jax_params(np_tree(jtree), pcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="QPEFT slice"):
+    with pytest.raises(ValueError, match="needs the model's cfg"):
         tq.quantize_tree(ported, "int8", stats={"mlp/wi": np.ones(64)})

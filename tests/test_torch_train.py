@@ -164,8 +164,8 @@ def test_train_launcher_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "qwen3-0.6b", "--smoke"], "decoder-LM"),
-    (["--arch", "bert-tiny", "--quant", "int8"], "quantization"),
+    (["--arch", "rwkv6-1.6b", "--smoke"], "decoder-LM"),
+    (["--arch", "bert-tiny", "--quant-moments", "int8"], "quantization"),
     (["--arch", "bert-tiny", "--prune-to", "2"], "sparse"),
     (["--arch", "bert-tiny", "--mesh", "2x4"], "distributed"),
 ])
