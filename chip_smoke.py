@@ -91,9 +91,15 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      attention kernel; 5rq also one #7 (the LM head) and its engine bytes
      below 5r's by the head's saving;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
-     32x128 sst2 tokens with perturbed adapters: logits, stage-2 loss and
-     every trainable gradient through the kernels against the plain path,
-     for the 'hadamard' (attn_out) and 'hadamard_concat' strategies;
+     32x128 sst2 tokens with every adapter leaf perturbed: logits, stage-2
+     loss and every trainable gradient through the kernels against the
+     plain path, for the 'hadamard' (attn_out) and 'hadamard_concat'
+     strategies and the LoRA, IA3 and Houlsby baselines, each training
+     the leaves its patterns select;
+  7m. one 'full' MLM step of bert-base (32x128 `mlm_batches` tokens):
+     the loss and the gradient of every leaf, embeddings included, through
+     the kernels against the plain path; the pooler, classifier and
+     final_norm, which the MLM loss never reads, exactly zero;
   7d. the full-width qwen3-0.6b decoder in fp32 on one batch of 4x128
      `lm_batches` tokens with perturbed adapters: logits, lm_loss and every
      trainable gradient through the kernels against the plain path, over
@@ -114,9 +120,21 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      the trainable count (86,016 of 596,107,264), the launches of every
      step as predicted, step rates, peak device bytes and a
      torch.profiler breakdown of a step;
+  8p. the paper's own experiment over a pretrained bert-base, fp32, 32x128
+     tokens a step: MLM pretraining of every leaf (its loss falls; host
+     and device ms a step, peak bytes), stage 1 on sst2, stage 2 from that
+     one stage-1 tree under hadamard, full, lora, ia3 and houlsby (Tables
+     2-3), hadamard gated to the top 1, 6, 8 and 12 layers (Table 5: a
+     gated-off layer's b stays exactly 0, an ungated one's moves), Table
+     4's B+N and W+B+N, a two-stage hadamard run on cola and Fig. 5's
+     cross-task cosines over the two tasks' adapters, and the sst2
+     adapter's layer importance and a budgeted mask search by eval-only
+     quality: every trainable count as JAX counts it, the launches of
+     every train step and eval batch as predicted; quality is reported,
+     not gated;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     8 and 8d, and each kernel's device us per decode tick and per prefill
-     from the serve profiles);
+     8, 8d and 8p, and each kernel's device us per decode tick and per
+     prefill from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
 
@@ -161,6 +179,30 @@ BERT_BASE_TRAINABLE = (36_864, 109_503_746)
 # the ffn-output RMSNorm scale, bf16, of 28 layers), as the JAX package
 # counts it (jax.eval_shape of its init)
 QWEN3_TRAINABLE = (86_016, 596_107_264)
+# the paper's own experiment at bert-base's full width (phase 8p), fp32,
+# TRAIN's 32 x 128 tokens a step: MLM pretraining, then the recipe's lanes
+# over it; only the step counts are cut. Pretraining takes JAX's
+# pretrain_encoder defaults (600 steps, lr 1e-3, mask rate 0.15; a
+# 1000-step run on an H100 had its MLM loss at its plateau, near 9.5, by
+# step 400), the lanes the learning rates of JAX's paper benchmarks
+# (benchmarks/common.py: stage 1 3e-3, adapters 8e-3, full fine-tuning
+# 3e-4, warmup a tenth of the steps)
+PAPER = dict(pretrain_steps=600, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
+             steps=30, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
+             second_task="cola", table5_top=(1, 6, 8, 12),
+             table4=("B+N", "W+B+N"), search_budget=0.01)
+# each lane's trainable count at bert-base, then the total, as the JAX
+# package counts them (jax.eval_shape of its init)
+PAPER_COUNTS = {
+    "classifier_only": (592_130, 109_485_314),
+    "hadamard": (36_864, 109_503_746),
+    "full": (109_485_314, 109_485_314),
+    "lora": (887_042, 109_780_226),
+    "ia3": (647_426, 109_540_610),
+    "houlsby": (3_008_258, 111_864_578),
+    "hadamard[B+N]": (27_648, 109_503_746),
+    "hadamard[W+B+N]": (36_864, 109_503_746),
+}
 # decoder-LM fine-tuning of qwen3-0.6b in bf16 on the synthetic Markov
 # corpus (`lm_corpus`, 200,000 tokens): steps of batch x seq tokens
 LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
@@ -2219,12 +2261,58 @@ def main() -> int:
     data = TaskData(TRAIN["task"], bert.vocab_size, seq_len=S_tr,
                     seed=TRAIN["seed"])
     batch = loop.to_device(next(data.train_batches(1, B_tr, seed=0)), dev)
-    for sname in ("hadamard", "hadamard_concat"):
+    head = {f"{m}/{leaf}" for m in ("pooler", "classifier")
+            for leaf in ("kernel", "bias")}
+
+    def layer_leaves(*leaves):
+        return {f"layers/{i}/{leaf}" for i in range(L) for leaf in leaves}
+
+    # each strategy's adapter leaves (all moved off the identity, which
+    # would hide a dropped hook) and the leaves its patterns train
+    adapter_leaves = {
+        "hadamard": ("w", "b"), "hadamard_concat": ("w", "b"),
+        "lora": ("qa", "qb", "va", "vb"), "ia3": ("lk", "lv", "lff"),
+        "houlsby": tuple(f"{ad}/{w}" for ad in ("attn_ad", "ffn_ad")
+                         for w in ("down", "down_b", "up", "up_b"))}
+    norm = ("scale", "bias")
+    trained_leaves = {
+        "hadamard": layer_leaves("adapter/w", "adapter/b",
+                                 *(f"ffn_norm/{n}" for n in norm)),
+        "lora": layer_leaves(*(f"adapter/{a}" for a in adapter_leaves["lora"]))
+        | head,
+        "ia3": layer_leaves(*(f"adapter/{a}" for a in adapter_leaves["ia3"]))
+        | head,
+        "houlsby": layer_leaves(
+            *(f"adapter/{a}" for a in adapter_leaves["houlsby"]),
+            *(f"{m}/{n}" for m in ("attn_norm", "ffn_norm") for n in norm))
+        | head}
+    trained_leaves["hadamard_concat"] = trained_leaves["hadamard"]
+
+    def grad_scale_leaf(path):
+        """The leaf whose max |plain gradient| scales the tolerance of
+        `path`'s: its own, but for the q and k side of attention. Those
+        reach the loss only through the softmax backward, whose terms
+        cancel where a layer attends almost evenly over almost equal
+        values, as a random bert-base's deep layers do (LoRA's
+        layers/10/adapter/qa read a max |gradient| of 3.5e-9, its kernel
+        path 4.3e-9 from it): what is left is rounding of terms of the
+        size of the v side's gradient, which sets their scale. A key bias
+        shifts all of a query's scores by one amount, which the softmax
+        cancels: its gradient is 0 in exact arithmetic."""
+        for qk, v in (("/adapter/qa", "/adapter/va"),
+                      ("/adapter/qb", "/adapter/vb"),
+                      ("/adapter/lk", "/adapter/lv"),
+                      ("/attn/wq", "/attn/wv"), ("/attn/wk", "/attn/wv"),
+                      ("/attn/bq", "/attn/bv"), ("/attn/bk", "/attn/bv")):
+            if path.endswith(qk):
+                return path[:-len(qk)] + v
+        return path
+    for sname in ("hadamard", "hadamard_concat", "lora", "ia3", "houlsby"):
         strat = peft.strategy(sname)
         cfg_s = peft.attach(bert, strat)
         params = perturb_adapters(
             M.init_params(torch.Generator(device=dev).manual_seed(1), cfg_s),
-            seed=2, scale=0.2)
+            seed=2, scale=0.2, leaves=adapter_leaves[sname])
         runs = {}
         for impl in ("auto", "ref"):
             state = make_state(None, cfg_s, strat, OptimCfg(), params=params)
@@ -2245,15 +2333,13 @@ def main() -> int:
         loss_rel = abs(loss_k - loss_r) / abs(loss_r)
         check(math.isfinite(loss_k) and loss_rel <= 1e-5,
               f"phase 7 {sname}: loss {loss_k} vs plain {loss_r}")
-        want = {f"layers/{i}/{leaf}" for i in range(L)
-                for leaf in ("adapter/w", "adapter/b", "ffn_norm/scale",
-                             "ffn_norm/bias")}
+        want = trained_leaves[sname]
         check(set(gk) == want == set(gr),
               f"phase 7 {sname}: trainable leaves {sorted(set(gk) ^ want)}")
         worst = 0.0
         for path in sorted(want):
             e = (gk[path] - gr[path]).abs().max().item()
-            m = gr[path].abs().max().item()
+            m = gr[grad_scale_leaf(path)].abs().max().item()
             check(bool(torch.isfinite(gk[path]).all()) and e <= 1e-3 * m,
                   f"phase 7 {sname}: gradient {path} max abs err {e:.3g} > "
                   f"1e-3 x {m:.3g}")
@@ -2268,6 +2354,60 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("7")
 
+    # -- phase 7m: one full MLM step of bert-base, kernel path vs plain --
+    from repro_torch.common import tree as tu
+    from repro_torch.data.synthetic import lm_corpus
+    from repro_torch.train import pretrain as pretrain_mod
+
+    full = peft.strategy("full")
+    bert_full = peft.attach(bert, full)
+    mlm_corpus = lm_corpus(bert.vocab_size, 300_000, seed=PAPER["seed"])
+    mlm_batch = loop.to_device(next(pretrain_mod.mlm_batches(
+        mlm_corpus, 1, B_tr, S_tr, seed=PAPER["seed"] + 7)), dev)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(1),
+                           bert_full)
+    runs = {}
+    for impl in ("auto", "ref"):
+        state = make_state(None, bert_full, full, OptimCfg(), params=params)
+        loss, _, grads = loss_and_grads(bert_full, state, mlm_batch, impl,
+                                        loss_fn=pretrain_mod.mlm_loss)
+        runs[impl] = (loss.item(), grads)
+        del state
+    (loss_k, gk), (loss_r, gr) = runs["auto"], runs["ref"]
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    check(math.isfinite(loss_k) and loss_rel <= 1e-5,
+          f"phase 7m: mlm loss {loss_k} vs plain {loss_r}")
+    every = {p for p, _ in tu.flatten_with_paths(params)}
+    check(set(gk) == every == set(gr), f"phase 7m: gradient leaves "
+          f"{sorted(set(gk) ^ every)[:4]}")
+    # the pooler, the classifier and final_norm: the MLM loss reads none
+    unread = {p for p in every
+              if p.startswith(("pooler/", "classifier/", "final_norm/"))}
+    check(len(unread) == 6 and all(not gk[p].any() and not gr[p].any()
+                                   for p in unread),
+          f"phase 7m: unread leaves {sorted(unread)} not exactly zero")
+    worst, worst_leaf = 0.0, None
+    for path in sorted(every - unread):
+        e = (gk[path] - gr[path]).abs().max().item()
+        m = gr[grad_scale_leaf(path)].abs().max().item()
+        check(bool(torch.isfinite(gk[path]).all()) and e <= 1e-3 * m,
+              f"phase 7m: gradient {path} max abs err {e:.3g} > 1e-3 x "
+              f"{m:.3g}")
+        if e / m > worst:
+            worst, worst_leaf = e / m, path
+    mlm_check = {"loss": loss_k, "loss_plain": loss_r, "loss_rel": loss_rel,
+                 "leaves": len(every), "unread_zero": sorted(unread),
+                 "grad_worst_rel": worst, "grad_worst_leaf": worst_leaf}
+    log(f"[7m] {TRAIN['arch']} fp32, {L} layers, full, one {B_tr}x{S_tr} "
+        f"mlm_batches batch: kernel path vs plain path mlm_loss "
+        f"{loss_k:.6f} vs {loss_r:.6f} (rel {loss_rel:.3g}, tol 1e-5); "
+        f"{len(every)} gradient leaves, embeddings included, worst "
+        f"max|diff| / max|ref| {worst:.3g} at {worst_leaf} (tol 1e-3); "
+        f"{len(unread)} unread leaves exactly 0")
+    del runs, gk, gr, params
+    torch.cuda.empty_cache()
+    phase_done("7m")
+
     # -- phase 7d: full-width qwen3-0.6b in fp32, the train path's kernels
     # against the plain path ------------------------------------------------
     def per_call(counts):
@@ -2275,7 +2415,7 @@ def main() -> int:
         return {k: counts.get(k, 0) for k in _build.LAUNCHES}
 
     from repro_torch.convert import jax_path
-    from repro_torch.data.synthetic import lm_batches, lm_corpus
+    from repro_torch.data.synthetic import lm_batches
 
     lm_strat = peft.strategy("hadamard")
     qwen32 = peft.attach(get_arch(ARCH), lm_strat).replace(
@@ -2396,13 +2536,13 @@ def main() -> int:
     phase_done("7d")
 
     # -- phase 8: two-stage training at full width, fp32 --------------------
-    def count_loop_calls():
-        """Wrap the train loop's step and eval builders for one run: each
+    def count_loop_calls(mod=loop):
+        """Wrap the step and eval builders that `mod` calls (the train
+        loop's; the pretrainer has a train step alone) for one run: each
         step function they build records, per call, its own change of the
         launch counts. Returns ({"train": [...], "eval": [...]}, one list of
         per-call dicts per built function, in build order), restore)."""
         runs = {"train": [], "eval": []}
-        originals = (loop.build_train_step, loop.build_eval_step)
 
         def wrap(builder, built):
             def build(*a, **kw):
@@ -2418,11 +2558,15 @@ def main() -> int:
                 return counted
             return build
 
-        loop.build_train_step = wrap(originals[0], runs["train"])
-        loop.build_eval_step = wrap(originals[1], runs["eval"])
+        originals = {name: getattr(mod, name)
+                     for name in ("build_train_step", "build_eval_step")
+                     if hasattr(mod, name)}
+        for name, builder in originals.items():
+            setattr(mod, name, wrap(builder, runs[name.split("_")[1]]))
 
         def restore():
-            loop.build_train_step, loop.build_eval_step = originals
+            for name, builder in originals.items():
+                setattr(mod, name, builder)
         return runs, restore
 
     flash, fused = "flash_attention", "fused_adapter_norm"
@@ -2740,6 +2884,305 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("8d")
 
+    # -- phase 8p: the paper's tables at full width, over a pretrained
+    # bert-base ------------------------------------------------------------
+    from repro_torch.core import patterns
+    from repro_torch.sparse import importance as imp
+    from repro_torch.sparse import prune as prune_mod
+
+    paper_launches, paper_report = {}, {}
+    # predicted launches per train step and eval batch, from the code: the
+    # forward runs #4 in every layer; a Hadamard adapter at attn_out adds
+    # #3 in every layer's seam, and any stage that trains a Hadamard leaf
+    # (w, b or the norms past it: Table 4's B+N too) runs the seam's
+    # backward, #2, once a layer, whatever the gate does to the gradient
+    # afterwards; the baselines' hooks and MLM pretraining run no kernel
+    # of their own, and their backward through #4 is plain torch
+    plain_step = per_call({flash: L})
+    had_step = per_call({flash: L, fused: L, aff_bwd: L})
+    had_eval = per_call({flash: L, fused: L})
+
+    def paper_lane(tag, run, want_steps, want_evals, mod=loop):
+        """`run()` with every train step and eval batch it builds through
+        `mod` counted: the i-th built train (eval) function's calls each
+        launch want_steps[i] (want_evals[i]; a dict stands for all of
+        them), and nothing launches outside them. Returns (run's result,
+        the lane's seconds, its train step calls)."""
+        calls, restore = count_loop_calls(mod)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = run()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        lane_s = time.perf_counter() - t0
+        paper_launches[tag] = _build.launch_counts()
+        for kind, want in (("train step", want_steps),
+                           ("eval batch", want_evals)):
+            built = calls["train" if kind == "train step" else "eval"]
+            wants = want if isinstance(want, list) else [want] * len(built)
+            check(len(built) == len(wants), f"phase 8p {tag}: {len(built)} "
+                  f"{kind} functions built, want {len(wants)}")
+            for j, (fn_calls, w) in enumerate(zip(built, wants)):
+                check(len(fn_calls) > 0, f"phase 8p {tag}: {kind} function "
+                      f"{j} never called")
+                for i, c in enumerate(fn_calls):
+                    check(c == w, f"phase 8p {tag}: {kind} function {j} "
+                          f"call {i} launched {c}, predicted {w}")
+        for k, total in paper_launches[tag].items():
+            check(sum(c[k] for fn_calls in calls["train"] + calls["eval"]
+                      for c in fn_calls) == total,
+                  f"phase 8p {tag}: {k} launched outside train steps and "
+                  "eval batches")
+        if calls["train"]:
+            step_calls[f"paper_{tag}"] = [c for f in calls["train"]
+                                          for c in f]
+        if calls["eval"]:
+            eval_calls[f"paper_{tag}"] = [c for f in calls["eval"] for c in f]
+        return res, lane_s
+
+    def lane_report(tag, res, lane_s, counts=None, hist=None, metric_=None):
+        """A lane's quality, trainable count (held to `counts`), rates and
+        seconds; every loss finite."""
+        stats = res.get("param_stats")
+        rep = {"lane_s": lane_s}
+        if stats is not None:
+            rep.update(trainable=stats["trainable"], total=stats["total"],
+                       percent=stats["percent"])
+            if counts is not None:
+                check((stats["trainable"], stats["total"]) == counts,
+                      f"phase 8p {tag}: trainable {stats['trainable']} of "
+                      f"{stats['total']}, want {counts}")
+        hist = hist if hist is not None else res["history"]
+        rep.update(rates(hist))
+        check(all(math.isfinite(v) for v in rep["losses"]),
+              f"phase 8p {tag}: non-finite loss")
+        rep[metric_ or metric] = res["final_metric"]
+        paper_report[tag] = rep
+        log(f"[8p] {tag} on {smi}: {metric_ or metric} "
+            f"{res['final_metric']:.4f}; "
+            + (f"trainable {rep['trainable']:,} of {rep['total']:,} "
+               f"({rep['percent']:.4f}%); " if stats is not None else "")
+            + f"{rep['host_ms_per_step']:.1f} host ms a step, "
+            f"{rep['tokens_per_s']:.0f} tok/s; lane {lane_s:.1f} s; launches "
+            f"{ {k: v for k, v in paper_launches[tag].items() if v} }")
+        return rep
+
+    # (1) MLM pretraining of bert-base, every leaf trained (`full`), in a
+    # cache directory of its own, so that no earlier run's file is read
+    pre_hist = []
+    run_train_of_pretrain = pretrain_mod.run_train
+
+    def kept_history(*a, **kw):
+        state_, hist_ = run_train_of_pretrain(*a, **kw)
+        pre_hist.extend(hist_)
+        return state_, hist_
+
+    with tempfile.TemporaryDirectory() as pre_dir:
+        torch.cuda.synchronize()
+        pre_held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pretrain_mod.run_train = kept_history
+        try:
+            pretrained, pre_s = paper_lane(
+                "pretrain", lambda: pretrain_mod.pretrain_encoder(
+                    bert, steps=PAPER["pretrain_steps"], batch=B_tr,
+                    seq=S_tr, lr=PAPER["pretrain_lr"],
+                    mask_rate=PAPER["mask_rate"], seed=PAPER["seed"],
+                    cache_dir=pre_dir, log=log, device=dev),
+                plain_step, [], mod=pretrain_mod)
+        finally:
+            pretrain_mod.run_train = run_train_of_pretrain
+        torch.cuda.synchronize()
+        pre_peak = torch.cuda.max_memory_allocated()
+    check(len(pre_hist) == PAPER["pretrain_steps"],
+          f"phase 8p pretrain: {len(pre_hist)} steps run")
+    pre_rep = dict(rates(pre_hist), steps=PAPER["pretrain_steps"],
+                   lane_s=pre_s, peak_bytes=pre_peak,
+                   held_bytes_before=pre_held)
+    losses_ = pre_rep.pop("losses")
+    first5, last5 = sum(losses_[:5]) / 5, sum(losses_[-5:]) / 5
+    check(all(math.isfinite(v) for v in losses_),
+          "phase 8p pretrain: non-finite mlm loss")
+    check(last5 < first5, f"phase 8p pretrain: the last 5 mlm losses' mean "
+          f"{last5} is not below the first 5's {first5}")
+    pre_rep.update(mlm_first5_mean=first5, mlm_last5_mean=last5,
+                   mlm_losses_every_50=losses_[::50])
+    ocfg_pre = OptimCfg(lr=PAPER["pretrain_lr"],
+                        total_steps=PAPER["pretrain_steps"])
+    pre_state = make_state(None, bert_full, full, ocfg_pre, params=pretrained)
+    pre_step = build_train_step(bert_full, ocfg_pre,
+                                loss_fn=pretrain_mod.mlm_loss)
+    pre_rep["profile"] = profile_calls(lambda: pre_step(pre_state, mlm_batch),
+                                       2)
+    del pre_state, pre_step
+    paper_report["pretrain"] = pre_rep
+    log(f"[8p] pretrain on {smi}: {TRAIN['arch']} fp32 MLM, "
+        f"{PAPER['pretrain_steps']} steps of {B_tr}x{S_tr} tokens; mlm loss "
+        f"first-5 mean {first5:.4f}, last-5 mean {last5:.4f} (ln "
+        f"{bert.vocab_size} = {math.log(bert.vocab_size):.4f}); "
+        f"{pre_rep['host_ms_per_step']:.1f} host ms a step "
+        f"({pre_rep['tokens_per_s']:.0f} tok/s), device ms a step "
+        f"{pre_rep['profile']['device_ms']:.1f}, peak {pre_peak / 1e9:.2f} GB;"
+        f" lane {pre_s:.1f} s; launches per step as predicted")
+    torch.cuda.empty_cache()
+
+    # (2) stage 1, the classifier alone, on sst2 over the pretrained
+    # backbone (Table 2's first column)
+    def paper_tc(lr):
+        n = PAPER["steps"]
+        return TrainCfg(optim=OptimCfg(lr=lr, total_steps=n,
+                                       warmup_steps=n // 10),
+                        steps=n, batch_size=B_tr, seq_len=S_tr, log_every=10)
+
+    tc1, tc2 = paper_tc(PAPER["stage1_lr"]), paper_tc(PAPER["stage2_lr"])
+    res, lane_s = paper_lane(
+        "stage1_sst2", lambda: loop.two_stage_finetune(
+            PAPER["seed"], bert, "classifier_only", data, stage1=tc1,
+            stage2=tc2, metric=metric, pretrained_params=pretrained,
+            device=dev, log=log), plain_step, plain_step)
+    stage1_sst2 = res["stage1_params"]
+    cfg1 = peft.attach(bert, peft.strategy("classifier_only"))
+    res["param_stats"] = peft.param_stats(stage1_sst2, peft.trainable_mask(
+        stage1_sst2, peft.strategy("classifier_only"), 2, cfg=cfg1))
+    lane_report("stage1_sst2", res, lane_s, PAPER_COUNTS["classifier_only"],
+                hist=res["history"]["stage1"])
+    del res
+
+    # (3) stage 2 on sst2 from that one stage-1 tree (Tables 2 and 3)
+    stage2 = {}
+    for sname in ("hadamard", "full", "lora", "ia3", "houlsby"):
+        want_s = had_step if sname == "hadamard" else plain_step
+        want_e = had_eval if sname == "hadamard" else plain_step
+        res, lane_s = paper_lane(
+            f"stage2_{sname}", lambda sname=sname: loop.run_stage2(
+                bert, sname, data,
+                paper_tc(PAPER["full_lr"]) if sname == "full" else tc2,
+                stage1_sst2, metric=metric, seed=PAPER["seed"], log=log),
+            want_s, want_e)
+        lane_report(f"stage2_{sname}", res, lane_s, PAPER_COUNTS[sname])
+        stage2[sname] = res["final_metric"]
+        if sname == "hadamard":
+            sst2_hadamard = (res["params"], res["cfg"])
+        del res
+        torch.cuda.empty_cache()
+    clf = paper_report["stage1_sst2"][metric]
+    gap = stage2["full"] - clf
+    table2 = {"classifier_only": clf, "hadamard": stage2["hadamard"],
+              "full": stage2["full"],
+              "gap_recovered": (stage2["hadamard"] - clf) / gap if gap
+              else None}
+
+    # (4) Table 5: the Hadamard adapter of the top k layers alone
+    for k in PAPER["table5_top"]:
+        lmask = imp.depth_mask(bert, k)
+        res, lane_s = paper_lane(
+            f"table5_top{k}", lambda lmask=lmask: loop.run_stage2(
+                bert, "hadamard", data, tc2, stage1_sst2,
+                metric=metric, seed=PAPER["seed"], layer_mask=lmask,
+                log=log), had_step, had_eval)
+        # the adapter w, b and ffn_norm of k layers (3,072 at bert-base's
+        # width: Table 5's top 8 is 24,576, the paper's 0.022 %)
+        lane_report(f"table5_top{k}", res, lane_s,
+                    (k * PAPER_COUNTS["hadamard"][0] // L,
+                     PAPER_COUNTS["hadamard"][1]))
+        # a gated-off layer's b gets zero gradients, and AdamW's decay of
+        # a zero leaf is zero: it stays exactly 0, where the gate is a
+        # multiplier and not a freeze; an ungated layer's b moves
+        b_moved = [bool(layer["adapter"]["b"].any())
+                   for layer in res["params"]["layers"]]
+        check(b_moved == list(lmask), f"phase 8p table5_top{k}: adapter b "
+              f"moved in layers {b_moved}, mask {lmask.tolist()}")
+        w_off = [layer["adapter"]["w"]
+                 for layer, on in zip(res["params"]["layers"], lmask)
+                 if not on]
+        paper_report[f"table5_top{k}"]["gated_off_w_max_abs_dev"] = max(
+            ((w - 1).abs().max().item() for w in w_off), default=0.0)
+        del res
+        torch.cuda.empty_cache()
+
+    # (5) Table 4: two of its module combos
+    for combo in PAPER["table4"]:
+        res, lane_s = paper_lane(
+            f"table4_{combo}", lambda combo=combo: loop.run_stage2(
+                bert, peft.ablation_strategy(combo), data, tc2,
+                stage1_sst2, metric=metric, seed=PAPER["seed"], log=log),
+            had_step, had_eval)
+        lane_report(f"table4_{combo}", res, lane_s,
+                    PAPER_COUNTS[f"hadamard[{combo}]"])
+        del res
+        torch.cuda.empty_cache()
+
+    # (6) a second task's two-stage Hadamard run, then Fig. 5's patterns
+    # across the two tasks' adapters
+    task2 = PAPER["second_task"]
+    data2 = TaskData(task2, bert.vocab_size, seq_len=S_tr, seed=TRAIN["seed"])
+    metric2 = GLUE[task2].metric
+    res, lane_s = paper_lane(
+        f"two_stage_{task2}", lambda: loop.two_stage_finetune(
+            PAPER["seed"], bert, "hadamard", data2, stage1=tc1,
+            stage2=tc2, metric=metric2, pretrained_params=pretrained,
+            device=dev, log=log),
+        [plain_step, had_step], [plain_step, had_eval])
+    lane_report(f"two_stage_{task2}", res, lane_s, PAPER_COUNTS["hadamard"],
+                hist=res["history"]["stage2"], metric_=metric2)
+    paper_report[f"two_stage_{task2}"]["stage1_" + metric2] = \
+        res["stage1_metric"]
+    task_params = {TRAIN["task"]: sst2_hadamard[0], task2: res["params"]}
+    sim = patterns.cross_task_similarity(task_params, sst2_hadamard[1])
+    fig5 = dict(patterns.consistency_report(sim), tasks=sim["tasks"],
+                w_cos_per_layer=sim["w"][:, 0, 1].tolist(),
+                b_cos_per_layer=sim["b"][:, 0, 1].tolist())
+    dists = patterns.layer_distributions(sst2_hadamard[0], sst2_hadamard[1])
+    fig5["sst2_w_mean_per_layer"] = dists["w"][:, 0].tolist()
+    fig5["sst2_b_std_per_layer"] = dists["b"][:, 1].tolist()
+    log(f"[8p] fig5 on {smi}: {TRAIN['task']} and {task2} Hadamard adapters:"
+        f" mean cross-task cosine of w {fig5['w_mean_cross_task_cos']:.4f}, "
+        f"of b {fig5['b_mean_cross_task_cos']:.4f}")
+    del res, task_params
+    torch.cuda.empty_cache()
+
+    # (7) post-training layer importance and a budgeted mask search over
+    # the sst2 Hadamard adapter, by eval-only quality
+    had_params, had_cfg = sst2_hadamard
+
+    def quality(p):
+        return loop.evaluate(had_cfg, p, data.eval_batches(B_tr), metric)
+
+    scores, lane_s = paper_lane(
+        "ablation_importance",
+        lambda: imp.ablation_importance(had_params, had_cfg, quality),
+        [], [had_eval] * (L + 1))
+    (search, history), search_s = paper_lane(
+        "search_mask", lambda: prune_mod.search_mask(
+            scores, lambda m: quality(imp.apply_layer_mask(
+                had_params, had_cfg, m)),
+            budget=PAPER["search_budget"]),
+        [], had_eval)
+    search_rep = {"importance": scores.tolist(), "importance_s": lane_s,
+                  "budget": PAPER["search_budget"],
+                  "kept_layers": int(search.sum()),
+                  "mask": search.tolist(),
+                  "quality_all_layers": history[0]["quality"],
+                  "quality_kept": [h for h in history
+                                   if h["accepted"]][-1]["quality"],
+                  "probes": len(history), "search_s": search_s}
+    log(f"[8p] layer search on {smi}: importance {json.dumps(scores.tolist())}"
+        f"; search_mask (budget {PAPER['search_budget']}) keeps "
+        f"{int(search.sum())} of {L} layers at {metric} "
+        f"{search_rep['quality_kept']:.4f} (all layers "
+        f"{history[0]['quality']:.4f}) over {len(history)} probes")
+    del had_params, sst2_hadamard, stage1_sst2, pretrained
+    torch.cuda.empty_cache()
+    paper_report.update(table2=table2, fig5=fig5, layer_search=search_rep)
+    log(f"[8p] table2 on {smi}: classifier-only {clf:.4f}, hadamard "
+        f"{stage2['hadamard']:.4f}, full {stage2['full']:.4f}; gap "
+        f"recovered {table2['gap_recovered']}; lora {stage2['lora']:.4f}, "
+        f"ia3 {stage2['ia3']:.4f}, houlsby {stage2['houlsby']:.4f}")
+    phase_done("8p")
+
     # -- phase 9: the kernels line ------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2770,7 +3213,8 @@ def main() -> int:
                   "6rs": "serve_rwkv_hot_swap"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
-                **{f"train_lm_{t}": c for t, c in lm_launches.items()}}
+                **{f"train_lm_{t}": c for t, c in lm_launches.items()},
+                **{f"paper_{t}": c for t, c in paper_launches.items()}}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
@@ -2841,7 +3285,8 @@ def main() -> int:
                       "quant_model": quant_model, "hot_model": hot_model,
                       "rwkv_model": rwkv_model,
                       "train": train_report, "lm_model": lm_model,
-                      "train_lm": lm_report,
+                      "train_lm": lm_report, "mlm_model": mlm_check,
+                      "paper": paper_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()

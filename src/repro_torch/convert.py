@@ -8,7 +8,9 @@ stacked leaf is unstacked in execution order: group by group, repeat by
 repeat, slot by slot. Every leaf is named by its path; a leaf the port does
 not know (or that the config's family does not have) raises. A multi-task
 bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
-layer. `jax_path` names a port leaf by its JAX path, so that one regex
+layer, and the baselines' adapters (LoRA, IA3, Houlsby) as their leaves
+per layer: a stacked (repeats, d, r) LoRA leaf gives each layer its (d,
+r). `jax_path` names a port leaf by its JAX path, so that one regex
 (a PEFT mask) means the same leaves in both packages.
 
 Task deltas (`core.hadamard.extract_delta`) carry over in the layout the
@@ -49,7 +51,11 @@ BLOCK_LEAVES = frozenset(
                                 "wB", "u", "wr", "wk", "wv", "wg", "wo",
                                 "ln_x_scale", "ln_x_bias")]
     + [f"rwkv_cm/{w}" for w in ("mu_k", "mu_r", "ck", "cv", "cr")]
-    + ["adapter/w", "adapter/b"])
+    + [f"adapter/{w}" for w in ("w", "b",  # Hadamard
+                                 "qa", "qb", "va", "vb",  # LoRA
+                                 "lk", "lv", "lff")]  # IA3
+    + [f"adapter/{ad}/{w}" for ad in ("attn_ad", "ffn_ad")  # Houlsby
+       for w in ("down", "down_b", "up", "up_b")])
 TOP_LEAVES = frozenset(["embed/table", "final_norm/scale", "final_norm/bias",
                         "lm_head/kernel"])
 ENCODER_LEAVES = frozenset(["pos_embed/table", "type_embed/table",

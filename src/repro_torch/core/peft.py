@@ -14,14 +14,15 @@ Stages (paper §3.2):
   stage 1: train only the classification head (pooler + classifier).
   stage 2: reload the head, freeze it, train adapter + FFN-output norm.
 
-The port carries the strategies whose adapter kind is 'none' or
-'hadamard'. LoRA, Houlsby and IA3 adapters and gated training
-(`layer_gate`) arrive with later slices and raise until then.
+`layer_gate` gates the gradients of the lower layers' adapter and
+ffn_norm leaves to zero (paper Table 5: only the top k layers tune).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+import numpy as np
 
 from repro_torch.common import tree as tu
 from repro_torch.common.types import AdapterCfg, ModelCfg
@@ -43,7 +44,7 @@ MODULE_PATTERNS = {
 @dataclass(frozen=True)
 class Strategy:
     name: str
-    adapter_kind: str  # 'none' | 'hadamard'
+    adapter_kind: str  # 'none' | 'hadamard' | 'lora' | 'houlsby' | 'ia3'
     trainable: Tuple[str, ...]
     two_stage: bool = False
     adapter_position: str = "attn_out"
@@ -69,20 +70,19 @@ STRATEGIES = {
         "bitfit", "none",
         (r"/b[qkvio]$", r"/bias$", r"_b$", r"_bias$") + HEAD_PATTERNS,
     ),
+    "lora": Strategy("lora", "lora", (r"/adapter/",) + HEAD_PATTERNS),
+    "houlsby": Strategy(
+        "houlsby", "houlsby",
+        (r"/adapter/", r"/attn_norm/", r"/ffn_norm/") + HEAD_PATTERNS,
+    ),
+    "ia3": Strategy("ia3", "ia3", (r"/adapter/",) + HEAD_PATTERNS),
     "ln_tuning": Strategy(
         "ln_tuning", "none", (r"/ffn_norm/", r"/attn_norm/") + HEAD_PATTERNS
     ),
 }
 
-# the JAX registry's other strategies, and the slice that brings them
-LATER = {name: "the LoRA/Houlsby/IA3 baselines slice"
-         for name in ("lora", "houlsby", "ia3")}
-
 
 def strategy(name: str) -> Strategy:
-    if name in LATER:
-        raise NotImplementedError(f"strategy {name!r} is not ported yet; it "
-                                  f"arrives with {LATER[name]}")
     try:
         return STRATEGIES[name]
     except KeyError:
@@ -137,8 +137,32 @@ def param_stats(params, mask):
     }
 
 
-def layer_gate(*args, **kwargs):
-    raise NotImplementedError(
-        "gated training of sparse adapters (paper Table 5) is not ported "
-        "yet; it arrives with the Table-5 training slice (the gate tree "
-        "itself is repro_torch.sparse.mask_gate)")
+# ---------------------------------------------------------------------------
+# Per-layer gating (paper Table 5 / Fig 4: unfreeze only the top-k layers)
+# ---------------------------------------------------------------------------
+
+
+def layer_gate(params, cfg: ModelCfg, top_layers: Optional[int]):
+    """Gradient gate: 1.0 everywhere except the adapter and ffn_norm
+    leaves of layers below (n_layers - top_layers), which get 0.0 (the
+    tree `sparse.importance.mask_gate` gives; imported here, since sparse
+    builds on this module). top_layers is clamped to [0, n_layers], 0
+    gating every layer off, as in JAX; None gates nothing."""
+    from repro_torch.sparse import importance as imp
+
+    if top_layers is None:
+        return imp.mask_gate(params, cfg, None)
+    L = imp.n_layers(cfg)
+    k = max(0, min(int(top_layers), L))
+    mask = np.zeros((L,), bool)
+    if k:
+        mask[L - k:] = True
+    return imp.mask_gate(params, cfg, mask)
+
+
+def gated_param_count(params, mask, gate_tree) -> int:
+    """Trainable parameters after layer gating (Table 5's fractions), by
+    `sparse.importance.gated_param_count`'s rule."""
+    from repro_torch.sparse import importance as imp
+
+    return imp.gated_param_count(params, mask, gate_tree)

@@ -10,7 +10,9 @@ activation-weighted clips from --calibrate-batches batches of calibration
 (0: plain absmax); with --ckpt-dir every --save-every-th step is saved
 and --resume starts from the newest snapshot. An encoder runs stage 1
 (the classification head) and stage 2 (the --peft strategy's adapter on
-the reloaded head), --steps steps each.
+the reloaded head), --steps steps each. --peft picks the paper's adapter
+or a baseline (lora, houlsby, ia3, full, ...); --prune-to K trains only
+the top K layers' adapters (paper Table 5).
 
   python -m repro_torch.launch.train --arch qwen3-0.6b --peft hadamard \\
       --steps 30 --batch 16 --seq 128 [--quant int8 --calibrate-batches 2]
@@ -19,7 +21,7 @@ the reloaded head), --steps steps each.
   python -m repro_torch.launch.train --arch bert-base --task sst2 \\
       --steps 30 --batch 32 --seq 128
   python -m repro_torch.launch.train --arch bert-tiny --task sst2 --smoke \\
-      --device cpu
+      --device cpu [--peft lora] [--prune-to 1]
 """
 from __future__ import annotations
 
@@ -36,13 +38,13 @@ from repro_torch.core import peft
 from repro_torch.data.synthetic import TASKS, TaskData, lm_batches, lm_corpus
 from repro_torch.models import model as M
 from repro_torch.quant import calibrate, quant_summary
+from repro_torch.sparse.importance import depth_mask, n_layers
 from repro_torch.train.loop import StepWatchdog, run_train, two_stage_finetune
 from repro_torch.train.losses import loss_for
 from repro_torch.train.steps import build_train_step, make_state, restore_state
 
 # options of the JAX launcher that arrive with later slices
 LATER = {
-    "prune_to": "the sparse-adapter slice (gated training)",
     "compress_grads": "the optimizer-state slice",
     "quant_moments": "the optimizer-state slice (moment quantization)",
     "mesh": "the distributed slice (torch.distributed)",
@@ -75,7 +77,10 @@ def main(argv=None):
                     help="with --quant: run this many batches of "
                          "activation-statistics calibration before "
                          "quantizing (0 = plain absmax scales)")
-    ap.add_argument("--prune-to", type=int, default=0)
+    ap.add_argument("--prune-to", type=int, default=0,
+                    help="train only the top-K layers' adapters (mask-gated "
+                         "gradients; the rest stay identity). 0 = all "
+                         "layers; the paper's 0.022%% variant is K = 2L/3")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--quant-moments", default="")
     ap.add_argument("--mesh", default="")
@@ -91,6 +96,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     ocfg = OptimCfg(lr=args.lr, total_steps=args.steps)
 
+    layer_mask = None
+    if args.prune_to:
+        try:
+            layer_mask = depth_mask(cfg, args.prune_to)
+        except ValueError as e:
+            raise SystemExit(f"--prune-to: {e}")
+        print(f"pruned training: top {args.prune_to}/{n_layers(cfg)} "
+              "layers' adapters unfrozen (mask-gated gradients)")
+
     if cfg.family == "encoder":
         if args.quant:
             raise SystemExit("--quant targets the decoder-LM path; the "
@@ -102,7 +116,7 @@ def main(argv=None):
                       seq_len=args.seq, log_every=10)
         res = two_stage_finetune(args.seed, cfg, args.peft, data, stage1=tc,
                                  stage2=tc, metric=TASKS[task].metric,
-                                 device=device)
+                                 layer_mask=layer_mask, device=device)
         stats = res.get("param_stats")
         if stats is not None:
             print(f"trainable {stats['trainable']:,} of {stats['total']:,} "
@@ -146,7 +160,7 @@ def main(argv=None):
             restored, meta = manager.restore()
             restore_state(state, restored)
             print(f"resumed from step {meta['step']}")
-    step = build_train_step(cfg, ocfg)
+    step = build_train_step(cfg, ocfg, layer_mask=layer_mask)
     state, hist = run_train(state, step, batches, steps=args.steps,
                             log_every=10, manager=manager,
                             save_every=args.save_every,

@@ -14,8 +14,12 @@ per-row-valid-length attention the JAX decode computes.
 
 `apply_attn` returns the attention output before the Hadamard adapter: the
 block applies it together with the residual add and the norm that follows
-(`models/program.py`). The windowed ring cache, the paged pool,
-cross-attention and the LoRA/IA3 hooks arrive with later slices.
+(`models/program.py`). The LoRA and IA3 baselines reach inside attention
+through hooks, as in JAX: LoRA adds its low-rank deltas to q and v before
+the biases; IA3 scales k and v per channel after rope and before the cache
+stores them (a per-channel scale does not commute with rope's pairwise
+rotation). The windowed ring cache, the paged pool and cross-attention
+arrive with later slices.
 """
 from __future__ import annotations
 
@@ -87,13 +91,18 @@ def apply_hadamard(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return y * w + b
 
 
+def _lora_delta(x, a, b, alpha: float, rank: int):
+    return (x @ a.to(x.dtype)) @ b.to(x.dtype) * (alpha / rank)
+
+
 def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                q_pos: torch.Tensor, cache: Optional[dict] = None,
                cache_len: Optional[int] = None,
                write_pos: Optional[torch.Tensor] = None,
                kv_lens: Optional[torch.Tensor] = None,
                tables: Optional[torch.Tensor] = None,
-               concat_adapter: Optional[tuple] = None, causal: bool = True,
+               concat_adapter: Optional[tuple] = None,
+               adapter: Optional[dict] = None, causal: bool = True,
                impl: str = "auto"):
     """x: (B, S, d). Prefill (cache_len given), a cache-free forward
     (neither given; the encoder passes causal=False) or decode (cache and
@@ -101,15 +110,24 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     builds them, shared by every layer). concat_adapter: (w, b) of an
     'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O:
     one (d,) adapter through `HadamardAffine` (kernels #1/#2), per-row
-    (B, d) rows in plain torch. Returns (y, cache)."""
+    (B, d) rows in plain torch. adapter: the block's LoRA or IA3 leaves
+    (cfg.adapter.kind says which). Returns (y, cache)."""
     check_slot(slot)
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.cdtype
+    acfg = cfg.adapter
+    lora = adapter if adapter is not None and acfg.kind == "lora" else None
+    ia3 = adapter if adapter is not None and acfg.kind == "ia3" else None
 
     q = qdense(x, p["wq"], cdt, impl, tag="attn/wq")
     k = qdense(x, p["wk"], cdt, impl, tag="attn/wk")
     v = qdense(x, p["wv"], cdt, impl, tag="attn/wv")
+    if lora is not None:
+        q = q + _lora_delta(x, lora["qa"], lora["qb"], acfg.lora_alpha,
+                            acfg.lora_rank)
+        v = v + _lora_delta(x, lora["va"], lora["vb"], acfg.lora_alpha,
+                            acfg.lora_rank)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -124,6 +142,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     if cfg.pos == "rope":
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, kpos, cfg.rope_theta)
+    if ia3 is not None:
+        k = k * ia3["lk"].to(cdt).reshape(KH, Dh)
+        v = v * ia3["lv"].to(cdt).reshape(KH, Dh)
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
 
     if cache is not None:  # decode: write in place, attend over the pool

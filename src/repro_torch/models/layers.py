@@ -104,7 +104,10 @@ def mlp_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 
 
 def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto",
+              ia3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ia3: the IA3 baseline's (d_ff,) scale of the activation, after the
+    gate and before wo."""
     cdt = cfg.cdtype
     h = qdense(x, p["wi"], cdt, impl, tag="mlp/wi")
     if "bi" in p:
@@ -112,6 +115,8 @@ def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
     h = act_fn(cfg.act)(h)
     if cfg.gated_mlp:
         h = h * qdense(x, p["wg"], cdt, impl, tag="mlp/wg")
+    if ia3 is not None:
+        h = h * ia3.to(cdt)
     y = qdense(h, p["wo"], cdt, impl, tag="mlp/wo")
     if "bo" in p:
         y = y + p["bo"].to(cdt)

@@ -211,19 +211,28 @@ def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
     return lm_logits(params, cfg, x, impl), caches
 
 
-def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+def encode_sequence(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                     type_ids: Optional[torch.Tensor] = None,
-                    impl: str = "auto"):
-    """tokens (B, S) [, type_ids (B, S)] -> (fp32 class logits (B,
-    n_classes), pooled (B, d), sequence states (B, S, d)); non-causal
-    self-attention over the whole sequence."""
+                    impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) [, type_ids (B, S)] -> the encoder's sequence states
+    (B, S, d), no pooler: non-causal self-attention over the whole
+    sequence."""
     _check_cfg(cfg)
     if cfg.family != "encoder":
-        raise ValueError(f"forward_encoder needs an encoder config, got "
+        raise ValueError(f"the encoder forward needs an encoder config, got "
                          f"family {cfg.family!r}")
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed_tokens(params, cfg, tokens, positions=pos, type_ids=type_ids)
     x, _ = _run_layers(params, cfg, x, q_pos=pos, causal=False, impl=impl)
+    return x
+
+
+def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+                    type_ids: Optional[torch.Tensor] = None,
+                    impl: str = "auto"):
+    """tokens (B, S) [, type_ids (B, S)] -> (fp32 class logits (B,
+    n_classes), pooled (B, d), sequence states (B, S, d))."""
+    x = encode_sequence(params, cfg, tokens, type_ids, impl)
     pooler = params["pooler"]
     pooled = torch.tanh(qdense(x[:, 0], pooler["kernel"], cfg.cdtype)
                         + pooler["bias"].to(cfg.cdtype))

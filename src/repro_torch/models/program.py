@@ -21,6 +21,12 @@ bank's single w row serves every request there too. The 'attn_concat'
 placement goes through `apply_attn` (kernels #1/#2); every other block
 shape (post-norms, no adapter) takes the plain path.
 
+The baselines (paper Table 3) sit where JAX puts them: LoRA's and IA3's
+hooks inside `apply_attn`, IA3's ffn scale inside `apply_mlp`, and
+Houlsby's bottleneck around each sublayer's output before the residual
+add, which #3's fused seam (adapter, add, norm) cannot take: a block
+whose adapter is not Hadamard takes the unfused seam.
+
 An RWKV6 block (`models/rwkv.py`) has the same seam: its time-mix output
 takes the place of the attention output, and its channel mix that of the
 MLP. JAX applies the Hadamard adapter to the time-mix output under any
@@ -33,31 +39,69 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.types import ModelCfg, Slot
 from repro_torch.core.hadamard import select_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
 from repro_torch.models.attention import apply_attn, apply_hadamard, attn_init
-from repro_torch.models.layers import (apply_mlp, apply_norm, gen_device,
-                                      mlp_init, norm_init)
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                      gen_device, mlp_init, norm_init)
 from repro_torch.models.rwkv import (rwkv_channel_mix, rwkv_cm_init,
                                     rwkv_time_mix, rwkv_tm_init)
 
 
-def adapter_init(cfg: ModelCfg, slot: Slot, device) -> Optional[dict]:
+def adapter_init(gen: Optional[torch.Generator], cfg: ModelCfg,
+                 slot: Slot) -> Optional[dict]:
+    """The block's adapter at its start, fp32: the Hadamard identity (w=1,
+    b=0), LoRA with zero qb/vb, IA3's ones, Houlsby with a zero `up`; each
+    is the identity until trained. LoRA's and Houlsby's down projections
+    are drawn from `gen`."""
     a = cfg.adapter
     if not a.enabled:
         return None
-    if a.kind != "hadamard":
-        raise NotImplementedError(
-            f"adapter kind {a.kind!r} is not ported: the serving slice "
-            "carries the paper's Hadamard adapter")
-    dim = (cfg.q_dim if a.position == "attn_concat" and slot.kind == "attn"
-           else cfg.d_model)
-    # w=1, b=0: the identity - "equivalent to not adding any adapter"
-    return {"w": torch.ones((dim,), dtype=torch.float32, device=device),
-            "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
+    dev, f32 = gen_device(gen), torch.float32
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=dev)
+
+    if a.kind == "hadamard":
+        dim = (cfg.q_dim if a.position == "attn_concat"
+               and slot.kind == "attn" else cfg.d_model)
+        # w=1, b=0: the identity - "equivalent to not adding any adapter"
+        return {"w": torch.ones((dim,), dtype=f32, device=dev),
+                "b": zeros(dim)}
+    if a.kind == "lora":
+        r = a.lora_rank
+        return {"qa": dense_init(gen, cfg.d_model, r, f32),
+                "qb": zeros(r, cfg.q_dim),
+                "va": dense_init(gen, cfg.d_model, r, f32),
+                "vb": zeros(r, cfg.kv_dim)}
+    if a.kind == "ia3":
+        return {name: torch.ones((n,), dtype=f32, device=dev)
+                for name, n in (("lk", cfg.kv_dim), ("lv", cfg.kv_dim),
+                                ("lff", cfg.d_ff))}
+    if a.kind == "houlsby":
+        h = a.houlsby_dim
+        return {name: {"down": dense_init(gen, cfg.d_model, h, f32),
+                       "down_b": zeros(h), "up": zeros(h, cfg.d_model),
+                       "up_b": zeros(cfg.d_model)}
+                for name in ("attn_ad", "ffn_ad")}
+    raise ValueError(f"unknown adapter kind {a.kind}")
+
+
+def _houlsby(ad: dict, x: torch.Tensor) -> torch.Tensor:
+    """Houlsby's bottleneck around a sublayer's output, before the
+    residual add; gelu in its tanh form, as `jax.nn.gelu`'s default."""
+    h = F.gelu(x @ ad["down"].to(x.dtype) + ad["down_b"].to(x.dtype),
+               approximate="tanh")
+    return x + h @ ad["up"].to(x.dtype) + ad["up_b"].to(x.dtype)
+
+
+def _baseline(p: dict, cfg: ModelCfg, kind: str) -> Optional[dict]:
+    """The block's adapter leaves when the config's adapter is `kind`."""
+    return p.get("adapter") if cfg.adapter.kind == kind else None
 
 
 def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
@@ -72,7 +116,7 @@ def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
     if cfg.post_norms:
         p["post_attn_norm"] = norm_init(cfg, dev)
         p["post_ffn_norm"] = norm_init(cfg, dev)
-    ad = adapter_init(cfg, slot, dev)
+    ad = adapter_init(gen, cfg, slot)
     if ad is not None:
         p["adapter"] = ad
     return p
@@ -105,18 +149,29 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                    select_rows(ad["b"], task_ids))
                   if ad["w"].dim() == 2 else (ad["w"], ad["b"]))
 
+    houlsby = _baseline(p, cfg, "houlsby")
     h = apply_norm(p["attn_norm"], cfg, x)
     a, cache = apply_attn(p["attn"], cfg, slot, h, q_pos=q_pos, cache=cache,
                           cache_len=cache_len, write_pos=write_pos,
                           kv_lens=kv_lens, tables=tables,
-                          concat_adapter=concat, causal=causal, impl=impl)
+                          concat_adapter=concat, adapter=p.get("adapter"),
+                          causal=causal, impl=impl)
+    if houlsby is not None:
+        a = _houlsby(houlsby["attn_ad"], a)
     x, h = _residual_seam(p, cfg, x, a,
                           ad if acfg.position == "attn_out" else None,
                           task_ids, gate, impl)
-    f = apply_mlp(p["mlp"], cfg, h, impl)
+    f = apply_mlp(p["mlp"], cfg, h, impl, ia3=_ia3_scale(p, cfg))
+    if houlsby is not None:
+        f = _houlsby(houlsby["ffn_ad"], f)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)
     return x + f, cache
+
+
+def _ia3_scale(p: dict, cfg: ModelCfg) -> Optional[torch.Tensor]:
+    ia3 = _baseline(p, cfg, "ia3")
+    return None if ia3 is None else ia3["lff"]
 
 
 def _adapter(p: dict, cfg: ModelCfg, task_ids) -> Optional[dict]:
@@ -161,6 +216,11 @@ def _rwkv_block(p: dict, cfg: ModelCfg, x: torch.Tensor, *,
     """Pre-LN RWKV6 block: time mix, adapter seam, channel mix, as
     `repro/models/program.py:156-198`. Returns (x, cache): the given cache
     written in place, or at prefill the fresh {"S", "tm_prev", "cm_prev"}."""
+    if cfg.adapter.kind not in ("none", "hadamard"):
+        raise NotImplementedError(
+            f"a {cfg.adapter.kind!r} adapter on an RWKV6 block is not "
+            "ported: the LoRA, IA3 and Houlsby baselines run on attention "
+            "blocks")
     ad = _adapter(p, cfg, task_ids)
     h = apply_norm(p["attn_norm"], cfg, x)
     a, tm = rwkv_time_mix(p["rwkv_tm"], cfg, h, cache, impl)
@@ -183,8 +243,12 @@ def _post_ln_block(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                                   "multi-task bank")
     concat = ((ad["w"], ad["b"]) if ad is not None
               and acfg.position == "attn_concat" else None)
+    houlsby = _baseline(p, cfg, "houlsby")
     a, _ = apply_attn(p["attn"], cfg, slot, x, q_pos=q_pos,
-                      concat_adapter=concat, causal=causal, impl=impl)
+                      concat_adapter=concat, adapter=p.get("adapter"),
+                      causal=causal, impl=impl)
+    if houlsby is not None:
+        a = _houlsby(houlsby["attn_ad"], a)
     attn_norm = p["attn_norm"]  # "A": the attention-output norm
     if ad is not None and acfg.position == "attn_out":
         _, x = FusedAdapterResidualNorm.apply(
@@ -192,5 +256,8 @@ def _post_ln_block(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
             cfg.norm_eps, impl)
     else:
         x = apply_norm(attn_norm, cfg, x + a)
+    f = apply_mlp(p["mlp"], cfg, x, impl, ia3=_ia3_scale(p, cfg))
+    if houlsby is not None:
+        f = _houlsby(houlsby["ffn_ad"], f)
     # "N": the post-intermediate norm
-    return apply_norm(p["ffn_norm"], cfg, x + apply_mlp(p["mlp"], cfg, x, impl))
+    return apply_norm(p["ffn_norm"], cfg, x + f)

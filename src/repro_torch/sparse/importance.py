@@ -10,13 +10,14 @@ Every function here takes a leaf's layer from its path through
 `leaf_layer_ids`, which reads both layouts: the port's per-layer leaves
 ('layers/<i>/...') and the JAX layout's stacked leaves
 ('blocks/g<G>/slot<S>/...', one row per repeat) that deltas and the
-registry use. The ablation search (`ablate_layers`, `ablation_importance`)
-serves Table 5 from training and comes with that slice.
+registry use. `ablation_importance` scores each layer by the quality lost
+when its adapter alone is reset to the identity, through the caller's
+eval loop.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -131,6 +132,26 @@ def apply_layer_mask(params: dict, cfg: ModelCfg, mask) -> dict:
         return (v * keep + ident * (1.0 - keep)).to(v.dtype)
 
     return tu.map_with_path(one, params)
+
+
+def ablate_layers(params: dict, cfg: ModelCfg, layer_ids) -> dict:
+    """Reset the given layers' adapters to the identity."""
+    mask = np.ones((n_layers(cfg),), bool)
+    mask[np.asarray(layer_ids, int)] = False
+    return apply_layer_mask(params, cfg, mask)
+
+
+def ablation_importance(params: dict, cfg: ModelCfg,
+                        eval_fn: Callable[[dict], float]) -> np.ndarray:
+    """(L,) delta-quality score: the quality of `params` minus the quality
+    with layer l's adapter ablated to the identity. `eval_fn(params) ->
+    float` (higher is better) is typically `lambda p: loop.evaluate(cfg,
+    p, data.eval_batches(bs), metric)`."""
+    base = float(eval_fn(params))
+    return np.asarray([
+        base - float(eval_fn(ablate_layers(params, cfg, [l])))
+        for l in range(n_layers(cfg))
+    ])
 
 
 # ---------------------------------------------------------------------------

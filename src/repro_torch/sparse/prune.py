@@ -15,14 +15,13 @@ Rows are always fp32: quantization never touches the adapters, and
 `PackedRows` refuses anything narrower.
 
 The paper's 0.022 % variant (keep the top 2/3 of layers, Table 5's
-saturation point) ships as the "paper-0.022" preset. The quality-budgeted
-mask search (`search_mask`) serves Table 5 from training and comes with
-that slice.
+saturation point) ships as the "paper-0.022" preset; `search_mask` finds a
+mask greedily under a quality budget.
 """
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -177,6 +176,41 @@ def preset_mask(cfg: ModelCfg, name: str = "paper-0.022") -> np.ndarray:
     except KeyError:
         raise KeyError(f"unknown prune preset {name!r} "
                        f"(known: {sorted(PRESETS)})") from None
+
+
+def search_mask(scores: np.ndarray,
+                eval_fn: Callable[[np.ndarray], float],
+                *, budget: float, min_layers: int = 1,
+                ) -> Tuple[np.ndarray, List[dict]]:
+    """Greedy quality-budgeted pruning: drop layers in ascending
+    importance order while `eval_fn(mask)` stays within `budget` of the
+    all-layers quality. Returns (mask, history), history one dict per
+    probe (mask, quality, kept, accepted).
+
+    eval_fn takes a candidate (L,) mask and returns quality (higher is
+    better): a gated fine-tune and evaluation, or for post-training
+    pruning `evaluate` of `importance.apply_layer_mask(params, cfg, m)`."""
+    scores = np.asarray(scores, np.float64)
+    L = scores.shape[0]
+    if not 1 <= min_layers <= L:
+        raise ValueError(f"min_layers must be in [1, {L}]")
+    mask = np.ones((L,), bool)
+    base = float(eval_fn(mask))
+    history = [{"mask": mask.copy(), "quality": base, "kept": L,
+                "accepted": True}]
+    # ties broken toward dropping SHALLOW layers first (paper Fig 4)
+    for l in np.argsort(scores + np.arange(L) * 1e-12):
+        if mask.sum() <= min_layers:
+            break
+        cand = mask.copy()
+        cand[l] = False
+        q = float(eval_fn(cand))
+        ok = q >= base - budget
+        history.append({"mask": cand.copy(), "quality": q,
+                        "kept": int(cand.sum()), "accepted": ok})
+        if ok:
+            mask = cand
+    return mask, history
 
 
 def sparse_param_stats(params: dict, cfg: ModelCfg, mask,

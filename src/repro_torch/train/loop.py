@@ -9,7 +9,7 @@ and not that of an asynchronous launch.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg, TrainCfg
 from repro_torch.core import peft
 from repro_torch.models import model as M
+from repro_torch.sparse.importance import gated_param_count, mask_gate
 from repro_torch.train import metrics as metrics_mod
 from repro_torch.train.steps import (build_eval_step, build_train_step,
                                      make_state, merged_params, state_tree)
@@ -125,31 +126,46 @@ def overlay_by_path(dst, src):
     return tu.map_with_path(lambda path, v: src_leaves.get(path, v), dst)
 
 
-def run_stage2(base_cfg: ModelCfg, strategy_name: str, data, stage2: TrainCfg,
-               stage1_params, *, metric: str = "acc", seed: int = 0,
+def run_stage2(base_cfg: ModelCfg, strategy_name: Union[str, peft.Strategy],
+               data, stage2: TrainCfg, stage1_params, *, metric: str = "acc",
+               seed: int = 0, layer_mask=None,
                log: Callable[[str], None] = print) -> Dict:
-    """Stage 2 of the recipe: inject the strategy's adapter into a fresh
-    tree (made from seed + 1, as JAX makes it from the second key), reload
-    the backbone and trained head of `stage1_params`, and tune the
+    """Stage 2 of the recipe: inject the strategy's adapter (a registry
+    name, or a `peft.Strategy` such as Table 4's `ablation_strategy`) into
+    a fresh tree (made from seed + 1, as JAX makes it from the second key),
+    reload the backbone and trained head of `stage1_params`, and tune the
     strategy's leaves. Returns params, cfg, final_metric, param_stats and
-    history."""
-    strat = peft.strategy(strategy_name)
+    history.
+
+    layer_mask: an (n_layers,) bool mask (`sparse`) gating the stage's
+    gradients: the adapters of masked-off layers stay at the identity
+    (paper Table 5, and the pruned 0.022 % variant trained from the
+    start), and param_stats counts only the surviving layers."""
+    strat = (strategy_name if isinstance(strategy_name, peft.Strategy)
+             else peft.strategy(strategy_name))
     device = _device_of(stage1_params)
     cfg2 = peft.attach(base_cfg, strat)
     params2 = M.init_params(torch.Generator(device=device).manual_seed(seed + 1),
                             cfg2)  # fresh tree containing adapters
     params2 = overlay_by_path(params2, stage1_params)  # backbone + head
     state2 = make_state(None, cfg2, strat, stage2.optim, params=params2)
-    step2 = build_train_step(cfg2, stage2.optim, microbatch=stage2.microbatch)
+    step2 = build_train_step(cfg2, stage2.optim, microbatch=stage2.microbatch,
+                             layer_mask=layer_mask)
     state2, hist2 = run_train(
         state2, step2, data.train_batches(stage2.steps, stage2.batch_size,
                                           seed=stage2.seed + 1),
         steps=stage2.steps, log_every=stage2.log_every, log=log)
     params2 = merged_params(state2)
     m2 = evaluate(cfg2, params2, data.eval_batches(stage2.batch_size), metric)
-    stats = peft.param_stats(params2,
-                             peft.trainable_mask(params2, strat, 2, cfg=cfg2))
-    log(f"[stage2] {strategy_name} {metric}={m2:.4f} "
+    mask = peft.trainable_mask(params2, strat, 2, cfg=cfg2)
+    stats = peft.param_stats(params2, mask)
+    if layer_mask is not None:
+        n = gated_param_count(params2, mask,
+                              mask_gate(params2, cfg2, layer_mask))
+        stats = dict(stats, trainable=n,
+                     fraction=n / max(stats["total"], 1),
+                     percent=100.0 * n / max(stats["total"], 1))
+    log(f"[stage2] {strat.name} {metric}={m2:.4f} "
         f"trainable={stats['trainable']} ({stats['percent']:.4f}%)")
     return {"params": params2, "cfg": cfg2, "final_metric": m2,
             "param_stats": stats, "history": hist2}
@@ -172,15 +188,12 @@ def two_stage_finetune(
     """The paper's recipe (§3.2). Returns a dict with params, cfg,
     stage1_metric, final_metric, param_stats, history and stage1_params
     (the tuned head on the backbone, what stage 2 starts from).
+    layer_mask gates stage 2's gradients (`run_stage2`).
 
     The backbone comes from `pretrained_params` (a stage-1 tree: no
     adapter), else it is made from `seed` on `device` (cuda unless the
     caller names one). Stage 1 draws its batches from stage1.seed, stage 2
     from stage2.seed + 1, as in JAX."""
-    if layer_mask is not None:
-        raise NotImplementedError("layer masks (pruned training) are not "
-                                  "ported yet; they arrive with the "
-                                  "sparse-adapter slice")
     strat = peft.strategy(strategy_name)
 
     # ---- stage 1: classifier only, no adapter in the tree ----
@@ -207,6 +220,6 @@ def two_stage_finetune(
 
     # ---- stage 2: inject adapter, reload head, tune adapter + norms ----
     res = run_stage2(base_cfg, strategy_name, data, stage2, params1,
-                     metric=metric, seed=seed, log=log)
+                     metric=metric, seed=seed, layer_mask=layer_mask, log=log)
     return dict(res, stage1_metric=m1, stage1_params=params1,
                 history={"stage1": hist1, "stage2": res["history"]})

@@ -17,7 +17,7 @@ Gradient compression and quantized moments are not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -30,6 +30,7 @@ from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                     clip_by_global_norm, global_norm)
 from repro_torch.optim.schedule import lr_at
 from repro_torch.quant import is_qtensor, quantize_tree
+from repro_torch.sparse.importance import mask_gate
 from repro_torch.train.losses import loss_for
 
 _LATER = "the optimizer-state slice (gradient compression, quantized moments)"
@@ -159,12 +160,14 @@ def merged_params(state: dict) -> dict:
 
 
 def loss_and_grads(cfg: ModelCfg, state: dict, batch: dict,
-                   impl: str = "auto"):
-    """(loss, metrics, grads) of one batch: grads {path: tensor} over the
-    state's trainable leaves, unclipped."""
+                   impl: str = "auto", loss_fn: Optional[Callable] = None):
+    """(loss, metrics, grads) of one batch under `loss_fn` (the config
+    family's loss by default): grads {path: tensor} over the state's
+    trainable leaves, unclipped."""
     paths = list(state["trainable"])
     leaves = [state["trainable"][p] for p in paths]
-    loss, metrics = loss_for(cfg)(cfg, state["params"], batch, impl=impl)
+    loss, metrics = (loss_fn or loss_for(cfg))(cfg, state["params"], batch,
+                                               impl=impl)
     # a leaf the loss never reads (an encoder's final_norm under bitfit)
     # gets a zero gradient, as jax.grad gives it
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -172,21 +175,44 @@ def loss_and_grads(cfg: ModelCfg, state: dict, batch: dict,
                            for p, t, g in zip(paths, leaves, grads)}
 
 
-def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0):
+def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
+                     gate=None, layer_mask=None,
+                     loss_fn: Optional[Callable] = None):
     """Returns step(state, batch) -> (state, metrics), metrics a dict of
     0-dim tensors (loss, grad_norm and the loss's own scalars) and the
-    step's learning rate.
+    step's learning rate. loss_fn(cfg, params, batch, impl=) -> (loss,
+    metrics) replaces the config family's loss (MLM pretraining passes
+    `pretrain.mlm_loss`).
 
     microbatch=n accumulates the gradient over n slices of the batch's
     leading dim, as JAX's scan does: each slice's gradients add up in fp32,
     the sum is scaled by 1/n, and the loss and metrics are the slices'
-    means."""
+    means.
+
+    gate (a tree over the params, `peft.layer_gate`) or layer_mask (a
+    host-side (n_layers,) bool mask, whose gate `sparse.mask_gate` makes)
+    multiplies each gradient by its leaf's gate after the gradients are
+    computed and before the clip, as JAX does. A gated-off leaf is not
+    frozen: AdamW still updates it with a zero gradient, so weight decay
+    moves its decayed leaves (an adapter's w, a norm's scale), as in
+    JAX."""
+    if gate is not None and layer_mask is not None:
+        raise ValueError("pass either gate or layer_mask, not both")
     check_optim(ocfg)
-    loss_for(cfg)  # a family the port does not train raises here
+    if loss_fn is None:
+        loss_for(cfg)  # a family the port does not train raises here
+    gates = None if gate is None else dict(tu.flatten_with_paths(gate))
+
+    def gate_of(state):
+        nonlocal gates
+        if gates is None and layer_mask is not None:
+            gates = dict(tu.flatten_with_paths(
+                mask_gate(state["params"], cfg, layer_mask)))
+        return gates
 
     def compute_grads(state, batch):
         if not microbatch:
-            return loss_and_grads(cfg, state, batch)
+            return loss_and_grads(cfg, state, batch, loss_fn=loss_fn)
         n = microbatch
         acc = {p: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                for p, t in state["trainable"].items()}
@@ -194,7 +220,8 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0):
         for j in range(n):
             mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[j]
                   for k, v in batch.items()}
-            loss, metrics, grads = loss_and_grads(cfg, state, mb)
+            loss, metrics, grads = loss_and_grads(cfg, state, mb,
+                                                  loss_fn=loss_fn)
             acc = {p: acc[p] + grads[p] for p in acc}
             loss = loss.detach()
             acc_l = loss if acc_l is None else acc_l + loss
@@ -206,6 +233,9 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0):
 
     def step(state, batch):
         loss, metrics, grads = compute_grads(state, batch)
+        g_tree = gate_of(state)
+        if g_tree is not None:
+            grads = {p: g * g_tree[p] for p, g in grads.items()}
         if ocfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
         else:

@@ -118,7 +118,7 @@ def test_train_step_loss_and_grads_match_jax(arch, sname):
 
 
 STRATS = ["full", "classifier_only", "hadamard", "hadamard_concat", "bitfit",
-          "ln_tuning"]
+          "ln_tuning", "lora", "houlsby", "ia3"]
 
 
 @pytest.mark.parametrize("sname", STRATS + ["ablation:B+N", "ablation:W+A"])
@@ -155,11 +155,18 @@ def test_bert_base_trains_the_papers_fraction():
 
 
 def test_unported_strategies_and_gating_raise_naming_the_slice():
+    """The baselines and the layer gate are ported: each strategy is
+    JAX's, and `layer_gate` gates the lower layers' adapter and ffn_norm
+    leaves off. A name no registry knows still raises KeyError."""
     for name in ("lora", "houlsby", "ia3"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            peft.strategy(name)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        peft.layer_gate({}, get("bert-tiny"), 1)
+        assert dataclasses.asdict(peft.strategy(name)) == \
+            dataclasses.asdict(jpeft.strategy(name))
+    pcfg = peft.attach(get("bert-tiny"), peft.strategy("hadamard"))
+    with torch.device("meta"):
+        params = M.init_params(None, pcfg)
+    gate = dict(tu.flatten_with_paths(peft.layer_gate(params, pcfg, 1)))
+    assert gate["layers/0/adapter/w"] == gate["layers/0/ffn_norm/bias"] == 0.0
+    assert gate["layers/1/adapter/b"] == gate["layers/0/attn/wq"] == 1.0
     with pytest.raises(KeyError, match="unknown strategy"):
         peft.strategy("nope")
 

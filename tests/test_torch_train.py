@@ -166,9 +166,20 @@ def test_train_launcher_runs_on_the_cpu_when_asked(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "rwkv6-1.6b", "--smoke"], "decoder-LM"),
     (["--arch", "bert-tiny", "--quant-moments", "int8"], "quantization"),
-    (["--arch", "bert-tiny", "--prune-to", "2"], "sparse"),
+    # gated training is ported: it runs, with JAX's line (match None)
+    pytest.param(["--arch", "bert-tiny", "--smoke", "--prune-to", "1",
+                  "--steps", "2", "--batch", "4", "--seq", "16"], None,
+                 id="argv2-sparse"),
     (["--arch", "bert-tiny", "--mesh", "2x4"], "distributed"),
 ])
-def test_train_launcher_later_slices_raise(argv, match):
+def test_train_launcher_later_slices_raise(argv, match, capsys):
+    if match is None:
+        launcher.main(argv + ["--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "pruned training: top 1/2 layers' adapters unfrozen " \
+               "(mask-gated gradients)" in out
+        # stage 2 counts the top layer's adapter w, b and ffn_norm alone
+        assert "[stage2] hadamard acc=" in out and "trainable=256 " in out
+        return
     with pytest.raises(NotImplementedError, match=match):
         launcher.main(argv + ["--device", "cpu"])
