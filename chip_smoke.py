@@ -15,7 +15,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      (flash and paged attention, #4 and #5, L2-cold beside SDPA; #4's
      log-sum-exp output too; #5 bit-identical across two runs, and on
      rows whose queries see no key: kv_len 0, kv_len under Sq, windowed,
-     int8, each in a batch whose other rows see keys); the multitask
+     int8, e4m3, each in a batch whose other rows see keys; over bf16,
+     int8 and e4m3 pools at the verify shape, 4 slots x 5 queries, and at
+     a 112-token extend, each timed beside its byte bound); the multitask
      kernel (#6) at the edges of the plan it shares with #9 (decode,
      rwkv6's seam, prefills, two requests, widths 1000 and 999, x off the
      16-byte grid, fp32/bf16 activations over fp32/bf16 banks), equal to
@@ -57,6 +59,12 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      tenant (the paper-0.022 mask, 18 of 28 layers), a dense one and an
      unloaded row: prefill and four decode steps through #9 against the
      plain path, and against a static bank (#6) of the same tenants;
+  4p. the fp32 model over a paged pool (fp32, bf16, int8 and e4m3 blocks):
+     a 112-token extend after a shared page, two decode steps and a
+     verify of 5 tokens through the kernels against the plain path; the
+     paged decode equal to the contiguous one, the extend against a cold
+     prefill, and speculative greedy tokens (self draft, k = 4) equal to
+     plain greedy ones over the slot caches and over the pool;
   4r. the full-width rwkv6-1.6b model (24 layers) in fp32, one adapter, a
      3-task bank, a 3-row hot-swap bank (pruned, dense and unloaded rows)
      and an int8 trunk (the LM head alone quantized): a 128-token prefill
@@ -71,6 +79,14 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      in every decode tick and every prefill, the weight bytes, the peak
      device memory against the bf16 engine's, and greedy-token agreement
      with the bf16 run;
+  5p, 5pq, 5pf, 5s, 5sp, 6p. paged KV and speculative decoding: 8
+     requests sharing a 96-token prefix (4 cold admissions, 2 whole-prompt
+     hits, 2 prefix hits) in 16-token pages of bf16, int8 and e4m3, then
+     self speculation (k = 4) over the slot caches and over the pool, and
+     a 3-task bank's pool: the admissions and the launches of every
+     prefill, extend, decode or verify tick and draft call as predicted,
+     the pool drained to 0 live blocks once the prefix cache is cleared,
+     cold and whole-prompt hits equal to the contiguous scheduler's tokens;
   6s. hot-swap serving, the launcher's lifecycle over the same traffic: 4
      tenants in an AdapterRegistry on disk (task0 and task2 pruned to
      paper-0.022 and published packed, task1 and task3 dense), a 3-row
@@ -133,6 +149,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      every train step and eval batch as predicted; quality is reported,
      not gated;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
+     5p-6p,
      8, 8d and 8p, and each kernel's device us per decode tick and per
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
@@ -698,6 +715,12 @@ def main() -> int:
                dict(int8=True, sq=3, keyless=True),
                dict(int8=True, sq=3, window=2, keyless=True),
                dict(sq=3, cap=30.0, keyless=True)]
+    # e4m3 pools (--kv-quant fp8): linear, windowed, the verify's Sq = 5,
+    # and key-less rows
+    pcases += [dict(fp8=True), dict(fp8=True, window=100),
+               dict(fp8=True, sq=5), dict(fp8=True, keyless=True),
+               dict(fp8=True, sq=3, keyless=True),
+               dict(fp8=True, sq=3, window=2, keyless=True)]
     for dt in (torch.float32, bf):
         for c in pcases:
             sq = c.get("sq", 1)
@@ -709,6 +732,11 @@ def main() -> int:
                                    device=dev, dtype=torch.int8)
                 vp = torch.randint(-127, 128, (nb, page, 8, 128), generator=gen,
                                    device=dev, dtype=torch.int8)
+                kw.update(k_scales=randn(nb, page, 8, 1).abs() * 0.01,
+                          v_scales=randn(nb, page, 8, 1).abs() * 0.01)
+            elif c.get("fp8"):
+                kp = (randn(nb, page, 8, 128) * 64).to(torch.float8_e4m3fn)
+                vp = (randn(nb, page, 8, 128) * 64).to(torch.float8_e4m3fn)
                 kw.update(k_scales=randn(nb, page, 8, 1).abs() * 0.01,
                           v_scales=randn(nb, page, 8, 1).abs() * 0.01)
             else:
@@ -791,6 +819,78 @@ def main() -> int:
         bit_identical_repeats=paged_repeats, keyless_cases=paged_keyless,
         split_plan=plan)
     del pcopies
+    # #5 at the paged serve path's other shapes, L2-cold as above (each call
+    # its own copy of q and of the pool): a speculative verify of 4 slots x
+    # (k+1 = 5) queries, and a 112-token prefix-cache extend after one
+    # shared page (kv_len 128), over bf16, int8 and e4m3 pools (quantized
+    # pools with fp32 scales per token and head). The bound: the valid keys'
+    # K/V bytes (and scales), q, tables, lens and the fp32 out, once each
+    f8 = torch.float8_e4m3fn
+
+    def pool_copy(n, dt_):
+        if dt_ == bf:
+            return (randn(n, page, 8, 128, dtype=bf),
+                    randn(n, page, 8, 128, dtype=bf), None, None)
+        if dt_ == f8:
+            vals = [(randn(n, page, 8, 128) * 64).to(f8) for _ in range(2)]
+        else:
+            vals = [torch.randint(-127, 128, (n, page, 8, 128), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                    for _ in range(2)]
+        return (*vals, randn(n, page, 8, 1).abs() * 0.01,
+                randn(n, page, 8, 1).abs() * 0.01)
+
+    for what, B_, sq_, kl_ in (("verify", B, 5, [133, 144, 154, 164]),
+                               ("extend", 1, 112, [128])):
+        tables_ = (torch.arange(B_, device=dev, dtype=torch.int32)[:, None]
+                   * nbt + torch.arange(nbt, device=dev, dtype=torch.int32))
+        kl_t = torch.tensor(kl_, dtype=torch.int32, device=dev)
+        # query i of Sq sees kv_len - Sq + i + 1 keys
+        seen = sum(sq_ * (n_ - sq_) + sq_ * (sq_ + 1) // 2 for n_ in kl_)
+        for tag, dt_ in (("", bf), ("_int8", torch.int8), ("_fp8", f8)):
+            elt = 2 if dt_ == bf else 1
+            per_copy = 2 * B_ * max_len * 8 * 128 * elt
+            copies = [(randn(B_, 16, sq_, 128, dtype=bf),
+                       *pool_copy(B_ * nbt, dt_))
+                      for _ in range(-(-100 * 2**20 // per_copy))]
+
+            def kern(q_, kp_, vp_, ks_, vs_, tables_=tables_, kl_t=kl_t):
+                return ops.paged_attention(q_, kp_, vp_, tables_, kl_t,
+                                           k_scales=ks_, v_scales=vs_,
+                                           impl="kernel")
+
+            def plain(q_, kp_, vp_, ks_, vs_, tables_=tables_, kl_t=kl_t):
+                return ops.paged_attention(q_, kp_, vp_, tables_, kl_t,
+                                           k_scales=ks_, v_scales=vs_,
+                                           impl="ref")
+
+            c0 = copies[0]
+            compare("paged_attention", f"{what}{tag}", bf,
+                    lambda: kern(*c0), lambda: plain(*c0))
+            runs = [kern(*c0) for _ in range(2)]
+            check(torch.equal(*runs), f"paged_attention {what}{tag}: two "
+                                      "runs differ")
+            paged_repeats += 1
+            scale_b = 0 if dt_ == bf else 4
+            plan_ = paged_split_plan(B_, 16, 8, sq_, 128, page, nbt,
+                                     kv_dtype=dt_)
+            record(f"paged_attention@{what}{tag}", "paged_attention",
+                   f"q ({B_},16,{sq_},128) bf16 over a ({B_ * nbt},{page},8,"
+                   f"128) {str(dt_).removeprefix('torch.')} pool, kv_lens "
+                   f"{kl_} ({len(copies)} copies in turn; one layer of a "
+                   f"{what}; {plan_['splits']} splits, {plan_['row_chunks']} "
+                   f"row chunks of {plan_['rows_per_block']}, "
+                   f"{plan_['blocks']} blocks)", bf,
+                   rotating(copies, kern), rotating(copies, plain), None,
+                   nbytes(c0[0], tables_, kl_t)
+                   + sum(kl_) * 8 * (128 * elt + scale_b) * 2
+                   + B_ * 16 * sq_ * 128 * 4,
+                   4 * 16 * 128 * seen, iters=len(copies), reps=3)
+            results[f"paged_attention@{what}{tag}"].update(
+                split_plan=plan_, library_note="none: SDPA takes no block "
+                "table")
+            del copies, runs
+    results["paged_attention"]["bit_identical_repeats"] = paged_repeats
 
     # #6 multitask Hadamard at the edges of `masked_plan`, the plan it
     # shares with #9: the decode tick (4, 1, 1024), rwkv6's seam (4, 1,
@@ -1702,6 +1802,163 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("4c")
 
+    # -- phase 4p: the fp32 model over a paged pool, kernel path vs plain ---
+    # two rows of 128-token prompts whose first page sits in the pool (a
+    # prefix-cache hit): the 112-token suffix extended in place, two decode
+    # steps and a verify of k+1 = 5 tokens per row, over an fp32 pool (the
+    # model's own), a bf16, an int8 and an e4m3 one, through the kernels
+    # (#5 and #3 in every layer of every call, no #4) and through the plain
+    # versions; then the paged decode against the contiguous one on the
+    # same K/V bits (the same pages and split plan: equal), the extend
+    # against a cold prefill of the prompt, and greedy speculation (self
+    # draft, k = 4) against plain greedy decoding, token for token, over
+    # the slot caches and over the pool
+    from repro_torch.serving import Request
+
+    page4, P4, k4 = 16, SERVE["prompt_len"], 4
+    nbt4 = SERVE["max_len"] // page4
+    L4 = cfg32.n_layers
+    base4 = launcher.build_base(cfg32, 1, dev)
+    tuned4 = launcher.task_variants(base4, 1, 1)[0]
+    eng = ServeEngine(cfg32, tuned4, device=dev)
+    V4 = cfg32.vocab_size
+    toks = torch.randint(10, V4, (2, P4), generator=gen, device=dev)
+    tables4 = (torch.randperm(2 * nbt4, generator=gen, device=dev) + 1
+               ).to(torch.int32).reshape(2, nbt4)
+    step_toks = [torch.randint(10, V4, (2, 1), generator=gen, device=dev)
+                 for _ in range(2)]
+    vtoks = torch.randint(10, V4, (2, k4 + 1), generator=gen, device=dev)
+    per_call = {name: 0 for name in _build.launch_counts()}
+    per_call.update(paged_attention=L4, fused_adapter_norm=L4)
+
+    from repro_torch.quant.qtensor import QTensor, is_qtensor
+
+    def clone_pool(pool):
+        return [{n: (QTensor(leaf.values.clone(), leaf.scales.clone())
+                     if is_qtensor(leaf) else leaf.clone())
+                 for n, leaf in layer.items()} for layer in pool]
+
+    def paged_calls(pool):
+        """The extend of each row, two decode steps and a verify, each
+        through the kernels on `pool` (which carries on) and through the
+        plain versions on a copy of the same pool, so both start from the
+        same K/V bits: [(kernel logits, plain logits, kernel launches,
+        plain launches)] a call. (Run apart, a quantized pool's K/V would
+        part from the first 1e-6 difference that moves a value across a
+        rounding edge of int8 or e4m3.)"""
+        out = []
+
+        def call(fn):
+            res = []
+            for impl, p in (("auto", pool), ("ref", clone_pool(pool))):
+                _build.reset_launches()
+                with torch.no_grad():
+                    lg, _ = fn(p, impl)
+                torch.cuda.synchronize()
+                res += [lg, _build.launch_counts()]
+            out.append(res)
+
+        for b in range(2):
+            with torch.no_grad():
+                _, fresh = M.prefill_lm(eng.params, cfg32,
+                                        toks[b:b + 1, :page4], page4)
+            eng.paged_insert(pool, fresh, tables4[b, :1].cpu().numpy())
+            call(lambda p, impl: M.extend_lm(
+                eng.params, cfg32, p, toks[b:b + 1, page4:],
+                tables4[b:b + 1], page4, P4, P4 - page4 - 1, impl=impl))
+        for i, t in enumerate(step_toks):
+            call(lambda p, impl: M.decode_lm_paged(
+                eng.params, cfg32, p, t,
+                torch.full((2,), P4 + i, device=dev), tables4, impl=impl))
+        call(lambda p, impl: M.verify_lm_paged(
+            eng.params, cfg32, p, vtoks,
+            torch.full((2,), P4 + 2, device=dev), tables4, impl=impl))
+        return out
+
+    paged_model = {}
+    for kind, pcfg4, quant in (
+            ("fp32", cfg32, None),
+            ("bf16", cfg32.replace(compute_dtype="bfloat16"), None),
+            ("int8", cfg32, "int8"), ("fp8", cfg32, "fp8")):
+        pool = M.init_paged_pool(pcfg4, 2 * nbt4 + 1, page4, quant, dev)
+        calls = paged_calls(pool)
+        worst = 0.0
+        for i, (a, ca, r, cr) in enumerate(calls):
+            check(a.shape == r.shape and bool(torch.isfinite(a).all()),
+                  f"phase 4p {kind} call {i}: logits {tuple(a.shape)}")
+            diff, top = (a - r).abs().max().item(), r.abs().max().item()
+            check(diff <= 1e-3 * top, f"phase 4p {kind} call {i}: |kernel "
+                  f"- plain| {diff:.3g} > 1e-3 x {top:.3g}")
+            worst = max(worst, diff / top)
+            check(ca == per_call and not any(cr.values()),
+                  f"phase 4p {kind} call {i}: launches {ca} (plain {cr}), "
+                  f"want {per_call}")
+        paged_model[kind] = {"kernel_vs_plain": worst,
+                             "extend_logits": [c[0] for c in calls[:2]]}
+        del calls, pool
+    # the extend (fp32 pool, kernel path) against a cold prefill of the
+    # whole prompt; the paged decode against the contiguous one
+    with torch.no_grad():
+        cold, fresh = M.prefill_lm(eng.params, cfg32, toks, P4)
+    ext = torch.cat(paged_model["fp32"].pop("extend_logits"))
+    for kind in ("bf16", "int8", "fp8"):
+        del paged_model[kind]["extend_logits"]
+    ext_err = ((ext - cold).abs().max() / cold.abs().max()).item()
+    check(ext_err <= 1e-3, f"phase 4p: extend vs a cold prefill {ext_err:.3g}"
+                           " of max|logit| (tol 1e-3)")
+    pool = M.init_paged_pool(cfg32, 2 * nbt4 + 1, page4, None, dev)
+    for b in range(2):
+        eng.paged_insert(pool, [{n: f[n][b:b + 1] for n in f} for f in fresh],
+                         tables4[b, :P4 // page4].cpu().numpy())
+    caches = eng.init_slot_caches(2, SERVE["max_len"])
+    for c, f in zip(caches, fresh):
+        for n in c:
+            c[n][:, :P4].copy_(f[n])
+    with torch.no_grad():
+        for i, t in enumerate(step_toks):
+            pos = torch.full((2,), P4 + i, device=dev)
+            a, _ = M.decode_lm_paged(eng.params, cfg32, pool, t, pos, tables4)
+            c_, _ = M.decode_lm(eng.params, cfg32, caches, t, pos)
+            check(torch.equal(a, c_), f"phase 4p: paged decode step {i} is "
+                  f"not the contiguous one (max |diff| "
+                  f"{(a - c_).abs().max().item():.3g})")
+    del pool, caches, fresh, eng
+    # speculation: the backbone's row (every draft accepted) and a tuned
+    # row (drafts rejected) in one tick
+    bank4 = MultiTaskEngine(cfg32, [base4, tuned4], device=dev)
+    rs4 = np.random.RandomState(4)
+    reqs4 = [Request(prompt=rs4.randint(10, V4, 64), max_new_tokens=16,
+                     task_id=i % 2) for i in range(4)]
+    want4, rep4 = make_scheduler(bank4, ServingConfig(num_slots=4,
+                                                      max_len=96)).run(reqs4)
+    for tag, kw in (("slots", {}), ("paged", dict(paged=True))):
+        sched = make_scheduler(bank4, ServingConfig(num_slots=4, max_len=96,
+                                                    spec_k=k4, **kw))
+        done, rep = sched.run(reqs4)
+        for w, c in zip(want4, done):
+            check(np.array_equal(w.tokens, c.tokens),
+                  f"phase 4p: speculation over the {tag} gave {c.tokens}, "
+                  f"plain greedy {w.tokens} (request {c.request_id})")
+        paged_model[f"spec_{tag}"] = dict(sched.spec_stats,
+                                          acceptance=sched.acceptance_rate,
+                                          ticks=rep["ticks"],
+                                          plain_ticks=rep4["ticks"])
+    by_pool = {k: paged_model[k]["kernel_vs_plain"]
+               for k in ("fp32", "bf16", "int8", "fp8")}
+    paged_model.update(extend_vs_cold_prefill=ext_err,
+                       paged_equals_contiguous_decode=True)
+    log(f"[4p] qwen3-0.6b fp32, {L4} layers, paged pool: extend (112 tokens "
+        f"after a shared page), 2 decode steps, a verify of {k4 + 1}, each "
+        f"with {L4} #5 + {L4} #3 and no #4; kernel vs plain max |diff| / "
+        f"max|ref| by pool {json.dumps(by_pool)} "
+        f"(tol 1e-3); extend vs cold prefill {ext_err:.3g}; paged decode "
+        f"equal to the contiguous one; speculation (k={k4}, self draft) "
+        f"token for token plain greedy over slots "
+        f"{paged_model['spec_slots']} and pool {paged_model['spec_paged']}")
+    del bank4, base4, tuned4, sched
+    torch.cuda.empty_cache()
+    phase_done("4p")
+
     # -- phase 4r: full-width rwkv6-1.6b in fp32, kernel path vs plain path -
     # every layer's recurrence through #8 at prefill and at decode (the
     # state carried in the cache), the adapter seam through #3 (one
@@ -1872,11 +2129,12 @@ def main() -> int:
         return profile_calls(lambda: eng.prefill(
             prompt, SERVE["max_len"], task_ids=np.asarray([0])), 3)
 
-    def count_per_call(eng):
-        """Record each engine prefill's and decode step's own launches in
-        the run that follows: wraps the two methods on this instance and
-        returns {method: [launch-count change per call]}."""
-        per_call = {"prefill": [], "decode_step": []}
+    def count_per_call(eng, names=("prefill", "decode_step")):
+        """Record each call's own launches in the run that follows (by
+        default each engine prefill's and decode step's): wraps the methods
+        `names` on this instance and returns {method: [launch-count change
+        per call]}."""
+        per_call = {name: [] for name in names}
         for name, calls in per_call.items():
             def wrapped(*a, _fn=getattr(eng, name), _calls=calls, **kw):
                 before = _build.launch_counts()
@@ -2022,6 +2280,222 @@ def main() -> int:
         del eng, sched
         torch.cuda.empty_cache()
         phase_done(phase)
+
+    # -- phases 5p, 5pq, 5pf, 5s, 5sp, 6p: paged KV and speculation, bf16 ---
+    # 8 requests x (128 + 32 greedy) on 4 slots of 512 tokens in 16-token
+    # pages (`_auto_blocks`: 193 blocks). The prompts share a 96-token
+    # prefix; requests 4-5 repeat prompts 0-1 and 6-7 share the prefix
+    # alone, so, prompts being published when they retire, the admissions
+    # are 0-3 cold, 4-5 whole-prompt hits and 6-7 prefix hits (a 32-token
+    # extend). 5p: bf16 blocks; 5pq, 5pf: int8, e4m3 blocks; 5s, 5sp: self
+    # speculation (k = 4) over the slot caches and over the pool; 6p: a
+    # 3-task bank (#6) on the launcher's traffic with requests 4-5
+    # repeating prompts 0-1 under other tasks, so every admission is cold.
+    # Launches per call, predicted: a cold prefill 28 #4 + 28 seam (#3, or
+    # #6 over a bank); an extend 28 #5 + 28 seam and no #4; a whole-prompt
+    # hit none; a decode tick 28 #5 + 28 seam; a verify tick 28 #5 + 28
+    # seam and the k+1 = 5 draft steps' 5 x (28 #5 + 28 #3); a draft
+    # lane's admission 28 #4 + 28 #3
+    k_s, Ls = 4, cfg.n_layers
+    rs = np.random.RandomState(SERVE["seed"])
+    V = cfg.vocab_size
+    stem = rs.randint(10, V, 96)
+    tail = lambda: rs.randint(10, V, SERVE["prompt_len"] - 96)  # noqa: E731
+    pprompts = [np.concatenate([stem, tail()]) for _ in range(4)]
+    pprompts += pprompts[:2] + [np.concatenate([stem, tail()])
+                                for _ in range(2)]
+
+    def kernels(**nonzero):
+        out = {name: 0 for name in _build.launch_counts()}
+        out.update(nonzero)
+        return out
+
+    def pool_leaves(pool):
+        """Every tensor of per-layer caches or block pools (a quantized
+        block's payload and scales)."""
+        return [t for layer in pool for leaf in layer.values()
+                for t in ((leaf.values, leaf.scales) if is_qtensor(leaf)
+                          else (leaf,))]
+
+    def pool_bytes(pool):
+        return sum(t.numel() * t.element_size() for t in pool_leaves(pool))
+
+    def pool_finite(pool):
+        return all(bool(torch.isfinite(t.float()).all())
+                   for t in pool_leaves(pool))
+
+    PAGED_RUNS = (("5p", 0, dict(paged=True)),
+                  ("5pq", 0, dict(paged=True, kv_quant="int8")),
+                  ("5pf", 0, dict(paged=True, kv_quant="fp8")),
+                  ("5s", 0, dict(spec_k=k_s)),
+                  ("5sp", 0, dict(paged=True, spec_k=k_s)),
+                  ("6p", TASKS, dict(paged=True)))
+    want_stats = {"full_hits": 2, "partial_hits": 2, "cold": 4}
+    ref_tokens = {}
+    eng = pre_of = None
+    for phase, tasks, feat in PAGED_RUNS:
+        if eng is None or eng_tasks != tasks:
+            eng = pre_of = None
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            eng, eng_tasks = launcher.build_engine(
+                cfg, seed=SERVE["seed"], tasks=tasks, device=dev), tasks
+            torch.cuda.synchronize()
+            weights_bytes = torch.cuda.memory_allocated() - held
+            if tasks:
+                preqs = launcher.make_requests(
+                    cfg, SERVE["requests"], SERVE["prompt_len"],
+                    SERVE["new_tokens"], tasks, SERVE["seed"])
+                for i in (4, 5):
+                    preqs[i].prompt = preqs[i - 4].prompt
+            else:
+                preqs = [Request(prompt=p, max_new_tokens=SERVE["new_tokens"])
+                         for p in pprompts]
+            # the contiguous scheduler on the same prompts (and warm-up)
+            ref_done, ref_rep = make_scheduler(eng, ServingConfig(
+                num_slots=SERVE["num_slots"],
+                max_len=SERVE["max_len"])).run(preqs)
+            ref_tokens = {c.request_id: c.tokens for c in ref_done}
+        seam = "multitask_hadamard" if tasks else "fused_adapter_norm"
+        torch.cuda.reset_peak_memory_stats()
+        sched = make_scheduler(eng, ServingConfig(
+            num_slots=SERVE["num_slots"], max_len=SERVE["max_len"], **feat))
+        paged, spec = feat.get("paged", False), "spec_k" in feat
+        tick_call = (("paged_verify_step" if paged else "verify_step") if spec
+                     else "paged_decode_step")
+        per_call = count_per_call(eng, ("prefill", "paged_extend", tick_call))
+        lane_calls = (count_per_call(sched.draft_lane, ("draft", "admit"))
+                      if spec else {})
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        done, rep = sched.run(preqs)
+        torch.cuda.synchronize()
+        launches[phase] = _build.launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - held
+        for name in per_call:
+            delattr(eng, name)
+        # every launch inside a counted call, each call as predicted
+        all_calls = {**per_call, **lane_calls}
+        for k in launches[phase]:
+            check(sum(c[k] for calls in all_calls.values() for c in calls)
+                  == launches[phase][k],
+                  f"phase {phase}: {k} launched outside the counted calls")
+        want_call = {
+            "prefill": kernels(flash_attention=Ls, **{seam: Ls}),
+            "paged_extend": kernels(paged_attention=Ls, **{seam: Ls}),
+            tick_call: kernels(paged_attention=Ls, **{seam: Ls}),
+            "draft": kernels(paged_attention=(k_s + 1) * Ls,
+                             fused_adapter_norm=(k_s + 1) * Ls),
+            "admit": kernels(flash_attention=Ls, fused_adapter_norm=Ls)}
+        for name, calls in all_calls.items():
+            bad = [c for c in calls if c != want_call[name]]
+            check(not bad, f"phase {phase}: {name} launched {bad[:1]}, want "
+                           f"{want_call[name]} a call")
+        check(len(per_call[tick_call]) == rep["ticks"]
+              and len(lane_calls.get("draft", per_call[tick_call]))
+              == rep["ticks"], f"phase {phase}: {len(per_call[tick_call])} "
+              f"{tick_call} calls over {rep['ticks']} ticks")
+        check(len(done) == SERVE["requests"] and all(
+            len(c.tokens) == SERVE["new_tokens"] and c.finish_reason == "length"
+            and bool(((c.tokens >= 0) & (c.tokens < V)).all()) for c in done),
+            f"phase {phase}: requests retired as "
+            f"{[(len(c.tokens), c.finish_reason) for c in done]}")
+        check(pool_finite(sched.pool if paged else sched.caches),
+              f"phase {phase}: non-finite KV")
+        same = [float((c.tokens == ref_tokens[c.request_id]).mean())
+                for c in done]
+        extra = {"weights_bytes_allocated": weights_bytes,
+                 "peak_bytes_allocated": peak_bytes,
+                 "agreement_with_contiguous": same,
+                 "reference_ticks": ref_rep["ticks"]}
+        if paged:
+            stats = sched.stats
+            want = ({"full_hits": 0, "partial_hits": 0, "cold": 8} if tasks
+                    else want_stats)
+            check(stats == want, f"phase {phase}: admissions {stats}, "
+                                 f"predicted {want}")
+            check(len(per_call["prefill"]) == stats["cold"]
+                  and len(per_call["paged_extend"]) == stats["partial_hits"],
+                  f"phase {phase}: {len(per_call['prefill'])} prefills, "
+                  f"{len(per_call['paged_extend'])} extends for {stats}")
+            report_before = sched.pool_report()
+            sched.prefix.clear(sched.alloc)
+            pr = sched.pool_report()
+            check(pr["live_blocks"] == 0 and pr["reserved_blocks"] == 0,
+                  f"phase {phase}: pool {pr} after clearing the prefix cache")
+            extra.update(pool_bytes=pool_bytes(sched.pool),
+                         pool_report=report_before, admissions=stats,
+                         pool_line=launcher.outcome_lines(sched)[-1])
+        if phase in ("5p", "6p"):
+            # cold and whole-prompt hits: the contiguous scheduler's tokens
+            exact = [i for i in range(8) if tasks or i < 6]
+            check(all(same[i] == 1.0 for i in exact),
+                  f"phase {phase}: agreement with the contiguous scheduler "
+                  f"{same} (requests {exact} must be equal)")
+        if phase in ("5pq", "5pf"):
+            extra.update(
+                pool_bytes_vs_bf16=extra["pool_bytes"]
+                / serve_reports["5p"]["pool_bytes"],
+                top1_agreement_with_5p=float(np.mean([
+                    (c.tokens == tokens_of["5p"][c.request_id]).mean()
+                    for c in done])))
+            check(0.5 <= extra["pool_bytes_vs_bf16"] <= 0.54,
+                  f"phase {phase}: pool bytes {extra['pool_bytes_vs_bf16']:.3f}"
+                  " of 5p's, want (128 + 4) / 256")
+        if spec:
+            extra.update(spec_stats=sched.spec_stats,
+                         acceptance_rate=sched.acceptance_rate,
+                         ticks_vs_5p=rep["ticks"] / serve_reports["5p"]["ticks"],
+                         spec_line=launcher.outcome_lines(sched)[0])
+        tokens_of[phase] = {c.request_id: c.tokens for c in done}
+        # the profile of one tick at positions 140-143 over blocks 1-128
+        slots = SERVE["num_slots"]
+        tok_h = np.full((slots, 1), 11)
+        pos_h = np.array([140 + i for i in range(slots)])
+        stids = [t % max(tasks, 1) for t in range(slots)]
+        tbl = np.arange(1, 1 + slots * (SERVE["max_len"] // 16),
+                        dtype=np.int32).reshape(slots, -1)
+        if spec:
+            lane = sched.draft_lane
+            target = sched.pool if paged else sched.caches
+
+            def one_tick():
+                d = lane.draft(torch.as_tensor(tok_h[:, 0], device=dev),
+                               torch.as_tensor(pos_h, device=dev))
+                v = torch.cat([torch.as_tensor(tok_h, device=dev), d], 1)
+                if paged:
+                    return eng.paged_verify_step(target, v, pos_h, tbl,
+                                                 task_ids=stids)
+                return eng.verify_step(target, v, pos_h, task_ids=stids)
+        else:
+            def one_tick():
+                return eng.paged_decode_step(sched.pool, tok_h, pos_h, tbl,
+                                             task_ids=stids)
+        # a verify tick is 6 forwards (~14,600 kernels): 2 of them give the
+        # profiler as many events as 12 decode ticks. The prefill is the
+        # engine's own, whatever holds the KV: profiled once an engine
+        tick = profile_calls(one_tick, 2 if spec else 8)
+        if pre_of is not eng:
+            pre, pre_of = profile_prefill(eng), eng
+        per_tick = {k: sorted({c[k] + sum(d[k] for d in lane_calls.get(
+            "draft", [])[i:i + 1]) for i, c in enumerate(per_call[tick_call])})
+            for k in launches[phase]}
+        per_prefill = {k: sorted({c[k] for c in per_call["prefill"]})
+                       for k in launches[phase]}
+        serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
+                                    launches_per_prefill=per_prefill,
+                                    tick=tick, prefill=pre, **extra)
+        log(f"[{phase}] serve {feat} {'bank of %d' % tasks if tasks else 'one adapter'} "
+            f"on {smi}: {serve_line(rep)}; launches {launches[phase]}; per "
+            f"tick {per_tick}; per prefill {per_prefill}; "
+            f"{json.dumps({k: v for k, v in extra.items() if k != 'pool_report'})}; "
+            f"pool {extra.get('pool_report')}; tick {tick}")
+        del sched
+        torch.cuda.empty_cache()
+        phase_done(phase)
+    del eng, pre_of
+    torch.cuda.empty_cache()
 
     # -- phases 6s, 6w, 6rs: hot-swap serving at full width, bf16 ----------
     # the launcher's lifecycle over the traffic of phases 5-6: tenants in an
@@ -3205,6 +3679,9 @@ def main() -> int:
         "wkv6": (csrc + "wkv6.cu", "src/repro/kernels/rwkv6.py:47"),
     }
     serve_name = {"5": "serve_single", "6": "serve_multitask",
+                  "5p": "serve_paged", "5pq": "serve_paged_int8",
+                  "5pf": "serve_paged_fp8", "5s": "serve_spec",
+                  "5sp": "serve_spec_paged", "6p": "serve_paged_multitask",
                   "5q": "serve_single_int8", "6q": "serve_multitask_int8",
                   "5f": "serve_single_fp8", "6s": "serve_hot_swap",
                   "6w": "serve_hot_swap_shared_w", "5r": "serve_rwkv_single",
@@ -3261,7 +3738,9 @@ def main() -> int:
         }
         if name in REL_TOL:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
-        for at in ("train", "train_lm", "prefill", "head", "rwkv"):
+        for at in ("train", "train_lm", "prefill", "head", "rwkv", "verify",
+                   "verify_int8", "verify_fp8", "extend", "extend_int8",
+                   "extend_fp8"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(

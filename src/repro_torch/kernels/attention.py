@@ -19,7 +19,10 @@ from repro_torch.kernels.ref import NEG_INF
 FLASH = "flash_attention"
 PAGED = "paged_attention"
 ACT_DTYPES = (torch.float32, torch.bfloat16)
-POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
+               torch.float8_e4m3fn)
+# pools that take per-token fp32 scales (a quantized KV block)
+QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
 FLASH_HEAD_DIMS = (64, 128, 256)
 PAGED_HEAD_DIMS = (64, 128, 256)
 SMEM_LIMIT = 227 * 1024
@@ -129,7 +132,7 @@ def paged_attention(q, k_pool, v_pool, tables, kv_lens, *,
                     scale: Optional[float] = None, cap: float = 0.0,
                     k_scales=None, v_scales=None):
     """q: (B, H, D) or (B, H, Sq, D), fp32 or bf16; pools (num_blocks,
-    page, KH, D), fp32/bf16, or int8 with fp32 per-token scales
+    page, KH, D), fp32/bf16, or int8 or e4m3 with fp32 per-token scales
     (num_blocks, page, KH, 1), D in {64, 128, 256}; tables (B, nbt) int32,
     a valid block id in every entry; kv_lens (B,) int32, as
     `ref.paged_attention_ref` reads them. A query row that sees no key
@@ -158,9 +161,10 @@ def paged_attention(q, k_pool, v_pool, tables, kv_lens, *,
         raise ValueError(f"{PAGED}: q {tuple(q.shape)} does not fit pool "
                          f"{tuple(k_pool.shape)}")
     quant = k_scales is not None
-    if (k_pool.dtype == torch.int8) != quant or (v_scales is None) == quant:
-        raise ValueError(f"{PAGED}: int8 pools need k_scales and v_scales, "
-                         "and only int8 pools take them")
+    if (k_pool.dtype in QUANT_POOL_DTYPES) != quant \
+            or (v_scales is None) == quant:
+        raise ValueError(f"{PAGED}: int8 or e4m3 pools need k_scales and "
+                         "v_scales, and only int8 or e4m3 pools take them")
     if quant:
         want = tuple(k_pool.shape[:3]) + (1,)
         for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):

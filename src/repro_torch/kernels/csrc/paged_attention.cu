@@ -3,8 +3,9 @@
 // Replaces: src/repro/kernels/attention.py::paged_attention_tpu (the
 // pl.pallas_call of _paged_kernel).
 //
-//   q (B, H, Sq, D); pools (num_blocks, page, KH, D), optionally int8 with
-//   per-token fp32 scales (num_blocks, page, KH, 1); tables (B, nbt) int32;
+//   q (B, H, Sq, D); pools (num_blocks, page, KH, D), optionally int8 or
+//   fp8-e4m3 with per-token fp32 scales (num_blocks, page, KH, 1); tables
+//   (B, nbt) int32;
 //   kv_lens (B,) int32 -> out (B, H, Sq, D) fp32.
 //   Linear: query i sits at kv_len - Sq + i and sees logical keys li <= it.
 //   Ring window: key li holds p = wp - ((wp - li) mod ring), floor mod, and
@@ -29,12 +30,14 @@
 // all are issued, since widening one as it is loaded would wait for it.
 // Exponentials use the hardware's ex2 (__expf).
 // Inside a split each warp takes keys in groups of LPK lanes, each lane a
-// 16-byte load of K and of V (8 bf16, 4 fp32 or 16 int8 values), so a
+// 16-byte load of K and of V (8 bf16, 4 fp32, 16 int8 or 16 e4m3 values;
+// e4m3 widens two at a time through the hardware's cvt.rn.f16x2.e4m3x2,
+// exact in fp16, then to fp32), so a
 // 128-wide bf16 row is 16 lanes and a warp instruction reads two keys. The
 // query rows of the kv head (G*Sq of them, up to RM per block) stay in
 // registers in fp32; a score is the lane's partial dot product reduced by
-// shuffles across its group; int8 keys take their per-token scale after
-// the dot product, int8 values theirs on the weight. Each lane group runs
+// shuffles across its group; int8/e4m3 keys take their per-token scale
+// after the dot product, their values theirs on the weight. Each lane group runs
 // its own online softmax in registers over the keys it saw, skipping masked
 // keys (they would add exp(NEG_INF - m) = 0 in the reference); the groups
 // merge by shuffles, the warps through shared memory, in a fixed order.
@@ -98,6 +101,24 @@ template <> struct Vec<int8_t> {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         out[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
+  }
+};
+template <> struct Vec<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  // byte 2j of a word to out[2j], byte 2j+1 to out[2j+1], as stored
+  __device__ static void widen(uint4 v, float* out) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const __half2 h = __nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>((w[i] >> (16 * j)) & 0xffffu),
+            __NV_E4M3);
+        const float2 f = __half22float2(h);
+        out[4 * i + 2 * j] = f.x;
+        out[4 * i + 2 * j + 1] = f.y;
+      }
   }
 };
 
@@ -528,6 +549,11 @@ extern "C" int rt_paged_attention(const void* q, const void* k_pool,
       return dispatch_d<int8_t>(D, q, q_bf16, k_pool, v_pool, ks, vs, tb, kl, o,
                                 pt, B, H, KH, sq, page, nbt, window, ring,
                                 scale, cap, pps, splits, rows_per_block, s);
+    case rt::E4M3:
+      return dispatch_d<__nv_fp8_e4m3>(D, q, q_bf16, k_pool, v_pool, ks, vs, tb,
+                                       kl, o, pt, B, H, KH, sq, page, nbt,
+                                       window, ring, scale, cap, pps, splits,
+                                       rows_per_block, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -196,8 +196,9 @@ def paged_attention_ref(q, k_pool, v_pool, tables, kv_lens, *,
     """Decode attention read through a block table.
 
     q: (B, H, D), or (B, H, Sq, D) for Sq right-aligned queries; pools
-    (num_blocks, page, KH, D), int8 with per-token scales (num_blocks,
-    page, KH, 1) when k_scales/v_scales are given; tables (B, nbt) block
+    (num_blocks, page, KH, D), int8 or e4m3 with per-token scales
+    (num_blocks, page, KH, 1) when k_scales/v_scales are given, widened to
+    fp32 as the Pallas kernel widens any pool dtype; tables (B, nbt) block
     ids; kv_lens (B,) valid length through the last query (linear) or the
     last query's write position (ring window). Query i sits at
     kv_lens - Sq + i (linear) / kv_lens - (Sq - 1) + i (window), and a

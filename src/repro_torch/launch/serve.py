@@ -34,7 +34,19 @@ every tenant and a b per tenant, from a bank that stores the w once.
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 8 \
       --num-slots 4 --prompt-len 128 --new-tokens 32 --tasks 4 \
       --adapter-dir DIR --bank-size 3 [--prune-to 16]
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8 \
+      --num-slots 4 --prompt-len 128 --new-tokens 32 --page-size 16 \
+      [--kv-quant int8|fp8] [--no-prefix-cache] [--spec-k 4 \
+      [--spec-draft model]]
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+
+Paged KV (--page-size P): a block pool of P-token pages with copy-on-write
+prefix sharing (--no-prefix-cache turns sharing off), --kv-blocks blocks
+(default: 1.5x what every slot can reserve), and with --kv-quant int8|fp8
+quantized KV blocks. Speculative decoding (--spec-k K): K greedy drafts a
+tick from the identity-adapter backbone (--spec-draft self) or from the
+untuned base model (--spec-draft model), verified in one forward; over
+the slot caches or, with --page-size, over the pool.
 
 An RWKV6 architecture serves in every mode: its time and channel mixes
 match no projection of the quantization table, so --quant quantizes its
@@ -205,6 +217,38 @@ def bank_lines(engine: MultiTaskEngine) -> List[str]:
                if st["shared_w"] else "")]
 
 
+def feature_lines(args, sched) -> List[str]:
+    """The JAX launcher's lines naming the paged pool and the speculation
+    a run serves with."""
+    lines = []
+    if args.page_size > 0:
+        lines.append(f"paged KV: {sched.alloc.num_blocks - 1} x "
+                     f"{args.page_size}-token blocks"
+                     + (f", {args.kv_quant} blocks" if args.kv_quant else "")
+                     + ("" if args.prefix_cache else ", prefix cache off"))
+    if args.spec_k:
+        lines.append(f"speculative decoding: k={args.spec_k}, "
+                     f"draft={args.spec_draft}")
+    return lines
+
+
+def outcome_lines(sched) -> List[str]:
+    """The JAX launcher's acceptance and prefix-hit lines of a run."""
+    lines = []
+    if hasattr(sched, "spec_stats"):
+        st = sched.spec_stats
+        lines.append(f"speculation: {st['accepted']}/{st['drafted']} drafts "
+                     f"accepted ({sched.acceptance_rate:.0%}) over "
+                     f"{st['spec_ticks']} verify ticks")
+    if hasattr(sched, "pool_report"):
+        pr = sched.pool_report()
+        lines.append(f"pool: {pr['live_blocks']}/{pr['num_blocks']} blocks "
+                     f"live, {pr['prefix_full_entries']} cached prompts; "
+                     f"{pr['full_hits']} full / {pr['partial_hits']} partial "
+                     f"prefix hits, {pr['cold']} cold prefills")
+    return lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -244,6 +288,30 @@ def main(argv=None):
                     help="quantize the frozen backbone's matmul weights at "
                          "engine construction (adapter rows and norms keep "
                          "their dtype)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help=">0: paged KV serving - a block-table cache of "
+                         "pages of this many tokens, copy-on-write prefix "
+                         "sharing, admission gated on free blocks")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="physical blocks in the paged pool (0 = 1.5x what "
+                         "every slot can reserve, plus the null block)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="share identical prompt prefixes across requests "
+                         "(default on; paged mode only)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
+    ap.add_argument("--kv-quant", default="", choices=["", "int8", "fp8"],
+                    help="store paged KV blocks quantized with per-token "
+                         "scales (dequantized inside the attention kernel)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help=">0: speculative decoding - draft this many tokens "
+                         "a tick and verify them in one target forward "
+                         "(greedy output stays token-identical)")
+    ap.add_argument("--spec-draft", default="self", choices=["self", "model"],
+                    help="draft source: 'self' drafts with the identity-"
+                         "adapter backbone; 'model' with a separate model "
+                         "(here: the untuned base)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -284,17 +352,34 @@ def main(argv=None):
         engine = ServeEngine(cfg, variants[0], quant=quant, device=device)
     if quant:
         print(quant_line(engine))
-    scfg = ServingConfig(
-        num_slots=args.num_slots,
-        max_len=args.max_len or round_to_page(args.prompt_len
-                                              + args.new_tokens),
-        top_k=args.top_k, temperature=args.temperature,
-        backbone_quant=quant)
+    paged = args.page_size > 0
+    # a verify writes spec_k positions past the budget; a paged cache is
+    # whole pages, as the slot cache is whole 16-token decode pages
+    max_len = args.max_len or round_to_page(
+        args.prompt_len + args.new_tokens + args.spec_k)
+    if paged:
+        max_len = -(-max_len // args.page_size) * args.page_size
+    try:
+        scfg = ServingConfig(
+            num_slots=args.num_slots, max_len=max_len, paged=paged,
+            page_size=args.page_size if paged else 16,
+            num_blocks=(args.kv_blocks or None) if paged else None,
+            prefix_cache=args.prefix_cache, kv_quant=args.kv_quant or None,
+            spec_k=args.spec_k, spec_draft=args.spec_draft,
+            top_k=args.top_k, temperature=args.temperature,
+            backbone_quant=quant)
+        sched = make_scheduler(
+            engine, scfg,
+            draft_model=((cfg, base) if args.spec_k
+                         and args.spec_draft == "model" else None))
+    except ValueError as e:
+        raise SystemExit(str(e))
     requests = make_requests(cfg, args.requests, args.prompt_len,
                              args.new_tokens, args.tasks, args.seed,
                              scfg.top_k, scfg.temperature,
                              named=registry is not None)
-    sched = make_scheduler(engine, scfg)
+    for line in feature_lines(args, sched):
+        print(line)
     if registry is not None and args.tasks > 1:
         hot = f"task{args.tasks - 1}"
         done, report = serve_with_runtime_add(
@@ -318,6 +403,8 @@ def main(argv=None):
           f"({args.num_slots} slots, {where})")
     print("scheduler report:")
     print(format_report(report))
+    for line in outcome_lines(sched):
+        print(line)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,26 @@
 """Self-attention with GQA, RoPE and qk-norm over a contiguous slot cache
-(port of `repro.models.attention`, the decoder-serving subset).
+or a paged block pool (port of `repro.models.attention`, the
+decoder-serving subset).
 
 Cache protocol (per attention layer):
   prefill: cache=None, cache_len=L -> (y, fresh cache (B, L, KH, D) x2)
-  decode:  cache=dict, write_pos=(B,) -> (y, the same cache, written in
-           place at each row's write position)
+  decode, verify, extend: cache = a block pool {"k", "v"} of (num_blocks,
+           page, KH, D), each a tensor or an int8/e4m3 `QTensor` with
+           per-token fp32 scales (num_blocks, page, KH, 1); write_pos (B,
+           S) -> (y, the same pool, K/V of logical position li written in
+           place at (tables[b, li // page], li % page))
 
-Prefill attends through `ops.flash_attention`. Decode attends through
-`ops.paged_attention`: a contiguous (B, L, KH, D) cache already is a block
-pool of B*L/page pages, so each row's block table is the fixed run
-b*nbt + arange(nbt) and kv_lens = write_pos + 1. That is exactly the
-per-row-valid-length attention the JAX decode computes.
+Prefill attends through `ops.flash_attention`. Every step with a cache
+attends through `ops.paged_attention`, straight on the pool: a contiguous
+(B, L, KH, D) slot cache already is a pool of B*L/page pages whose row b
+owns the fixed run b*nbt + arange(nbt) (`decode_tables`), and a paged
+pool comes with the block tables an allocator handed out. The S queries
+of a row sit at its write positions, right-aligned under kv_lens = the
+last write + 1: S = 1 is a decode step, S = k+1 a speculative verify, a
+page-padded prompt suffix a prefix-cache extend. A quantized pool takes
+`quantize_kv(k, mode)` at every write, JAX's per-token rule, and
+#5 widens it to fp32 in place (JAX's gather casts the dequantized K/V to
+the compute dtype first: one rounding apart at bf16).
 
 `apply_attn` returns the attention output before the Hadamard adapter: the
 block applies it together with the residual add and the norm that follows
@@ -18,8 +28,8 @@ block applies it together with the residual add and the norm that follows
 through hooks, as in JAX: LoRA adds its low-rank deltas to q and v before
 the biases; IA3 scales k and v per channel after rope and before the cache
 stores them (a per-channel scale does not commute with rope's pairwise
-rotation). The windowed ring cache, the paged pool and cross-attention
-arrive with later slices.
+rotation). The windowed ring cache and cross-attention arrive with later
+slices.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from repro_torch.kernels.attention import FlashAttention
 from repro_torch.kernels.hadamard import HadamardAffine
 from repro_torch.models.layers import (apply_rope, dense_init, gen_device,
                                       rms_head_norm)
-from repro_torch.quant.qtensor import qdense
+from repro_torch.quant.qtensor import (QTensor, _storage_dtype, is_qtensor,
+                                      qdense, quantize_kv)
 
 # tokens per page of the decode cache's block-pool view
 DECODE_PAGE = 16
@@ -82,6 +93,56 @@ def decode_tables(batch: int, cache_len: int, device) -> torch.Tensor:
     return rows * nbt + torch.arange(nbt, dtype=torch.int32, device=device)
 
 
+def pool_view(cache: dict) -> dict:
+    """A contiguous (B, L, KH, D) slot cache as a pool of DECODE_PAGE-token
+    pages, sharing its storage: writes through the view land in the cache."""
+    B, L, KH, D = cache["k"].shape
+    shape = (B * L // DECODE_PAGE, DECODE_PAGE, KH, D)
+    return {"k": cache["k"].view(shape), "v": cache["v"].view(shape)}
+
+
+_QUANT_MODE = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+
+
+def write_pool(pool: dict, tables: torch.Tensor, write_pos: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor) -> None:
+    """K/V (B, S, KH, D) of logical positions write_pos (B, S) into their
+    pages, in place. A quantized pool quantizes each token and head on its
+    own (`quantize_kv`: absmax over D), as JAX's decode write does; its
+    payload is written as bytes, which every backend indexes (float8
+    included)."""
+    page = (pool["k"].values if is_qtensor(pool["k"]) else pool["k"]).shape[1]
+    blk = tables.gather(1, write_pos // page).long()
+    off = write_pos % page
+    for name, x in (("k", k), ("v", v)):
+        leaf = pool[name]
+        if is_qtensor(leaf):
+            qt = quantize_kv(x, _QUANT_MODE[leaf.values.dtype])
+            leaf.values.view(torch.uint8)[blk, off] = \
+                qt.values.view(torch.uint8)
+            leaf.scales[blk, off] = qt.scales
+        else:
+            leaf[blk, off] = x.to(leaf.dtype)
+
+
+def pool_init(cfg: ModelCfg, num_blocks: int, page: int,
+              quant: Optional[str], device) -> dict:
+    """One attention layer's zeroed block pool: K/V (num_blocks, page, KH,
+    D) in cfg.cdtype, or with `quant` ('int8'/'fp8') QTensors whose scales
+    start at 1.0, as JAX's `group_pool_init` makes them."""
+    shape = (num_blocks, page, cfg.n_kv_heads, cfg.head_dim)
+
+    def leaf():
+        if quant is None:
+            return torch.zeros(shape, dtype=cfg.cdtype, device=device)
+        return QTensor(torch.zeros(shape, dtype=_storage_dtype(quant),
+                                   device=device),
+                       torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=device))
+
+    return {"k": leaf(), "v": leaf()}
+
+
 def apply_hadamard(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """Plain Eq. 5 affine on the feature dim; (B, d) w/b broadcast over the
     sequence (one adapter per request)."""
@@ -105,9 +166,10 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                adapter: Optional[dict] = None, causal: bool = True,
                impl: str = "auto"):
     """x: (B, S, d). Prefill (cache_len given), a cache-free forward
-    (neither given; the encoder passes causal=False) or decode (cache and
-    write_pos (B,) given, S == 1; kv_lens and tables as `decode_tables`
-    builds them, shared by every layer). concat_adapter: (w, b) of an
+    (neither given; the encoder passes causal=False) or a step over a
+    block pool (cache, write_pos (B, S), the block tables (B, nbt) int32
+    and kv_lens (B,) int32 = write_pos[:, -1] + 1, shared by every layer;
+    q_pos = write_pos). concat_adapter: (w, b) of an
     'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O:
     one (d,) adapter through `HadamardAffine` (kernels #1/#2), per-row
     (B, d) rows in plain torch. adapter: the block's LoRA or IA3 leaves
@@ -138,27 +200,29 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
-    kpos = q_pos if write_pos is None else write_pos[:, None]
     if cfg.pos == "rope":
         q = apply_rope(q, q_pos, cfg.rope_theta)
-        k = apply_rope(k, kpos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
     if ia3 is not None:
         k = k * ia3["lk"].to(cdt).reshape(KH, Dh)
         v = v * ia3["lv"].to(cdt).reshape(KH, Dh)
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
 
-    if cache is not None:  # decode: write in place, attend over the pool
-        if S != 1 or write_pos is None:
-            raise ValueError("decode takes one token per row and write_pos")
-        rows = torch.arange(B, device=x.device)
-        cache["k"][rows, write_pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, write_pos] = v[:, 0].to(cache["v"].dtype)
-        L = cache["k"].shape[1]
-        pool_shape = (B * L // DECODE_PAGE, DECODE_PAGE, KH, Dh)
+    if cache is not None:  # write in place, attend over the pool
+        if write_pos is None or tuple(write_pos.shape) != (B, S):
+            raise ValueError(f"a step over a pool takes write_pos ({B}, {S})")
+        write_pool(cache, tables, write_pos, k, v)
+        ks, vs = cache["k"], cache["v"]
+        quant = is_qtensor(ks)
+        qh = q[:, 0] if S == 1 else q.transpose(1, 2).contiguous()
         out = ops.paged_attention(
-            q[:, 0], cache["k"].view(pool_shape), cache["v"].view(pool_shape),
-            tables, kv_lens, scale=scale, cap=cfg.attn_softcap, impl=impl)
-        out = out.to(cdt).reshape(B, 1, H * Dh)
+            qh, ks.values if quant else ks, vs.values if quant else vs,
+            tables, kv_lens, scale=scale, cap=cfg.attn_softcap,
+            k_scales=ks.scales if quant else None,
+            v_scales=vs.scales if quant else None, impl=impl)
+        if S > 1:
+            out = out.transpose(1, 2)
+        out = out.to(cdt).reshape(B, S, H * Dh)
         new_cache = cache
     else:  # prefill (or a cache-free forward)
         out = FlashAttention.apply(

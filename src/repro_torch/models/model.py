@@ -10,7 +10,11 @@ with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "lm_head" only when embeddings are untied; an encoder adds "pos_embed",
 "type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
 a list with one dict per layer: {"k", "v"} for an attention layer, the
-recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. All functions take `impl` and
+recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. A paged
+pool (`init_paged_pool`) is such a list too: {"k", "v"} block pools of
+(num_blocks, page, KH, D) per layer, block 0 the allocator's null block,
+addressed through per-row block tables (B, nbt) int32 that every layer
+shares. All functions take `impl` and
 hand it to every kernel call ("auto" on the serving and training paths;
 "ref" for the plain versions).
 """
@@ -21,7 +25,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.models.attention import check_slot, decode_tables
+from repro_torch.models.attention import (check_slot, decode_tables,
+                                          pool_init, pool_view)
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
@@ -188,6 +193,40 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     return lm_logits(params, cfg, x, impl), caches
 
 
+def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
+               gates, impl, positions=None):
+    """Run `tokens` (B, S) at write_pos (B, S) over block pools (one per
+    attention layer, or an RWKV6 layer's state), written in place; kv_lens
+    = the last write + 1, so each row's S queries sit at its write
+    positions. Returns final-norm hidden states (B, S, d)."""
+    kv_lens = (write_pos[:, -1] + 1).to(torch.int32)
+    x = embed_tokens(params, cfg, tokens, positions)
+    x, _ = _run_layers(params, cfg, x, q_pos=write_pos, caches=pool,
+                       write_pos=write_pos, kv_lens=kv_lens, tables=tables,
+                       task_ids=task_ids, gates=gates, impl=impl)
+    return x
+
+
+def _slot_step(params, cfg, caches, tokens, write_pos, task_ids, gates,
+               impl):
+    """`_pool_step` over contiguous slot caches, viewed as pools of
+    DECODE_PAGE-token pages (`decode_tables`); the caches are written in
+    place."""
+    tables = None
+    views = caches
+    if has_attention(cfg):
+        L = next(c["k"] for c in caches if "k" in c).shape[1]
+        tables = decode_tables(tokens.shape[0], L, tokens.device)
+        views = [pool_view(c) if "k" in c else c for c in caches]
+    return _pool_step(params, cfg, views, tokens, write_pos, tables,
+                      task_ids, gates, impl)
+
+
+def _positions(pos: torch.Tensor, S: int, device) -> torch.Tensor:
+    pos = pos.to(device=device, dtype=torch.long)
+    return pos[:, None] + torch.arange(S, device=device)
+
+
 def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
               token: torch.Tensor, pos: torch.Tensor,
               task_ids: Optional[torch.Tensor] = None,
@@ -196,19 +235,104 @@ def decode_lm(params: dict, cfg: ModelCfg, caches: List[dict],
     (continuous batching: each cache row is an independent request). The
     caches are written in place and returned. gates: as for
     `prefill_lm`."""
-    B = token.shape[0]
-    pos = pos.to(device=token.device, dtype=torch.long)
-    tables = kv_lens = None
-    if has_attention(cfg):
-        L = next(c["k"] for c in caches if "k" in c).shape[1]
-        tables = decode_tables(B, L, token.device)
-        kv_lens = (pos + 1).to(torch.int32)
-    x = embed_tokens(params, cfg, token)
-    x, caches = _run_layers(params, cfg, x, q_pos=pos[:, None], caches=caches,
-                            write_pos=pos, kv_lens=kv_lens, tables=tables,
-                            task_ids=task_ids, gates=gates, impl=impl)
+    wp = _positions(pos, 1, token.device)
+    x = _slot_step(params, cfg, caches, token, wp, task_ids, gates, impl)
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params, cfg, x, impl), caches
+
+
+def _check_verify(cfg: ModelCfg) -> None:
+    if has_recurrent_state(cfg):
+        raise ValueError("a speculative verify needs full-attention layers: "
+                         "recurrent state would take the drafts in")
+
+
+def verify_lm(params: dict, cfg: ModelCfg, caches: List[dict],
+              tokens: torch.Tensor, pos: torch.Tensor,
+              task_ids: Optional[torch.Tensor] = None,
+              gates: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """Speculative-decoding verify: score S = k+1 tokens per row in one
+    forward. tokens (B, S) = [last accepted token, k drafts]; pos (B,) the
+    absolute position of tokens[:, 0]. K/V land at pos+j for every j,
+    over any stale rejected drafts of the previous tick, and query j sees
+    keys up to pos+j alone, so logits[:, j] (fp32, (B, S, V)) is what a
+    plain decode step at pos+j would give."""
+    _check_verify(cfg)
+    wp = _positions(pos, tokens.shape[1], tokens.device)
+    x = _slot_step(params, cfg, caches, tokens, wp, task_ids, gates, impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x, impl), caches
+
+
+def init_paged_pool(cfg: ModelCfg, num_blocks: int, page: int,
+                    quant: Optional[str] = None, device=None) -> List[dict]:
+    """Zeroed block pools, one per layer (`attention.pool_init`); block 0
+    is the allocator's reserved null block. Paged serving is
+    attention-only: a recurrent layer has no block-structured state."""
+    _check_cfg(cfg)
+    for slot in cfg.layer_slots():
+        if slot.kind != "attn" or slot.cross_attn:
+            raise ValueError("paged KV pools require pure attention slots "
+                             f"(got kind={slot.kind!r}, "
+                             f"cross_attn={slot.cross_attn})")
+    return [pool_init(cfg, num_blocks, page, quant, device)
+            for _ in cfg.layer_slots()]
+
+
+def decode_lm_paged(params: dict, cfg: ModelCfg, pool: List[dict],
+                    token: torch.Tensor, pos: torch.Tensor,
+                    block_tables: torch.Tensor,
+                    task_ids: Optional[torch.Tensor] = None,
+                    gates: Optional[torch.Tensor] = None,
+                    impl: str = "auto"):
+    """One paged decode step: as `decode_lm`, each row's KV in the pool
+    blocks its `block_tables` row (B, nbt) int32 names. A free slot's
+    all-null row writes into block 0 and its logits are ignored."""
+    wp = _positions(pos, 1, token.device)
+    x = _pool_step(params, cfg, pool, token, wp, block_tables, task_ids,
+                   gates, impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x, impl), pool
+
+
+def verify_lm_paged(params: dict, cfg: ModelCfg, pool: List[dict],
+                    tokens: torch.Tensor, pos: torch.Tensor,
+                    block_tables: torch.Tensor,
+                    task_ids: Optional[torch.Tensor] = None,
+                    gates: Optional[torch.Tensor] = None,
+                    impl: str = "auto"):
+    """`verify_lm` against a paged pool: every page the k+1 writes touch
+    must be allocated (the scheduler does so before the tick)."""
+    _check_verify(cfg)
+    wp = _positions(pos, tokens.shape[1], tokens.device)
+    x = _pool_step(params, cfg, pool, tokens, wp, block_tables, task_ids,
+                   gates, impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x, impl), pool
+
+
+def extend_lm(params: dict, cfg: ModelCfg, pool: List[dict],
+              tokens: torch.Tensor, block_tables: torch.Tensor, start: int,
+              kv_len: int, last_pos: int,
+              task_ids: Optional[torch.Tensor] = None,
+              gates: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """Prefix-cache partial hit (B = 1): run the prompt suffix `tokens`
+    (1, S), right-padded to a page multiple, at positions start..start+S-1,
+    writing its K/V into the blocks the table maps them to and attending
+    over the shared prefix blocks and its own. kv_len is the true prompt
+    length (start < kv_len <= start + S). JAX masks by it; #5 takes its
+    queries right-aligned under kv_lens, so the port passes start + S:
+    every pad key sits after every real query, which the causal bound
+    hides. Returns (logits (1, 1, V) at suffix index last_pos, pool)."""
+    S = tokens.shape[1]
+    if not start < kv_len <= start + S or not 0 <= last_pos < S:
+        raise ValueError(f"extend: start {start}, kv_len {kv_len}, last_pos "
+                         f"{last_pos} for a {S}-token suffix")
+    wp = start + torch.arange(S, device=tokens.device)[None, :]
+    x = _pool_step(params, cfg, pool, tokens, wp, block_tables, task_ids,
+                   gates, impl, positions=wp)
+    x = apply_norm(params["final_norm"], cfg, x[:, last_pos:last_pos + 1])
+    return lm_logits(params, cfg, x, impl), pool
 
 
 def encode_sequence(params: dict, cfg: ModelCfg, tokens: torch.Tensor,

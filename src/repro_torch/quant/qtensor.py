@@ -103,6 +103,26 @@ def quantize(x: torch.Tensor, mode: str = "int8", *, axis: Optional[int] = -2,
     return QTensor(q.to(dtype), scale)
 
 
+def quantize_kv(x: torch.Tensor, mode: str) -> QTensor:
+    """`quantize(x, mode, axis=-1)` as JAX's compiled serving path computes
+    it, one scale per token and head (absmax over the last dim): JAX
+    quantizes K/V inside a jitted step, where XLA rewrites the division by
+    the constant qmax as a product with its fp32 reciprocal, which rounds
+    differently from the division for some absmax values (the eager
+    `quantize`, and the weights JAX quantizes eagerly, divide). So the KV
+    blocks are byte for byte the ones JAX's paged pool holds."""
+    dtype = _storage_dtype(mode)
+    x32 = x.to(torch.float32)
+    recip = torch.tensor(1.0 / _QMAX[mode], dtype=torch.float32,
+                         device=x.device)
+    scale = x32.abs().amax(dim=-1, keepdim=True) * recip
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(x32 / scale, -_QMAX[mode], _QMAX[mode])
+    if mode == "int8":
+        q = torch.round(q)
+    return QTensor(q.to(dtype), scale)
+
+
 def fake_quantize(x: torch.Tensor, mode: str = "int8", *,
                   axis: Optional[int] = None, clip: float = 1.0):
     """quantize -> dequantize in one step, fp32 out."""

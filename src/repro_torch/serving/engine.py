@@ -13,8 +13,13 @@ each block runs the masked multitask kernel instead. With `quant="int8"` or `"fp
 engine quantizes the frozen backbone's matmul weights once, at
 construction, and every projection of every step then streams 1-byte
 weights through the dequant-matmul kernel (over an RWKV6 config only its
-untied LM head matches the quantization table). Folding, the paged pool and
-speculative decoding arrive with later slices.
+untied LM head matches the quantization table).
+
+Both engines also step a paged block pool (`init_paged_pool`,
+`paged_insert`, `copy_block`, `paged_decode_step`, `paged_extend`), for
+`serving/paged.py`, and score k+1 tokens a row in one forward
+(`verify_step`, `paged_verify_step`), for `serving/spec.py`. Folding
+arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -28,8 +33,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg
 from repro_torch.core.hadamard import build_bank
 from repro_torch.models import model as M
-from repro_torch.models.attention import DECODE_PAGE
-from repro_torch.quant.qtensor import quantize_tree
+from repro_torch.models.attention import DECODE_PAGE, write_pool
+from repro_torch.quant.qtensor import is_qtensor, quantize_tree
 
 
 def check_temperature(temperature) -> float:
@@ -110,21 +115,41 @@ class ServeEngine:
                                 task_ids=self._task_ids(task_ids),
                                 gates=self._gates())
 
+    def _positions(self, pos, span: int, L: Optional[int]) -> torch.Tensor:
+        """pos (B,) on the device, refused unless every row's writes
+        pos..pos+span-1 lie in [0, L) (L None: no KV length to bound)."""
+        pos = np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos)
+        if L is not None and pos.size and (pos.min() < 0
+                                          or pos.max() + span > L):
+            raise ValueError(f"write positions {pos} (+{span - 1}) outside "
+                             f"the cache length {L}")
+        return torch.as_tensor(pos, dtype=torch.long, device=self.device)
+
+    def _slot_len(self, caches) -> Optional[int]:
+        return (next(c["k"] for c in caches if "k" in c).shape[1]
+                if M.has_attention(self.cfg) else None)
+
     def decode_step(self, caches, tok, pos, task_ids=None):
         """One decode step for every row: tok (B, 1), pos (B,) per-row
         positions (bounded by the KV cache's length where the config has
         attention layers). Writes the caches in place; returns (logits,
         caches)."""
-        pos = np.asarray(pos)
-        if M.has_attention(self.cfg):
-            L = next(c["k"] for c in caches if "k" in c).shape[1]
-            if pos.size and (pos.min() < 0 or pos.max() >= L):
-                raise ValueError(f"decode positions {pos} outside the cache "
-                                 f"length {L}")
+        pos = self._positions(pos, 1, self._slot_len(caches))
         with torch.no_grad():
             return M.decode_lm(self.params, self.cfg, caches,
-                               self._tokens(tok),
-                               torch.as_tensor(pos, device=self.device),
+                               self._tokens(tok), pos,
+                               task_ids=self._task_ids(task_ids),
+                               gates=self._gates())
+
+    def verify_step(self, caches, toks, pos, task_ids=None):
+        """Speculative verify over the slot caches: toks (B, k+1) = [last
+        accepted token, k drafts], pos (B,) the position of toks[:, 0],
+        with pos + k inside the cache. Returns (logits (B, k+1, V),
+        caches)."""
+        toks = self._tokens(toks)
+        pos = self._positions(pos, toks.shape[1], self._slot_len(caches))
+        with torch.no_grad():
+            return M.verify_lm(self.params, self.cfg, caches, toks, pos,
                                task_ids=self._task_ids(task_ids),
                                gates=self._gates())
 
@@ -132,6 +157,89 @@ class ServeEngine:
         """Zeroed slot caches: row i is slot i's private cache region."""
         return M.init_decode_caches(self.cfg, num_slots, cache_len,
                                     self.device)
+
+    # -- the paged block pool (serving/paged.py) ----------------------------
+
+    def init_paged_pool(self, num_blocks: int, page: int,
+                        kv_quant: Optional[str] = None):
+        """Zeroed block pools on the device, one per layer (QTensor leaves
+        under kv_quant); block 0 is the allocator's null block."""
+        return M.init_paged_pool(self.cfg, num_blocks, page, kv_quant,
+                                 self.device)
+
+    def _tables(self, tables) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tables), dtype=torch.int32,
+                               device=self.device)
+
+    def paged_insert(self, pool, fresh, bids):
+        """Write a fresh B = 1 prefill cache (`prefill` with cache_len =
+        len(bids) * page) into pool blocks `bids`, page by page, through
+        the decode write (`attention.write_pool`): a quantized pool
+        quantizes each token and head by the same rule. Returns the pool,
+        written in place."""
+        ids = self._tables(np.asarray(bids).reshape(1, -1))
+        L = fresh[0]["k"].shape[1]
+        pos = torch.arange(L, device=self.device)[None]
+        with torch.no_grad():
+            for layer, new in zip(pool, fresh):
+                write_pool(layer, ids, pos, new["k"], new["v"])
+        return pool
+
+    def copy_block(self, pool, src: int, dst: int):
+        """The copy-on-write fork: block src duplicated into dst on every
+        leaf (payload and scales). Returns the pool, written in place."""
+        with torch.no_grad():
+            for layer in pool:
+                for leaf in layer.values():
+                    for t in ((leaf.values, leaf.scales) if is_qtensor(leaf)
+                              else (leaf,)):
+                        t[dst].copy_(t[src])
+        return pool
+
+    def _pool_len(self, pool, tables) -> int:
+        leaf = pool[0]["k"]
+        page = (leaf.values if is_qtensor(leaf) else leaf).shape[1]
+        return np.asarray(tables).shape[1] * page
+
+    def paged_decode_step(self, pool, tok, pos, tables, task_ids=None):
+        """One decode tick against the pool: tok (B, 1), pos (B,), tables
+        the host's (num_slots, nb_max) int32 block tables. Returns
+        (logits, pool)."""
+        pos = self._positions(pos, 1, self._pool_len(pool, tables))
+        with torch.no_grad():
+            return M.decode_lm_paged(self.params, self.cfg, pool,
+                                     self._tokens(tok), pos,
+                                     self._tables(tables),
+                                     task_ids=self._task_ids(task_ids),
+                                     gates=self._gates())
+
+    def paged_verify_step(self, pool, toks, pos, tables, task_ids=None):
+        """Speculative verify against the pool: toks (B, k+1), pos (B,);
+        every page of pos..pos+k must be allocated. Returns (logits (B,
+        k+1, V), pool)."""
+        toks = self._tokens(toks)
+        pos = self._positions(pos, toks.shape[1],
+                              self._pool_len(pool, tables))
+        with torch.no_grad():
+            return M.verify_lm_paged(self.params, self.cfg, pool, toks, pos,
+                                     self._tables(tables),
+                                     task_ids=self._task_ids(task_ids),
+                                     gates=self._gates())
+
+    def paged_extend(self, pool, tokens, tables, start: int, kv_len: int,
+                     last_pos: int, task_ids=None):
+        """Prefill a prompt suffix straight into pool blocks (a prefix-cache
+        partial hit): tokens (1, S_pad) right-padded, `start` its offset,
+        kv_len the true prompt length, last_pos the suffix index of the
+        last real token. Returns (logits (1, 1, V), pool)."""
+        toks = self._tokens(tokens)
+        self._positions([start], toks.shape[1], self._pool_len(pool, tables))
+        with torch.no_grad():
+            return M.extend_lm(self.params, self.cfg, pool, toks,
+                               self._tables(tables), int(start), int(kv_len),
+                               int(last_pos),
+                               task_ids=self._task_ids(task_ids),
+                               gates=self._gates())
 
     # -- lock-step generation -----------------------------------------------
 

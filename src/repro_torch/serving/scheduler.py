@@ -95,11 +95,17 @@ class Scheduler:
                 "prefill_bucket requires full-attention slots (windowed "
                 "ring caches and recurrent/rwkv state would fold the pad "
                 "tokens in)")
+        self._init_slots(engine, num_slots, max_len, prefill_bucket)
+        self.caches = engine.init_slot_caches(num_slots, max_len)
+
+    def _init_slots(self, engine, num_slots: int, max_len: int,
+                    prefill_bucket: Optional[int]) -> None:
+        """The request bookkeeping every scheduler keeps, whatever holds
+        its KV."""
         self.engine = engine
         self.num_slots = num_slots
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
-        self.caches = engine.init_slot_caches(num_slots, max_len)
         self.slots: List[Optional[_Slot]] = [None] * num_slots
         self.queue: deque = deque()
         self.completions: Dict[int, Completion] = {}
@@ -168,6 +174,14 @@ class Scheduler:
                                    temperature=st.req.temperature)[0])
         return int(logits_row[0, -1].argmax())
 
+    def _generator(self, req: Request, rid: int) -> Optional[torch.Generator]:
+        """A top-k request's sampling generator on the engine's device,
+        seeded by its seed (else its id); None for a greedy one."""
+        if not req.top_k:
+            return None
+        return torch.Generator(device=self.engine.device).manual_seed(
+            req.seed if req.seed is not None else rid)
+
     def _emit(self, slot_idx: int, st: _Slot, tok: int) -> bool:
         """Record one token; True when the request is done."""
         if not st.tokens:
@@ -197,6 +211,10 @@ class Scheduler:
             self.engine.release_adapter(st.req.adapter)  # unpin its row
         self.slots[slot_idx] = None
 
+    # admission failures that defer the queue to a later tick instead of
+    # failing the request (the paged scheduler adds BlockPoolFullError)
+    _defer_errors = (BankFullError,)
+
     def _admit_one(self, slot_idx: int, rid: int, req: Request,
                    submit_t: float) -> None:
         """Admit one request. Raises BankFullError (before any state is
@@ -221,11 +239,8 @@ class Scheduler:
         for pool, new in zip(self.caches, fresh):
             for name, leaf in pool.items():  # k, v; or S, tm_prev, cm_prev
                 leaf[slot_idx].copy_(new[name][0])
-        gen = None
-        if req.top_k:
-            gen = torch.Generator(device=self.engine.device).manual_seed(
-                req.seed if req.seed is not None else rid)
-        st = _Slot(request_id=rid, req=req, generator=gen, submit_t=submit_t,
+        st = _Slot(request_id=rid, req=req,
+                   generator=self._generator(req, rid), submit_t=submit_t,
                    pos=S, row=row)
         self.slots[slot_idx] = st
         self._task[slot_idx] = row
@@ -255,10 +270,11 @@ class Scheduler:
                     adapter=req.adapter)
                 free.append(idx)
                 continue
-            except BankFullError:
-                # every row is pinned by requests in flight: wait for one
-                # to retire, keeping the queue's order (skipping ahead
-                # would starve the blocked tenant)
+            except self._defer_errors:
+                # a shared resource (bank rows, pool blocks) is held by
+                # requests in flight: wait for one to retire, keeping the
+                # queue's order (skipping ahead would starve the blocked
+                # request)
                 self.queue.appendleft((rid, req, submit_t))
                 break
             if self.slots[idx] is None:
@@ -274,9 +290,7 @@ class Scheduler:
         if not occupied:
             return 0
         t0 = time.perf_counter()
-        logits, self.caches = self.engine.decode_step(
-            self.caches, self._tok[:, None], self._pos,
-            task_ids=self._task.copy())
+        logits = self._decode_tick(occupied)
         self._ticks += 1
         greedy = logits[:, -1].argmax(dim=-1).cpu().numpy()
         self._decode_s += time.perf_counter() - t0
@@ -291,6 +305,14 @@ class Scheduler:
                 self._tok[i] = tok
                 self._pos[i] = st.pos
         return len(occupied)
+
+    def _decode_tick(self, occupied: List[int]) -> torch.Tensor:
+        """One decode step across every slot (B, 1) -> its logits (B, 1,
+        V); the slot caches are written in place."""
+        logits, self.caches = self.engine.decode_step(
+            self.caches, self._tok[:, None], self._pos,
+            task_ids=self._task.copy())
+        return logits
 
     # -- batch driver -------------------------------------------------------
 

@@ -6,6 +6,7 @@ JAX package's Pallas kernel run in interpret mode, on the same numpy inputs
 at fp32. The CUDA kernels themselves run only on the card: `chip_smoke.py`
 holds each one to these plain versions there.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,6 +191,17 @@ def _int8(pool):
         s.astype(np.float32)
 
 
+def _fp8(pool):
+    """Per-token absmax e4m3 over D with fp32 scales: (the port's payload,
+    the scales, the same bytes as JAX's float8_e4m3fn)."""
+    from repro_torch.quant.qtensor import quantize_kv
+
+    qt = quantize_kv(_t(pool), "fp8")
+    raw = qt.values.view(torch.uint8).numpy()
+    return (qt.values, qt.scales.numpy(),
+            jax.lax.bitcast_convert_type(jnp.asarray(raw), jnp.float8_e4m3fn))
+
+
 @pytest.mark.parametrize("case", [
     dict(), dict(window=12), dict(window=8, cap=30.0), dict(int8=True),
     dict(int8=True, window=12), dict(sq=3), dict(sq=3, window=12),
@@ -201,6 +213,10 @@ def _int8(pool):
     dict(int8=True, keyless=True), dict(int8=True, sq=3, keyless=True),
     dict(int8=True, sq=3, window=2, keyless=True),
     dict(sq=3, cap=30.0, keyless=True),
+    # e4m3 pools, which the Pallas kernel widens to fp32 as any pool dtype
+    dict(fp8=True), dict(fp8=True, window=12), dict(fp8=True, sq=3),
+    dict(fp8=True, keyless=True), dict(fp8=True, sq=3, window=2,
+                                       keyless=True),
 ])
 def test_paged_attention_matches_pallas(case):
     sq = case.get("sq", 1)
@@ -209,16 +225,21 @@ def test_paged_attention_matches_pallas(case):
         lens[:2] = (0, sq - 1 if sq > 1 else 0)
     kw = dict(window=case.get("window"), cap=case.get("cap", 0.0))
     jkw, tkw = dict(kw), dict(kw)
+    jk, jv, tk, tv = kp, vp, _t(kp), _t(vp)
     if case.get("int8"):
         kp, ks = _int8(kp)
         vp, vs = _int8(vp)
+        jk, jv, tk, tv = kp, vp, _t(kp), _t(vp)
         jkw.update(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
         tkw.update(k_scales=_t(ks), v_scales=_t(vs))
-    want = jops.paged_attention(jnp.asarray(q), jnp.asarray(kp),
-                                jnp.asarray(vp), jnp.asarray(tables),
+    if case.get("fp8"):
+        (tk, ks, jk), (tv, vs, jv) = _fp8(kp), _fp8(vp)
+        jkw.update(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+        tkw.update(k_scales=_t(ks), v_scales=_t(vs))
+    want = jops.paged_attention(jnp.asarray(q), jnp.asarray(jk),
+                                jnp.asarray(jv), jnp.asarray(tables),
                                 jnp.asarray(lens), impl="interpret", **jkw)
-    got = tops.paged_attention(_t(q), _t(kp), _t(vp), _t(tables), _t(lens),
-                               **tkw)
+    got = tops.paged_attention(_t(q), tk, tv, _t(tables), _t(lens), **tkw)
     assert got.dtype == torch.float32 and got.shape == q.shape
     _close(got, want, 1e-5)
 

@@ -109,9 +109,10 @@ def test_eos_and_top_k_are_per_request():
     np.testing.assert_array_equal(done[1].tokens, done[2].tokens)
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(spec_k=4),
-                                dict(kv_quant="int8"),
-                                dict(slo=object()), dict(admission=object())])
+# the ids the cases had beside the paged, spec_k and kv_quant cases
+@pytest.mark.parametrize("kw", [pytest.param(dict(slo=object()), id="kw3"),
+                                pytest.param(dict(admission=object()),
+                                             id="kw4")])
 def test_serving_config_features_of_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         ServingConfig(**kw)
