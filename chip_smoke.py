@@ -48,7 +48,16 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      fp32 cotangent the norm VJP hands it and through HadamardAffine, #4
      causal over 16 heads on 8 with its log-sum-exp, #7 at M = 2048, each
      against its plain version and timed L2-cold (#4 beside SDPA, #3
-     beside F.rms_norm of x alone);
+     beside F.rms_norm of x alone); the recurrence's autograd Function
+     (`WKV6`: #8 forward, the plain chunked backward) against autograd
+     through the plain forward, dr, dk, dv, dw, du and ds0, at 4 rows of
+     rwkv6-1.6b's train shape and a ragged T = 33 with w holding exact 0s
+     and 1s, and #8 timed at the train shape (16, 32, 128, 64) fp32,
+     L2-cold, beside its byte bound, with the plain backward's time there;
+     then the kernels of an rwkv6-1.6b fine-tuning step at its shapes (16 x
+     128 tokens of 2048, bf16): #3 at the seam with its LayerNorm and its
+     backward, #2 on the fp32 cotangent the norm VJP hands it, and #7 at
+     the int8 head's training shape, x (2048, 2048) @ (2048, 65536);
   4. the full-width qwen3-0.6b model (28 layers) in fp32: prefill and four
      decode steps through the kernels against the plain versions
      (impl="ref"), single adapter and a 3-task bank;
@@ -122,6 +131,14 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      the plain trunk and an int8 one (#7 in every projection), the
      launches of the loss and its gradients as predicted; and with
      ce_chunk=32, the loss and gradients against the unchunked ones;
+  7r. the full-width rwkv6-1.6b decoder in fp32 on one 4x128 batch with
+     perturbed adapters, labels from position 32 on: logits, lm_loss and
+     every trainable gradient through the kernels against the plain path
+     (which differentiates the step-by-step recurrence), under the
+     Hadamard adapter and Houlsby's bottlenecks, with JAX's trainable
+     counts and the launches of the loss and its gradients as predicted;
+     and a control, the recurrence's backward 10 % off, which the
+     gradients' limit must catch;
   8. the paper's two-stage fine-tune of bert-base on sst2 (seq 128, batch
      32, 30 steps per stage) for 'hadamard', then stage 2 alone for
      'hadamard_concat': finite losses, the trainable count, the launches of
@@ -148,9 +165,21 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      quality: every trainable count as JAX counts it, the launches of
      every train step and eval batch as predicted; quality is reported,
      not gated;
+  8r. rwkv6-1.6b LM fine-tuning in bf16, 16x128 tokens a step: the
+     Hadamard adapter for 20 steps (a fixed batch's loss falls, every
+     trainable leaf moves), an int8 trunk (the head alone: one #7 a step)
+     and compressed gradients over bf16 m + int8 v moments, 10 steps each:
+     196,608 trainable, 24 #8, 24 #3 and 24 #2 launches every step, rates,
+     peak bytes and a torch.profiler breakdown of a step;
+  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 40 steps a
+     preset): fp32, bf16, bf16+int8 and int8 moments with error feedback,
+     and int8 without: each state's bytes equal to state_summary's formula,
+     bf16 2.0x, all-int8 no-EF >= 3x, bf16+int8's final loss within 1 % of
+     fp32's, a bf16+int8 run resumed at step 20 bit for bit the unbroken
+     one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
      5p-6p,
-     8, 8d and 8p, and each kernel's device us per decode tick and per
+     8, 8d, 8r, 8p and 8q, and each kernel's device us per decode tick and per
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
@@ -196,15 +225,22 @@ BERT_BASE_TRAINABLE = (36_864, 109_503_746)
 # the ffn-output RMSNorm scale, bf16, of 28 layers), as the JAX package
 # counts it (jax.eval_shape of its init)
 QWEN3_TRAINABLE = (86_016, 596_107_264)
+# rwkv6-1.6b's trainable and total counts under 'hadamard' (adapter w and
+# b, fp32, and the ffn-output LayerNorm of 24 layers) and 'houlsby' (both
+# bottlenecks and both LayerNorms of every layer), as the JAX package
+# counts them (jax.eval_shape of its init)
+RWKV_TRAINABLE = {"hadamard": (196_608, 1_599_967_232),
+                  "houlsby": (12_880_896, 1_612_553_216)}
 # the paper's own experiment at bert-base's full width (phase 8p), fp32,
 # TRAIN's 32 x 128 tokens a step: MLM pretraining, then the recipe's lanes
 # over it; only the step counts are cut. Pretraining takes JAX's
-# pretrain_encoder defaults (600 steps, lr 1e-3, mask rate 0.15; a
-# 1000-step run on an H100 had its MLM loss at its plateau, near 9.5, by
-# step 400), the lanes the learning rates of JAX's paper benchmarks
+# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 400 steps of its
+# 600, to keep the script inside its time limit (a 1000-step run on an
+# H100 had its MLM loss at its plateau, near 9.5, by step 400), the lanes
+# the learning rates of JAX's paper benchmarks
 # (benchmarks/common.py: stage 1 3e-3, adapters 8e-3, full fine-tuning
 # 3e-4, warmup a tenth of the steps)
-PAPER = dict(pretrain_steps=600, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
+PAPER = dict(pretrain_steps=400, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
              steps=30, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
              second_task="cola", table5_top=(1, 6, 8, 12),
              table4=("B+N", "W+B+N"), search_budget=0.01)
@@ -225,6 +261,13 @@ PAPER_COUNTS = {
 LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
                 microbatch_steps=6, resume_steps=6, save_every=3,
                 calibrate_batches=2)
+# launch.pretrain's path (phase 8q): MLM steps of bert-base a moment
+# preset, on the paper's pretraining stream and rate; the bf16+int8 lane
+# saves at resume_at and a fresh state resumes from there
+PRETRAIN_Q = dict(steps=40, resume_at=20)
+# rwkv6-1.6b's LM fine-tuning (phase 8r) on LM_TRAIN's batches and rate:
+# the Hadamard lane's steps, then the int8-trunk and the compressed lanes'
+RWKV_TRAIN = dict(steps=20, other_steps=10)
 
 
 def log(msg: str) -> None:
@@ -387,8 +430,9 @@ def main() -> int:
            "fused_adapter_norm_bwd": 1e-5, "flash_attention_bwd": 1e-4,
            "dequant_matmul": 1e-5, "dequant_matmul_bwd": 1e-5,
            "masked_multitask_hadamard": 1e-5,
-           "masked_multitask_hadamard_bwd": 1e-5, "wkv6": 1e-5}
-    REL_TOL = ("dequant_matmul", "dequant_matmul_bwd", "wkv6")
+           "masked_multitask_hadamard_bwd": 1e-5, "wkv6": 1e-5,
+           "wkv6_bwd": 1e-5}
+    REL_TOL = ("dequant_matmul", "dequant_matmul_bwd", "wkv6", "wkv6_bwd")
     SUM_TOL, BF16_TOL = 1e-5, 2e-2
     # errs: fp32 max abs err of the elementwise outputs, per case; rel_errs:
     # the same over max |ref| (REL_TOL kernels); rels: bf16 worst max abs
@@ -1496,6 +1540,73 @@ def main() -> int:
             bit_identical_repeats=wkv_repeats)
     torch.cuda.empty_cache()
 
+    # the recurrence's backward for training (`WKV6`: #8 forward, the
+    # plain chunked backward `wkv6_backward`, as JAX's trainer
+    # differentiates its chunk-rematted scan) against autograd through the
+    # plain forward: dr, dk, dv, dw, du, and ds0 from a given state, with
+    # cotangents on o and on the final state; 4 rows of the rwkv6-1.6b
+    # train shape in its layout (one chunk of 128), and a ragged T = 33 in
+    # chunks of 16 with w holding exact 0s and 1s; fp32 and bf16 inputs
+    from repro_torch.kernels.rwkv6 import WKV6, wkv6_backward
+
+    wbcases = [dict(B=4, T=128, state=False, chunk=128, **RW),
+               dict(B=2, H=3, T=33, n=64, layout="bhtn", zeros=True,
+                    chunk=16),
+               dict(B=2, H=3, T=33, n=64, layout="bhtn", zeros=True,
+                    state=False, chunk=128)]
+    for dt in (f32, bf):
+        for c in wbcases:
+            *ins, s0_ = wkv_inputs(c["B"], c["H"], c["T"], c["n"], dt,
+                                   c.get("layout", "bthn"),
+                                   c.get("state", True), c.get("zeros", False))
+            ins = tuple(ins) + (() if s0_ is None else (s0_,))
+            cot = (randn(c["B"], c["H"], c["T"], c["n"], dtype=dt),
+                   randn(c["B"], c["H"], c["n"], c["n"]))
+            compare("wkv6_bwd", str(c), dt,
+                    lambda: grads_of(lambda *t: WKV6.apply(
+                        *t[:5], t[5] if len(t) > 5 else None, c["chunk"],
+                        "kernel"), ins, cot),
+                    lambda: grads_of(lambda *t: ref.wkv6_ref(
+                        *t[:5], t[5] if len(t) > 5 else None), ins, cot))
+    del ins, cot
+    # #8 at the train shape: a 16 x 128-token step's layer, fp32 as the
+    # time mix passes it, L2-cold (2 copies of 92 MB in turn); and the
+    # plain backward's eager time there (device events around calls)
+    B_w, T_w = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    sets = [wkv_inputs(B_w, RW["H"], T_w, RW["n"], f32, state=False)
+            for _ in range(2)]
+    record("wkv6@train", "wkv6",
+           f"r,k,v,w ({B_w},{RW['H']},{T_w},{RW['n']}) fp32 in the (B,T,H,n) "
+           "layout, u, 2 copies in turn, from a zero state, the state "
+           "written (one layer of an rwkv6-1.6b 16 x 128-token train step)",
+           f32, rotating(sets, lambda *a: ops.wkv6(*a[:5], impl="kernel")),
+           rotating(sets, lambda *a: ops.wkv6(*a[:5], impl="ref")), None,
+           5 * B_w * T_w * RW["H"] * RW["n"] * 4 + nbytes(sets[0][4])
+           + B_w * RW["H"] * RW["n"] ** 2 * 4,
+           4 * B_w * RW["H"] * T_w * RW["n"] ** 2, iters=2)
+    r_, k_, v_, w_, u_, _ = sets[0]
+    do_ = randn(B_w, RW["H"], T_w, RW["n"])
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    wkv6_backward(r_, k_, v_, w_, u_, do_, chunk=128)
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(3):
+        wkv6_backward(r_, k_, v_, w_, u_, do_, chunk=128)
+    ev1.record()
+    ev1.synchronize()
+    results["wkv6@train"].update(
+        library_note="none: no PyTorch call computes the recurrence",
+        split_plan=wkv6_plan(B_w, RW["H"], T_w, RW["n"]),
+        bwd_plain_eager_ms=ev0.elapsed_time(ev1) / 3,
+        bwd_route="plain PyTorch, chunk by chunk (rwkv6.wkv6_backward)")
+    log(f"[3] wkv6 backward (WKV6, plain chunked): "
+        f"{errors('wkv6_bwd')}; at the train shape "
+        f"({B_w},{RW['H']},{T_w},{RW['n']}) fp32 "
+        f"{results['wkv6@train']['bwd_plain_eager_ms']:.3f} ms a call, "
+        f"eager, device events; on {smi}")
+    del sets, r_, k_, v_, w_, u_, do_
+    torch.cuda.empty_cache()
+
     # the train_lm shapes: a qwen3-0.6b fine-tuning step in bf16 (phase
     # 8d), 16 x 128 tokens. #3's forward and its backward (the norm VJP in
     # plain torch, then #2 on the fp32 cotangent it hands on and the bf16
@@ -1627,6 +1738,56 @@ def main() -> int:
     results["dequant_matmul@train_lm"].update(library_note=lm_note,
                                               split_plan=plan)
     del wq, wbf, int8pack, x
+    torch.cuda.empty_cache()
+
+    # the rwkv6 train shapes: an rwkv6-1.6b fine-tuning step in bf16 (phase
+    # 8r), 16 x 128 tokens of 2048. #3 at the seam, LayerNorm with bf16
+    # scale and bias, and its backward (the norm VJP in plain torch, then #2
+    # on the fp32 cotangent it hands on and the bf16 adapter input); #2
+    # alone at that pair of dtypes; #7 at the int8 head's training shape,
+    # x (2048, 2048) bf16 @ (2048, 65536). Each against its plain version,
+    # each backward against autograd through the plain forward, every
+    # output within BF16_TOL of its own max |ref|
+    d_rw, eps_rw = 2048, launcher.build_config(RWKV_ARCH).norm_eps
+    n_rw, shp_rw = B_lm * S_lm, (B_lm, S_lm, d_rw)
+    w, b = 1 + randn(d_rw, scale=0.1), randn(d_rw, scale=0.1)
+    scale_rw = 1 + randn(d_rw, dtype=bf, scale=0.1)
+    bias_rw = randn(d_rw, dtype=bf, scale=0.1)
+    x, res = randn(*shp_rw, dtype=bf), randn(*shp_rw, dtype=bf)
+    g_xn, g_h = randn(*shp_rw, dtype=bf), randn(*shp_rw, dtype=bf)
+    rw_case = (f"{shp_rw} bf16, fp32 w/b, bf16 scale/bias, LayerNorm eps "
+               f"{eps_rw} (train_rwkv)")
+    compare("fused_adapter_norm", rw_case, bf,
+            lambda: ops.fused_adapter_norm(x, res, w, b, scale_rw, bias_rw,
+                                           eps=eps_rw, impl="kernel"),
+            lambda: ops.fused_adapter_norm(x, res, w, b, scale_rw, bias_rw,
+                                           eps=eps_rw, impl="ref"))
+    compare("fused_adapter_norm_bwd", rw_case, bf,
+            lambda: grads_of(lambda *t: FusedAdapterResidualNorm.apply(
+                *t, eps_rw, "kernel"), (x, res, w, b, scale_rw, bias_rw),
+                (g_xn, g_h)),
+            lambda: grads_of(lambda *t: ref.fused_adapter_residual_norm_ref(
+                *t[:5], eps=eps_rw, bias=t[5]),
+                (x, res, w, b, scale_rw, bias_rw), (g_xn, g_h)))
+    gt, xa = randn(n_rw, d_rw), randn(n_rw, d_rw, dtype=bf)
+    compare("hadamard_affine_bwd", f"g ({n_rw},{d_rw}) fp32, x bf16 "
+            "(train_rwkv)", bf,
+            lambda: ops.hadamard_affine_bwd(gt, xa, w, impl="kernel"),
+            lambda: ops.hadamard_affine_bwd(gt, xa, w, impl="ref"))
+    del x, res, g_xn, g_h, gt, xa
+    (v_head, sc_head), = quantized(d_rw, 65536, torch.int8)
+    x = randn(n_rw, d_rw, dtype=bf)
+    compare("dequant_matmul", f"M={n_rw} K={d_rw} N=65536 int8 (train_rwkv "
+            f"head; {dequant_matmul_plan(n_rw, d_rw, 65536, bf, torch.int8)})",
+            bf, lambda: ops.dequant_matmul(x, v_head, sc_head, impl="kernel"),
+            lambda: ops.dequant_matmul(x, v_head, sc_head, impl="ref"))
+    del v_head, sc_head, x
+    log("[3] train_rwkv shapes, worst max abs err / max|ref| per output "
+        f"(tol {BF16_TOL}): fused_adapter_norm "
+        f"{checks['fused_adapter_norm']['rels'][-1]:.3g}, its backward "
+        f"{checks['fused_adapter_norm_bwd']['rels'][-1]:.3g}, "
+        f"hadamard_affine_bwd {checks['hadamard_affine_bwd']['rels'][-1]:.3g}"
+        f", dequant_matmul {checks['dequant_matmul']['rels'][-1]:.3g}")
     torch.cuda.empty_cache()
     phase_done("3")
 
@@ -2071,7 +2232,9 @@ def main() -> int:
         in a device sync), the device's busy share of it, the kernels that
         take the device time, and the device us per call of each of the
         port's own kernels (the __global__ functions of csrc/), from
-        torch.profiler."""
+        torch.profiler tracing device activity alone: nothing here reads
+        the host's op events, and collecting them took about 1 ms a kernel
+        (two rwkv6 train steps of 38,000 kernels each, ~75 s)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -2083,8 +2246,7 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
         call_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
                 torch.cuda.synchronize()
@@ -3009,6 +3171,147 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("7d")
 
+    # -- phase 7r: full-width rwkv6-1.6b in fp32, the train path's kernels
+    # against the plain path -------------------------------------------------
+    # one 4 x 128 lm_batches batch, every adapter leaf perturbed: the
+    # logits, lm_loss and every trainable gradient through the kernels
+    # (#8 forward in every layer; under autograd `WKV6`, whose backward is
+    # plain torch chunk by chunk; the Hadamard seam #3 forward and #2 under
+    # it) against impl="ref", which differentiates the step-by-step
+    # recurrence `ref.wkv6_ref` itself, for the Hadamard adapter and for
+    # Houlsby's bottlenecks (no #3 or #2: their seam is plain), with JAX's
+    # trainable counts. The first R7_SKIP positions' labels are ignored:
+    # there the random-weight stack is ill-conditioned (each head's
+    # time-mix output is a sum of few r . (u k) v terms that the per-head
+    # group norm rescales), and their loss terms moved the lower layers'
+    # gradients by up to 45 % under a 1e-6 move of the embedding table on
+    # the plain path alone. The logits and each gradient leaf are held as
+    # vectors, |kernel - plain| / |plain|, to R7_LIMIT. A control shows that
+    # the limit sees a fault: the kernel path again with every gradient
+    # the recurrence's backward hands back R7_FAULT off (scaled by 1 +
+    # R7_FAULT) must take some leaf past it. On an H100 the Hadamard
+    # adapter's worst leaf read 2.0e-3 and one of Houlsby's layer-0 leaves
+    # 1.2e-2, the control 0.48: the limit sits between them
+    R7_SKIP, R7_LIMIT, R7_FAULT = 32, 5e-2, 0.1
+    from repro_torch.kernels import rwkv6 as rwkv6_mod
+
+    def vec_rel(a, b):
+        return ((a - b).double().norm() / b.double().norm()).item()
+
+    sound_backward = rwkv6_mod.wkv6_backward
+
+    def faulty_backward(*a, **kw):
+        return tuple(g * (1 + R7_FAULT) for g in sound_backward(*a, **kw))
+
+    Lr7 = get_arch(RWKV_ARCH).n_layers
+    wk = "wkv6"
+    want_7r = {"hadamard": per_call({wk: Lr7, fa: Lr7, ab: Lr7}),
+               "houlsby": per_call({wk: Lr7})}
+    rwkv_train_model, pending = {}, []
+    batch7r = loop.to_device(next(lm_batches(
+        lm_corpus(get_arch(RWKV_ARCH).vocab_size, 200_000,
+                  seed=LM_TRAIN["seed"]), 1, B7, LM_TRAIN["seq"],
+        seed=LM_TRAIN["seed"] + 7)), dev)
+    batch7r["labels"][:, :R7_SKIP] = -100
+    for sname in ("hadamard", "houlsby"):
+        strat7 = peft.strategy(sname)
+        cfg7 = peft.attach(get_arch(RWKV_ARCH), strat7).replace(
+            param_dtype="float32", compute_dtype="float32")
+        params = perturb_adapters(
+            M.init_params(torch.Generator(device=dev).manual_seed(1), cfg7),
+            seed=2, scale=0.2, leaves=adapter_leaves[sname])
+        runs = {}
+        for run in ("auto", "ref", "control"):
+            impl = "ref" if run == "ref" else "auto"
+            state = make_state(None, cfg7, strat7, OptimCfg(), params=params)
+            torch.cuda.synchronize()
+            before = _build.launch_counts()
+            if run == "control":
+                rwkv6_mod.wkv6_backward = faulty_backward
+            try:
+                loss, _, grads = loss_and_grads(cfg7, state, batch7r, impl)
+            finally:
+                rwkv6_mod.wkv6_backward = sound_backward
+            after = _build.launch_counts()
+            logits = None
+            if run != "control":
+                with torch.no_grad():
+                    logits = M.forward_lm(state["params"], cfg7,
+                                          batch7r["tokens"], impl=impl)
+            runs[run] = (logits, loss.item(), grads,
+                         {k: after[k] - before[k] for k in after})
+            pstats = peft.param_stats(state["params"], peft.trainable_mask(
+                state["params"], strat7, 2, cfg=cfg7))
+            del state
+        check((pstats["trainable"], pstats["total"]) == RWKV_TRAINABLE[sname],
+              f"phase 7r {sname}: trainable {pstats['trainable']} of "
+              f"{pstats['total']}, want {RWKV_TRAINABLE[sname]}")
+        lg, loss_k, gk, launched = runs["auto"]
+        lr_, loss_r, gr, _ = runs["ref"]
+        gc = runs["control"][2]
+        check(launched == want_7r[sname], f"phase 7r {sname}: the loss and "
+              f"its gradients launched {launched}, predicted {want_7r[sname]}")
+        check(set(gk) == set(gr) and sum(t.numel() for t in gk.values())
+              == pstats["trainable"], f"phase 7r {sname}: gradient leaves")
+        # the readings of both strategies are logged before any is checked
+        diff, top = (lg - lr_).abs().max().item(), lr_.abs().max().item()
+        lg_rel = vec_rel(lg, lr_)
+        pending.append((bool(torch.isfinite(lg).all()) and lg_rel <= R7_LIMIT,
+                        f"phase 7r {sname}: |kernel - plain| / |plain| logits "
+                        f"{lg_rel:.3g} > {R7_LIMIT} (max |diff| {diff:.3g} of "
+                        f"{top:.3g})"))
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        pending.append((math.isfinite(loss_k) and loss_rel <= 1e-5,
+                        f"phase 7r {sname}: loss {loss_k} vs plain {loss_r}"))
+        rel = {p: vec_rel(gk[p], gr[p]) for p in sorted(gk)}
+        control = {p: vec_rel(gc[p], gr[p]) for p in sorted(gk)}
+        for path, e in rel.items():
+            pending.append((bool(torch.isfinite(gk[path]).all())
+                            and gr[path].abs().max().item() > 0
+                            and e <= R7_LIMIT,
+                            f"phase 7r {sname}: gradient {path} |diff| / "
+                            f"|ref| {e:.3g} > {R7_LIMIT}"))
+        worst = sorted(rel, key=rel.get, reverse=True)[:3]
+        worst_leaf = worst[0]
+        worst_max = max((gk[p] - gr[p]).abs().max().item()
+                        / gr[p].abs().max().item() for p in gk)
+        caught = sum(e > R7_LIMIT for e in control.values())
+        pending.append((caught > 0, f"phase 7r {sname}: the control (the "
+                        f"recurrence's backward {R7_FAULT} off) took no leaf "
+                        f"past {R7_LIMIT}: worst {max(control.values()):.3g}"))
+        rwkv_train_model[sname] = dict(
+            labels_ignored_before=R7_SKIP, limit=R7_LIMIT,
+            logits_vec_rel=lg_rel, logits_max_rel=diff / top, loss=loss_k,
+            loss_plain=loss_r, loss_rel=loss_rel, grad_leaves=len(gk),
+            grad_worst_leaf=worst_leaf, grad_worst_vec_rel=rel[worst_leaf],
+            grad_worst_max_rel=worst_max, control_fault=R7_FAULT,
+            control_worst_vec_rel=max(control.values()),
+            control_leaves_past_limit=caught, trainable=pstats["trainable"],
+            total=pstats["total"], kernel_vs_plain=rel,
+            control_vs_plain=control,
+            launches={k: v for k, v in launched.items() if v})
+        log(f"[7r] {RWKV_ARCH} fp32 {sname}, {Lr7} layers, one "
+            f"{B7}x{LM_TRAIN['seq']} lm_batches batch, labels from position "
+            f"{R7_SKIP} on: kernel path vs plain path logits |diff| / |ref| "
+            f"{lg_rel:.3g} (limit {R7_LIMIT}; max |diff| / max|ref| "
+            f"{diff / top:.3g}), lm_loss {loss_k:.6f} vs {loss_r:.6f} (rel "
+            f"{loss_rel:.3g}, tol 1e-5), {len(gk)} gradient leaves, worst "
+            + ", ".join(f"{p}: {rel[p]:.3g}" for p in worst)
+            + f" (limit {R7_LIMIT}; {sum(e > 1e-2 for e in rel.values())} "
+            f"past 1e-2; worst max |diff| / max|ref| {worst_max:.3g}); "
+            f"control, the "
+            f"recurrence's backward {R7_FAULT} off: worst "
+            f"{max(control.values()):.3g}, {caught} of {len(gk)} leaves past "
+            f"the limit; trainable {pstats['trainable']:,} of "
+            f"{pstats['total']:,}; launches of the loss and its gradients "
+            f"{rwkv_train_model[sname]['launches']}")
+        del runs, lg, lr_, gk, gr, gc, params
+        torch.cuda.empty_cache()
+    del batch7r
+    for cond, msg in pending:
+        check(cond, msg)
+    phase_done("7r")
+
     # -- phase 8: two-stage training at full width, fp32 --------------------
     def count_loop_calls(mod=loop):
         """Wrap the step and eval builders that `mod` calls (the train
@@ -3178,17 +3481,22 @@ def main() -> int:
     want_bf = per_call({fa: Lq, fl: Lq, ab: Lq})
     want_q = per_call({fa: Lq, fl: Lq, ab: Lq, dq: 7 * Lq})
     lm_report, lm_launches = {}, {}
+    # what lm_run trains: 8d's qwen3-0.6b here, 8r's rwkv6-1.6b later
+    lm_ctx = dict(cfg=lm_cfg, strat=lm_strat, base=base, corpus=corpus,
+                  count=QWEN3_TRAINABLE, phase="8d", arch=ARCH,
+                  report=lm_report, launches=lm_launches, key="train_lm_")
 
     def lm_batches_of(n, seed=LM_TRAIN["seed"]):
-        return lm_batches(corpus, n, Bl, Sl, seed=seed)
+        return lm_batches(lm_ctx["corpus"], n, Bl, Sl, seed=seed)
 
     def probe_loss(state, batch):
         with torch.no_grad():
-            return loss_for(lm_cfg)(lm_cfg, state["params"], batch)[0].item()
+            cfg_ = lm_ctx["cfg"]
+            return loss_for(cfg_)(cfg_, state["params"], batch)[0].item()
 
     def lm_run(tag, steps_, want, total=None, microbatch=0, state=None,
                batches=None, manager=None, save_every=0, profile=True,
-               probe=None):
+               probe=None, ocfg=None):
         """`steps_` steps of `run_train` from `base` (or `state`), each
         step's own launches counted and held to `want`; the trainable
         count, finite losses, rates, the run's peak device bytes and,
@@ -3196,10 +3504,12 @@ def main() -> int:
         Given a `probe` batch, also its loss before and after the steps
         (outside the launch counts) and the trainable leaves that the
         steps left as they were."""
-        ocfg = OptimCfg(lr=LM_TRAIN["lr"], total_steps=total or steps_)
+        ocfg = ocfg or OptimCfg(lr=LM_TRAIN["lr"], total_steps=total or steps_)
+        cfg_, strat_, ph = lm_ctx["cfg"], lm_ctx["strat"], lm_ctx["phase"]
         if state is None:
-            state = make_state(None, lm_cfg, lm_strat, ocfg, params=base)
-        plain_step = build_train_step(lm_cfg, ocfg, microbatch=microbatch)
+            state = make_state(None, cfg_, strat_, ocfg,
+                               params=lm_ctx["base"])
+        plain_step = build_train_step(cfg_, ocfg, microbatch=microbatch)
         calls = []
         if probe is not None:
             probe_before = probe_loss(state, probe)
@@ -3223,27 +3533,27 @@ def main() -> int:
             manager=manager, save_every=save_every, log=log)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        lm_launches[tag] = _build.launch_counts()
-        check(len(calls) == steps_, f"phase 8d {tag}: {len(calls)} steps "
+        launched = lm_ctx["launches"][tag] = _build.launch_counts()
+        check(len(calls) == steps_, f"phase {ph} {tag}: {len(calls)} steps "
                                     f"counted, want {steps_}")
         for i, c in enumerate(calls):
-            check(c == want, f"phase 8d {tag}: step {i} launched {c}, "
+            check(c == want, f"phase {ph} {tag}: step {i} launched {c}, "
                              f"predicted {want}")
-        for k, total_k in lm_launches[tag].items():
+        for k, total_k in launched.items():
             check(sum(c[k] for c in calls) == total_k,
-                  f"phase 8d {tag}: {k} launched outside the train steps")
+                  f"phase {ph} {tag}: {k} launched outside the train steps")
         pstats = peft.param_stats(state["params"], peft.trainable_mask(
-            state["params"], lm_strat, 2, cfg=lm_cfg))
-        check((pstats["trainable"], pstats["total"]) == QWEN3_TRAINABLE,
-              f"phase 8d {tag}: trainable {pstats['trainable']} of "
-              f"{pstats['total']}, want {QWEN3_TRAINABLE}")
+            state["params"], strat_, 2, cfg=cfg_))
+        check((pstats["trainable"], pstats["total"]) == lm_ctx["count"],
+              f"phase {ph} {tag}: trainable {pstats['trainable']} of "
+              f"{pstats['total']}, want {lm_ctx['count']}")
         rep = dict(rates(hist, Bl * Sl), steps=steps_,
                    launches_per_step={k: v for k, v in want.items() if v},
                    trainable=pstats["trainable"], total=pstats["total"],
                    percent=pstats["percent"], peak_bytes=peak,
                    held_bytes_before=held)
         check(all(math.isfinite(v) for v in rep["losses"]),
-              f"phase 8d {tag}: non-finite loss {rep['losses']}")
+              f"phase {ph} {tag}: non-finite loss {rep['losses']}")
         if probe is not None:
             rep["probe_loss_before"] = probe_before
             rep["probe_loss_after"] = probe_loss(state, probe)
@@ -3254,9 +3564,10 @@ def main() -> int:
         if profile:
             batch = loop.to_device(next(lm_batches_of(1, seed=99)), dev)
             rep["profile"] = profile_calls(lambda: plain_step(state, batch), 2)
-        lm_report[tag] = rep
-        step_calls[f"train_lm_{tag}"] = calls
-        log(f"[8d] {tag} on {smi}: {ARCH} bf16, {steps_} steps of {Bl}x{Sl} "
+        lm_ctx["report"][tag] = rep
+        step_calls[lm_ctx["key"] + tag] = calls
+        log(f"[{ph}] {tag} on {smi}: {lm_ctx['arch']} bf16, {steps_} steps "
+            f"of {Bl}x{Sl} "
             f"lm_batches tokens; trainable {pstats['trainable']:,} of "
             f"{pstats['total']:,} ({pstats['percent']:.4f}%); launches per "
             f"step as predicted {rep['launches_per_step']}; "
@@ -3355,8 +3666,75 @@ def main() -> int:
         f"{got == want} (max rel diff {rel:.3g}, limit 1e-5); trainable "
         f"leaves after step {n_r} bit for bit {leaves_equal}")
     del whole, fresh, base, corpus
+    lm_ctx.update(base=None, corpus=None)
     torch.cuda.empty_cache()
     phase_done("8d")
+
+    # -- phase 8r: rwkv6-1.6b LM fine-tuning in bf16 ------------------------
+    # lm_run over rwkv6-1.6b at full width, 16 x 128 lm_batches tokens a
+    # step: the Hadamard adapter (the fixed batch's loss falls, every
+    # trainable leaf moves), an int8 trunk (the untied head alone
+    # quantized: #7 forward, the plain fp32 dx) and compressed gradients
+    # over bf16 m + int8 v moments with error feedback. Predicted launches
+    # of every step, from the code: #8 in every layer (its backward is
+    # plain torch), #3 at every seam and #2 under it; the int8 head one #7
+    from repro_torch.optim import qstate
+
+    rwkv_cfg = peft.attach(get_arch(RWKV_ARCH), lm_strat)  # bf16
+    Lr8 = rwkv_cfg.n_layers
+    rwkv_report, rwkv_launches = {}, {}
+    lm_ctx.update(
+        cfg=rwkv_cfg, base=M.init_params(torch.Generator(device=dev)
+                                         .manual_seed(LM_TRAIN["seed"]),
+                                         rwkv_cfg),
+        corpus=lm_corpus(rwkv_cfg.vocab_size, 200_000, seed=LM_TRAIN["seed"]),
+        count=RWKV_TRAINABLE["hadamard"], phase="8r", arch=RWKV_ARCH,
+        report=rwkv_report, launches=rwkv_launches, key="train_rwkv_")
+    want_r = per_call({"wkv6": Lr8, fa: Lr8, ab: Lr8})
+    probe = loop.to_device(next(lm_batches_of(1)), dev)
+    state, rep = lm_run("hadamard", RWKV_TRAIN["steps"], want_r, probe=probe)
+    check(rep["probe_loss_after"] < rep["probe_loss_before"],
+          f"phase 8r hadamard: the fixed batch's loss went from "
+          f"{rep['probe_loss_before']} to {rep['probe_loss_after']}")
+    check(not rep["leaves_unmoved"], f"phase 8r hadamard: "
+          f"{len(rep['leaves_unmoved'])} trainable leaves never moved "
+          f"{rep['leaves_unmoved'][:4]}")
+    log(f"[8r] hadamard: the fixed batch's loss {rep['probe_loss_before']:.6f}"
+        f" -> {rep['probe_loss_after']:.6f} over {RWKV_TRAIN['steps']} "
+        f"steps; every one of {len(state['trainable'])} trainable leaves "
+        "moved")
+    del state, probe
+    n_q = RWKV_TRAIN["other_steps"]
+    ocfg_q = OptimCfg(lr=LM_TRAIN["lr"], total_steps=n_q)
+    state = make_state(None, rwkv_cfg, lm_strat, ocfg_q,
+                       params=lm_ctx["base"], quant="int8")
+    qs = quant_summary(state["params"],
+                       leaf_name=lambda p: jax_path(p, rwkv_cfg))
+    check(qs["n_quantized_leaves"] == 1, f"phase 8r int8: {qs}")
+    # (the Hadamard lane's profile stands for the three: the other two
+    # lanes add one #7 or the optimizer's compression to the same step)
+    state, rep = lm_run("int8", n_q, per_call({"wkv6": Lr8, fa: Lr8,
+                                               ab: Lr8, dq: 1}),
+                        state=state, ocfg=ocfg_q, profile=False)
+    rep["quant_summary"] = qs
+    del state
+    ocfg_c = OptimCfg(lr=LM_TRAIN["lr"], total_steps=n_q,
+                      compress_grads=True, m_dtype="bfloat16",
+                      v_dtype="int8")
+    state = make_state(None, rwkv_cfg, lm_strat, ocfg_c,
+                       params=lm_ctx["base"])
+    state, rep = lm_run("compress_bf16_int8", n_q, want_r, state=state,
+                        ocfg=ocfg_c, profile=False)
+    rep["optimizer_state"] = qstate.state_summary(state["opt"], ocfg_c)
+    check(set(state["err"]) == set(state["trainable"]) and "v_err" in
+          state["opt"], f"phase 8r compress: state {sorted(state)}, "
+          f"opt {sorted(state['opt'])}")
+    log(f"[8r] compress_bf16_int8: optimizer state "
+        f"{json.dumps(rep['optimizer_state'])}")
+    del state
+    lm_ctx.update(base=None, corpus=None)
+    torch.cuda.empty_cache()
+    phase_done("8r")
 
     # -- phase 8p: the paper's tables at full width, over a pretrained
     # bert-base ------------------------------------------------------------
@@ -3657,6 +4035,190 @@ def main() -> int:
         f"ia3 {stage2['ia3']:.4f}, houlsby {stage2['houlsby']:.4f}")
     phase_done("8p")
 
+    # -- phase 8q: launch.pretrain's path on bert-base, quantized moments ---
+    # MLM pretraining of every leaf of bert-base (fp32, TRAIN's 32 x 128
+    # tokens a step) with each moment preset of `launch.pretrain`, as its
+    # main() builds them (`optim_for`), PRETRAIN_Q["steps"] steps each on
+    # the same batch stream: every step's launches as predicted (#4 in
+    # every layer, nothing else: `full` has no adapter, and the optimizer
+    # is plain torch); each state's bytes equal to state_summary's formula
+    # counted from the leaves' shapes, bf16 2.0x and all-int8 without
+    # error feedback >= 3x (JAX's optim bench's bytes gate); bf16+int8's
+    # final MLM loss (the mean of the last 10 steps', the bench's tail)
+    # within 1 % of fp32 moments' (its quality gate); and a bf16+int8 run
+    # resumed from its snapshot at PRETRAIN_Q["resume_at"] bit for bit the
+    # unbroken one
+    from repro_torch.launch.pretrain import optim_for
+    from repro_torch.optim import qstate
+    from repro_torch.quant.qtensor import is_qtensor
+    from repro_torch.train.steps import state_tree
+
+    n_pq, at_pq = PRETRAIN_Q["steps"], PRETRAIN_Q["resume_at"]
+    pq_corpus = lm_corpus(bert.vocab_size, 300_000, seed=PAPER["seed"])
+    want_pq = per_call({flash: L})
+    pq_report, pq_launches = {}, {}
+
+    def pq_batches():
+        return pretrain_mod.mlm_batches(pq_corpus, n_pq, B_tr, S_tr,
+                                        mask_rate=PAPER["mask_rate"],
+                                        seed=PAPER["seed"])
+
+    def formula_bytes(trainable, ocfg):
+        """state_summary's bytes from the leaves' shapes: per moment its
+        payload (4, 2 or 1 bytes an element) and, int8, one fp32 scale a
+        row of the trailing dim; the residuals of int8 under EF alike;
+        the int32 count."""
+        def one(dt, t):
+            return t.numel() * {"float32": 4, "bfloat16": 2, "int8": 1}[dt] \
+                + (4 * t.numel() // t.shape[-1] if dt == "int8" else 0)
+        total = 4
+        for t in trainable.values():
+            for dt in (ocfg.m_dtype, ocfg.v_dtype):
+                total += one(dt, t) * (2 if dt == "int8" and ocfg.qstate_ef
+                                       else 1)
+        return total
+
+    def pq_state(ocfg):
+        return make_state(
+            torch.Generator(device=dev).manual_seed(PAPER["seed"]), bert_full,
+            full, ocfg)
+
+    def pq_run(tag, state, ocfg, batches, steps_, manager=None,
+               save_every=0):
+        step = build_train_step(bert_full, ocfg, loss_fn=pretrain_mod.mlm_loss)
+        calls = []
+
+        def counted(st, batch):
+            before = _build.launch_counts()
+            out = step(st, batch)
+            after = _build.launch_counts()
+            calls.append({k: after[k] - before[k] for k in after})
+            return out
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        state, hist = loop.run_train(state, counted, batches, steps=steps_,
+                                     log_every=0, manager=manager,
+                                     save_every=save_every, log=log)
+        torch.cuda.synchronize()
+        pq_launches[tag] = _build.launch_counts()
+        for i, c in enumerate(calls):
+            check(c == want_pq, f"phase 8q {tag}: step {i} launched {c}, "
+                                f"predicted {want_pq}")
+        check(len(calls) == steps_, f"phase 8q {tag}: {len(calls)} steps")
+        step_calls[f"pretrain_{tag}"] = calls
+        return state, hist, step
+
+    lanes = (("fp32", "", True), ("bf16", "bf16", True),
+             ("bf16+int8", "bf16+int8", True), ("int8", "int8", True),
+             ("int8_no_ef", "int8", False))
+    final_loss = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        for tag, preset, ef in lanes:
+            ocfg = optim_for(preset, lr=PAPER["pretrain_lr"], steps=n_pq,
+                             ef=ef)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            state = pq_state(ocfg)
+            torch.cuda.synchronize()
+            made = torch.cuda.memory_allocated() - held
+            summ = qstate.state_summary(state["opt"], ocfg)
+            want_b = formula_bytes(state["trainable"], ocfg)
+            check(summ["bytes"] == want_b and summ["n_params"] ==
+                  PAPER_COUNTS["full"][0], f"phase 8q {tag}: state bytes "
+                  f"{summ}, formula {want_b}")
+            torch.cuda.reset_peak_memory_stats()
+            stream = pq_batches()
+            if tag == "bf16+int8":
+                # the unbroken run, its first at_pq steps saving once
+                mgr = CheckpointManager(ckdir, keep=1)
+                state, hist, step = pq_run(tag, state, ocfg, stream, at_pq,
+                                           manager=mgr, save_every=at_pq)
+                calls_a = step_calls[f"pretrain_{tag}"]
+                launches_a = pq_launches[tag]
+                state, hist_b, step = pq_run(tag, state, ocfg, stream,
+                                             n_pq - at_pq)
+                hist += hist_b
+                step_calls[f"pretrain_{tag}"] = calls_a + \
+                    step_calls[f"pretrain_{tag}"]
+                pq_launches[tag] = {k: v + launches_a[k] for k, v in
+                                    pq_launches[tag].items()}
+            else:
+                state, hist, step = pq_run(tag, state, ocfg, stream, n_pq)
+            peak = torch.cuda.max_memory_allocated()
+            rep = dict(rates(hist), optimizer_state=summ,
+                       formula_bytes=want_b, allocated_by_make_state=made,
+                       peak_bytes=peak, steps=n_pq,
+                       launches_per_step={k: v for k, v in want_pq.items()
+                                          if v})
+            tail = rep["losses"][-10:]
+            final_loss[tag] = sum(tail) / len(tail)
+            rep["final_loss_tail10"] = final_loss[tag]
+            if ef:
+                check(all(math.isfinite(v) for v in rep["losses"]),
+                      f"phase 8q {tag}: non-finite loss {rep['losses']}")
+            if tag == "bf16+int8":
+                # the resume: a fresh state restored from the snapshot at
+                # at_pq takes the remaining steps on the replayed stream
+                fresh = pq_state(ocfg)
+                restored, meta = mgr.restore(at_pq)
+                restore_state(fresh, restored)
+                check(fresh["step"] == at_pq == meta["step"],
+                      f"phase 8q resume: restored step {fresh['step']}")
+                replay = pq_batches()
+                for _ in range(at_pq):
+                    next(replay)
+                fresh, hist_r, _ = pq_run("bf16+int8_resumed", fresh, ocfg,
+                                          replay, n_pq - at_pq)
+                got = [h["loss"] for h in hist_r]
+                want_l = rep["losses"][at_pq:]
+                fa_ = dict(tu.flatten_with_paths(state_tree(state)))
+                fb_ = dict(tu.flatten_with_paths(state_tree(fresh)))
+                same = set(fa_) == set(fb_) and all(
+                    (torch.equal(a.values, fb_[p].values)
+                     and torch.equal(a.scales, fb_[p].scales))
+                    if is_qtensor(a) else torch.equal(a, fb_[p])
+                    for p, a in fa_.items())
+                check(got == want_l and same, f"phase 8q resume: steps "
+                      f"{at_pq + 1}-{n_pq} losses {got} vs unbroken {want_l}; "
+                      f"state bit for bit {same}")
+                rep["resume"] = {"from_step": at_pq, "losses_resumed": got,
+                                 "bit_for_bit_losses": got == want_l,
+                                 "state_bit_for_bit": same}
+                del fresh, restored
+            if tag in ("fp32", "bf16+int8", "int8"):  # after the checks
+                batch = loop.to_device(next(pq_batches()), dev)
+                rep["profile"] = profile_calls(lambda: step(state, batch), 2)
+            pq_report[tag] = rep
+            log(f"[8q] {tag} on {smi}: {TRAIN['arch']} full MLM, fp32, "
+                f"{n_pq} steps of {B_tr}x{S_tr} tokens, moments "
+                f"m={ocfg.m_dtype} v={ocfg.v_dtype}"
+                f"{' +ef' if ef and 'int8' in preset else ''}: optimizer "
+                f"state {summ['bytes']:,} bytes ({summ['ratio']:.4f}x "
+                f"smaller than fp32's {summ['bytes_fp32']:,}; the formula "
+                f"{want_b:,}); final loss (last 10) {final_loss[tag]:.5f}; "
+                f"{json.dumps(rep)}")
+            del state, step
+            torch.cuda.empty_cache()
+    ratio_bf16 = pq_report["bf16"]["optimizer_state"]["ratio"]
+    ratio_floor = pq_report["int8_no_ef"]["optimizer_state"]["ratio"]
+    rel_q = abs(final_loss["bf16+int8"] - final_loss["fp32"]) \
+        / final_loss["fp32"]
+    check(abs(ratio_bf16 - 2.0) <= 1e-6, f"phase 8q: bf16 ratio {ratio_bf16}")
+    check(ratio_floor >= 3.0, f"phase 8q: all-int8 no-EF ratio {ratio_floor}"
+                              " < 3 (JAX's bench gate)")
+    check(rel_q <= 0.01, f"phase 8q: bf16+int8 final loss "
+          f"{final_loss['bf16+int8']} off fp32's {final_loss['fp32']} by "
+          f"{100 * rel_q:.3f} % (> 1 %, JAX's bench gate)")
+    pq_report["gates"] = {"bf16_ratio": ratio_bf16,
+                          "int8_no_ef_ratio": ratio_floor,
+                          "bf16_int8_final_loss_rel_vs_fp32": rel_q}
+    log(f"[8q] gates on {smi}: bf16 {ratio_bf16:.6f}x (2.0), all-int8 "
+        f"no-EF {ratio_floor:.4f}x (>= 3), bf16+int8 final loss "
+        f"{100 * rel_q:.4f} % off fp32 (<= 1 %); resume bit for bit")
+    del pq_corpus
+    phase_done("8q")
+
     # -- phase 9: the kernels line ------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3691,12 +4253,15 @@ def main() -> int:
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
+                **{f"train_rwkv_{t}": c for t, c in rwkv_launches.items()},
+                **{f"pretrain_{t}": c for t, c in pq_launches.items()},
                 **{f"paper_{t}": c for t, c in paper_launches.items()}}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
                    "split_plan", "bit_identical_repeats", "ms_l2_warm",
-                   "alt_plan", "trace", "refused_plans", "keyless_cases")
+                   "alt_plan", "trace", "refused_plans", "keyless_cases",
+                   "bwd_plain_eager_ms", "bwd_route")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
@@ -3749,7 +4314,7 @@ def main() -> int:
         if name == "flash_attention":
             entry["bwd_tiled_long_sequence"] = tiled_bwd
         if name in ("fused_adapter_norm", "flash_attention", "dequant_matmul",
-                    "masked_multitask_hadamard"):
+                    "masked_multitask_hadamard", "wkv6"):
             # the backward of the autograd Function around this kernel
             bwd = checks[name + "_bwd"]
             entry["bwd_max_abs_err"] = max(bwd["errs"])
@@ -3765,6 +4330,8 @@ def main() -> int:
                       "rwkv_model": rwkv_model,
                       "train": train_report, "lm_model": lm_model,
                       "train_lm": lm_report, "mlm_model": mlm_check,
+                      "rwkv_train_model": rwkv_train_model,
+                      "train_rwkv": rwkv_report, "pretrain_q": pq_report,
                       "paper": paper_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)

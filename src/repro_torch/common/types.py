@@ -183,9 +183,10 @@ class OptimCfg:
     warmup_steps: int = 0
     total_steps: int = 1000
     min_lr_ratio: float = 0.1
-    # kept for field parity with the JAX config; the trainer raises
-    # NotImplementedError on any value but the default (gradient
-    # compression and quantized moments arrive with a later slice)
+    # int8 gradient compression with error feedback (optim/compression)
+    # and the AdamW moments' storage: 'float32' | 'bfloat16' | 'int8',
+    # int8 with error-feedback residuals unless qstate_ef is off
+    # (optim/qstate)
     compress_grads: bool = False
     m_dtype: str = "float32"
     v_dtype: str = "float32"

@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolution for launchers and tests.
 
 The port carries the architectures its slices run: qwen3-0.6b and
-rwkv6-1.6b (serving) and the paper's own BERT-family encoders (two-stage
-training). The other
+rwkv6-1.6b (serving and decoder-LM fine-tuning) and the paper's own
+BERT-family encoders (two-stage training, MLM pretraining). The other
 `repro` configs arrive with the slices that run them.
 """
 from __future__ import annotations

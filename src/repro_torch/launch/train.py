@@ -12,12 +12,19 @@ and --resume starts from the newest snapshot. An encoder runs stage 1
 (the classification head) and stage 2 (the --peft strategy's adapter on
 the reloaded head), --steps steps each. --peft picks the paper's adapter
 or a baseline (lora, houlsby, ia3, full, ...); --prune-to K trains only
-the top K layers' adapters (paper Table 5).
+the top K layers' adapters (paper Table 5). --quant-moments stores the
+AdamW moments in bf16 or int8 (`launch.pretrain.QUANT_PRESETS`, with
+error feedback unless --no-ef), --compress-grads compresses each gradient
+to int8 with error feedback. A decoder is an attention stack (qwen3) or
+an RWKV6 one (rwkv6-1.6b).
 
   python -m repro_torch.launch.train --arch qwen3-0.6b --peft hadamard \\
       --steps 30 --batch 16 --seq 128 [--quant int8 --calibrate-batches 2]
   python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu \\
       --steps 12 --batch 8 --seq 32 [--ckpt-dir D --save-every 6 --resume]
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --peft hadamard \\
+      --steps 30 --batch 16 --seq 128 [--quant int8] [--compress-grads] \\
+      [--quant-moments bf16+int8 [--no-ef]]
   python -m repro_torch.launch.train --arch bert-base --task sst2 \\
       --steps 30 --batch 32 --seq 128
   python -m repro_torch.launch.train --arch bert-tiny --task sst2 --smoke \\
@@ -36,7 +43,9 @@ from repro_torch.configs import get, get_smoke
 from repro_torch.convert import jax_path
 from repro_torch.core import peft
 from repro_torch.data.synthetic import TASKS, TaskData, lm_batches, lm_corpus
+from repro_torch.launch.pretrain import QUANT_PRESETS
 from repro_torch.models import model as M
+from repro_torch.optim import qstate
 from repro_torch.quant import calibrate, quant_summary
 from repro_torch.sparse.importance import depth_mask, n_layers
 from repro_torch.train.loop import StepWatchdog, run_train, two_stage_finetune
@@ -45,8 +54,6 @@ from repro_torch.train.steps import build_train_step, make_state, restore_state
 
 # options of the JAX launcher that arrive with later slices
 LATER = {
-    "compress_grads": "the optimizer-state slice",
-    "quant_moments": "the optimizer-state slice (moment quantization)",
     "mesh": "the distributed slice (torch.distributed)",
 }
 
@@ -81,8 +88,15 @@ def main(argv=None):
                     help="train only the top-K layers' adapters (mask-gated "
                          "gradients; the rest stay identity). 0 = all "
                          "layers; the paper's 0.022%% variant is K = 2L/3")
-    ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--quant-moments", default="")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient compression with error feedback")
+    ap.add_argument("--quant-moments", default="",
+                    choices=sorted(QUANT_PRESETS),
+                    help="AdamW moment storage (optim.qstate): bf16 / "
+                         "bf16+int8 / int8; '' keeps exact fp32 moments")
+    ap.add_argument("--no-ef", action="store_true",
+                    help="disable int8 moment error feedback (bytes floor "
+                         "only: no-EF int8 v deadzones and diverges)")
     ap.add_argument("--mesh", default="")
     args = ap.parse_args(argv)
 
@@ -94,7 +108,10 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     strat = peft.strategy(args.peft)
     device = resolve_device(args.device)
-    ocfg = OptimCfg(lr=args.lr, total_steps=args.steps)
+    m_dt, v_dt = QUANT_PRESETS[args.quant_moments]
+    ocfg = OptimCfg(lr=args.lr, total_steps=args.steps,
+                    compress_grads=args.compress_grads, m_dtype=m_dt,
+                    v_dtype=v_dt, qstate_ef=not args.no_ef)
 
     layer_mask = None
     if args.prune_to:
@@ -146,6 +163,11 @@ def main(argv=None):
     state = make_state(gen(), cfg, strat, ocfg, params=params,
                        quant=args.quant or None, quant_stats=stats)
     del params
+    if qstate.quantized_moments(ocfg):
+        qss = qstate.state_summary(state["opt"], ocfg)
+        print(f"optimizer state: {qss['bytes'] / 2**20:.2f} MiB for "
+              f"{qss['n_params']:,} params (fp32 would be "
+              f"{qss['bytes_fp32'] / 2**20:.2f} MiB; {qss['ratio']:.2f}x)")
     if args.quant:
         qs = quant_summary(state["params"],
                            leaf_name=lambda p: jax_path(p, cfg))

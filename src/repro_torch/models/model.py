@@ -146,9 +146,9 @@ def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     JAX wraps each layer in `jax.checkpoint` under cfg.remat, which
     trades memory for recompute and changes no number; the port keeps
     every layer's activations (qwen3-0.6b at 16 x 128 tokens fits the
-    card's memory) and reads no remat option. An RWKV6 layer runs #8,
-    which has no backward: its forward serves calibration and eval, and
-    `train.losses.loss_for` refuses to train it."""
+    card's memory) and reads no remat option. An RWKV6 layer runs #8
+    forward and, under autograd, the recurrence's plain chunked backward
+    (`kernels.rwkv6.WKV6`)."""
     _check_cfg(cfg)
     if cfg.family != "decoder":
         raise ValueError(f"forward_hidden needs a decoder config, got "

@@ -31,8 +31,11 @@ An RWKV6 block (`models/rwkv.py`) has the same seam: its time-mix output
 takes the place of the attention output, and its channel mix that of the
 MLP. JAX applies the Hadamard adapter to the time-mix output under any
 position (`repro/models/program.py:171-174` tests only the kind), and so
-does the port; the adapter's size is d_model there. Its cache is the
-layer's recurrent state, written in place at decode.
+does the port; the adapter's size is d_model there. Houlsby's bottlenecks
+wrap the time-mix and the channel-mix outputs, as in JAX's pre-LN block;
+LoRA's and IA3's leaves exist there and train, but no rwkv op reads them
+(they only take weight decay), as in JAX. Its cache is the layer's
+recurrent state, written in place at decode.
 """
 from __future__ import annotations
 
@@ -214,18 +217,21 @@ def _residual_seam(p: dict, cfg: ModelCfg, x, a, ad, task_ids, gate,
 def _rwkv_block(p: dict, cfg: ModelCfg, x: torch.Tensor, *,
                 cache: Optional[dict], task_ids, gate, impl: str):
     """Pre-LN RWKV6 block: time mix, adapter seam, channel mix, as
-    `repro/models/program.py:156-198`. Returns (x, cache): the given cache
-    written in place, or at prefill the fresh {"S", "tm_prev", "cm_prev"}."""
-    if cfg.adapter.kind not in ("none", "hadamard"):
-        raise NotImplementedError(
-            f"a {cfg.adapter.kind!r} adapter on an RWKV6 block is not "
-            "ported: the LoRA, IA3 and Houlsby baselines run on attention "
-            "blocks")
+    `repro/models/program.py:156-198`: Houlsby's `attn_ad` on the time-mix
+    output (before the post-norm and the residual add) and its `ffn_ad` on
+    the channel-mix output; LoRA and IA3 leaves are read by no op. Returns
+    (x, cache): the given cache written in place, or at prefill the fresh
+    {"S", "tm_prev", "cm_prev"}."""
     ad = _adapter(p, cfg, task_ids)
+    houlsby = _baseline(p, cfg, "houlsby")
     h = apply_norm(p["attn_norm"], cfg, x)
     a, tm = rwkv_time_mix(p["rwkv_tm"], cfg, h, cache, impl)
+    if houlsby is not None:
+        a = _houlsby(houlsby["attn_ad"], a)
     x, h = _residual_seam(p, cfg, x, a, ad, task_ids, gate, impl)
     f, cm = rwkv_channel_mix(p["rwkv_cm"], cfg, h, cache)
+    if houlsby is not None:
+        f = _houlsby(houlsby["ffn_ad"], f)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)
     return x + f, (cache if cache is not None else {**tm, **cm})

@@ -12,7 +12,12 @@ five mixes (w, k, v, r, g).
 Where the JAX model computes the recurrence with a jnp einsum at S == 1
 and a chunked `lax.scan` at S > 1, the port sends both through
 `ops.wkv6` (kernel #8 on the card) from the cache's state: the same
-function as `ref.wkv6_ref` with s0. The projections stay `torch.matmul`,
+function as `ref.wkv6_ref` with s0. When autograd needs the recurrence's
+gradient (training), it goes through `kernels.rwkv6.WKV6`: #8 forward,
+and the plain backward over cfg.rwkv_chunk-step chunks, as JAX's trainer
+differentiates its chunk-rematted scan; the plain path (impl="ref")
+differentiates `ref.wkv6_ref` step by step instead, so that it shares no
+code with the backward it is held against. The projections stay `torch.matmul`,
 as JAX leaves them to XLA. The dtypes are JAX's: mu_x, mu, w0, u, mu_k and
 mu_r are fp32; the decay, r, k and v are fp32 into the recurrence; the
 group norm runs in fp32 and its result is cast to the compute dtype.
@@ -30,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.rwkv6 import WKV6
 from repro_torch.models.layers import dense_init, gen_device
 
 _DDLERP_RANK = 32
@@ -140,8 +146,17 @@ def rwkv_time_mix(p: dict, cfg: ModelCfg, x: torch.Tensor,
     v = heads((xv @ p["wv"].to(cdt)).float())
     g = F.silu(xg @ p["wg"].to(cdt))
     state = None if cache is None else cache["S"]
-    o, S_new = ops.wkv6(r, k, v, heads(w), p["u"].float(), s0=state,
-                        impl=impl)
+    u, w = p["u"].float(), heads(w)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        # training: #8 forward, the plain chunked backward; the plain path
+        # differentiates the step-by-step recurrence itself
+        o, S_new = (ref.wkv6_ref(r, k, v, w, u, state) if impl == "ref" else
+                    WKV6.apply(r, k, v, w, u, state, cfg.rwkv_chunk, impl))
+        if state is not None:
+            state.copy_(S_new.detach())
+    else:
+        o, S_new = ops.wkv6(r, k, v, w, u, s0=state, impl=impl)
     o = o.transpose(1, 2).reshape(B, S, d)
     o = _group_norm(p, o, n).to(cdt) * g
     y = o @ p["wo"].to(cdt)

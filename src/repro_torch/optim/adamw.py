@@ -1,11 +1,15 @@
 """AdamW with decoupled weight decay over the trainable tensors only (port
-of `repro.optim.adamw` with fp32 moments).
+of `repro.optim.adamw`), its moments stored as `OptimCfg.m_dtype` /
+`v_dtype` name (`optim.qstate`: fp32, bf16 or row-wise int8 with optional
+error feedback).
 
 Trees here are flat dicts {path: tensor} of the trainable leaves. The
-update follows the JAX sequence exactly: moments, bias correction,
+update follows the JAX sequence exactly: decode the moments (plus their
+residuals), moments, the int8 v clamped at 0, bias correction,
 step = m_hat / (sqrt(v_hat) + eps), plus wd * p for the decayed leaves,
-then p -= lr * step. `torch.optim.AdamW` orders the decay differently,
-which a parity test would see.
+re-encode the moments, then p -= lr * step. `torch.optim.AdamW` orders
+the decay differently, which a parity test would see. With fp32 moments
+every encode and decode is the identity.
 
 JAX decays every leaf of two or more dims. Its layers' leaves are stacked
 on a leading `repeats` dim, so there a layer's adapter and norm vectors are
@@ -15,24 +19,21 @@ their JAX rank).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.common.types import OptimCfg
+from repro_torch.optim import qstate
 
 Tree = Dict[str, torch.Tensor]
 
 
-def adamw_init(trainable: Tree, decay: Iterable[str]) -> dict:
-    """Zeroed fp32 moments over `trainable`; `decay` names the leaves
-    that take weight decay."""
-    def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in trainable.items()}
-
-    return {"m": zeros(), "v": zeros(), "count": 0,
-            "decay": frozenset(decay)}
+def adamw_init(trainable: Tree, decay: Iterable[str],
+               cfg: Optional[OptimCfg] = None) -> dict:
+    """Zeroed moments over `trainable` in `cfg`'s moment dtypes (fp32
+    without a cfg); `decay` names the leaves that take weight decay."""
+    return qstate.init_opt_state(trainable, cfg or OptimCfg(), decay)
 
 
 def global_norm(grads: Tree) -> torch.Tensor:
@@ -57,15 +58,32 @@ def adamw_update(grads: Tree, state: dict, params: Tree, cfg: OptimCfg,
     count = state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count
     c2 = 1.0 - cfg.b2 ** count
-    new_m, new_v = {}, {}
+    has_me, has_ve = "m_err" in state, "v_err" in state
+    new = {key: {} for key in ("m", "v", "m_err", "v_err")
+           if key in state}
     for k, p in params.items():
         g32 = grads[k].float()
-        m = cfg.b1 * state["m"][k] + (1 - cfg.b1) * g32
-        v = cfg.b2 * state["v"][k] + (1 - cfg.b2) * g32.square()
+        m = qstate.decode_moment(state["m"][k])
+        if has_me:
+            m = m + qstate.decode_moment(state["m_err"][k])
+        v = qstate.decode_moment(state["v"][k])
+        if has_ve:
+            v = v + qstate.decode_moment(state["v_err"][k])
+        m = cfg.b1 * m + (1 - cfg.b1) * g32
+        v = cfg.b2 * v + (1 - cfg.b2) * g32.square()
+        if cfg.v_dtype == "int8":
+            # the residual can put the rebuilt v a hair below zero; clamp
+            # before the square root (a no-op in exact arithmetic)
+            v = torch.clamp(v, min=0.0)
         step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
         p32 = p.float()
         if cfg.weight_decay and k in state["decay"]:
             step = step + cfg.weight_decay * p32
+        new["m"][k], me = qstate.encode_moment(m, cfg.m_dtype, ef=has_me)
+        new["v"][k], ve = qstate.encode_moment(v, cfg.v_dtype, ef=has_ve)
+        if has_me:
+            new["m_err"][k] = me
+        if has_ve:
+            new["v_err"][k] = ve
         p.copy_((p32 - lr * step).to(p.dtype))
-        new_m[k], new_v[k] = m, v
-    return {"m": new_m, "v": new_v, "count": count, "decay": state["decay"]}
+    return dict(new, count=count, decay=state["decay"])

@@ -103,24 +103,51 @@ def quantize(x: torch.Tensor, mode: str = "int8", *, axis: Optional[int] = -2,
     return QTensor(q.to(dtype), scale)
 
 
-def quantize_kv(x: torch.Tensor, mode: str) -> QTensor:
-    """`quantize(x, mode, axis=-1)` as JAX's compiled serving path computes
-    it, one scale per token and head (absmax over the last dim): JAX
-    quantizes K/V inside a jitted step, where XLA rewrites the division by
-    the constant qmax as a product with its fp32 reciprocal, which rounds
-    differently from the division for some absmax values (the eager
-    `quantize`, and the weights JAX quantizes eagerly, divide). So the KV
-    blocks are byte for byte the ones JAX's paged pool holds."""
+def quantize_jitted(x: torch.Tensor, mode: str = "int8", *,
+                    axis: Optional[int] = -1,
+                    absmax: Optional[torch.Tensor] = None) -> QTensor:
+    """`quantize(x, mode, axis=axis)` (clip 1) as XLA computes it inside a
+    jitted JAX step: the division of absmax by the constant qmax becomes a
+    product with its fp32 reciprocal, which rounds differently from the
+    division for some absmax values. JAX quantizes K/V (serving), AdamW's
+    int8 moments and the compressed gradients inside jitted steps, so
+    those payloads are byte for byte JAX's only in this form; the eager
+    `quantize` (and the weights JAX quantizes eagerly) divide. A given
+    `absmax` (axis=None: a scalar tensor) replaces x's own, so that
+    several tensors share the scale of the larger one they make up."""
     dtype = _storage_dtype(mode)
     x32 = x.to(torch.float32)
     recip = torch.tensor(1.0 / _QMAX[mode], dtype=torch.float32,
                          device=x.device)
-    scale = x32.abs().amax(dim=-1, keepdim=True) * recip
+    if axis is None:
+        absmax = (x32.abs().amax() if absmax is None else absmax).reshape(
+            (1,) * x32.dim())
+    elif absmax is not None:
+        raise ValueError("a shared absmax takes axis=None")
+    else:
+        absmax = x32.abs().amax(dim=axis, keepdim=True)
+    scale = absmax * recip
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(x32 / scale, -_QMAX[mode], _QMAX[mode])
     if mode == "int8":
         q = torch.round(q)
     return QTensor(q.to(dtype), scale)
+
+
+def quantize_kv(x: torch.Tensor, mode: str) -> QTensor:
+    """`quantize_jitted` over the last dim, one scale per token and head:
+    the KV blocks are byte for byte the ones JAX's paged pool holds."""
+    return quantize_jitted(x, mode, axis=-1)
+
+
+def residual_of(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x - qt.dequantize() in fp32, rounded once, as XLA's fused
+    multiply-subtract computes it in a jitted step (the error-feedback
+    residuals of the int8 moments and of gradient compression). The
+    product of an int8 value and an fp32 scale is exact in fp64, and so
+    is its difference from an x of about its size: one rounding to fp32."""
+    return (x.to(torch.float64) - qt.values.to(torch.float64)
+            * qt.scales.to(torch.float64)).to(torch.float32)
 
 
 def fake_quantize(x: torch.Tensor, mode: str = "int8", *,

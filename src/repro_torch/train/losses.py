@@ -82,16 +82,11 @@ def classification_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
 
 
 def loss_for(cfg: ModelCfg):
-    """The loss of the config's family: `lm_loss` for a decoder,
-    `classification_loss` for an encoder. Families and layers the port
-    does not train raise, naming the slice that brings them."""
+    """The loss of the config's family: `lm_loss` for a decoder (attention
+    or RWKV6 blocks), `classification_loss` for an encoder. Families the
+    port does not train raise, naming the slice that brings them."""
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"no {cfg.family} loss yet: encdec (whisper) and VLM backbones "
             "arrive with the other-families slice")
-    if any(s.kind == "rwkv" for s in cfg.layer_slots()):
-        raise NotImplementedError(
-            f"{cfg.name}: decoder-LM training of an RWKV6 stack needs a "
-            "backward of the WKV6 recurrence (#8 has none; JAX differentiates its jnp twin), "
-            "which arrives with the rwkv6 training slice")
     return {"decoder": lm_loss, "encoder": classification_loss}[cfg.family]

@@ -1,6 +1,6 @@
 """Train-step builder (port of `repro.train.steps`): PEFT partition,
-gradient accumulation, clipping, AdamW; QPEFT (a quantized frozen trunk
-under a trainable adapter).
+gradient accumulation, gating, gradient compression, clipping, AdamW;
+QPEFT (a quantized frozen trunk under a trainable adapter).
 
 The state is a dict:
   step:      int, steps taken
@@ -9,11 +9,12 @@ The state is a dict:
              autograd reaches only what is trained (a quantized leaf is a
              QTensor, frozen by construction)
   trainable: {path: tensor}, the same tensor objects as in `params`
-  opt:       AdamW moments over `trainable`
+  opt:       AdamW moments over `trainable`, in OptimCfg's moment dtypes
+             (`optim.qstate`), with their int8 residuals under EF
+  err:       gradient compression's error buffers (only when
+             OptimCfg.compress_grads is set)
 A step updates the state in place and returns it. `state_tree` is what a
 checkpoint of it holds, `restore_state` puts one back.
-
-Gradient compression and quantized moments are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,28 +24,16 @@ import torch
 
 from repro_torch.common import tree as tu
 from repro_torch.common.types import ModelCfg, OptimCfg
-from repro_torch.convert import jax_ndim
+from repro_torch.convert import jax_ndim, jax_path
 from repro_torch.core import peft
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                     clip_by_global_norm, global_norm)
+from repro_torch.optim.compression import compress, ef_init
 from repro_torch.optim.schedule import lr_at
 from repro_torch.quant import is_qtensor, quantize_tree
 from repro_torch.sparse.importance import mask_gate
 from repro_torch.train.losses import loss_for
-
-_LATER = "the optimizer-state slice (gradient compression, quantized moments)"
-
-
-def check_optim(ocfg: OptimCfg) -> None:
-    """Raise on an OptimCfg option the port does not run yet."""
-    default = OptimCfg()
-    for name in ("compress_grads", "m_dtype", "v_dtype"):
-        if getattr(ocfg, name) != getattr(default, name):
-            raise NotImplementedError(
-                f"OptimCfg.{name}={getattr(ocfg, name)!r} is not ported yet; "
-                f"it arrives with {_LATER}")
-
 
 def _copy(leaf):
     if is_qtensor(leaf):
@@ -67,8 +56,8 @@ def make_state(gen: Optional[torch.Generator], cfg: ModelCfg,
     through the dequant matmul (#7) while the trainable leaves keep their
     dtype and exact gradients. It raises ValueError when a trainable leaf
     is already quantized, or when nothing was quantized (a strategy that
-    trains the backbone matmuls)."""
-    check_optim(ocfg)
+    trains the backbone matmuls). OptimCfg's moment dtypes shape the
+    AdamW state; compress_grads adds the error buffers `err`."""
     if params is None:
         params = M.init_params(gen, cfg)
     else:
@@ -97,24 +86,33 @@ def make_state(gen: Optional[torch.Generator], cfg: ModelCfg,
             trainable[path] = leaf
     # weight decay where JAX decays: leaves of rank >= 2 in its layout
     decay = [p for p, t in trainable.items() if jax_ndim(p, t) >= 2]
-    return {"step": 0, "params": params, "trainable": trainable,
-            "opt": adamw_init(trainable, decay)}
+    state = {"step": 0, "params": params, "trainable": trainable,
+             "opt": adamw_init(trainable, decay, ocfg)}
+    if ocfg.compress_grads:
+        state["err"] = ef_init(trainable)
+    return state
 
 
 def state_tree(state: dict) -> dict:
     """What a checkpoint of the state holds, as a nested dict of tensors
-    for `checkpoint.store`: the step, the trainable leaves by path and the
-    AdamW moments and count. The frozen trunk is not written: no step
-    changes it, and `make_state` rebuilds it from the same seed (and
-    calibration) before `restore_state` puts a checkpoint back."""
+    for `checkpoint.store`: the step, the trainable leaves by path, the
+    AdamW moments in their stored dtypes (an int8 moment as its QTensor),
+    their residuals and the count, and compression's error buffers. The
+    frozen trunk is not written: no step changes it, and `make_state`
+    rebuilds it from the same seed (and calibration) before
+    `restore_state` puts a checkpoint back."""
     def scalar(n):
         return torch.tensor(n, dtype=torch.int32)
 
     opt = state["opt"]
-    return {"step": scalar(state["step"]),
+    tree = {"step": scalar(state["step"]),
             "trainable": dict(state["trainable"]),
-            "opt": {"m": dict(opt["m"]), "v": dict(opt["v"]),
-                    "count": scalar(opt["count"])}}
+            "opt": {k: dict(opt[k]) for k in ("m", "v", "m_err", "v_err")
+                    if k in opt}}
+    tree["opt"]["count"] = scalar(opt["count"])
+    if "err" in state:
+        tree["err"] = dict(state["err"])
+    return tree
 
 
 _INTEROP = ("reading another layout (a checkpoint the JAX package wrote, "
@@ -125,14 +123,17 @@ _INTEROP = ("reading another layout (a checkpoint the JAX package wrote, "
 def restore_state(state: dict, restored: dict) -> dict:
     """Put a loaded checkpoint (`state_tree`'s layout, from
     `CheckpointManager.restore`) into `state`, in place: each trainable
-    leaf and moment takes the checkpoint's values by path, cast to its
-    dtype on its device; the step and the optimizer's count take the
-    checkpoint's. Returns the state.
+    leaf takes the checkpoint's values by path, cast to its dtype on its
+    device; each moment, residual and error buffer takes them as stored
+    (a QTensor's values and scales); the step and the optimizer's count
+    take the checkpoint's. Returns the state.
 
     The checkpoint must hold exactly the state's paths at the state's
     shapes, or ValueError: a checkpoint of another strategy or model, or
     one the JAX package wrote, would otherwise resume at its step with
-    fresh adapters and moments."""
+    fresh adapters and moments. So must its optimizer state be stored as
+    the state's is: another moment dtype, error feedback or
+    compress_grads raises ValueError too."""
     live = dict(tu.flatten_with_paths(state_tree(state)))
     flat = dict(tu.flatten_with_paths(restored))
     missing = sorted(set(live) - set(flat))
@@ -141,18 +142,39 @@ def restore_state(state: dict, restored: dict) -> dict:
         raise ValueError(
             f"checkpoint does not hold this train state: {len(missing)} of "
             f"its paths missing (first {missing[:2]}), {len(extra)} paths "
-            f"not in it (first {extra[:2]}); {_INTEROP}")
+            f"not in it (first {extra[:2]}); the optimizer's layout (moment "
+            f"dtypes, error feedback, compress_grads) must match too; "
+            f"{_INTEROP}")
     shapes = [p for p, t in live.items()
               if tuple(flat[p].shape) != tuple(t.shape)]
     if shapes:
         raise ValueError(f"checkpoint shapes differ from the state's at "
                          f"{shapes[:2]}; {_INTEROP}")
+    stored = [p for p, t in live.items()
+              if p.startswith(("opt/", "err/")) and _kind(flat[p]) != _kind(t)]
+    if stored:
+        raise ValueError(
+            f"checkpoint's optimizer state is stored otherwise at "
+            f"{stored[:2]}: {_kind(flat[stored[0]])}, the state's "
+            f"{_kind(live[stored[0]])} (another OptimCfg's moment dtypes)")
     for path, t in live.items():
-        if path not in ("step", "opt/count"):
+        if path in ("step", "opt/count"):
+            continue
+        if is_qtensor(t):
+            t.values.copy_(flat[path].values)
+            t.scales.copy_(flat[path].scales)
+        else:
             t.copy_(flat[path])
     state["step"] = int(flat["step"])
     state["opt"]["count"] = int(flat["opt/count"])
     return state
+
+
+def _kind(leaf) -> str:
+    """How a leaf is stored: its dtype, or a QTensor's values' dtype."""
+    if is_qtensor(leaf):
+        return f"QTensor[{str(leaf.values.dtype).removeprefix('torch.')}]"
+    return str(leaf.dtype).removeprefix("torch.")
 
 
 def merged_params(state: dict) -> dict:
@@ -169,8 +191,11 @@ def loss_and_grads(cfg: ModelCfg, state: dict, batch: dict,
     loss, metrics = (loss_fn or loss_for(cfg))(cfg, state["params"], batch,
                                                impl=impl)
     # a leaf the loss never reads (an encoder's final_norm under bitfit)
-    # gets a zero gradient, as jax.grad gives it
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # gets a zero gradient, as jax.grad gives it; so does every leaf when
+    # the loss reads none (LoRA or IA3 over RWKV6 blocks, where no op reads
+    # their leaves)
+    grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+             if loss.requires_grad else [None] * len(leaves))
     return loss, metrics, {p: torch.zeros_like(t) if g is None else g
                            for p, t, g in zip(paths, leaves, grads)}
 
@@ -195,10 +220,13 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
     computed and before the clip, as JAX does. A gated-off leaf is not
     frozen: AdamW still updates it with a zero gradient, so weight decay
     moves its decayed leaves (an adapter's w, a norm's scale), as in
-    JAX."""
+    JAX.
+
+    In JAX's order, the gated gradients are then compressed (when the
+    state holds `err`: int8 with one scale per JAX leaf, error carried),
+    clipped by their global norm, and handed to AdamW."""
     if gate is not None and layer_mask is not None:
         raise ValueError("pass either gate or layer_mask, not both")
-    check_optim(ocfg)
     if loss_fn is None:
         loss_for(cfg)  # a family the port does not train raises here
     gates = None if gate is None else dict(tu.flatten_with_paths(gate))
@@ -236,6 +264,9 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
         g_tree = gate_of(state)
         if g_tree is not None:
             grads = {p: g * g_tree[p] for p, g in grads.items()}
+        if "err" in state:
+            grads, state["err"] = compress(
+                grads, state["err"], group_of=lambda p: jax_path(p, cfg))
         if ocfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
         else:
