@@ -96,6 +96,23 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      prefill, extend, decode or verify tick and draft call as predicted,
      the pool drained to 0 live blocks once the prefix cache is cleared,
      cold and whole-prompt hits equal to the contiguous scheduler's tokens;
+  5a. observability and SLO admission control: 12 requests of 5p's shape
+     overload a paged, self-drafting (k = 4) scheduler built with
+     ServingConfig(slo=, admission=) and a MetricsRegistry, its monitor on
+     a clock of one second a tick: the ladder walks prefix_fill_stop,
+     spec_k=2, spec_k=1, spec_k=0, defer, shed in order, a submit while
+     shedding raises AdmissionShedError at level 6, every request finishes
+     (traces complete), shed 1, deferred ticks >= 1, level 0 after 20 idle
+     ticks, no retrace; in bf16 the tokens' agreement with an unloaded run
+     of plain greedy decoding (spec_k = 0) over the same pool is reported,
+     in fp32 (4p's model) they must be equal; then phase 5's
+     traffic with metrics on and off in three alternating pairs (host ms a
+     tick and tok/s, their ratio reported), and the serve launcher
+     in-process with JAX's obs and SLO flags: its JSON snapshot's series,
+     the .prom text of the registry it returns (cumulative buckets), its
+     JSONL events, and a 2-tick
+     profile holding the repro.paged_attention and
+     repro.fused_adapter_norm ranges and both sources' device kernels;
   6s. hot-swap serving, the launcher's lifecycle over the same traffic: 4
      tenants in an AdapterRegistry on disk (task0 and task2 pruned to
      paper-0.022 and published packed, task1 and task3 dense), a 3-row
@@ -178,7 +195,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      fp32's, a bf16+int8 run resumed at step 20 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     5p-6p,
+     5p-6p, 5a,
      8, 8d, 8r, 8p and 8q, and each kernel's device us per decode tick and per
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
@@ -2344,15 +2361,38 @@ def main() -> int:
                 {k: sorted({c[k] for c in per_call["prefill"]})
                  for k in counts})
 
-    def serve_line(rep):
+    def exact_latency(done):
+        """The exact p50 and max TTFT and token gap (a request's mean gap
+        between its output tokens) over the completions `done`, seconds:
+        the figures of PERF.md §5 (the report's p50/p95/p99 are histogram
+        estimates, over every request since the scheduler was built)."""
+        ttft = np.array([c.ttft_s for c in done], np.float64)
+        gap = np.array([(c.latency_s - c.ttft_s) / (len(c.tokens) - 1)
+                        for c in done if len(c.tokens) > 1], np.float64)
+
+        def stat(a, fn):
+            return float(fn(a)) if a.size else 0.0
+
+        return {"ttft_p50_exact_s": stat(ttft, np.median),
+                "ttft_max_s": stat(ttft, np.max),
+                "tpot_p50_exact_s": stat(gap, np.median),
+                "tpot_max_s": stat(gap, np.max)}
+
+    def serve_line(rep, done):
+        ex = exact_latency(done)
         return (f"{rep['requests']} requests / {rep['tokens']} tokens, "
                 f"{rep['ticks']} ticks, {rep['requests_per_s']:.3f} req/s, "
                 f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean/p50/max "
-                f"{rep['mean_ttft_s'] * 1e3:.1f}/{rep['ttft_p50_s'] * 1e3:.1f}/"
-                f"{rep['ttft_max_s'] * 1e3:.1f} ms, token gap p50/max "
-                f"{rep['tpot_p50_s'] * 1e3:.1f}/{rep['tpot_max_s'] * 1e3:.1f} "
-                f"ms, host s in prefill/decode {rep['prefill_s']:.3f}/"
-                f"{rep['decode_s']:.3f}")
+                f"{rep['mean_ttft_s'] * 1e3:.1f}/"
+                f"{ex['ttft_p50_exact_s'] * 1e3:.1f}/"
+                f"{ex['ttft_max_s'] * 1e3:.1f} ms (histogram p50/p95/p99 "
+                f"{rep['ttft_p50_s'] * 1e3:.1f}/{rep['ttft_p95_s'] * 1e3:.1f}/"
+                f"{rep['ttft_p99_s'] * 1e3:.1f}), token gap p50/max "
+                f"{ex['tpot_p50_exact_s'] * 1e3:.1f}/"
+                f"{ex['tpot_max_s'] * 1e3:.1f} ms (histogram p50/p95/p99 "
+                f"{rep['tpot_p50_s'] * 1e3:.1f}/{rep['tpot_p95_s'] * 1e3:.1f}/"
+                f"{rep['tpot_p99_s'] * 1e3:.1f}), host s in prefill/decode "
+                f"{rep['prefill_s']:.3f}/{rep['decode_s']:.3f}")
 
     # -- phases 5-6: serving at full width, bf16; 5q, 6q, 5f: quantized -----
     masked_name = "masked_multitask_hadamard"
@@ -2432,10 +2472,11 @@ def main() -> int:
         check_profiled(phase, pre, per_prefill)
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick, prefill=pre, **extra)
+                                    tick=tick, prefill=pre, **extra,
+                                    **exact_latency(done))
         kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
             (f", {quant} backbone" if quant else "")
-        log(f"[{phase}] serve {kind} on {smi}: {serve_line(rep)}; "
+        log(f"[{phase}] serve {kind} on {smi}: {serve_line(rep, done)}; "
             f"launches {launches[phase]}; "
             f"per decode tick {per_tick}; per prefill {per_prefill}; "
             f"memory {json.dumps(extra)}; decode tick {tick}")
@@ -2647,9 +2688,10 @@ def main() -> int:
                        for k in launches[phase]}
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick, prefill=pre, **extra)
+                                    tick=tick, prefill=pre, **extra,
+                                    **exact_latency(done))
         log(f"[{phase}] serve {feat} {'bank of %d' % tasks if tasks else 'one adapter'} "
-            f"on {smi}: {serve_line(rep)}; launches {launches[phase]}; per "
+            f"on {smi}: {serve_line(rep, done)}; launches {launches[phase]}; per "
             f"tick {per_tick}; per prefill {per_prefill}; "
             f"{json.dumps({k: v for k, v in extra.items() if k != 'pool_report'})}; "
             f"pool {extra.get('pool_report')}; tick {tick}")
@@ -2658,6 +2700,348 @@ def main() -> int:
         phase_done(phase)
     del eng, pre_of
     torch.cuda.empty_cache()
+
+    # -- phase 5a: observability and SLO admission control, full width ----
+    # qwen3-0.6b over a paged pool (16-token pages, prefix cache on) with a
+    # self draft at k = 4, built by make_scheduler(ServingConfig(slo=,
+    # admission=), obs=). Overload: 12 requests of 5p's shape (prompts 0-3
+    # distinct after the 96-token stem, 4-7 repeating them, 8-11 sharing
+    # the stem alone) on 4 slots, JAX's acceptance SLO (queue depth <= 2,
+    # target 0.5, windows 2 s and 10 s, a step down per breaching
+    # evaluation, two healthy ones a step up) on a clock advanced 1.0 a
+    # tick, so the walk is the ticks', not the host's. The ladder must walk
+    # its six rungs in order, shed a probe with the typed error at level 6,
+    # finish every request and recover to level 0; the loaded tokens are
+    # held to an unloaded run of plain greedy decoding over the same pool
+    # (spec_k = 0, which every rung must reproduce, as 4p holds; a
+    # verify-tick run at k = 4 costs 30-36 s on random weights): in bf16
+    # their agreement is reported, in fp32 (4p's model, TF32 off) they must
+    # be equal. Then phase 5's traffic with
+    # metrics on and off (three alternating pairs: the ratio is reported),
+    # and the serve launcher's obs and SLO flags in-process, once: the
+    # .prom text is written from the registry it returns
+    from repro_torch.obs import MetricsRegistry, SLOSpec, queue_depth_max
+    from repro_torch.serving import AdmissionConfig, AdmissionShedError
+
+    LADDER = ["prefix_fill_stop", "spec_k=2", "spec_k=1", "spec_k=0",
+              "defer", "shed"]
+    stem5a = rs.randint(10, V, 96)
+    tails5a = [np.concatenate([stem5a, rs.randint(10, V, 32)])
+               for _ in range(8)]
+    prompts5a = tails5a[:4] + tails5a[:4] + tails5a[4:]
+    slo_launches = {}
+    slo_report = {}
+    t5a, t5 = {}, time.perf_counter()  # the phase's seconds by part
+
+    class TickClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    def scfg_5a(spec_k=k_s, **kw):
+        return ServingConfig(num_slots=SERVE["num_slots"],
+                             max_len=SERVE["max_len"], paged=True,
+                             spec_k=spec_k, **kw)
+
+    def overload(tag, eng5, V5):
+        """The overload walk and an unloaded plain run of the same requests
+        over `eng5`; returns the walk's summary (the checks all passed)."""
+        reqs = lambda: [Request(prompt=p, max_new_tokens=SERVE["new_tokens"])  # noqa: E731
+                        for p in prompts5a]
+        clk = TickClock()
+        reg = MetricsRegistry()
+        spec5 = SLOSpec(objectives=(queue_depth_max(2, target=0.5),),
+                        windows=((2.0, 1.0), (10.0, 1.0)))
+        sched = make_scheduler(eng5, scfg_5a(
+            slo=spec5, admission=AdmissionConfig(
+                check_every=1, degrade_after=1, recover_after=2)), obs=reg)
+        # the config's monitor reads the host's clock; it reads the tick
+        # clock here, as JAX's acceptance test injects one
+        sched._slo_monitor.clock = clk
+        ctrl = sched._admission
+        check(ctrl.rung_names() == LADDER, f"phase 5a {tag}: rungs "
+              f"{ctrl.rung_names()}, want {LADDER}")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ids = [sched.submit(r) for r in reqs()]
+        shed_level, ticks = None, 0
+        while sched.pending or sched.active:
+            clk.t += 1.0
+            sched.step()
+            ticks += 1
+            check(ticks < 2000, f"phase 5a {tag}: the overloaded drain "
+                                "did not converge")
+            if ctrl.shedding and shed_level is None:
+                try:
+                    sched.submit(Request(prompt=np.arange(4),
+                                         max_new_tokens=2))
+                except AdmissionShedError as e:
+                    shed_level = (e.level, e.objectives)
+                check(shed_level is not None,
+                      f"phase 5a {tag}: a submit while shedding was taken")
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        for k in ("fused_adapter_norm", "flash_attention", "paged_attention"):
+            check(counts[k] > 0, f"phase 5a {tag}: {k} never launched")
+        check(shed_level == (6, ("queue_le_2",)), f"phase 5a {tag}: shed "
+              f"at {shed_level}, want level 6 for queue_le_2")
+        down = [e["rung"] for e in reg.events_of("degrade")
+                if e["direction"] == "down"]
+        check(down[:6] == LADDER, f"phase 5a {tag}: steps down {down}")
+        done = [sched.completions.pop(i) for i in ids]
+        rep5 = sched.report(done, walk_s, ticks=ticks)
+        check(rep5["shed"] == 1 and rep5["deferred_ticks"] >= 1,
+              f"phase 5a {tag}: shed {rep5['shed']}, deferred ticks "
+              f"{rep5['deferred_ticks']}")
+        check(all(len(c.tokens) == SERVE["new_tokens"]
+                  and c.finish_reason == "length"
+                  and bool(((c.tokens >= 0) & (c.tokens < V5)).all())
+                  for c in done), f"phase 5a {tag}: requests retired as "
+              f"{[(len(c.tokens), c.finish_reason) for c in done]}")
+        for c in done:
+            tr = reg.tracer.find(c.request_id)
+            names = tr.names()
+            check(names[0] == "submit" and names[-1] == "retire"
+                  and tr.count("admit") == 1
+                  and tr.count("token") == len(c.tokens),
+                  f"phase 5a {tag}: request {c.request_id}'s trace "
+                  f"{sorted(set(names))} ({tr.count('admit')} admits, "
+                  f"{tr.count('token')} token marks)")
+        level_at_drain = ctrl.level
+        clk.t += 11.0
+        for _ in range(20):
+            clk.t += 1.0
+            sched.step()
+        check(ctrl.level == 0 and sched.spec_k_eff == k_s
+              and sched._prefix_fill and not ctrl.deferring,
+              f"phase 5a {tag}: after 20 idle ticks level {ctrl.level}, "
+              f"spec_k_eff {sched.spec_k_eff}, prefix fill "
+              f"{sched._prefix_fill}")
+        check(not reg.events_of("retrace"), f"phase 5a {tag}: retraces")
+        # the unloaded run: the same requests, no SLO, plain greedy decoding
+        t0 = time.perf_counter()
+        udone, urep = make_scheduler(eng5, scfg_5a(spec_k=0)).run(reqs())
+        unloaded_s = time.perf_counter() - t0
+        same = [float((c.tokens == u.tokens).mean())
+                for c, u in zip(done, udone)]
+        snap = reg.snapshot()
+        return dict(
+            walk_s=walk_s, unloaded_s=unloaded_s, ticks=ticks, report=rep5,
+            counts=counts,
+            level_at_drain=level_at_drain, shed_level=shed_level[0],
+            degrade=[(e["rung"], e["direction"], e["level"])
+                     for e in reg.events_of("degrade")],
+            events=snap["events_by_kind"], stats=sched.stats,
+            spec_stats=sched.spec_stats, agreement_with_unloaded=same,
+            unloaded_ticks=urep["ticks"], tokens_equal=all(v == 1.0 for v in same))
+
+    # bf16: phase 5's engine
+    eng = launcher.build_engine(cfg, seed=SERVE["seed"], device=dev)
+    make_scheduler(eng, scfg_5a()).run(  # warm-up
+        [Request(prompt=p, max_new_tokens=4) for p in prompts5a[:2]])
+    t5a["bf16 build"] = time.perf_counter() - t5
+    t5 = time.perf_counter()
+    slo_report["bf16"] = r5 = overload("bf16", eng, V)
+    t5a["bf16 walk"] = time.perf_counter() - t5
+    t5 = time.perf_counter()
+    slo_launches["serve_slo_bf16"] = r5["counts"]
+    log(f"[5a] bf16 overload on {smi}: {r5['ticks']} ticks in "
+        f"{r5['walk_s']:.2f} s, shed at level {r5['shed_level']}, level "
+        f"{r5['level_at_drain']} when drained, 0 after 20 idle ticks; "
+        f"degrade {r5['degrade']}; report {r5['report']}; events "
+        f"{r5['events']}; admissions {r5['stats']}; {r5['spec_stats']}; "
+        f"agreement with the unloaded plain run (reported, not gated) "
+        f"{np.mean(r5['agreement_with_unloaded']):.4f} "
+        f"{r5['agreement_with_unloaded']}; launches {r5['counts']}")
+
+    # the cost of metrics: phase 5's traffic through the contiguous
+    # scheduler, metrics on / off in turns
+    reqs5 = launcher.make_requests(cfg, SERVE["requests"],
+                                   SERVE["prompt_len"], SERVE["new_tokens"],
+                                   0, SERVE["seed"])
+    cost = {"on": [], "off": []}
+    _build.reset_launches()
+    for _ in range(3):
+        for leg in ("on", "off"):
+            sched = make_scheduler(eng, ServingConfig(
+                num_slots=SERVE["num_slots"], max_len=SERVE["max_len"]),
+                obs=MetricsRegistry(enabled=leg == "on"))
+            torch.cuda.synchronize()
+            _, rep5 = sched.run(reqs5)
+            cost[leg].append((rep5["elapsed_s"] / rep5["ticks"] * 1e3,
+                              rep5["tokens_per_s"]))
+    slo_launches["serve_obs_cost"] = _build.launch_counts()
+    med = {leg: (float(np.median([a for a, _ in v])),
+                 float(np.median([b for _, b in v])))
+           for leg, v in cost.items()}
+    slo_report["metrics_cost"] = dict(
+        runs=cost, median_host_ms_per_tick_on=med["on"][0],
+        median_host_ms_per_tick_off=med["off"][0],
+        median_tok_s_on=med["on"][1], median_tok_s_off=med["off"][1],
+        tok_s_ratio_on_over_off=med["on"][1] / med["off"][1])
+    log(f"[5a] metrics on/off, phase 5's traffic, on {smi}: median host ms "
+        f"a tick {med['on'][0]:.2f} / {med['off'][0]:.2f}, tok/s "
+        f"{med['on'][1]:.1f} / {med['off'][1]:.1f}, ratio on/off "
+        f"{med['on'][1] / med['off'][1]:.4f} (reported, not gated); runs "
+        f"{cost}")
+    del eng, sched
+    torch.cuda.empty_cache()
+    t5a["metrics on/off"] = time.perf_counter() - t5
+    t5 = time.perf_counter()
+
+    # fp32, TF32 off: 4p's model
+    base5 = launcher.build_base(cfg32, 1, dev)
+    eng = ServeEngine(cfg32, launcher.task_variants(base5, 1, 1)[0],
+                      device=dev)
+    del base5
+    slo_report["fp32"] = r5 = overload("fp32", eng, cfg32.vocab_size)
+    slo_launches["serve_slo_fp32"] = r5["counts"]
+    check(r5["tokens_equal"], f"phase 5a fp32: the loaded run's tokens "
+          f"differ from the unloaded plain run's: "
+          f"{r5['agreement_with_unloaded']}")
+    log(f"[5a] fp32 overload on {smi}: {r5['ticks']} ticks in "
+        f"{r5['walk_s']:.2f} s, shed at level {r5['shed_level']}; degrade "
+        f"{r5['degrade']}; report {r5['report']}; admissions {r5['stats']} "
+        f"(unloaded plain run {r5['unloaded_ticks']} ticks); tokens equal to "
+        f"the unloaded plain run's: {r5['tokens_equal']}; launches "
+        f"{r5['counts']}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the launcher: JAX's obs and SLO flags, a JSON snapshot, the events,
+    # a profile of 2 ticks; then its registry's snapshot as Prometheus text
+    import contextlib
+    import io
+
+    from repro_torch.obs import write_snapshot
+
+    t5a["fp32 build and walk"] = time.perf_counter() - t5
+    t5 = time.perf_counter()
+    td5 = tempfile.TemporaryDirectory()
+    d5 = Path(td5.name)
+    _build.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        reg5 = launcher.main([
+            "--arch", ARCH, "--page-size", "16", "--spec-k", str(k_s),
+            "--slo-queue-depth", "2", "--admission", "--metrics-every", "16",
+            "--metrics-file", str(d5 / "m.json"), "--events-file",
+            str(d5 / "e.jsonl"), "--profile-dir", str(d5 / "prof"),
+            "--profile-ticks", "2"])
+    write_snapshot(reg5, str(d5 / "m.prom"))  # a .prom path, as the flag
+    torch.cuda.empty_cache()
+    slo_launches["serve_launcher"] = _build.launch_counts()
+    t5a["launcher"] = time.perf_counter() - t5
+    t5 = time.perf_counter()
+    text5 = buf.getvalue()
+    for line in text5.splitlines():
+        if line.startswith(("SLO", "[obs]", "speculation:", "pool:",
+                            "served", "metrics snapshot", "profiler trace",
+                            "WARNING")):
+            log(f"[5a] launcher: {line}")
+    check("SLOs: queue_le_2 (admission ladder armed)" in text5
+          and any(x.startswith("SLO: ") for x in text5.splitlines())
+          and "WARNING" not in text5, "phase 5a: the launcher's SLO lines")
+    snap5 = json.loads((d5 / "m.json").read_text())
+    hists, ctrs = snap5["histograms"], snap5["counters"]
+    for key in ("serve_ttft_s{sched=spec_paged}",
+                "serve_tpot_s{sched=spec_paged}"):
+        h = hists.get(key, {})
+        check(h.get("count", 0) > 0
+              and 0 <= h["p50"] <= h["p95"] <= h["p99"],
+              f"phase 5a: launcher snapshot {key} = {h}")
+    for key in ("serve_prefix_hits_total{tier=full}",
+                "serve_prefix_hits_total{tier=partial}",
+                "serve_prefix_hits_total{tier=cold}",
+                "serve_spec_drafted_total", "serve_spec_accepted_total",
+                "serve_spec_ticks_total", "serve_tokens_total{sched=spec_paged}",
+                "serve_retrace_events_total{sched=spec_paged}",
+                "serve_admission_shed_total{sched=spec_paged}"):
+        check(key in ctrs, f"phase 5a: launcher snapshot lacks {key}")
+    check(ctrs["serve_retrace_events_total{sched=spec_paged}"] == 0
+          and snap5["events_by_kind"].get("retrace", 0) == 0,
+          "phase 5a: retraces in the launcher's serve")
+    for key in ("prefix_hit_ratio_full", "prefix_hit_ratio_partial",
+                "spec_acceptance_rate"):
+        check(key in snap5["derived"], f"phase 5a: snapshot lacks {key}")
+    check("kv_free_blocks" in snap5["gauges"],
+          "phase 5a: snapshot lacks kv_free_blocks")
+    events5 = [json.loads(x) for x in
+               (d5 / "e.jsonl").read_text().splitlines()]
+    # the .prom text: TYPE lines once a name, cumulative buckets ending at
+    # +Inf == _count
+    prom = (d5 / "m.prom").read_text()
+    typed, buckets, counts5 = {}, {}, {}
+    for line in prom.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            check(name not in typed, f"phase 5a: .prom types {name} twice")
+            typed[name] = kind
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][\w:]*)(\{.*\})? (\S+)", line)
+        check(m is not None, f"phase 5a: .prom line {line!r}")
+        name, val = m.group(1), float(m.group(3))
+        labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                 m.group(2) or ""))
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        check(name in typed or base in typed,
+              f"phase 5a: .prom sample {name} has no TYPE line")
+        series = (base, tuple(sorted((k, v) for k, v in labels.items()
+                                     if k != "le")))
+        if name.endswith("_bucket") and typed.get(base) == "histogram":
+            buckets.setdefault(series, []).append(val)
+        elif name.endswith("_count") and typed.get(base) == "histogram":
+            counts5[series] = val
+    check(buckets and all(
+        all(a <= b for a, b in zip(v, v[1:])) and v[-1] == counts5[k]
+        for k, v in buckets.items()), "phase 5a: .prom buckets not "
+        "cumulative to _count")
+    # the profile: the repro.* ranges and the port's kernels on the device
+    trace5 = json.loads((d5 / "prof" / "trace.json").read_text())
+    names5 = [e.get("name", "") for e in trace5["traceEvents"]]
+    ranges = {n: names5.count(n) for n in ("repro.paged_attention",
+                                           "repro.fused_adapter_norm",
+                                           "repro.flash_attention")}
+    dev_kernels = {}
+    for src in ("paged_attention.cu", "fused_adapter_norm.cu"):
+        pat = re.compile(r"\b(" + "|".join(sorted(source_kernels[src]))
+                         + r")\b")
+        dev_kernels[src] = sum(
+            1 for e in trace5["traceEvents"]
+            if e.get("cat") == "kernel" and pat.search(e.get("name", "")))
+    check(ranges["repro.paged_attention"] >= 1
+          and ranges["repro.fused_adapter_norm"] >= 1
+          and all(v >= 1 for v in dev_kernels.values()),
+          f"phase 5a: profile ranges {ranges}, device kernels "
+          f"{dev_kernels}")
+    t5a["launcher files"] = time.perf_counter() - t5
+    slo_report["seconds"] = t5a
+    slo_report["launcher"] = dict(
+        seconds=t5a["launcher"], events=len(events5),
+        events_by_kind=snap5["events_by_kind"], ranges=ranges,
+        device_kernels=dev_kernels, trace_events=len(names5),
+        trace_bytes=(d5 / "prof" / "trace.json").stat().st_size,
+        prom_series=len(typed), snapshot_counters=ctrs,
+        snapshot_derived=snap5["derived"],
+        ttft=hists["serve_ttft_s{sched=spec_paged}"],
+        tpot=hists["serve_tpot_s{sched=spec_paged}"])
+    log(f"[5a] launcher on {smi}: {t5a['launcher']:.2f} s; profile of 2 "
+        f"ticks: {len(names5)} trace events "
+        f"({slo_report['launcher']['trace_bytes']} bytes), ranges {ranges}, "
+        f"device kernels {dev_kernels}; {len(events5)} events "
+        f"{snap5['events_by_kind']}; .prom {len(typed)} series; derived "
+        f"{snap5['derived']}; launches {slo_launches['serve_launcher']}")
+    log("[5a] seconds by part: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in t5a.items())
+        + f" (unloaded plain runs: bf16 "
+        f"{slo_report['bf16']['unloaded_s']:.2f}, "
+        f"fp32 {slo_report['fp32']['unloaded_s']:.2f})")
+    td5.cleanup()
+    phase_done("5a")
 
     # -- phases 6s, 6w, 6rs: hot-swap serving at full width, bf16 ----------
     # the launcher's lifecycle over the traffic of phases 5-6: tenants in an
@@ -2774,7 +3158,7 @@ def main() -> int:
         pre = profile_prefill(eng)
         check_profiled(phase, pre, per_prefill)
         serve_reports[phase] = dict(
-            rep, launches_per_decode_tick=per_tick,
+            rep, **exact_latency(done), launches_per_decode_tick=per_tick,
             launches_per_prefill=per_prefill, tick=tick, prefill=pre,
             bank=stats, bank_during_run=stats_run, bank_lines=lines,
             weights_bytes_allocated=weights_bytes,
@@ -2783,7 +3167,7 @@ def main() -> int:
                  else "hot-swap shared-w bank, 4 pruned tenants")
                 + (f", {RWKV_ARCH}" if rwkv_run else ""))
         log(f"[{phase}] serve {kind}, {BANK_ROWS} rows, on {smi}: "
-            f"{serve_line(rep)}; launches {launches[phase]}; per decode tick "
+            f"{serve_line(rep, done)}; launches {launches[phase]}; per decode tick "
             f"{per_tick}; per prefill {per_prefill}; bank during the run "
             f"{stats_run}; engine bytes {weights_bytes}, peak {peak_bytes}; "
             f"decode tick {tick}")
@@ -2871,10 +3255,11 @@ def main() -> int:
                          greedy_agreement_with_bf16_ungated=sum(same) / len(same))
         serve_reports[phase] = dict(rep, launches_per_decode_tick=per_tick,
                                     launches_per_prefill=per_prefill,
-                                    tick=tick, prefill=pre, **extra)
+                                    tick=tick, prefill=pre, **extra,
+                                    **exact_latency(done))
         kind = ("single-tenant" if tasks == 0 else f"{tasks}-task bank") + \
             (f", {quant} backbone" if quant else "")
-        log(f"[{phase}] serve {RWKV_ARCH} {kind} on {smi}: {serve_line(rep)}; "
+        log(f"[{phase}] serve {RWKV_ARCH} {kind} on {smi}: {serve_line(rep, done)}; "
             f"launches {launches[phase]}; per decode tick {per_tick}; per "
             f"prefill {per_prefill}; memory {json.dumps(extra)}; decode tick "
             f"{tick}")
@@ -4255,7 +4640,8 @@ def main() -> int:
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
                 **{f"train_rwkv_{t}": c for t, c in rwkv_launches.items()},
                 **{f"pretrain_{t}": c for t, c in pq_launches.items()},
-                **{f"paper_{t}": c for t, c in paper_launches.items()}}
+                **{f"paper_{t}": c for t, c in paper_launches.items()},
+                **slo_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
              "plain_host_ms", "library_host_ms", "bytes", "flops")
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
@@ -4332,7 +4718,7 @@ def main() -> int:
                       "train_lm": lm_report, "mlm_model": mlm_check,
                       "rwkv_train_model": rwkv_train_model,
                       "train_rwkv": rwkv_report, "pretrain_q": pq_report,
-                      "paper": paper_report,
+                      "paper": paper_report, "slo_admission": slo_report,
                       "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()

@@ -8,6 +8,10 @@ impl, resolved per call from the first tensor argument:
   'ref'     the plain version on whatever device the tensor is on; what
             `chip_smoke.py` and the tests compare a kernel against. The
             serving path never passes it.
+
+Each dispatch function is a named range under JAX's name
+(`repro.<op>`, `repro_torch.obs.profile.scope`), recorded only while a
+profiler capture runs.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.kernels import multitask as _mt
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import rwkv6 as _rwkv6
 from repro_torch.kernels import sparse as _sparse
+from repro_torch.obs.profile import scope
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -39,6 +44,7 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     return False
 
 
+@scope("repro.hadamard")
 def hadamard(x, w, b, impl: str = "auto"):
     """y = x*w + b over the trailing dim, out in x.dtype; see
     `ref.hadamard_ref`."""
@@ -55,6 +61,7 @@ def hadamard_affine_bwd(g, x, w, impl: str = "auto"):
     return ref.hadamard_affine_bwd_ref(g, x, w)
 
 
+@scope("repro.fused_adapter_norm")
 def fused_adapter_norm(x, res, w, b, scale, bias=None, eps: float = 1e-6,
                        impl: str = "auto"):
     """(x*w + b + res, Norm(that)*scale[+bias]); see
@@ -66,6 +73,7 @@ def fused_adapter_norm(x, res, w, b, scale, bias=None, eps: float = 1e-6,
                                                bias=bias)
 
 
+@scope("repro.flash_attention")
 def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, cap: float = 0.0,
@@ -81,6 +89,7 @@ def flash_attention(q, k, v, causal: bool = True,
                              scale=scale, cap=cap, return_lse=return_lse)
 
 
+@scope("repro.paged_attention")
 def paged_attention(q, k_pool, v_pool, tables, kv_lens,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, cap: float = 0.0,
@@ -96,6 +105,7 @@ def paged_attention(q, k_pool, v_pool, tables, kv_lens,
                                    k_scales=k_scales, v_scales=v_scales)
 
 
+@scope("repro.multitask_hadamard")
 def multitask_hadamard(x, w_bank, b_bank, task_ids, impl: str = "auto"):
     """y[i] = x[i]*w_bank[tid[i]] + b_bank[tid[i]]; see
     `ref.multitask_hadamard_ref`."""
@@ -104,6 +114,7 @@ def multitask_hadamard(x, w_bank, b_bank, task_ids, impl: str = "auto"):
     return ref.multitask_hadamard_ref(x, w_bank, b_bank, task_ids)
 
 
+@scope("repro.masked_multitask_hadamard")
 def masked_multitask_hadamard(x, w_bank, b_bank, gate, task_ids,
                               impl: str = "auto"):
     """y[i] = x[i] + gate[t]*(x[i]*(w_bank[t]-1) + b_bank[t]), t clamped
@@ -115,6 +126,7 @@ def masked_multitask_hadamard(x, w_bank, b_bank, gate, task_ids,
                                              task_ids)
 
 
+@scope("repro.dequant_matmul")
 def dequant_matmul(x, values, scales, impl: str = "auto"):
     """x @ (values * scales) with int8/fp8 values and per-output-column
     fp32 scales, fp32 sums, out in x.dtype; see `ref.dequant_matmul_ref`."""
@@ -123,6 +135,7 @@ def dequant_matmul(x, values, scales, impl: str = "auto"):
     return ref.dequant_matmul_ref(x, values, scales)
 
 
+@scope("repro.wkv6")
 def wkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
     """The RWKV6 recurrence over (B, H, T, n) r, k, v, w from the state s0
     (zeros when None); see `ref.wkv6_ref`. Returns (o in r.dtype, the final

@@ -52,12 +52,27 @@ An RWKV6 architecture serves in every mode: its time and channel mixes
 match no projection of the quantization table, so --quant quantizes its
 untied LM head alone, as the JAX launcher does; its adapter is d_model wide
 and hot-swaps like an attention block's.
+
+Observability and SLOs, JAX's two flag groups: one MetricsRegistry takes
+every series of the serve; --metrics-every N prints a digest every N
+ticks, --metrics-file writes its final snapshot (JSON, or Prometheus text
+for a .prom path), --events-file appends its events as JSONL, and
+--profile-dir writes a Chrome trace of the first --profile-ticks ticks
+(`trace.json`: the host's ops and the `repro.*` kernel ranges beside the
+device's kernels). --slo-ttft-ms/--slo-tpot-ms/--slo-queue-depth/
+--slo-kv-free/--slo-accept declare objectives, evaluated as multi-window
+burn rates; with --admission the degradation ladder acts on them (prefix
+fill stop, spec_k halving, defer, shed):
+
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --page-size 16 \
+      --spec-k 4 --slo-queue-depth 2 --admission --metrics-every 16 \
+      --metrics-file m.json --events-file e.jsonl --profile-dir prof \
+      --profile-ticks 2
 """
 from __future__ import annotations
 
 import argparse
 import tempfile
-import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -70,8 +85,13 @@ from repro_torch.configs import get, get_smoke
 from repro_torch.core import peft
 from repro_torch.core.hadamard import extract_delta, perturb_adapters
 from repro_torch.models import model as M
+from repro_torch.obs import (JsonlSink, MetricsRegistry, ProfiledTicks,
+                             SLOSpec, accept_floor, kv_free_floor,
+                             queue_depth_max, tpot_target, ttft_target,
+                             write_snapshot)
 from repro_torch.quant import quant_summary
 from repro_torch.serving import (AdapterBank, AdapterRegistry,
+                                 AdmissionConfig, AdmissionShedError,
                                  MultiTaskEngine, Request, ServeEngine,
                                  ServingConfig, format_report, make_scheduler)
 from repro_torch.serving.engine import round_to_page
@@ -175,28 +195,35 @@ def hot_swap_engine(cfg: ModelCfg, base: dict, variants: List[dict],
 
 
 def serve_with_runtime_add(sched, requests: List[Request], hot: str,
-                           publish_hot: Callable[[], None], log=print):
+                           publish_hot: Callable[[], None], log=print,
+                           on_tick: Optional[Callable[[], None]] = None):
     """The JAX launcher's tenant lifecycle: serve every request but those
     of `hot`; once half of them have completed, `publish_hot()` and submit
-    the rest mid-stream. Returns (completions in submit order, report)."""
+    the rest mid-stream (a request the admission ladder sheds is logged
+    and dropped). `on_tick()` runs after every tick. Returns (completions
+    in submit order, report)."""
     early = [r for r in requests if r.adapter != hot]
     late = [r for r in requests if r.adapter == hot]
-    ticks0, pre0, dec0 = sched._ticks, sched._prefill_s, sched._decode_s
-    t0 = time.perf_counter()
-    ids = [sched.submit(r) for r in early]
-    while sched.pending or sched.active or late:
-        sched.step()
-        if late and len(sched.completions) * 2 >= len(early):
-            publish_hot()
-            log(f"  ++ runtime add: published {hot!r}, submitting "
-                f"{len(late)} request(s) for it mid-stream")
-            ids += [sched.submit(r) for r in late]
-            late = []
-    elapsed = time.perf_counter() - t0
-    done = [sched.completions.pop(i) for i in ids]
-    return done, sched.report(done, elapsed, ticks=sched._ticks - ticks0,
-                              prefill_s=sched._prefill_s - pre0,
-                              decode_s=sched._decode_s - dec0)
+
+    def tick() -> List[int]:
+        nonlocal late
+        if on_tick is not None:
+            on_tick()
+        if not late or len(sched.completions) * 2 < len(early):
+            return []
+        publish_hot()
+        log(f"  ++ runtime add: published {hot!r}, submitting "
+            f"{len(late)} request(s) for it mid-stream")
+        ids = []
+        for r in late:
+            try:
+                ids.append(sched.submit(r))
+            except AdmissionShedError as e:
+                log(f"  !! shed: {e}")
+        late = []
+        return ids
+
+    return sched.run(early, on_tick=tick)
 
 
 def remove_tenant(registry: AdapterRegistry, engine: MultiTaskEngine,
@@ -249,7 +276,45 @@ def outcome_lines(sched) -> List[str]:
     return lines
 
 
-def main(argv=None):
+def slo_objectives(args, paged: bool) -> list:
+    """The objectives the --slo-* flags declare, with JAX's refusals."""
+    objectives = []
+    if args.slo_ttft_ms > 0:
+        objectives.append(ttft_target(args.slo_ttft_ms,
+                                      target=args.slo_target))
+    if args.slo_tpot_ms > 0:
+        objectives.append(tpot_target(args.slo_tpot_ms,
+                                      target=args.slo_target))
+    if args.slo_queue_depth > 0:
+        objectives.append(queue_depth_max(args.slo_queue_depth,
+                                          target=args.slo_target))
+    if args.slo_kv_free > 0:
+        if not paged:
+            raise SystemExit("--slo-kv-free needs paged KV (--page-size)")
+        objectives.append(kv_free_floor(args.slo_kv_free,
+                                        target=args.slo_target))
+    if args.slo_accept > 0:
+        if not args.spec_k:
+            raise SystemExit("--slo-accept needs speculation (--spec-k)")
+        objectives.append(accept_floor(args.slo_accept))
+    if args.admission and not objectives:
+        raise SystemExit("--admission needs at least one --slo-* objective")
+    return objectives
+
+
+def slo_line(obs: MetricsRegistry, report: dict, admission: bool) -> str:
+    """The JAX launcher's closing SLO line."""
+    breaches = obs.events_of("slo_breach")
+    return (f"SLO: {len(breaches)} breach event(s)"
+            + (f" ({', '.join(sorted({e['objective'] for e in breaches}))})"
+               if breaches else "")
+            + (f"; ladder level {report['degrade_level']}, "
+               f"{report['shed']} shed, {report['deferred_ticks']} "
+               "deferred tick(s)" if admission else ""))
+
+
+def main(argv=None) -> MetricsRegistry:
+    """Serve as the flags say; returns the serve's MetricsRegistry."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -314,6 +379,48 @@ def main(argv=None):
                          "(here: the untuned base)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+
+    g = ap.add_argument_group("observability (repro_torch.obs)")
+    g.add_argument("--metrics-every", type=int, default=0,
+                   help=">0: print a one-line metrics digest every N "
+                        "scheduler ticks")
+    g.add_argument("--metrics-file", default="",
+                   help="write the final MetricsRegistry snapshot here "
+                        "(JSON; a .prom suffix writes Prometheus text "
+                        "exposition instead)")
+    g.add_argument("--events-file", default="",
+                   help="append structured events (retraces, bank "
+                        "evictions/pin stalls, degradation steps) as JSONL "
+                        "here")
+    g.add_argument("--profile-dir", default="",
+                   help="capture a torch.profiler trace of the first "
+                        "--profile-ticks scheduler ticks into this "
+                        "directory (trace.json, Chrome trace format)")
+    g.add_argument("--profile-ticks", type=int, default=8,
+                   help="scheduler ticks the --profile-dir capture spans")
+
+    g = ap.add_argument_group("SLOs / admission control")
+    g.add_argument("--slo-ttft-ms", type=float, default=0,
+                   help=">0: TTFT objective - --slo-target of requests "
+                        "must see first token under this many ms")
+    g.add_argument("--slo-tpot-ms", type=float, default=0,
+                   help=">0: per-output-token latency objective")
+    g.add_argument("--slo-queue-depth", type=int, default=0,
+                   help=">0: queued requests must stay at or under this")
+    g.add_argument("--slo-kv-free", type=int, default=0,
+                   help=">0: paged KV pool must keep this many free blocks")
+    g.add_argument("--slo-accept", type=float, default=0,
+                   help=">0: speculative acceptance-rate floor (0..1)")
+    g.add_argument("--slo-target", type=float, default=0.95,
+                   help="good fraction the latency/gauge objectives must "
+                        "hold (error budget = 1 - target)")
+    g.add_argument("--admission", action="store_true",
+                   help="act on SLO breaches with the degradation ladder: "
+                        "stop prefix fill -> step spec_k down -> defer -> "
+                        "shed (serving/admission.py); without this, "
+                        "breaches only land as registry events")
+    g.add_argument("--admission-check-every", type=int, default=4,
+                   help="evaluate the SLO monitor every N scheduler ticks")
     args = ap.parse_args(argv)
 
     quant = args.quant or None
@@ -359,6 +466,21 @@ def main(argv=None):
         args.prompt_len + args.new_tokens + args.spec_k)
     if paged:
         max_len = -(-max_len // args.page_size) * args.page_size
+    # one registry for the whole serve: every scheduler, bank and cache
+    # series, the request tracer, and the exporters attached to it
+    obs = MetricsRegistry()
+    events_sink = None
+    if args.events_file:
+        events_sink = JsonlSink(args.events_file)
+        obs.add_sink(events_sink)
+    objectives = slo_objectives(args, paged)
+    slo = SLOSpec(objectives=tuple(objectives)) if objectives else None
+    admission = (AdmissionConfig(check_every=args.admission_check_every)
+                 if args.admission else None)
+    if slo is not None:
+        print("SLOs: " + ", ".join(o.name for o in objectives)
+              + (" (admission ladder armed)" if args.admission
+                 else " (monitor only)"))
     try:
         scfg = ServingConfig(
             num_slots=args.num_slots, max_len=max_len, paged=paged,
@@ -367,17 +489,35 @@ def main(argv=None):
             prefix_cache=args.prefix_cache, kv_quant=args.kv_quant or None,
             spec_k=args.spec_k, spec_draft=args.spec_draft,
             top_k=args.top_k, temperature=args.temperature,
-            backbone_quant=quant)
+            backbone_quant=quant, slo=slo, admission=admission)
         sched = make_scheduler(
             engine, scfg,
             draft_model=((cfg, base) if args.spec_k
-                         and args.spec_draft == "model" else None))
+                         and args.spec_draft == "model" else None),
+            obs=obs)
     except ValueError as e:
         raise SystemExit(str(e))
     requests = make_requests(cfg, args.requests, args.prompt_len,
                              args.new_tokens, args.tasks, args.seed,
                              scfg.top_k, scfg.temperature,
                              named=registry is not None)
+    prof = (ProfiledTicks(args.profile_dir, n=args.profile_ticks)
+            if args.profile_dir else None)
+
+    def after_tick():
+        """The launcher's obs hooks after a scheduler tick."""
+        if prof is not None:
+            prof.tick()
+        if (args.metrics_every and sched._ticks
+                and sched._ticks % args.metrics_every == 0):
+            snap = obs.snapshot()
+            tok = sum(v for k, v in snap["counters"].items()
+                      if k.startswith("serve_tokens_total"))
+            print(f"[obs] tick {sched._ticks}: {tok} tokens emitted, "
+                  f"{sched.active} active, {sched.pending} queued, "
+                  f"{snap['events_by_kind'].get('retrace', 0)} retrace "
+                  "events", flush=True)
+
     for line in feature_lines(args, sched):
         print(line)
     if registry is not None and args.tasks > 1:
@@ -385,12 +525,13 @@ def main(argv=None):
         done, report = serve_with_runtime_add(
             sched, requests, hot,
             lambda: registry.publish(hot, task_delta(variants[-1], cfg,
-                                                     layer_mask)))
+                                                     layer_mask)),
+            on_tick=after_tick)
         remove_tenant(registry, engine, "task0")
         for line in bank_lines(engine):
             print(line)
     else:
-        done, report = sched.run(requests)
+        done, report = sched.run(requests, on_tick=after_tick)
     for c in done:
         who = c.adapter if c.adapter is not None else f"task{c.task_id}"
         print(f"req{c.request_id} {who} prompt={c.prompt_len} "
@@ -405,6 +546,21 @@ def main(argv=None):
     print(format_report(report))
     for line in outcome_lines(sched):
         print(line)
+    if slo is not None:
+        print(slo_line(obs, report, args.admission))
+    n_retrace = len(obs.events_of("retrace"))
+    if n_retrace:
+        print(f"WARNING: {n_retrace} mid-serve retrace event(s) - see "
+              "--events-file for details")
+    if prof is not None:
+        prof.stop()
+        print(f"profiler trace -> {args.profile_dir}")
+    if args.metrics_file:
+        write_snapshot(obs, args.metrics_file)
+        print(f"metrics snapshot -> {args.metrics_file}")
+    if events_sink is not None:
+        events_sink.close()
+    return obs
 
 
 if __name__ == "__main__":

@@ -1,7 +1,11 @@
 """Serving surface of the port: engines, the continuous-batching
 schedulers (slot caches or a paged block pool, each with or without
-speculative decoding), the adapter registry and hot-swap bank, and the
-declarative config that builds the scheduler."""
+speculative decoding), the adapter registry and hot-swap bank, the
+declarative config that builds the scheduler, and the admission ladder
+that sheds load to protect the SLOs."""
+from repro_torch.serving.admission import (AdmissionConfig,
+                                           AdmissionController,
+                                           AdmissionShedError)
 from repro_torch.serving.config import ServingConfig, make_scheduler
 from repro_torch.serving.engine import MultiTaskEngine, ServeEngine
 from repro_torch.serving.registry import (AdapterBank, AdapterRegistry,
@@ -13,7 +17,8 @@ from repro_torch.serving.paged import (BlockAllocator, BlockPoolFullError,
 from repro_torch.serving.spec import (DraftLane, SpecPagedScheduler,
                                       SpecScheduler)
 
-__all__ = ["AdapterBank", "AdapterRegistry", "BankFullError",
+__all__ = ["AdapterBank", "AdapterRegistry", "AdmissionConfig",
+           "AdmissionController", "AdmissionShedError", "BankFullError",
            "BlockAllocator", "BlockPoolFullError", "Completion", "DraftLane",
            "MultiTaskEngine", "PagedScheduler", "PrefixCache", "Request",
            "Scheduler", "ServeEngine", "ServingConfig", "SpecPagedScheduler",

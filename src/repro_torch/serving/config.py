@@ -4,9 +4,9 @@
 `ServingConfig` is validated at construction, as JAX's is, and
 `make_scheduler` builds the scheduler it describes: the contiguous slot
 scheduler, the paged one (`paged`, with prefix sharing and int8/fp8 KV
-blocks), or either with speculative decoding (`spec_k`). The switches of
-the JAX config that turn on features of a later slice (slo, admission)
-are kept, and setting either raises `NotImplementedError` naming it.
+blocks), or either with speculative decoding (`spec_k`), each reporting
+into one MetricsRegistry (`obs`) and, with `slo` (and `admission`),
+watched by an SLO monitor (and acted on by the degradation ladder).
 """
 from __future__ import annotations
 
@@ -14,13 +14,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.models.attention import DECODE_PAGE
+from repro_torch.obs.slo import SLOSpec
+from repro_torch.serving.admission import AdmissionConfig
 
 _QUANT_MODES = (None, "int8", "fp8")
-# field -> (value that means "off", the slice that brings the feature)
-_LATER = {
-    "slo": (None, "the observability/admission slice"),
-    "admission": (None, "the observability/admission slice"),
-}
 
 
 @dataclass(frozen=True)
@@ -37,7 +34,10 @@ class ServingConfig:
     backbone_quant: the engine's weight quantization make_scheduler
     expects. prefill_bucket: round prompt lengths up to multiples of it.
     top_k/temperature: sampling defaults for launchers building
-    requests."""
+    requests.
+    SLOs: slo, an SLOSpec evaluated over the scheduler's metrics
+    (breaches land as registry events); admission, an AdmissionConfig
+    acting on breaches with the degradation ladder (needs slo)."""
 
     num_slots: int = 8
     max_len: int = 512
@@ -52,15 +52,14 @@ class ServingConfig:
     prefill_bucket: Optional[int] = None
     top_k: int = 0
     temperature: float = 1.0
-    slo: Optional[object] = None
-    admission: Optional[object] = None
+    slo: Optional[SLOSpec] = None
+    admission: Optional[AdmissionConfig] = None
 
     def __post_init__(self):
-        for name, (off, slice_) in _LATER.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"ServingConfig.{name} is not ported yet: it arrives "
-                    f"with {slice_}")
+        if self.admission is not None and self.slo is None:
+            raise ValueError(
+                "admission control needs objectives to act on: set slo= "
+                "alongside admission=")
         if self.num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if self.max_len < 1 or self.max_len % DECODE_PAGE:
@@ -113,12 +112,16 @@ def _auto_blocks(config: ServingConfig) -> int:
     return 1 + config.num_slots * per_slot * 3 // 2
 
 
-def make_scheduler(engine, config: ServingConfig, *, draft_model=None):
+def make_scheduler(engine, config: ServingConfig, *, draft_model=None,
+                   obs=None):
     """The scheduler `config` describes, around `engine`, by JAX's rules.
     draft_model: (cfg, params) for spec_draft='model', refused otherwise.
     An engine built with another backbone quantization than
     `config.backbone_quant` asks for is refused (when the config names
-    one)."""
+    one). obs: the `repro_torch.obs.MetricsRegistry` to report into
+    (launchers pass the one their exporters watch); None gives the
+    scheduler a private one, `sched.obs`. `config.slo` (and `admission`)
+    are attached to the scheduler's tick (`Scheduler.attach_slo`)."""
     from repro_torch.serving.paged import PagedScheduler
     from repro_torch.serving.scheduler import Scheduler
     from repro_torch.serving.spec import SpecPagedScheduler, SpecScheduler
@@ -144,7 +147,7 @@ def make_scheduler(engine, config: ServingConfig, *, draft_model=None):
         raise ValueError("draft_model given but spec_k=0")
 
     common = dict(num_slots=config.num_slots, max_len=config.max_len,
-                  prefill_bucket=config.prefill_bucket)
+                  prefill_bucket=config.prefill_bucket, obs=obs)
     if config.paged:
         paged = dict(common, page=config.page_size,
                      num_blocks=(config.num_blocks
@@ -153,10 +156,15 @@ def make_scheduler(engine, config: ServingConfig, *, draft_model=None):
                      kv_quant=config.kv_quant,
                      prefix_cache=config.prefix_cache)
         if config.spec_k:
-            return SpecPagedScheduler(engine, spec_k=config.spec_k,
-                                      draft=draft, **paged)
-        return PagedScheduler(engine, **paged)
-    if config.spec_k:
-        return SpecScheduler(engine, spec_k=config.spec_k, draft=draft,
-                             **common)
-    return Scheduler(engine, **common)
+            sched = SpecPagedScheduler(engine, spec_k=config.spec_k,
+                                       draft=draft, **paged)
+        else:
+            sched = PagedScheduler(engine, **paged)
+    elif config.spec_k:
+        sched = SpecScheduler(engine, spec_k=config.spec_k, draft=draft,
+                              **common)
+    else:
+        sched = Scheduler(engine, **common)
+    if config.slo is not None:
+        sched.attach_slo(config.slo, admission=config.admission)
+    return sched

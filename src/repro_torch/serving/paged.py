@@ -29,9 +29,11 @@ one keeps K/V in a pool of fixed-size pages instead:
 Each row's table has max_len // page entries, so #5 sees the pages, the
 split plan and the masks of the contiguous cache and paged greedy decoding
 gives the contiguous scheduler's tokens. Hot-swap (named) requests never
-share KV: a name may be republished with new weights mid-stream. Counters
-are plain ints. Page hashes use Python's `hash`, salted per process: they
-only have to agree within one scheduler.
+share KV: a name may be republished with new weights mid-stream. The
+admission counts are the registry's `serve_prefix_hits_total{tier=}`
+counters, and the admission ladder's first rung stops publishing retired
+prompts (`set_prefix_fill`). Page hashes use Python's `hash`, salted per
+process: they only have to agree within one scheduler.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.registry import BankFullError
 from repro_torch.serving.scheduler import Request, Scheduler, _Slot
 
@@ -109,20 +112,31 @@ class PrefixCache:
 
     `evict_one` drops the LRU `full` entry first (they pin the most
     blocks), then LRU `blocks` entries. `hits_full` and `hits_partial`
-    count the matches."""
+    count the matches: they read the `serve_prefix_hits_total{tier=}`
+    counters on `obs` (a private registry when None)."""
 
-    def __init__(self):
+    def __init__(self, obs: Optional[MetricsRegistry] = None):
         self.blocks: "OrderedDict[tuple, int]" = OrderedDict()
         self.full: "OrderedDict[tuple, Tuple[Tuple[int, ...], np.ndarray]]" \
             = OrderedDict()
-        self.hits_full = 0
-        self.hits_partial = 0
+        obs = obs if obs is not None else MetricsRegistry()
+        self._c_full = obs.counter("serve_prefix_hits_total", tier="full")
+        self._c_partial = obs.counter("serve_prefix_hits_total",
+                                      tier="partial")
+
+    @property
+    def hits_full(self) -> int:
+        return self._c_full.value
+
+    @property
+    def hits_partial(self) -> int:
+        return self._c_partial.value
 
     def match_full(self, akey, S: int, h_all: int):
         ent = self.full.get((akey, S, h_all))
         if ent is not None:
             self.full.move_to_end((akey, S, h_all))
-            self.hits_full += 1
+            self._c_full.inc()
         return ent
 
     def match_prefix(self, akey, hashes: List[int]) -> List[int]:
@@ -135,7 +149,7 @@ class PrefixCache:
             self.blocks.move_to_end((akey, h))
             out.append(bid)
         if out:
-            self.hits_partial += 1
+            self._c_partial.inc()
         return out
 
     def insert_block(self, alloc: BlockAllocator, akey, h: int, bid: int):
@@ -193,10 +207,13 @@ class PagedScheduler(Scheduler):
     per-token scales. prefix_cache=False prefills every admission cold,
     paging all the same."""
 
+    _sched_kind = "paged"
+
     def __init__(self, engine, *, num_slots: int, num_blocks: int, page: int,
                  max_len: int, kv_quant: Optional[str] = None,
                  prefix_cache: bool = True,
-                 prefill_bucket: Optional[int] = None):
+                 prefill_bucket: Optional[int] = None,
+                 obs: Optional[MetricsRegistry] = None):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if page < 1 or max_len % page != 0:
@@ -220,12 +237,23 @@ class PagedScheduler(Scheduler):
                 raise ValueError("prefill_bucket must be a multiple of the "
                                  "page size (pages are the unit of insert)")
         self._init_slots(engine, num_slots, max_len, prefill_bucket)
+        self._init_obs(obs)  # before PrefixCache: its counters land there
         self.page = page
         self.nb_max = max_len // page
         self.kv_quant = kv_quant
-        self.prefix: Optional[PrefixCache] = (PrefixCache() if prefix_cache
-                                              else None)
-        self._cold = 0
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(obs=self.obs) if prefix_cache else None)
+        self._prefix_fill = True  # publication gate (the admission ladder)
+        self._c_cold = self.obs.counter("serve_prefix_hits_total",
+                                        tier="cold")
+        self._g_free_blocks = self.obs.gauge("kv_free_blocks")
+        self._g_reserved_blocks = self.obs.gauge("kv_reserved_blocks")
+        self.obs.add_derived(
+            "prefix_hit_ratio_full",
+            lambda: self._prefix_hit_ratio("full_hits"))
+        self.obs.add_derived(
+            "prefix_hit_ratio_partial",
+            lambda: self._prefix_hit_ratio("partial_hits"))
         self.alloc = BlockAllocator(num_blocks)
         self.pool = engine.init_paged_pool(num_blocks, page, kv_quant)
         self.tables = np.zeros((num_slots, self.nb_max), np.int32)
@@ -233,12 +261,28 @@ class PagedScheduler(Scheduler):
 
     @property
     def stats(self) -> dict:
-        """Admissions by kind: whole-prompt hits, prefix hits, cold."""
+        """Admissions by kind: whole-prompt hits, prefix hits, cold (a
+        view of the registry's counters)."""
         return {
             "full_hits": self.prefix.hits_full if self.prefix else 0,
             "partial_hits": self.prefix.hits_partial if self.prefix else 0,
-            "cold": self._cold,
+            "cold": self._c_cold.value,
         }
+
+    def _prefix_hit_ratio(self, key: str) -> float:
+        s = self.stats
+        tot = s["full_hits"] + s["partial_hits"] + s["cold"]
+        return s[key] / tot if tot else 0.0
+
+    def set_prefix_fill(self, on: bool) -> None:
+        """Gate publication into the prefix cache (the admission ladder's
+        first rung). Entries keep serving hits and keep their LRU
+        eviction; only the spend stops: retiring requests no longer pin
+        their prompt blocks, so the pool drains toward in-flight work."""
+        if self.prefix is None or on == self._prefix_fill:
+            return
+        self._prefix_fill = on
+        self.obs.event("prefix_fill", sched=self._sched_kind, enabled=on)
 
     # -- sizing -------------------------------------------------------------
 
@@ -299,6 +343,7 @@ class PagedScheduler(Scheduler):
             if req.adapter is not None:
                 self.engine.release_adapter(req.adapter)
             raise
+        self._m_queue_s.observe(time.perf_counter() - submit_t)
         st = self.slots[slot_idx]
         self._task[slot_idx] = row
         if st.generator is not None:
@@ -327,10 +372,11 @@ class PagedScheduler(Scheduler):
         cacheable = self.prefix is not None and req.adapter is None
         akey = ("task", row)
         hashes, h_all = self._hash_chain(prompt) if cacheable else ([], 0)
+        tr = self.obs.tracer.get(rid)
         st = _PagedSlot(request_id=rid, req=req,
                         generator=self._generator(req, rid),
-                        submit_t=submit_t, pos=S, row=row, akey=akey,
-                        nb_worst=nb_worst, page_hashes=hashes,
+                        submit_t=submit_t, pos=S, row=row, trace=tr,
+                        akey=akey, nb_worst=nb_worst, page_hashes=hashes,
                         full_hash=h_all)
         tbl = self.tables[slot_idx]
         task_ids = np.asarray([row])
@@ -358,6 +404,7 @@ class PagedScheduler(Scheduler):
             tbl[:nb_cov] = bids
             st.nb_entries = nb_cov
             st.prefill_logits = logits
+            hit_kind = "full_hit"  # counted by PrefixCache.match_full
         else:
             m_bids: List[int] = []
             if cacheable and S > page:
@@ -386,6 +433,7 @@ class PagedScheduler(Scheduler):
                     self.pool, sfx.reshape(1, -1),
                     self.tables[slot_idx:slot_idx + 1], start=m * page,
                     kv_len=S, last_pos=S - m * page - 1, task_ids=task_ids)
+                hit_kind = "partial_hit"  # counted by match_prefix
             else:
                 # ---- cold: prefill the page-aligned prompt, insert ----
                 self._ensure_free(nb_worst)
@@ -401,8 +449,14 @@ class PagedScheduler(Scheduler):
                     last_pos=None if P == S else S - 1)
                 self.pool = self.engine.paged_insert(self.pool, fresh,
                                                      tbl[:nbl])
-                self._cold += 1
+                self._c_cold.inc()
+                hit_kind = "cold"
             st.prefill_logits = logits[:, -1:].cpu().numpy()
+        # marked on success only: a deferred admission (pool full) leaves
+        # no admit mark, so a trace admits exactly once
+        tr.mark("admit", slot=slot_idx, row=row, adapter=req.adapter,
+                queue_s=time.perf_counter() - submit_t)
+        tr.mark("prefill", kind=hit_kind, blocks=st.nb_entries)
         self._reserved += st.nb_worst - st.nb_entries
         self.slots[slot_idx] = st
 
@@ -410,7 +464,8 @@ class PagedScheduler(Scheduler):
 
     def _retire(self, slot_idx: int, st: _PagedSlot, reason: str):
         tbl = self.tables[slot_idx]
-        if (self.prefix is not None and st.req.adapter is None
+        if (self.prefix is not None and self._prefix_fill
+                and st.req.adapter is None
                 and reason != "error" and st.prefill_logits is not None):
             # publish the prompt's blocks before dropping this slot's
             # references: full pages into the chain tier, the whole cover
@@ -455,6 +510,11 @@ class PagedScheduler(Scheduler):
             self.pool, self._tok[:, None], self._pos, self.tables,
             task_ids=self._task.copy())
         return logits
+
+    def _post_tick(self, t0: float) -> None:
+        self._g_free_blocks.set(self.alloc.num_free)
+        self._g_reserved_blocks.set(self._reserved)
+        super()._post_tick(t0)
 
     # -- accounting ---------------------------------------------------------
 

@@ -42,6 +42,7 @@ from repro_torch.common import tree as tu
 from repro_torch.core.hadamard import (ADAPTER_RE, SHARED_W_RE, adapter_row,
                                        init_bank, insert_bank_row,
                                        validate_adapter_row)
+from repro_torch.obs import MetricsRegistry
 from repro_torch.sparse import importance as imp
 from repro_torch.sparse import prune as sparse_prune
 
@@ -172,7 +173,9 @@ class AdapterBank:
     `attach`, after which every row write lands in the tensors the model
     reads. hits, loads, evictions and pin_stalls count acquires that found
     their row, loaded one from the registry, displaced a row, and were
-    refused with every row pinned.
+    refused with every row pinned: they read the `bank_*_total` counters
+    of a MetricsRegistry (`bind_obs`), and an eviction or a refusal is a
+    `bank_evict` or `bank_pin_stall` event there.
     """
 
     def __init__(self, cfg, base_params: dict, size: int,
@@ -190,10 +193,53 @@ class AdapterBank:
         self._pins: Dict[str, int] = {}
         self._masks: Dict[str, np.ndarray] = {}  # name -> (L,) layer mask
         self._free: List[int] = list(range(size))
-        self.hits = self.loads = self.evictions = self.pin_stalls = 0
+        # the counters live in a registry; a scheduler adopting this bank
+        # moves them onto its own
+        self._obs: Optional[MetricsRegistry] = None
+        self.bind_obs(MetricsRegistry())
         # identity rows until tasks are loaded; with shared_w, base_params'
         # w IS every tenant's w (`sparse.shared_w_overlay`), stored once
         self.attach(init_bank(base_params, size, shared_w=shared_w))
+
+    # -- observability -------------------------------------------------------
+
+    def bind_obs(self, obs: MetricsRegistry) -> None:
+        """Move this bank's counters onto `obs`, the counts so far carried
+        over. A scheduler's construction calls this, so bank pressure lands
+        in the registry of its serving latency."""
+        prev = (self._c_hits, self._c_loads, self._c_evictions,
+                self._c_pin_stalls) if self._obs is not None else None
+        self._obs = obs
+        self._c_hits = obs.counter("bank_hits_total")
+        self._c_loads = obs.counter("bank_loads_total")
+        self._c_evictions = obs.counter("bank_evictions_total")
+        self._c_pin_stalls = obs.counter("bank_pin_stalls_total")
+        cur = (self._c_hits, self._c_loads, self._c_evictions,
+               self._c_pin_stalls)
+        if prev is not None:
+            for old, new in zip(prev, cur):
+                if old is not new:
+                    new.inc(old.value)
+
+    @property
+    def loads(self) -> int:
+        """Registry loads (bank misses)."""
+        return self._c_loads.value
+
+    @property
+    def evictions(self) -> int:
+        """Rows displaced to make room."""
+        return self._c_evictions.value
+
+    @property
+    def hits(self) -> int:
+        """Acquires resolved from a resident row."""
+        return self._c_hits.value
+
+    @property
+    def pin_stalls(self) -> int:
+        """Acquires refused because every row was pinned."""
+        return self._c_pin_stalls.value
 
     # -- engine plumbing -----------------------------------------------------
 
@@ -248,14 +294,15 @@ class AdapterBank:
         if row is not None:
             self._rows.move_to_end(name)
             self._pins[name] = self._pins.get(name, 0) + 1
-            self.hits += 1
+            self._c_hits.inc()
             return row
 
         if not self._free and all(self._pins.get(n, 0) > 0
                                   for n in self._rows):
             # checked before the disk load: a fully pinned bank is the
             # scheduler's backpressure signal, not an I/O error
-            self.pin_stalls += 1
+            self._c_pin_stalls.inc()
+            self._obs.event("bank_pin_stall", adapter=name, size=self.size)
             raise BankFullError(
                 f"all {self.size} bank rows are pinned; cannot admit "
                 f"adapter {name!r}")
@@ -279,11 +326,13 @@ class AdapterBank:
             idx = self._rows.pop(victim)
             self._pins.pop(victim, None)
             self._masks.pop(victim, None)
-            self.evictions += 1
+            self._c_evictions.inc()
+            self._obs.event("bank_evict", victim=victim, row=idx,
+                            loading=name)
 
         insert_bank_row(self._adapters, row_tree, idx, skip=self._skip)
         self._set_gate(idx, mask)
-        self.loads += 1
+        self._c_loads.inc()
         self._rows[name] = idx
         self._pins[name] = 1
         self._masks[name] = mask

@@ -22,18 +22,30 @@
 
 Greedy decoding gives the tokens `ServeEngine.generate` gives for the
 same prompts: every per-row op is independent of the batch.
+
+Every scheduler reports into a `repro_torch.obs.MetricsRegistry` (its
+own, or the one passed as `obs`) with JAX's series and labels
+(`sched=contiguous|paged|spec|spec_paged`), traces each request's
+lifecycle, and can carry an SLO monitor and the admission ladder
+(`attach_slo`), which act between ticks on host-side state only.
 """
 from __future__ import annotations
 
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.obs import MetricsRegistry
+from repro_torch.obs.slo import SLOMonitor, SLOSpec
+from repro_torch.serving.admission import (AdmissionConfig,
+                                           AdmissionController,
+                                           AdmissionShedError)
 from repro_torch.serving.engine import check_temperature, sample_topk
 from repro_torch.serving.registry import BankFullError
 
@@ -76,6 +88,7 @@ class _Slot:
     pos: int = 0  # absolute position of the next decode write
     row: int = 0  # resolved adapter-bank row (pinned while in flight)
     first_tok_t: float = 0.0
+    trace: object = None  # RequestTrace (null when tracing is off)
 
 
 class Scheduler:
@@ -83,10 +96,21 @@ class Scheduler:
 
     prefill_bucket: right-pad prompts to a multiple of this before prefill;
     token-exact only for full-attention configs, and refused for others
-    (`supports_bucketing`)."""
+    (`supports_bucketing`).
+
+    obs: the MetricsRegistry to report into (None: a private one, as
+    `sched.obs`)."""
+
+    _sched_kind = "contiguous"  # `sched=` label on every metric series
+    # engine calls that must never compile again once serving started, in
+    # an engine that keeps a `trace_counts` dict (JAX's jitted engines do;
+    # the port's run eagerly and keep none, so the watch stays empty)
+    _RETRACE_KEYS = ("decode", "decode_paged", "verify", "verify_paged",
+                     "draft")
 
     def __init__(self, engine, *, num_slots: int, max_len: int,
-                 prefill_bucket: Optional[int] = None):
+                 prefill_bucket: Optional[int] = None,
+                 obs: Optional[MetricsRegistry] = None):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if prefill_bucket is not None and not self.supports_bucketing(
@@ -96,6 +120,7 @@ class Scheduler:
                 "ring caches and recurrent/rwkv state would fold the pad "
                 "tokens in)")
         self._init_slots(engine, num_slots, max_len, prefill_bucket)
+        self._init_obs(obs)
         self.caches = engine.init_slot_caches(num_slots, max_len)
 
     def _init_slots(self, engine, num_slots: int, max_len: int,
@@ -120,6 +145,120 @@ class Scheduler:
         self._pos = np.zeros((num_slots,), np.int64)
         self._task = np.zeros((num_slots,), np.int64)
 
+    # -- observability ------------------------------------------------------
+
+    def _init_obs(self, obs: Optional[MetricsRegistry]) -> None:
+        """This scheduler's instruments on `obs` (or a private registry),
+        JAX's series and labels."""
+        self.obs = obs if obs is not None else MetricsRegistry()
+        kind = self._sched_kind
+        self._m_submitted = self.obs.counter(
+            "serve_requests_submitted_total", sched=kind)
+        self._m_tokens = self.obs.counter("serve_tokens_total", sched=kind)
+        self._m_ticks = self.obs.counter("serve_ticks_total", sched=kind)
+        self._m_tick_s = self.obs.histogram("serve_tick_s", sched=kind)
+        self._m_queue_s = self.obs.histogram("serve_queue_wait_s", sched=kind)
+        self._m_ttft = self.obs.histogram("serve_ttft_s", sched=kind)
+        self._m_tpot = self.obs.histogram("serve_tpot_s", sched=kind)
+        self._m_latency = self.obs.histogram("serve_latency_s", sched=kind)
+        self._m_retrace = self.obs.counter(
+            "serve_retrace_events_total", sched=kind)
+        # the admission instruments exist (at zero) without a controller,
+        # so report()'s keys are the same either way
+        self._m_shed = self.obs.counter(
+            "serve_admission_shed_total", sched=kind)
+        self._m_deferred = self.obs.counter(
+            "serve_admission_deferred_ticks_total", sched=kind)
+        self._m_degrade_down = self.obs.counter(
+            "serve_degrade_steps_total", sched=kind, direction="down")
+        self._g_degrade_level = self.obs.gauge(
+            "serve_degrade_level", sched=kind)
+        self._g_queue_depth = self.obs.gauge("serve_queue_depth", sched=kind)
+        self._slo_monitor: Optional[SLOMonitor] = None
+        self._admission: Optional[AdmissionController] = None
+        self._slo_check_every = 4
+        self._pre_ticks = 0
+        # the retrace watch: each watched call's compile count at start
+        self._trace_watch: List[tuple] = []
+        self._trace_allow: Dict[tuple, int] = {}
+        tc = getattr(self.engine, "trace_counts", None)
+        if tc is not None:
+            self._watch_traces("engine", tc)
+        bank = getattr(self.engine, "adapter_bank", None)
+        if bank is not None:
+            bank.bind_obs(self.obs)
+
+    def _watch_traces(self, src: str, trace_counts: dict) -> None:
+        """Watch a trace-count dict for compiles mid-serve. The allowance
+        is the current count + 1: a call's first compile (possibly in this
+        serve) is legitimate, anything beyond it is a retrace."""
+        self._trace_watch.append((src, trace_counts))
+        for k in self._RETRACE_KEYS:
+            if k in trace_counts:
+                self._trace_allow[(src, k)] = trace_counts.get(k, 0) + 1
+
+    def _check_retraces(self) -> None:
+        for src, tc in self._trace_watch:
+            for k in self._RETRACE_KEYS:
+                allow = self._trace_allow.get((src, k))
+                if allow is None:
+                    continue
+                n = tc.get(k, 0)
+                if n > allow:
+                    extra = n - allow
+                    self._m_retrace.inc(extra)
+                    self.obs.event("retrace", source=src, fn=k, count=extra,
+                                   message="recompiled mid-serve")
+                    print(f"[repro.obs] WARNING: {src}.{k} recompiled "
+                          f"mid-serve (x{extra}) - shapes are leaking into "
+                          "the steady-state serving path", file=sys.stderr)
+                    self._trace_allow[(src, k)] = n
+
+    def _pre_tick(self) -> None:
+        """Once per `step()`, before admissions, idle ticks included: what
+        lets an attached controller see recovery and step back up while
+        traffic pauses."""
+        self._g_queue_depth.set(len(self.queue))
+        self._pre_ticks += 1
+        if self._admission is not None:
+            self._admission.on_step(self)
+        elif (self._slo_monitor is not None
+                and self._pre_ticks % self._slo_check_every == 0):
+            self._slo_monitor.evaluate()
+
+    def _post_tick(self, t0: float) -> None:
+        """After a tick that decoded: its host seconds from t0 (the tick's
+        admissions included), the tick count, the retrace watch."""
+        self._m_tick_s.observe(time.perf_counter() - t0)
+        self._m_ticks.inc()
+        self._check_retraces()
+
+    def attach_slo(self, spec: SLOSpec, *,
+                   admission: Optional[AdmissionConfig] = None,
+                   check_every: int = 4,
+                   clock: Optional[Callable[[], float]] = None) -> SLOMonitor:
+        """Evaluate `spec` over this scheduler's metrics every
+        `check_every` ticks, breaches landing as registry events; with an
+        `AdmissionConfig`, the degradation ladder
+        (`repro_torch.serving.admission`) acts on them at its own
+        check_every. `clock` injects a time source for deterministic
+        windows. `make_scheduler` wires this from `ServingConfig(slo=,
+        admission=)`."""
+        kwargs = {"base_labels": {"sched": self._sched_kind}}
+        if clock is not None:
+            kwargs["clock"] = clock
+        self._slo_monitor = SLOMonitor(self.obs, spec, **kwargs)
+        self._slo_check_every = check_every
+        if admission is not None:
+            self._admission = AdmissionController(
+                self, self._slo_monitor, admission)
+        return self._slo_monitor
+
+    @staticmethod
+    def _tenant(st: _Slot) -> str:
+        return st.req.adapter if st.req.adapter is not None else \
+            f"task{st.row}"
+
     @staticmethod
     def supports_bucketing(cfg) -> bool:
         """Whether right-padding prompts is token-exact for this config:
@@ -134,7 +273,21 @@ class Scheduler:
         """Queue a request; returns its id. It is admitted on the next tick
         with a free slot. A named adapter is checked here (the engine takes
         names, and the name is bank-resident or published) so the queue
-        never holds a request that can never be admitted."""
+        never holds a request that can never be admitted.
+
+        Raises `AdmissionShedError` while an attached controller sheds:
+        the front door closes before any validation, and the typed error
+        says backpressure (retry later, reroute), not a caller's error."""
+        if self._admission is not None and self._admission.shedding:
+            objectives = self._admission.breaching_objectives
+            self._m_shed.inc()
+            self.obs.event("shed", sched=self._sched_kind,
+                           level=self._admission.level,
+                           objectives=list(objectives))
+            raise AdmissionShedError(
+                f"admissions shed at degrade level {self._admission.level}"
+                f" (breaching: {', '.join(objectives) or 'recovering'})",
+                level=self._admission.level, objectives=objectives)
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         check_temperature(req.temperature)
@@ -156,6 +309,8 @@ class Scheduler:
                     "published in the registry")
         rid = self._next_id
         self._next_id += 1
+        self._m_submitted.inc()
+        self.obs.tracer.start(rid).mark("submit", prompt_len=S)
         self.queue.append((rid, req, time.perf_counter()))
         return rid
 
@@ -186,6 +341,9 @@ class Scheduler:
         """Record one token; True when the request is done."""
         if not st.tokens:
             st.first_tok_t = time.perf_counter()
+            st.trace.mark("first_token")
+        st.trace.mark("token")
+        self._m_tokens.inc()
         st.tokens.append(tok)
         if st.req.eos_id is not None and tok == st.req.eos_id:
             self._retire(slot_idx, st, "eos")
@@ -197,16 +355,33 @@ class Scheduler:
 
     def _retire(self, slot_idx: int, st: _Slot, reason: str) -> None:
         now = time.perf_counter()
+        ttft = st.first_tok_t - st.submit_t
+        latency = now - st.submit_t
+        n_tok = len(st.tokens)
         self.completions[st.request_id] = Completion(
             request_id=st.request_id,
             tokens=np.asarray(st.tokens, np.int64),
             prompt_len=int(np.asarray(st.req.prompt).shape[-1]),
             task_id=st.row,
             finish_reason=reason,
-            ttft_s=st.first_tok_t - st.submit_t,
-            latency_s=now - st.submit_t,
+            ttft_s=ttft,
+            latency_s=latency,
             adapter=st.req.adapter,
         )
+        kind, tenant = self._sched_kind, self._tenant(st)
+        self.obs.counter("serve_requests_completed_total", sched=kind,
+                         reason=reason).inc()
+        self._m_ttft.observe(ttft)
+        self.obs.histogram("serve_ttft_s", sched=kind,
+                           tenant=tenant).observe(ttft)
+        self._m_latency.observe(latency)
+        if n_tok > 1:
+            tpot = (latency - ttft) / (n_tok - 1)
+            self._m_tpot.observe(tpot)
+            self.obs.histogram("serve_tpot_s", sched=kind,
+                               tenant=tenant).observe(tpot)
+        st.trace.mark("retire", reason=reason, tokens=n_tok)
+        self.obs.tracer.finish(st.request_id)
         if st.req.adapter is not None:
             self.engine.release_adapter(st.req.adapter)  # unpin its row
         self.slots[slot_idx] = None
@@ -224,6 +399,11 @@ class Scheduler:
         row = req.task_id
         if req.adapter is not None:
             row = self.engine.acquire_adapter(req.adapter)  # pins the row
+        tr = self.obs.tracer.get(rid)
+        queue_s = time.perf_counter() - submit_t
+        self._m_queue_s.observe(queue_s)
+        tr.mark("admit", slot=slot_idx, row=row, adapter=req.adapter,
+                queue_s=queue_s)
         prompt = np.asarray(req.prompt, np.int64).reshape(1, -1)
         S = prompt.shape[1]
         last_pos = None
@@ -236,12 +416,13 @@ class Scheduler:
         logits, fresh = self.engine.prefill(
             prompt, self.max_len, task_ids=np.asarray([row]),
             last_pos=last_pos)
+        tr.mark("prefill", kind="cold", prompt_len=S)
         for pool, new in zip(self.caches, fresh):
             for name, leaf in pool.items():  # k, v; or S, tm_prev, cm_prev
                 leaf[slot_idx].copy_(new[name][0])
         st = _Slot(request_id=rid, req=req,
                    generator=self._generator(req, rid), submit_t=submit_t,
-                   pos=S, row=row)
+                   pos=S, row=row, trace=tr)
         self.slots[slot_idx] = st
         self._task[slot_idx] = row
         tok = self._sample_one(logits, st)
@@ -253,6 +434,13 @@ class Scheduler:
     def _do_admissions(self) -> None:
         """Admit queued requests into free slots; a request that finishes
         at its first token frees its slot again at once."""
+        if (self._admission is not None and self._admission.deferring
+                and self.queue and self.active):
+            # degraded: the queue waits while in-flight work drains. With
+            # nothing in flight nothing can retire to bring recovery, so
+            # an empty scheduler always admits (run() cannot hang)
+            self._m_deferred.inc()
+            return
         free = [i for i, s in enumerate(self.slots) if s is None]
         while free and self.queue:
             idx = free.pop()
@@ -268,6 +456,11 @@ class Scheduler:
                     task_id=-1, finish_reason="error", ttft_s=0.0,
                     latency_s=time.perf_counter() - submit_t,
                     adapter=req.adapter)
+                self.obs.counter("serve_requests_completed_total",
+                                 sched=self._sched_kind, reason="error").inc()
+                self.obs.tracer.get(rid).mark("retire", reason="error",
+                                              tokens=0)
+                self.obs.tracer.finish(rid)
                 free.append(idx)
                 continue
             except self._defer_errors:
@@ -275,6 +468,7 @@ class Scheduler:
                 # requests in flight: wait for one to retire, keeping the
                 # queue's order (skipping ahead would starve the blocked
                 # request)
+                self.obs.tracer.get(rid).mark("defer")
                 self.queue.appendleft((rid, req, submit_t))
                 break
             if self.slots[idx] is None:
@@ -283,17 +477,25 @@ class Scheduler:
     # -- the tick -----------------------------------------------------------
 
     def step(self) -> int:
-        """One tick: admissions into free slots, then one decode step
+        """One tick: the pre-tick hooks (queue gauge, SLO and admission
+        evaluation), admissions into free slots, then one decode step
         across all slots. Returns the number of tokens generated."""
+        self._pre_tick()
+        return self._step_impl()
+
+    def _step_impl(self) -> int:
+        """The tick without its pre-tick hooks, which a speculative
+        scheduler stepped down to spec_k 0 runs as its own."""
+        t0 = time.perf_counter()
         self._do_admissions()
         occupied = [i for i, s in enumerate(self.slots) if s is not None]
         if not occupied:
             return 0
-        t0 = time.perf_counter()
+        t_dec = time.perf_counter()
         logits = self._decode_tick(occupied)
         self._ticks += 1
         greedy = logits[:, -1].argmax(dim=-1).cpu().numpy()
-        self._decode_s += time.perf_counter() - t0
+        self._decode_s += time.perf_counter() - t_dec
         for i in occupied:
             st = self.slots[i]
             st.pos += 1
@@ -304,6 +506,7 @@ class Scheduler:
             if not self._emit(i, st, tok):
                 self._tok[i] = tok
                 self._pos[i] = st.pos
+        self._post_tick(t0)
         return len(occupied)
 
     def _decode_tick(self, occupied: List[int]) -> torch.Tensor:
@@ -316,14 +519,19 @@ class Scheduler:
 
     # -- batch driver -------------------------------------------------------
 
-    def run(self, requests: List[Request]):
+    def run(self, requests: List[Request],
+            on_tick: Optional[Callable[[], Optional[List[int]]]] = None):
         """Submit `requests`, tick until drained; returns (completions in
-        request order, report)."""
+        submit order, report). `on_tick()`, when given, runs after every
+        tick and returns the ids of any requests it submitted, which join
+        the run."""
         t0 = time.perf_counter()
         ticks0, pre0, dec0 = self._ticks, self._prefill_s, self._decode_s
         ids = [self.submit(r) for r in requests]
         while self.queue or self.active:
             self.step()
+            if on_tick is not None:
+                ids += on_tick() or []
         elapsed = time.perf_counter() - t0
         done = [self.completions.pop(i) for i in ids]
         return done, self.report(done, elapsed, ticks=self._ticks - ticks0,
@@ -333,21 +541,18 @@ class Scheduler:
     def report(self, done=(), elapsed_s: float = 0.0,
                ticks: Optional[int] = None, prefill_s: Optional[float] = None,
                decode_s: Optional[float] = None) -> dict:
-        """Throughput and latency over `done`, timed on the host clock
-        around work that ends in a device sync (every tick reads its
-        tokens back). TTFT includes queueing; the token gap (tpot) is a
-        request's mean gap between output tokens; p50 and max are over
-        the requests. prefill_s/decode_s split the host time between
-        admissions and decode ticks (default: since construction)."""
+        """JAX's report: counts and means over `done` (this call's
+        completions), timed on the host clock around work that ends in a
+        device sync (every tick reads its tokens back); the p50/p95/p99
+        TTFT (queueing included) and token gap (a request's mean gap
+        between output tokens) come from this scheduler's histograms, so
+        they cover every request retired since construction; the
+        admission ladder's activity since construction (all zero without
+        a controller). Beside JAX's keys, prefill_s/decode_s split the
+        host time between admissions and decode ticks (default: since
+        construction)."""
         done = list(done)
         n_tok = sum(len(c.tokens) for c in done)
-        ttft = np.array([c.ttft_s for c in done], np.float64)
-        tpot = np.array([(c.latency_s - c.ttft_s) / (len(c.tokens) - 1)
-                         for c in done if len(c.tokens) > 1], np.float64)
-
-        def stat(a, fn):
-            return float(fn(a)) if a.size else 0.0
-
         return {
             "requests": len(done),
             "tokens": n_tok,
@@ -355,13 +560,21 @@ class Scheduler:
             "ticks": self._ticks if ticks is None else ticks,
             "requests_per_s": len(done) / elapsed_s if elapsed_s else 0.0,
             "tokens_per_s": n_tok / elapsed_s if elapsed_s else 0.0,
-            "mean_ttft_s": stat(ttft, np.mean),
-            "ttft_p50_s": stat(ttft, np.median),
-            "ttft_max_s": stat(ttft, np.max),
-            "tpot_p50_s": stat(tpot, np.median),
-            "tpot_max_s": stat(tpot, np.max),
+            "mean_ttft_s": (sum(c.ttft_s for c in done) / len(done)
+                            if done else 0.0),
             "mean_latency_s": (sum(c.latency_s for c in done) / len(done)
                                if done else 0.0),
+            "ttft_p50_s": self._m_ttft.percentile(0.50),
+            "ttft_p95_s": self._m_ttft.percentile(0.95),
+            "ttft_p99_s": self._m_ttft.percentile(0.99),
+            "tpot_p50_s": self._m_tpot.percentile(0.50),
+            "tpot_p95_s": self._m_tpot.percentile(0.95),
+            "tpot_p99_s": self._m_tpot.percentile(0.99),
+            "shed": self._m_shed.value,
+            "deferred_ticks": self._m_deferred.value,
+            "degrade_steps": self._m_degrade_down.value,
+            "degrade_level": (self._admission.level
+                              if self._admission is not None else 0),
             "prefill_s": self._prefill_s if prefill_s is None else prefill_s,
             "decode_s": self._decode_s if decode_s is None else decode_s,
         }

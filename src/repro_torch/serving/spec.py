@@ -30,6 +30,11 @@ argmax, plus the target's own next token.
 Where JAX drafts in one `lax.scan`, the lane runs k+1 decode steps in a
 Python loop (the last writes the k-th draft's KV so an all-accept tick
 leaves no gap in the draft cache); each step goes through the kernels.
+
+The drafted/accepted/verify-tick counts are the registry's
+`serve_spec_*_total` counters; the admission ladder lowers the effective
+depth with `set_spec_k` (a `spec_depth` event) without touching the
+draft's or the verify's shapes.
 """
 from __future__ import annotations
 
@@ -140,14 +145,28 @@ class _SpecMixin:
     verify, acceptance, accounting. A scheduler class supplies
     `_verify_tick` and `_spec_padded_len`."""
 
+    _sched_kind = "spec"
+
     def _init_spec(self, engine, num_slots: int, max_len: int, spec_k: int,
                    draft: Optional[Tuple]) -> None:
+        """The draft lane and the speculation counters, on the
+        scheduler's registry."""
         self.draft_lane = DraftLane(engine, num_slots, max_len, spec_k,
                                     draft=draft)
         # the depth acceptance is capped at (set_spec_k); the draft and
         # the verify keep the static spec_k's shapes
         self.spec_k_eff = spec_k
-        self._drafted = self._accepted = self._spec_ticks = 0
+        self._g_spec_k = self.obs.gauge("serve_spec_k_effective",
+                                        sched=self._sched_kind)
+        self._g_spec_k.set(spec_k)
+        self._c_drafted = self.obs.counter("serve_spec_drafted_total")
+        self._c_accepted = self.obs.counter("serve_spec_accepted_total")
+        self._c_spec_ticks = self.obs.counter("serve_spec_ticks_total")
+        self.obs.add_derived("spec_acceptance_rate",
+                             lambda: self.acceptance_rate)
+        tc = getattr(self.draft_lane, "trace_counts", None)
+        if tc is not None:
+            self._watch_traces("draft_lane", tc)
 
     @staticmethod
     def _check_spec_target(engine, spec_k: int) -> None:
@@ -162,21 +181,28 @@ class _SpecMixin:
         """The effective speculation depth, 0 <= k <= spec_k; safe between
         ticks. Reservations and the headroom guard keep the static spec_k,
         and greedy output stays token-identical at every depth; k = 0
-        runs plain decode ticks."""
+        runs plain decode ticks. A change is a `spec_depth` event."""
         if not isinstance(k, int) or not 0 <= k <= self.spec_k:
             raise ValueError(
                 f"effective spec_k must be an int in [0, {self.spec_k}], "
                 f"got {k!r}")
+        if k == self.spec_k_eff:
+            return
         self.spec_k_eff = k
+        self._g_spec_k.set(k)
+        self.obs.event("spec_depth", sched=self._sched_kind, spec_k=k)
 
     @property
     def spec_stats(self) -> dict:
-        return {"drafted": self._drafted, "accepted": self._accepted,
-                "spec_ticks": self._spec_ticks}
+        """A view of the speculation counters."""
+        return {"drafted": self._c_drafted.value,
+                "accepted": self._c_accepted.value,
+                "spec_ticks": self._c_spec_ticks.value}
 
     @property
     def acceptance_rate(self) -> float:
-        return self._accepted / self._drafted if self._drafted else 0.0
+        d = self._c_drafted.value
+        return self._c_accepted.value / d if d else 0.0
 
     def submit(self, req: Request) -> int:
         """The headroom guard: a verify writes up to spec_k positions past
@@ -203,16 +229,18 @@ class _SpecMixin:
             prompt = np.pad(prompt, ((0, 0), (0, P - S)))
         self.draft_lane.admit(slot_idx, prompt, last_pos=S - 1)
 
-    def step(self) -> int:
-        """One tick: admissions, k drafts a row, one verify of k+1
-        positions, acceptance. Returns the tokens emitted."""
+    def _step_impl(self) -> int:
+        """One tick after the pre-tick hooks: admissions, k drafts a row,
+        one verify of k+1 positions, acceptance. Returns the tokens
+        emitted."""
         if self.spec_k_eff == 0:
-            return super().step()  # plain decode ticks
+            return super()._step_impl()  # plain decode ticks
+        t0 = time.perf_counter()
         self._do_admissions()
         occupied = [i for i, s in enumerate(self.slots) if s is not None]
         if not occupied:
             return 0
-        t0 = time.perf_counter()
+        t_dec = time.perf_counter()
         dev = self.engine.device
         tok = torch.as_tensor(self._tok, device=dev)
         drafts = self.draft_lane.draft(
@@ -222,8 +250,10 @@ class _SpecMixin:
         self._ticks += 1
         greedy = logits.argmax(dim=-1).cpu().numpy()
         toks_h = toks.cpu().numpy()
-        self._decode_s += time.perf_counter() - t0
-        return self._spec_emit(occupied, toks_h, greedy, logits)
+        self._decode_s += time.perf_counter() - t_dec
+        produced = self._spec_emit(occupied, toks_h, greedy, logits)
+        self._post_tick(t0)
+        return produced
 
     def _spec_emit(self, occupied: List[int], toks_h: np.ndarray,
                    greedy: np.ndarray, logits: torch.Tensor) -> int:
@@ -233,7 +263,7 @@ class _SpecMixin:
         the effective depth; `drafted` counts the static spec_k, the draft
         work spent."""
         k = self.spec_k_eff
-        self._spec_ticks += 1
+        self._c_spec_ticks.inc()
         produced = 0
         for i in occupied:
             st = self.slots[i]
@@ -251,8 +281,9 @@ class _SpecMixin:
             a = 0
             while a < k and toks_h[i, a + 1] == greedy[i, a]:
                 a += 1
-            self._drafted += self.spec_k
-            self._accepted += a
+            self._c_drafted.inc(self.spec_k)
+            self._c_accepted.inc(a)
+            st.trace.mark("verify", accepted=a, drafted=k)
             done = False
             tok = 0
             for j in range(a + 1):  # a accepted drafts and the correction
@@ -278,10 +309,10 @@ class SpecScheduler(_SpecMixin, Scheduler):
 
     def __init__(self, engine, *, num_slots: int, max_len: int,
                  spec_k: int = 4, draft: Optional[Tuple] = None,
-                 prefill_bucket: Optional[int] = None):
+                 prefill_bucket: Optional[int] = None, obs=None):
         self._check_spec_target(engine, spec_k)
         super().__init__(engine, num_slots=num_slots, max_len=max_len,
-                         prefill_bucket=prefill_bucket)
+                         prefill_bucket=prefill_bucket, obs=obs)
         self.spec_k = spec_k
         self._init_spec(engine, num_slots, max_len, spec_k, draft)
 
@@ -308,16 +339,18 @@ class SpecPagedScheduler(_SpecMixin, PagedScheduler):
     touch is allocated before the verify (the reservation keeps this
     infallible). The draft lane stays contiguous."""
 
+    _sched_kind = "spec_paged"
+
     def __init__(self, engine, *, num_slots: int, num_blocks: int, page: int,
                  max_len: int, spec_k: int = 4, draft: Optional[Tuple] = None,
                  kv_quant: Optional[str] = None, prefix_cache: bool = True,
-                 prefill_bucket: Optional[int] = None):
+                 prefill_bucket: Optional[int] = None, obs=None):
         self._check_spec_target(engine, spec_k)
         self.spec_k = spec_k
         super().__init__(engine, num_slots=num_slots, num_blocks=num_blocks,
                          page=page, max_len=max_len, kv_quant=kv_quant,
                          prefix_cache=prefix_cache,
-                         prefill_bucket=prefill_bucket)
+                         prefill_bucket=prefill_bucket, obs=obs)
         self._init_spec(engine, num_slots, max_len, spec_k, draft)
 
     def _spec_padded_len(self, S: int) -> int:

@@ -19,6 +19,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg, TrainCfg
 from repro_torch.core import peft
 from repro_torch.models import model as M
+from repro_torch.optim import qstate
 from repro_torch.sparse.importance import gated_param_count, mask_gate
 from repro_torch.train import metrics as metrics_mod
 from repro_torch.train.steps import (build_eval_step, build_train_step,
@@ -78,13 +79,23 @@ def _device_of(params) -> torch.device:
 def run_train(state, step_fn, batches: Iterable, *, steps: int,
               log_every: int = 0, manager=None, save_every: int = 0,
               watchdog: Optional[StepWatchdog] = None,
-              log: Callable[[str], None] = print):
+              log: Callable[[str], None] = print, obs=None):
     """Run `steps` steps. Returns (state, history): one dict of floats per
     step, its metrics plus `step_s`, the step's wall time up to a device
     sync. With a `manager` (`checkpoint.CheckpointManager`) and
     `save_every`, every save_every-th step of this run saves the state
-    (`steps.state_tree`) under the state's step count, as JAX does."""
+    (`steps.state_tree`) under the state's step count, as JAX does.
+
+    obs: a `repro_torch.obs.MetricsRegistry`, as JAX's: the optimizer
+    state's bytes (`train_opt_state_bytes`, counted as JAX counts them)
+    whenever it is given; under a `watchdog` also each step's seconds
+    (`train_step_s`) and the stragglers (`train_straggler_steps_total`,
+    a `straggler` event each)."""
     device = _device_of(state["params"])
+    h_step = obs.histogram("train_step_s") if obs is not None else None
+    if obs is not None and "opt" in state:
+        obs.gauge("train_opt_state_bytes").set(
+            qstate.moment_bytes(state["opt"]))
     history = []
     it = iter(batches)
     for i in range(steps):
@@ -93,9 +104,16 @@ def run_train(state, step_fn, batches: Iterable, *, steps: int,
         state, m = step_fn(state, batch)
         _sync(device)
         dt = time.perf_counter() - t0
-        if watchdog is not None and watchdog.observe(i, dt):
-            log(f"[watchdog] straggler step {i}: {dt:.3f}s "
-                f"(ewma {watchdog.ewma:.3f}s)")
+        if watchdog is not None:
+            if h_step is not None:
+                h_step.observe(dt)
+            if watchdog.observe(i, dt):
+                if obs is not None:
+                    obs.counter("train_straggler_steps_total").inc()
+                    obs.event("straggler", step=i, dt_s=dt,
+                              ewma_s=watchdog.ewma)
+                log(f"[watchdog] straggler step {i}: {dt:.3f}s "
+                    f"(ewma {watchdog.ewma:.3f}s)")
         hm = {k: float(v) for k, v in m.items()}
         hm["step_s"] = dt
         history.append(hm)

@@ -14,8 +14,9 @@ from repro.serving import ServeEngine as JServeEngine
 from repro.serving import ServingConfig as JServingConfig
 from repro.serving import make_scheduler as jmake_scheduler
 from repro_torch import convert
-from repro_torch.serving import (MultiTaskEngine, Request, ServeEngine,
-                                 ServingConfig, make_scheduler)
+from repro_torch.obs import SLOSpec, queue_depth_max
+from repro_torch.serving import (AdmissionConfig, MultiTaskEngine, Request,
+                                 ServeEngine, ServingConfig, make_scheduler)
 from test_torch_model import jax_cfg, jax_params, np_tree, port_cfg
 
 MAX_LEN = 32
@@ -109,13 +110,22 @@ def test_eos_and_top_k_are_per_request():
     np.testing.assert_array_equal(done[1].tokens, done[2].tokens)
 
 
-# the ids the cases had beside the paged, spec_k and kv_quant cases
-@pytest.mark.parametrize("kw", [pytest.param(dict(slo=object()), id="kw3"),
-                                pytest.param(dict(admission=object()),
-                                             id="kw4")])
+# the ids the cases had beside the paged, spec_k and kv_quant cases. The
+# SLO and admission switches are ported now: slo alone builds a scheduler
+# that watches (no ladder), admission alone raises JAX's ValueError
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(slo=SLOSpec(objectives=(queue_depth_max(4),))),
+                 id="kw3"),
+    pytest.param(dict(admission=AdmissionConfig()), id="kw4")])
 def test_serving_config_features_of_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        ServingConfig(**kw)
+    if "admission" in kw:
+        with pytest.raises(ValueError, match="needs objectives"):
+            ServingConfig(**kw)
+        return
+    _, peng, _ = _engines("tiny", 0)
+    sched = make_scheduler(peng, ServingConfig(num_slots=1, max_len=MAX_LEN,
+                                               **kw))
+    assert sched._slo_monitor is not None and sched._admission is None
 
 
 def test_serving_config_validates():

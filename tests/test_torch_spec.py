@@ -20,6 +20,7 @@ import pytest
 
 from repro.core import hadamard as jhad
 from repro.models import model as JM
+from repro.serving import AdmissionConfig as JAdmissionConfig
 from repro.serving import MultiTaskEngine as JMultiTaskEngine
 from repro.serving import Request as JRequest
 from repro.serving import ServingConfig as JServingConfig
@@ -29,10 +30,11 @@ from repro_torch.common.types import AdapterCfg
 from repro_torch.configs import get_smoke
 from repro_torch.core import peft
 from repro_torch.launch import serve as launcher
-from repro_torch.serving import (DraftLane, MultiTaskEngine, PagedScheduler,
-                                 Request, Scheduler, ServeEngine,
-                                 ServingConfig, SpecPagedScheduler,
-                                 SpecScheduler, make_scheduler)
+from repro_torch.serving import (AdmissionConfig, DraftLane,
+                                 MultiTaskEngine, PagedScheduler, Request,
+                                 Scheduler, ServeEngine, ServingConfig,
+                                 SpecPagedScheduler, SpecScheduler,
+                                 make_scheduler)
 from test_torch_model import KEY, jax_cfg, np_tree, port_cfg
 
 SERVE = dict(num_slots=3, max_len=32)
@@ -240,8 +242,11 @@ def test_make_scheduler_picks_jax_scheduler_and_refuses_incoherence(world):
     with pytest.raises(ValueError, match="spec_k"):
         make_scheduler(eng, ServingConfig(num_slots=2, max_len=32),
                        draft_model=(pcfg, world["pdraft"]))
-    with pytest.raises(NotImplementedError, match="slice"):
-        ServingConfig(slo=object())
+    # admission needs an SLO to act on, in both packages
+    with pytest.raises(ValueError, match="needs objectives"):
+        JServingConfig(admission=JAdmissionConfig())
+    with pytest.raises(ValueError, match="needs objectives"):
+        ServingConfig(admission=AdmissionConfig())
 
 
 # ---------------------------------------------------------------------------
