@@ -132,6 +132,39 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      launches, and 24 #3 or #6, in every decode tick and prefill, no
      attention kernel; 5rq also one #7 (the LM head) and its engine bytes
      below 5r's by the head's saving;
+  3g. #1, #4, #5, #6 and #9 at gemma2-27b's serve shapes against their
+     plain versions, fp32 and bf16, and timed L2-cold in bf16: #1 at the
+     post-norm seam of a 2-slot decode tick (2,1,4608) and of a 4160-token
+     prefill; #4 over a 4160-token prompt, local (window 4096) and global,
+     capped at 50 and scaled by 144^-0.5, beside SDPA uncapped; #5 over a
+     4096-entry ring past its wrap (kv_lens the last write) and a 4352-token
+     cache (the last write + 1), capped, bit-identical across two runs; #6
+     and #9 (a gated-off row) at (4,1,4608) and (1,128,4608), equal to
+     their plain versions byte for byte;
+  4g. gemma2-27b in fp32 at full width, depth cut to 2 of its 23 (local,
+     global) groups: a 4160-token prompt and 32 greedy tokens through the
+     kernels against the plain path, over the slot caches and over a paged
+     pool, logits within 1e-3 of max|ref|, tokens identical, the launches
+     of every call (a prefill 4 #4 + 4 #1, a step 4 #5 + 4 #1);
+  5g, 5gp. gemma2-27b at full width and depth in bf16 (54.5 GB), one
+     adapter: 4 requests (prompts of 4160 and 128 tokens, 32 greedy tokens
+     each) admitted mid-decode into 2 slots of 4352 tokens, over the slot
+     caches (5g) and a pool of 16-token pages (5gp, every admission cold,
+     the pool drained): 46 #1 and 46 #5 a decode tick, 46 #4 and 46 #1 a
+     prefill; memory before the build and the build's peak; tok/s, TTFT,
+     token gap, a tick's and a long prefill's profile; the prefill's last
+     logits against the plain path within GEMMA["prefill_tol"], which two
+     planted faults (the local layers' window dropped, every adapter's w
+     30 % further from 1) must exceed; the serve launcher at gemma2-27b
+     over the paged pool;
+  6g, 6gs. the same model over a 3-task bank (#6) and a 3-row hot-swap
+     bank holding two pruned tenants (#9, each resident row's gates its
+     mask), 8 requests of 128 + 32 tokens on 4 slots: 46 #6 or #9 and 46
+     #5 a tick, 46 #4 a prefill;
+  5o. qwen3-0.6b with fold=True: at fp32 (phase 4's model) greedy tokens
+     equal to the unfolded engine's and each call's launches the same (#3
+     on the identity adapter); bf16 and --fold --quant int8 agreement
+     reported; the launcher with --static --fold and with --stream;
   7. the full-width bert-base encoder (12 layers) in fp32 on one batch of
      32x128 sst2 tokens with every adapter leaf perturbed: logits, stage-2
      loss and every trainable gradient through the kernels against the
@@ -188,11 +221,11 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      and compressed gradients over bf16 m + int8 v moments, 10 steps each:
      196,608 trainable, 24 #8, 24 #3 and 24 #2 launches every step, rates,
      peak bytes and a torch.profiler breakdown of a step;
-  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 40 steps a
+  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 20 steps a
      preset): fp32, bf16, bf16+int8 and int8 moments with error feedback,
      and int8 without: each state's bytes equal to state_summary's formula,
      bf16 2.0x, all-int8 no-EF >= 3x, bf16+int8's final loss within 1 % of
-     fp32's, a bf16+int8 run resumed at step 20 bit for bit the unbroken
+     fp32's, a bf16+int8 run resumed at step 10 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
      5p-6p, 5a,
@@ -200,6 +233,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
+
 
 It needs a CUDA device and the repo's `src/` beside it, and imports no JAX.
 The GPUs other than the first are hidden from it: it drives one card.
@@ -251,13 +285,13 @@ RWKV_TRAINABLE = {"hadamard": (196_608, 1_599_967_232),
 # the paper's own experiment at bert-base's full width (phase 8p), fp32,
 # TRAIN's 32 x 128 tokens a step: MLM pretraining, then the recipe's lanes
 # over it; only the step counts are cut. Pretraining takes JAX's
-# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 400 steps of its
+# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 300 steps of its
 # 600, to keep the script inside its time limit (a 1000-step run on an
 # H100 had its MLM loss at its plateau, near 9.5, by step 400), the lanes
 # the learning rates of JAX's paper benchmarks
 # (benchmarks/common.py: stage 1 3e-3, adapters 8e-3, full fine-tuning
 # 3e-4, warmup a tenth of the steps)
-PAPER = dict(pretrain_steps=400, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
+PAPER = dict(pretrain_steps=300, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
              steps=30, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
              second_task="cola", table5_top=(1, 6, 8, 12),
              table4=("B+N", "W+B+N"), search_budget=0.01)
@@ -281,10 +315,23 @@ LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
 # launch.pretrain's path (phase 8q): MLM steps of bert-base a moment
 # preset, on the paper's pretraining stream and rate; the bf16+int8 lane
 # saves at resume_at and a fresh state resumes from there
-PRETRAIN_Q = dict(steps=40, resume_at=20)
+PRETRAIN_Q = dict(steps=20, resume_at=10)
 # rwkv6-1.6b's LM fine-tuning (phase 8r) on LM_TRAIN's batches and rate:
 # the Hadamard lane's steps, then the int8-trunk and the compressed lanes'
 RWKV_TRAIN = dict(steps=20, other_steps=10)
+# gemma2-27b serving (phases 3g-6g): 4 requests, prompts of 4160 tokens
+# (past the 4096-token window: every ring wraps at prefill and again at
+# decode) and of 128, 32 greedy tokens each, on 2 slots of 4352 tokens; 4g
+# cuts the depth to 2 of the 23 groups (fp32); 6g serves a bank, 8
+# requests of 128 + 32 tokens on 4 slots. prefill_tol: the limit of the
+# bf16 prefill's last logits, kernel path against plain path, set from an
+# H100's readings (the kernel path 0.133 from the plain one; the plain
+# path without the window 0.335, with every adapter's w 10 % off 0.164,
+# too near to gate on, so the planted adapter fault is 30 %; PERF.md §6)
+GEMMA = dict(arch="gemma2-27b", num_slots=2, max_len=4352, long_prompt=4160,
+             new_tokens=32, seed=0, depth_groups=2, bank_prompt=128,
+             bank_requests=8, bank_slots=4, bank_max_len=160,
+             prefill_tol=0.25)
 
 
 def log(msg: str) -> None:
@@ -3267,6 +3314,742 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done(phase)
 
+    # -- the gemma2-27b phases (3g, 4g, 5g, 6g) and the fold lane (5o) ------
+    # gemma2-27b (configs/gemma2_27b.py): 46 layers in 23 (local window
+    # 4096, global) groups, d 4608, GQA 32/16 of 128, d_ff 36,864 (GeGLU),
+    # vocab 256,000, soft-caps 50 (attention) and 30 (logits), post-norms,
+    # query scale 144^-0.5, tied embeddings: 54.5 GB in bf16. Its adapter
+    # seam sits before post_attn_norm, so one adapter runs #1, a bank #6
+    # and a hot-swap bank #9; its local layers keep 4096-entry rings, which
+    # #4 masks at prefill and #5 reads at decode
+    from repro_torch.common import tree as tu
+    from repro_torch.common.types import Group
+    from repro_torch.serving import (AdapterBank, AdapterRegistry,
+                                     MultiTaskEngine, Request)
+    from repro_torch.sparse import apply_layer_mask, preset_mask
+
+    gcfg = launcher.build_config(GEMMA["arch"])
+    g_layers = gcfg.n_layers
+    g_slots, g_len = GEMMA["num_slots"], GEMMA["max_len"]
+    g_long, g_new = GEMMA["long_prompt"], GEMMA["new_tokens"]
+    g_window = gcfg.layer_slots()[0].window
+    gemma_launches, gemma_reports = {}, {}
+
+    def release():
+        """Free what the dropped engines held: a scheduler's metrics keep
+        reference cycles through it, so collect them before the cache."""
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def copies_of(make, per_copy):
+        """Copies of a timed call's inputs, together over twice the 50 MB
+        L2 (two at least), each call of a timed graph taking the next."""
+        return [make() for _ in range(max(2, -(-100 * 2**20 // per_copy)))]
+
+    def gemma2_kernels():
+        """Phase 3g: #1, #4, #5, #6 and #9 at gemma2-27b's serve shapes,
+        each against its plain version in fp32 and bf16 and timed L2-cold
+        in bf16."""
+        d_g, H, KH, D = gcfg.d_model, gcfg.n_heads, gcfg.n_kv_heads, \
+            gcfg.head_dim
+        cap, qs = gcfg.attn_softcap, gcfg.query_scale
+        f32, bf = torch.float32, torch.bfloat16
+        # #1: the single adapter's seam at a 2-slot decode tick and at a
+        # 4160-token prefill
+        for key, rows, S in (("gemma2_decode", g_slots, 1),
+                             ("gemma2_prefill", 1, g_long)):
+            w, b = 1 + randn(d_g, scale=0.1), randn(d_g, scale=0.1)
+            for dt in (f32, bf):
+                x = randn(rows, S, d_g, dtype=dt)
+                compare("hadamard_affine", f"gemma2 ({rows},{S},{d_g})", dt,
+                        lambda: ops.hadamard(x, w, b, impl="kernel"),
+                        lambda: ops.hadamard(x, w, b, impl="ref"))
+            xs = copies_of(lambda: (randn(rows, S, d_g, dtype=bf),),
+                           rows * S * d_g * 2)
+            wb, bb = w.to(bf), b.to(bf)
+            record(f"hadamard_affine@{key}", "hadamard_affine",
+                   f"x ({rows},{S},{d_g}) bf16 ({len(xs)} copies in turn), "
+                   f"fp32 w/b (gemma2-27b's post-norm seam, one layer of a "
+                   f"{'2-slot decode tick' if S == 1 else 'prefill'})", bf,
+                   rotating(xs, lambda x: ops.hadamard(x, w, b,
+                                                       impl="kernel")),
+                   rotating(xs, lambda x: ops.hadamard(x, w, b, impl="ref")),
+                   rotating(xs, lambda x: torch.addcmul(bb, x, wb)),
+                   2 * nbytes(xs[0][0]) + nbytes(w, b),
+                   2 * xs[0][0].numel(), iters=len(xs), reps=2)
+            results[f"hadamard_affine@{key}"]["library_note"] = (
+                "torch.addcmul(b, x, w), b and w cast to bf16")
+            del xs
+        # #4: a 4160-token prefill, local (window 4096) and global layers,
+        # capped at 50 and scaled by 144^-0.5, fp32 and bf16
+        S = g_long
+        for dt in (f32, bf):
+            q = randn(1, H, S, D, dtype=dt)
+            k, v = randn(1, KH, S, D, dtype=dt), randn(1, KH, S, D, dtype=dt)
+            for win in (g_window, None):
+                kw = dict(causal=True, window=win, cap=cap, scale=qs)
+                compare("flash_attention", f"gemma2 S={S} window={win} "
+                        f"cap={cap}", dt,
+                        lambda: ops.flash_attention(q, k, v, impl="kernel",
+                                                    **kw),
+                        lambda: ops.flash_attention(q, k, v, impl="ref",
+                                                    **kw))
+            del q, k, v
+            release()
+        qkvs = copies_of(lambda: (randn(1, H, S, D, dtype=bf),
+                                  randn(1, KH, S, D, dtype=bf),
+                                  randn(1, KH, S, D, dtype=bf)),
+                         2 * (H + 2 * KH) * S * D)
+        q, k, v = qkvs[0]
+        # query i sees min(i + 1, window) keys
+        pairs = sum(min(i + 1, g_window) for i in range(S))
+        record("flash_attention@gemma2_local", "flash_attention",
+               f"q (1,{H},{S},{D}) over k/v (1,{KH},{S},{D}) bf16, causal, "
+               f"window {g_window}, cap {cap}, scale 144^-0.5 "
+               f"({len(qkvs)} copies in turn; one local layer of a gemma2-27b "
+               "prefill)", bf,
+               rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                   q_, k_, v_, window=g_window, cap=cap, scale=qs,
+                   impl="kernel")),
+               rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                   q_, k_, v_, window=g_window, cap=cap, scale=qs,
+                   impl="ref")),
+               None, 2 * nbytes(q) + nbytes(k, v), 4 * H * D * pairs,
+               yardstick_fn=rotating(qkvs, lambda q_, k_, v_:
+                                     F.scaled_dot_product_attention(
+                                         q_, k_, v_, is_causal=True,
+                                         scale=qs, enable_gqa=True)),
+               iters=len(qkvs), reps=2)
+        results["flash_attention@gemma2_local"]["library_note"] = (
+            "none: SDPA takes no soft-cap or window; the yardstick is "
+            "scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+            "over all the keys, uncapped")
+        del qkvs
+        release()
+        # #5: a 2-slot decode tick over the ring (4096 of a 4352 cache, in
+        # 16-token pages; kv_lens the last write, past the wrap) and over a
+        # global layer's cache (kv_lens the last write + 1), capped
+        page = 16
+        for key, win, size, kl in (
+                ("gemma2_ring", g_window, g_window, [4200, 4170]),
+                ("gemma2_linear", None, g_len, [4201, 4171])):
+            nbt = size // page
+            tables = (torch.arange(g_slots, device=dev, dtype=torch.int32)
+                      [:, None] * nbt + torch.arange(nbt, device=dev,
+                                                     dtype=torch.int32))
+            kl_t = torch.tensor(kl, dtype=torch.int32, device=dev)
+            kw = dict(window=win, cap=cap, scale=qs)
+            for dt in (f32, bf):
+                q = randn(g_slots, H, D, dtype=dt)
+                kp = randn(g_slots * nbt, page, KH, D, dtype=dt)
+                vp = randn(g_slots * nbt, page, KH, D, dtype=dt)
+                compare("paged_attention", f"gemma2 {key} kv_lens {kl}", dt,
+                        lambda: ops.paged_attention(q, kp, vp, tables, kl_t,
+                                                    impl="kernel", **kw),
+                        lambda: ops.paged_attention(q, kp, vp, tables, kl_t,
+                                                    impl="ref", **kw))
+                runs = [ops.paged_attention(q, kp, vp, tables, kl_t,
+                                            impl="kernel", **kw)
+                        for _ in range(2)]
+                check(torch.equal(*runs), f"paged_attention gemma2 {key} "
+                                          f"{dt}: two runs differ")
+            pcopies = copies_of(
+                lambda: (randn(g_slots, H, D, dtype=bf),
+                         randn(g_slots * nbt, page, KH, D, dtype=bf),
+                         randn(g_slots * nbt, page, KH, D, dtype=bf)),
+                2 * g_slots * size * KH * D * 2)
+            n_keys = g_slots * size if win else sum(kl)
+            mask = None if win else (torch.arange(size, device=dev)[None, :]
+                                     < kl_t[:, None])[:, None, None, :]
+
+            def sdpa(q_, kp_, vp_, size=size, mask=mask):
+                k_ = kp_.view(g_slots, size, KH, D).transpose(1, 2)
+                v_ = vp_.view(g_slots, size, KH, D).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q_[:, :, None], k_, v_, attn_mask=mask, scale=qs,
+                    enable_gqa=True)
+
+            plan = paged_split_plan(g_slots, H, KH, 1, D, page, nbt, win)
+            record(f"paged_attention@{key}", "paged_attention",
+                   f"q ({g_slots},{H},{D}) bf16 over "
+                   f"{'a ring of ' + str(win) if win else 'a cache of ' + str(size)}"
+                   f" keys a row in {page}-token pages, kv_lens {kl}, cap "
+                   f"{cap} ({len(pcopies)} copies in turn; one "
+                   f"{'local' if win else 'global'} layer of a gemma2-27b "
+                   f"2-slot decode tick; {plan['splits']} splits, "
+                   f"{plan['blocks']} blocks)", bf,
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl_t, impl="kernel", **kw)),
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl_t, impl="ref", **kw)),
+                   None,
+                   nbytes(pcopies[0][0], tables, kl_t)
+                   + n_keys * KH * D * 2 * 2 + g_slots * H * D * 4,
+                   4 * H * D * n_keys, yardstick_fn=rotating(pcopies, sdpa),
+                   iters=len(pcopies), reps=3)
+            results[f"paged_attention@{key}"].update(
+                library_note="none: SDPA takes no block table, ring or "
+                             "soft-cap; the yardstick is SDPA over the "
+                             "contiguous cache, uncapped",
+                split_plan=plan)
+            del pcopies
+        # #6 and #9 at d 4608: a 4-slot decode tick and a 128-token prefill
+        # over a 3-row bank (fp32 rows), #9 with a gated-off row that is
+        # not the identity
+        wb3, bb3 = 1 + randn(3, d_g, scale=0.1), randn(3, d_g, scale=0.1)
+        gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
+        for rows, S in ((4, 1), (1, GEMMA["bank_prompt"])):
+            ids = torch.arange(rows, dtype=torch.int32, device=dev) % 3
+            for dt in (f32, bf):
+                x = randn(rows, S, d_g, dtype=dt)
+                for name, kern, plain in (
+                        ("multitask_hadamard",
+                         lambda: ops.multitask_hadamard(x, wb3, bb3, ids,
+                                                        impl="kernel"),
+                         lambda: ops.multitask_hadamard(x, wb3, bb3, ids,
+                                                        impl="ref")),
+                        ("masked_multitask_hadamard",
+                         lambda: ops.masked_multitask_hadamard(
+                             x, wb3, bb3, gate3, ids, impl="kernel"),
+                         lambda: ops.masked_multitask_hadamard(
+                             x, wb3, bb3, gate3, ids, impl="ref"))):
+                    compare(name, f"gemma2 ({rows},{S},{d_g})", dt, kern,
+                            plain)
+                    check(torch.equal(kern(), plain()),
+                          f"{name} gemma2 ({rows},{S},{d_g}) {dt}: not the "
+                          "plain version byte for byte")
+            key = "gemma2_decode" if S == 1 else "gemma2_prefill"
+            xs = copies_of(lambda: (randn(rows, S, d_g, dtype=bf),),
+                           rows * S * d_g * 2)
+            for name, kern, plain in (
+                    ("multitask_hadamard",
+                     lambda x: ops.multitask_hadamard(x, wb3, bb3, ids,
+                                                      impl="kernel"),
+                     lambda x: ops.multitask_hadamard(x, wb3, bb3, ids,
+                                                      impl="ref")),
+                    ("masked_multitask_hadamard",
+                     lambda x: ops.masked_multitask_hadamard(
+                         x, wb3, bb3, gate3, ids, impl="kernel"),
+                     lambda x: ops.masked_multitask_hadamard(
+                         x, wb3, bb3, gate3, ids, impl="ref"))):
+                rows_read = nbytes(wb3[:1], bb3[:1]) * min(rows, 3)
+                record(f"{name}@{key}", name,
+                       f"x ({rows},{S},{d_g}) bf16 ({len(xs)} copies in "
+                       f"turn), a 3-row fp32 bank{', gates' if 'masked' in name else ''}"
+                       f" (one layer of a gemma2-27b "
+                       f"{'4-slot decode tick' if S == 1 else '128-token prefill'})",
+                       bf, rotating(xs, kern), rotating(xs, plain), None,
+                       2 * nbytes(xs[0][0]) + rows_read + 4 * rows,
+                       3 * xs[0][0].numel(), iters=len(xs), reps=2)
+                results[f"{name}@{key}"]["library_note"] = (
+                    "none: the bank gather and the affine are separate calls")
+            del xs
+        release()
+        phase_done("3g")
+
+    def gemma2_fp32_model():
+        """Phase 4g: gemma2-27b at full width in fp32, its depth cut to 2 of
+        its 23 (local, global) groups, TF32 off: a 4160-token prompt (every
+        ring wraps) and 32 greedy tokens through the kernels against the
+        plain versions (impl="ref"), over the slot caches and over a paged
+        pool: logits within 1e-3 of max|ref| and greedy tokens identical;
+        the launches of each call as predicted (a prefill 4 #4 + 4 #1, a
+        decode step 4 #5 + 4 #1)."""
+        cfg4 = gcfg.replace(param_dtype="float32", compute_dtype="float32",
+                            groups=(Group(gcfg.groups[0].slots,
+                                          GEMMA["depth_groups"]),))
+        L4 = cfg4.n_layers
+        torch.cuda.synchronize()
+        release()
+        log(f"[4g] device memory allocated before the build: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        eng = launcher.build_engine(cfg4, seed=1, device=dev)
+        prompt = torch.randint(10, cfg4.vocab_size, (1, g_long), generator=gen,
+                               device=dev)
+        want_pre = kernels(flash_attention=L4, hadamard_affine=L4)
+        want_dec = kernels(paged_attention=L4, hadamard_affine=L4)
+        runs, worst = {}, 0.0
+        with torch.no_grad():
+            for impl in ("auto", "ref"):
+                _build.reset_launches()
+                lg, caches = M.prefill_lm(eng.params, cfg4, prompt, g_len,
+                                          impl=impl)
+                torch.cuda.synchronize()
+                pre_counts = _build.launch_counts()
+                logits, toks = [lg], []
+                for i in range(g_new):
+                    tok = lg[:, -1].argmax(-1)
+                    toks.append(tok)
+                    _build.reset_launches()
+                    lg, caches = M.decode_lm(
+                        eng.params, cfg4, caches, tok[:, None],
+                        torch.tensor([g_long + i], device=dev), impl=impl)
+                    torch.cuda.synchronize()
+                    dec_counts = _build.launch_counts()
+                    if impl == "auto":
+                        check(dec_counts == want_dec, f"[4g] decode step {i} "
+                              f"launched {dec_counts}, want {want_dec}")
+                    logits.append(lg)
+                if impl == "auto":
+                    check(pre_counts == want_pre, f"[4g] prefill launched "
+                          f"{pre_counts}, want {want_pre}")
+                    kern_caches = caches
+                runs[impl] = (logits, torch.cat(toks))
+            check([c["k"].shape[1] for c in kern_caches[:2]]
+                  == [g_window, g_len], "[4g] cache lengths "
+                  f"{[c['k'].shape[1] for c in kern_caches[:2]]}")
+            for step, (a, r) in enumerate(zip(runs["auto"][0],
+                                              runs["ref"][0])):
+                check(bool(torch.isfinite(a).all()), "[4g] non-finite logits")
+                diff = (a - r).abs().max().item()
+                check(diff <= 1e-3 * r.abs().max().item(),
+                      f"[4g] step {step}: |kernel - plain| {diff:.3g} > "
+                      f"1e-3 x {r.abs().max().item():.3g}")
+                worst = max(worst, diff / r.abs().max().item())
+            same = bool(torch.equal(runs["auto"][1], runs["ref"][1]))
+            check(same, f"[4g] greedy tokens differ: kernel "
+                        f"{runs['auto'][1].tolist()}, plain "
+                        f"{runs['ref'][1].tolist()}")
+            toks = runs["auto"][1]
+            # the same steps over a paged pool: the fresh prefill inserted
+            # into shuffled blocks (each layer its own length: the ring into
+            # the first 256 entries), then the kernel path's tokens fed
+            nbt = g_len // 16
+            tables = (torch.randperm(nbt, generator=gen, device=dev) + 1
+                      ).to(torch.int32)[None]
+            paged, pworst = {}, 0.0
+            for impl in ("auto", "ref"):
+                pool = eng.init_paged_pool(nbt + 1, 16)
+                lg, fresh = M.prefill_lm(eng.params, cfg4, prompt, g_len,
+                                         impl=impl)
+                eng.paged_insert(pool, fresh, tables[0].cpu().numpy())
+                del fresh
+                out = [lg]
+                for i in range(g_new):
+                    _build.reset_launches()
+                    lg, _ = M.decode_lm_paged(
+                        eng.params, cfg4, pool, toks[i].view(1, 1),
+                        torch.tensor([g_long + i], device=dev), tables,
+                        impl=impl)
+                    torch.cuda.synchronize()
+                    if impl == "auto":
+                        check(_build.launch_counts() == want_dec,
+                              f"[4g] paged decode step {i} launched "
+                              f"{_build.launch_counts()}")
+                    out.append(lg)
+                paged[impl] = out
+                del pool
+            for step, (a, r, c) in enumerate(zip(paged["auto"], paged["ref"],
+                                                 runs["auto"][0])):
+                diff = (a - r).abs().max().item()
+                check(diff <= 1e-3 * r.abs().max().item(),
+                      f"[4g] paged step {step}: |kernel - plain| {diff:.3g}")
+                check(int(a[0, -1].argmax()) == int(c[0, -1].argmax()),
+                      f"[4g] paged step {step}: greedy token differs from "
+                      "the slot caches'")
+                pworst = max(pworst, diff / r.abs().max().item())
+            paged_equal = all(torch.equal(a, c) for a, c in
+                              zip(paged["auto"], runs["auto"][0]))
+        gemma_reports["4g"] = dict(
+            layers=L4, prompt=g_long, new_tokens=g_new,
+            max_rel_diff_contiguous=worst, max_rel_diff_paged=pworst,
+            paged_logits_equal_contiguous=paged_equal,
+            tokens=toks.tolist())
+        log(f"[4g] gemma2-27b fp32, {L4} layers (2 of 23 groups), a "
+            f"{g_long}-token prompt + {g_new} greedy tokens: kernel path vs "
+            f"plain path max |diff| / max|ref| {worst:.3g} over the slot "
+            f"caches, {pworst:.3g} over the pool (tol 1e-3), tokens "
+            f"identical; paged logits equal to the slot caches' "
+            f"{paged_equal}; launches a prefill {want_pre}, a decode step "
+            f"{want_dec}")
+        del eng, caches, kern_caches, runs, paged
+        release()
+        phase_done("4g")
+
+    def gemma2_requests(n_long, n_short, seed):
+        """Requests of g_long- and 128-token prompts, g_new greedy tokens
+        each, long and short in turn."""
+        rs = np.random.RandomState(seed)
+        lens = [g_long, GEMMA["bank_prompt"]] * max(n_long, n_short)
+        return [Request(prompt=rs.randint(10, gcfg.vocab_size, size=(n,)),
+                        max_new_tokens=g_new) for n in lens[:n_long + n_short]]
+
+    def staggered_run(sched, reqs, at_tick=2):
+        """`reqs[0]` alone, the rest submitted after `at_tick` ticks: every
+        later admission lands in the middle of another request's decode."""
+        n = [0]
+
+        def hook():
+            n[0] += 1
+            return ([sched.submit(r) for r in reqs[1:]] if n[0] == at_tick
+                    else [])
+
+        return sched.run(reqs[:1], on_tick=hook)
+
+    def gemma_serve_checks(tag, per_call, rep, done, counts, reqs, want):
+        """Each request retires with its whole budget of in-vocabulary
+        tokens, every launch falls inside a prefill or a decode step, and
+        each call launches what `want` says ({kernel: n} per decode tick
+        and per prefill). Returns the distinct counts per tick and per
+        prefill."""
+        check(len(done) == len(reqs), f"[{tag}] {len(done)} completions")
+        for c in done:
+            check(len(c.tokens) == g_new and c.finish_reason == "length"
+                  and bool(((c.tokens >= 0) & (c.tokens < gcfg.vocab_size))
+                           .all()), f"[{tag}] request {c.request_id}: "
+                  f"{len(c.tokens)} tokens ({c.finish_reason})")
+        for k in counts:
+            check(sum(c[k] for calls in per_call.values() for c in calls)
+                  == counts[k], f"[{tag}] {k} launched outside prefill and "
+                                "decode")
+        per_tick = {k: sorted({c[k] for c in per_call["decode_step"]})
+                    for k in counts}
+        per_prefill = {k: sorted({c[k] for c in per_call["prefill"]})
+                       for k in counts}
+        for k in counts:
+            for what, got in (("tick", per_tick), ("prefill", per_prefill)):
+                w_ = [want[what].get(k, 0)]
+                check(got[k] == w_, f"[{tag}] {k} per {what} {got[k]}, "
+                                    f"want {w_}")
+        check(len(per_call["decode_step"]) == rep["ticks"],
+              f"[{tag}] {len(per_call['decode_step'])} decode steps, "
+              f"{rep['ticks']} ticks")
+        return per_tick, per_prefill
+
+    def gemma2_serve():
+        """Phases 5g and 6g: gemma2-27b at full width and depth in bf16.
+        5g: one adapter (#1 at the post-norm seam), 4 requests (prompts of
+        4160 and 128 tokens, 32 greedy tokens each) admitted mid-decode
+        into 2 slots of 4352 tokens, over the slot caches and over a paged
+        pool of 16-token pages (the cold windowed lane); the prefill's last
+        logits against the plain path; the serve launcher. 6g: a 3-task
+        bank (#6) and a 3-row hot-swap bank holding pruned tenants (#9),
+        8 requests of 128 + 32 tokens on 4 slots."""
+        import contextlib
+        import io
+
+        torch.cuda.synchronize()
+        release()
+        held = torch.cuda.memory_allocated()
+        log(f"[5g] device memory allocated before the build: "
+            f"{held / 1e9:.2f} GB (reserved "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB)")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = launcher.build_engine(gcfg, seed=GEMMA["seed"], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights_bytes = torch.cuda.memory_allocated() - held
+        build_peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for _, t in tu.flatten_with_paths(eng.params))
+        check(build_peak < 80e9, f"[5g] the build peaked at "
+                                 f"{build_peak / 1e9:.2f} GB")
+        log(f"[5g] gemma2-27b bf16: {n_params:,} parameters, "
+            f"{weights_bytes / 1e9:.2f} GB on the card, the build peaking at "
+            f"{build_peak / 1e9:.2f} GB in {build_s:.1f} s")
+        reqs = gemma2_requests(2, 2, GEMMA["seed"])
+        want = {"tick": {"paged_attention": g_layers,
+                         "hadamard_affine": g_layers},
+                "prefill": {"flash_attention": g_layers,
+                            "hadamard_affine": g_layers}}
+        tokens_of = {}
+        for tag, paged in (("5g", False), ("5gp", True)):
+            scfg = ServingConfig(num_slots=g_slots, max_len=g_len,
+                                 paged=paged)
+            # warm-up: library init, the first call of every kernel
+            make_scheduler(eng, scfg).run([Request(
+                prompt=reqs[1].prompt, max_new_tokens=2)])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sched = make_scheduler(eng, scfg)
+            step_fn = "paged_decode_step" if paged else "decode_step"
+            per_call = count_per_call(eng, ("prefill", step_fn))
+            _build.reset_launches()
+            done, rep = staggered_run(sched, reqs)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            delattr(eng, "prefill")
+            delattr(eng, step_fn)
+            per_tick, per_prefill = gemma_serve_checks(
+                tag, {"prefill": per_call["prefill"],
+                      "decode_step": per_call[step_fn]}, rep, done,
+                counts, reqs, want)
+            tokens_of[tag] = [c.tokens for c in done]
+            extra = {}
+            if paged:
+                pr = sched.pool_report()
+                check(sched.prefix is None and pr["cold"] == len(reqs)
+                      and pr["live_blocks"] == 0,
+                      f"[5gp] pool {pr}: want every admission cold and the "
+                      "pool drained")
+                same = [float((a == b).mean()) for a, b in
+                        zip(tokens_of["5gp"], tokens_of["5g"])]
+                extra.update(pool=pr, pool_bytes=sum(
+                    t.numel() * t.element_size() for layer in sched.pool
+                    for t in layer.values()),
+                    token_agreement_with_5g=sum(same) / len(same))
+            else:
+                check([c["k"].shape[1] for c in sched.caches[:2]]
+                      == [g_window, g_len], "[5g] slot cache lengths")
+            del sched
+            # the profile of a 2-slot decode tick (one row past the wrap)
+            # and of a 4160-token prefill
+            caches = eng.init_slot_caches(g_slots, g_len)
+            tick = profile_calls(lambda: eng.decode_step(
+                caches, [[11]] * g_slots, [g_long + 40, 300]), 5)
+            del caches
+            long_prompt = reqs[0].prompt[None]
+            pre = profile_calls(lambda: eng.prefill(long_prompt, g_len), 2)
+            ex = exact_latency(done)
+            gemma_launches[tag] = counts
+            gemma_reports[tag] = dict(
+                rep, launches_per_decode_tick=per_tick,
+                launches_per_prefill=per_prefill, tick=tick, prefill=pre,
+                weights_bytes_allocated=weights_bytes,
+                build_peak_bytes=build_peak, build_s=build_s,
+                peak_bytes_allocated=peak, n_params=n_params, **extra, **ex)
+            kind = ("paged (16-token pages, the cold windowed lane)"
+                    if paged else "slot caches")
+            log(f"[{tag}] gemma2-27b bf16 {kind}, 2 slots of "
+                f"{g_len}, prompts {[len(r.prompt) for r in reqs]} on {smi}: "
+                f"{serve_line(rep, done)}; launches {counts}; per decode "
+                f"tick {per_tick}; per prefill {per_prefill}; peak "
+                f"{peak / 1e9:.2f} GB; decode tick {tick}; 4160-token "
+                f"prefill {pre}; {extra}")
+            phase_done(tag)
+        # the prefill's last logits through the kernels against the plain
+        # path, and against planted faults: the plain path without the
+        # local layers' window, and with every adapter's w 30 % further
+        # from 1, so that the limit sits between the readings
+        prompt_t = torch.as_tensor(reqs[0].prompt[None], device=dev)
+        with torch.no_grad():
+            got, _ = eng.prefill(reqs[0].prompt[None], g_len)
+            want_l, _ = M.prefill_lm(eng.params, gcfg, prompt_t, g_len,
+                                     impl="ref")
+            unwindowed = gcfg.replace(groups=(Group(
+                (gcfg.groups[0].slots[1],) * 2, gcfg.groups[0].repeats),))
+            fault_w, _ = M.prefill_lm(eng.params, unwindowed, prompt_t,
+                                      g_len, impl="ref")
+            off = dict(eng.params, layers=[dict(layer, adapter={
+                "w": 1 + 1.3 * (layer["adapter"]["w"] - 1),
+                "b": layer["adapter"]["b"]}) for layer in eng.params["layers"]])
+            fault_a, _ = M.prefill_lm(off, gcfg, prompt_t, g_len, impl="ref")
+            del off
+        release()
+        diff = (got - want_l).abs().max().item()
+        d_win = (fault_w - want_l).abs().max().item()
+        d_ad = (fault_a - want_l).abs().max().item()
+        top = bool(got[0, -1].argmax() == want_l[0, -1].argmax())
+        gemma_reports["5g"]["prefill_vs_plain"] = dict(
+            max_abs_diff=diff, limit=GEMMA["prefill_tol"],
+            fault_no_window=d_win, fault_adapter_w_30pc=d_ad,
+            same_top1=top, max_abs_ref=want_l.abs().max().item())
+        log(f"[5g] the {g_long}-token prefill's last logits, kernel path vs "
+            f"plain path: max |diff| {diff:.4g} (limit "
+            f"{GEMMA['prefill_tol']}), same top-1 {top}; planted faults: no "
+            f"window {d_win:.4g}, adapter w 30 % off {d_ad:.4g}")
+        check(bool(torch.isfinite(got).all()), "[5g] non-finite logits")
+        check(diff <= GEMMA["prefill_tol"], f"[5g] the prefill's last logits: "
+              f"|kernel - plain| {diff:.4g} > {GEMMA['prefill_tol']}")
+        check(min(d_win, d_ad) > GEMMA["prefill_tol"], f"[5g] a planted "
+              f"fault moved the plain path's logits only {d_win:.4g} (no "
+              f"window) and {d_ad:.4g} (adapter w 30 % off): the limit "
+              f"{GEMMA['prefill_tol']} would not catch it")
+        del eng, got, want_l, fault_w, fault_a
+        release()
+        # the serve launcher itself, at gemma2-27b, over the paged pool
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launcher.main(["--arch", GEMMA["arch"], "--requests", "2",
+                           "--num-slots", "2", "--prompt-len", "128",
+                           "--new-tokens", "8", "--page-size", "16",
+                           "--seed", str(GEMMA["seed"])])
+        text = out.getvalue()
+        check("served 2 requests / 16 tokens" in text
+              and "2 cold prefills" in text,
+              f"[5g] the launcher printed {text[-800:]!r}")
+        gemma_reports["5g"]["launcher_s"] = time.perf_counter() - t0
+        log(f"[5g] launcher --arch {GEMMA['arch']} --page-size 16 in "
+            f"{gemma_reports['5g']['launcher_s']:.1f} s: "
+            + " | ".join(ln for ln in text.splitlines()
+                         if ln.startswith(("paged KV", "served", "pool"))))
+        release()
+        phase_done("5g launcher")
+
+        # 6g: a 3-task bank (#6), then a 3-row hot-swap bank over 3 tenants,
+        # task0 and task2 pruned to the paper-0.022 preset (#9 with gates)
+        release()
+        log(f"[6g] device memory allocated before the build: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        base = launcher.build_base(gcfg, GEMMA["seed"], dev)
+        variants = launcher.task_variants(base, GEMMA["seed"], TASKS)
+        pmask = preset_mask(gcfg)
+        masks = [pmask if t % 2 == 0 else None for t in range(TASKS)]
+        td = tempfile.TemporaryDirectory()
+        registry = AdapterRegistry(td.name)
+        for t, (v, m) in enumerate(zip(variants, masks)):
+            if m is not None:
+                v = apply_layer_mask(v, gcfg, m)
+            registry.publish(f"task{t}", launcher.task_delta(v, gcfg, m))
+        nb, bank_len = GEMMA["bank_requests"], GEMMA["bank_max_len"]
+        rs = np.random.RandomState(GEMMA["seed"])
+        for tag in ("6g", "6gs"):
+            hot = tag == "6gs"
+            eng = (MultiTaskEngine(gcfg, AdapterBank(gcfg, base, TASKS,
+                                                     registry), device=dev)
+                   if hot else MultiTaskEngine(gcfg, variants, device=dev))
+            reqs = [Request(prompt=rs.randint(10, gcfg.vocab_size,
+                                              size=(GEMMA["bank_prompt"],)),
+                            max_new_tokens=g_new,
+                            **({"adapter": f"task{i % TASKS}"} if hot
+                               else {"task_id": i % TASKS}))
+                    for i in range(nb)]
+            scfg = ServingConfig(num_slots=GEMMA["bank_slots"],
+                                 max_len=bank_len)
+            make_scheduler(eng, scfg).run(reqs[:1])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sched = make_scheduler(eng, scfg)
+            per_call = count_per_call(eng)
+            _build.reset_launches()
+            done, rep = sched.run(reqs)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            del eng.prefill, eng.decode_step
+            seam = masked_name if hot else "multitask_hadamard"
+            per_tick, per_prefill = gemma_serve_checks(
+                tag, per_call, rep, done, counts, reqs,
+                {"tick": {"paged_attention": g_layers, seam: g_layers},
+                 "prefill": {"flash_attention": g_layers, seam: g_layers}})
+            extra = {}
+            if hot:
+                bank = eng.adapter_bank
+                for name in bank.resident:
+                    t = int(name.removeprefix("task"))
+                    want_g = (masks[t] if masks[t] is not None else
+                              np.ones(g_layers, bool)).astype(np.float32)
+                    check((bank.gates()[:, bank.row_of(name)] == want_g).all(),
+                          f"[6gs] {name}'s gates are not its mask")
+                extra.update(bank=bank.stats(), pruned_layers=int(
+                    g_layers - pmask.sum()))
+            stids = [t % TASKS for t in range(GEMMA["bank_slots"])]
+            caches = eng.init_slot_caches(GEMMA["bank_slots"], bank_len)
+            tick = profile_calls(lambda: eng.decode_step(
+                caches, [[11]] * GEMMA["bank_slots"],
+                [140 + i for i in range(GEMMA["bank_slots"])],
+                task_ids=stids), 5)
+            del caches
+            pre = profile_calls(lambda: eng.prefill(
+                np.full((1, GEMMA["bank_prompt"]), 11, np.int64), bank_len,
+                task_ids=np.asarray([0])), 3)
+            gemma_launches[tag] = counts
+            gemma_reports[tag] = dict(
+                rep, launches_per_decode_tick=per_tick,
+                launches_per_prefill=per_prefill, tick=tick, prefill=pre,
+                peak_bytes_allocated=peak, **extra, **exact_latency(done))
+            kind = ("a 3-row hot-swap bank (task0, task2 pruned)" if hot
+                    else "a 3-task bank")
+            log(f"[{tag}] gemma2-27b bf16, {kind}, {nb} requests "
+                f"of {GEMMA['bank_prompt']} + {g_new} on "
+                f"{GEMMA['bank_slots']} slots on {smi}: "
+                f"{serve_line(rep, done)}; launches {counts}; per decode "
+                f"tick {per_tick}; per prefill {per_prefill}; peak "
+                f"{peak / 1e9:.2f} GB; decode tick {tick}; {extra}")
+            del eng, sched
+            release()
+        td.cleanup()
+        del base, variants
+        release()
+        phase_done("6g")
+
+    def fold_lane():
+        """Phase 5o: qwen3-0.6b with fold=True. At fp32 (phase 4's model,
+        TF32 off) the folded engine's greedy tokens equal the unfolded
+        one's and each call launches the same kernels (#3 still runs, on
+        the identity); at bf16, and folded before an int8 quantization,
+        the agreement with the unfolded engine is reported; the launcher
+        runs once with --static --fold and once with --stream."""
+        import contextlib
+        import io
+
+        qcfg = launcher.build_config(ARCH)
+        cfg32 = qcfg.replace(param_dtype="float32", compute_dtype="float32")
+        prompts = np.random.RandomState(5).randint(10, qcfg.vocab_size,
+                                                   (4, SERVE["prompt_len"]))
+        n_new = 16
+        report = {}
+        for tag, c, seed, quant in (("fp32", cfg32, 1, None),
+                                    ("bf16", qcfg, SERVE["seed"], None),
+                                    ("int8", qcfg, SERVE["seed"], "int8")):
+            tuned = launcher.build_params(c, seed, 0, dev)[0]
+            out = {}
+            for fold in (False, True):
+                eng = ServeEngine(c, tuned, fold=fold, quant=quant,
+                                  device=dev)
+                _build.reset_launches()
+                out[fold] = (eng.generate(prompts, n_new),
+                             _build.launch_counts())
+                del eng
+                release()
+            agree = float((out[True][0] == out[False][0]).mean())
+            check(out[True][1] == out[False][1],
+                  f"[5o] {tag}: folded launches {out[True][1]}, unfolded "
+                  f"{out[False][1]}")
+            check(out[True][1]["fused_adapter_norm"] > 0,
+                  f"[5o] {tag}: the folded engine launched no #3")
+            if tag == "fp32":
+                check(agree == 1.0, f"[5o] fp32: folded tokens differ from "
+                      f"the unfolded ones ({agree:.4f} agree)")
+            report[tag] = dict(token_agreement=agree, launches=out[True][1])
+            gemma_launches.setdefault("5o", {k: 0 for k in out[True][1]})
+            for k, n in out[True][1].items():
+                gemma_launches["5o"][k] += n
+            del tuned
+            release()
+        texts = {}
+        for tag, flags in (("static_fold", ["--static", "--fold"]),
+                           ("stream", ["--stream"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                launcher.main(["--arch", ARCH, "--requests", "4",
+                               "--num-slots", "4", "--prompt-len", "128",
+                               "--new-tokens", "8", *flags])
+            texts[tag] = buf.getvalue()
+        check("static batch: generated (4, 8)" in texts["static_fold"],
+              f"[5o] --static --fold printed {texts['static_fold'][-400:]!r}")
+        streamed = re.findall(r"^  req(\d+) \+= (\d+)$", texts["stream"],
+                              re.M)
+        check(len(streamed) == 32 and "served 4 requests / 32 tokens"
+              in texts["stream"], f"[5o] --stream printed "
+              f"{len(streamed)} token lines")
+        report["launcher"] = {
+            "static_fold": [ln for ln in texts["static_fold"].splitlines()
+                            if ln.startswith("static batch")],
+            "stream_token_lines": len(streamed)}
+        gemma_reports["5o"] = report
+        log(f"[5o] qwen3-0.6b fold=True, {len(prompts)} prompts x "
+            f"{n_new} greedy tokens: folded vs unfolded agreement fp32 "
+            f"{report['fp32']['token_agreement']:.4f} (must be 1), bf16 "
+            f"{report['bf16']['token_agreement']:.4f}, --fold --quant int8 "
+            f"{report['int8']['token_agreement']:.4f} (reported); launches "
+            f"equal folded and unfolded; launcher: "
+            f"{report['launcher']}")
+        phase_done("5o")
+
+    # -- phases 3g, 4g, 5g, 5gp, 6g, 6gs, 5o: gemma2-27b and the fold lane --
+    gemma2_kernels()
+    gemma2_fp32_model()
+    gemma2_serve()
+    fold_lane()
+    launches.update(gemma_launches)
+    serve_reports.update({p: gemma_reports[p]
+                          for p in ("5g", "5gp", "6g", "6gs")})
+
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
     from repro_torch.configs import get as get_arch
@@ -4634,7 +5417,10 @@ def main() -> int:
                   "6w": "serve_hot_swap_shared_w", "5r": "serve_rwkv_single",
                   "6r": "serve_rwkv_multitask",
                   "5rq": "serve_rwkv_single_int8",
-                  "6rs": "serve_rwkv_hot_swap"}
+                  "6rs": "serve_rwkv_hot_swap", "5g": "serve_gemma2_single",
+                  "5gp": "serve_gemma2_paged",
+                  "6g": "serve_gemma2_multitask",
+                  "6gs": "serve_gemma2_hot_swap", "5o": "serve_fold"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
@@ -4691,7 +5477,8 @@ def main() -> int:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
         for at in ("train", "train_lm", "prefill", "head", "rwkv", "verify",
                    "verify_int8", "verify_fp8", "extend", "extend_int8",
-                   "extend_fp8"):
+                   "extend_fp8", "gemma2_decode", "gemma2_prefill",
+                   "gemma2_local", "gemma2_ring", "gemma2_linear"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(
@@ -4719,6 +5506,8 @@ def main() -> int:
                       "rwkv_train_model": rwkv_train_model,
                       "train_rwkv": rwkv_report, "pretrain_q": pq_report,
                       "paper": paper_report, "slo_admission": slo_report,
+                      "gemma2_model": gemma_reports["4g"],
+                      "fold": gemma_reports["5o"],
                       "phase_s": phase_s, "card": smi}))
     print(smi)
     count = torch.cuda.device_count()

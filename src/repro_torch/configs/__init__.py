@@ -1,16 +1,18 @@
 """Architecture registry: --arch <id> resolution for launchers and tests.
 
 The port carries the architectures its slices run: qwen3-0.6b and
-rwkv6-1.6b (serving and decoder-LM fine-tuning) and the paper's own
-BERT-family encoders (two-stage training, MLM pretraining). The other
+rwkv6-1.6b (serving and decoder-LM fine-tuning), gemma2-27b (serving over
+windowed ring caches) and the paper's own BERT-family encoders (two-stage
+training, MLM pretraining). The other
 `repro` configs arrive with the slices that run them.
 """
 from __future__ import annotations
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.configs import bert, qwen3_0_6b, rwkv6_1_6b
+from repro_torch.configs import bert, gemma2_27b, qwen3_0_6b, rwkv6_1_6b
 
 ASSIGNED = {
+    "gemma2-27b": gemma2_27b,
     "qwen3-0.6b": qwen3_0_6b,
     "rwkv6-1.6b": rwkv6_1_6b,
 }

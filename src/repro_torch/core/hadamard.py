@@ -10,7 +10,8 @@ per-layer delta into the JAX layout that the registry stores.
 `select_tasks` is the clamping gather of the JAX serving tick. The bank
 stays stacked on the serving path, where the multitask kernels read each
 request's row straight out of it; the gather serves the placements those
-kernels do not cover. Folding comes with a later slice.
+kernels do not cover. `fold_adapter` folds one adapter into W_O (and b_O)
+and resets it to the identity, as JAX's does.
 """
 from __future__ import annotations
 
@@ -51,6 +52,51 @@ def apply_delta(params: dict, delta: dict) -> dict:
         return leaf if d is None else d
 
     return tu.map_with_path(pick, params)
+
+
+# ---------------------------------------------------------------------------
+# Folding
+# ---------------------------------------------------------------------------
+
+
+def fold_adapter(params: dict, cfg: ModelCfg) -> dict:
+    """Fold each attention layer's Hadamard adapter into its out-projection
+    in fp32, as `repro.core.hadamard.fold_adapter` does:
+
+      attn_concat:  (c*w + b) @ Wo + bo = c @ (w[:, None]*Wo) + (b@Wo + bo)
+      attn_out:     (c @ Wo + bo)*w + b = c @ (Wo*w[None, :]) + (bo*w + b)
+
+    W_O keeps its dtype, b_O becomes (or is made) fp32, and the adapter is
+    reset to the identity (w = 1, b = 0). The folded model still runs its
+    adapter op, now the identity (#3, or #1 under post-norms), as the JAX
+    model does. A layer without "attn" (RWKV6) or without a Hadamard "w"
+    is returned as it is. Returns new params; `params` is not changed."""
+    concat = cfg.adapter.position == "attn_concat"
+
+    def fold_block(block: dict) -> dict:
+        ad = block.get("adapter")
+        if ad is None or "attn" not in block or "w" not in ad:
+            return block
+        attn = dict(block["attn"])
+        wo = attn["wo"]
+        w, b = ad["w"].float(), ad["b"].float()
+        wo32 = wo.float()
+        if concat:
+            new_wo = wo32 * w[:, None]
+            extra_bias = b @ wo32
+        else:
+            new_wo = wo32 * w[None, :]
+            extra_bias = b
+        bo = attn.get("bo")
+        bo = (torch.zeros(new_wo.shape[-1], dtype=torch.float32,
+                          device=wo.device) if bo is None else bo.float())
+        attn["wo"] = new_wo.to(wo.dtype)
+        attn["bo"] = (bo if concat else bo * w) + extra_bias
+        return {**block, "attn": attn,
+                "adapter": {"w": torch.ones_like(ad["w"]),
+                            "b": torch.zeros_like(ad["b"])}}
+
+    return {**params, "layers": [fold_block(b) for b in params["layers"]]}
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,19 @@ every tenant and a b per tenant, from a bank that stores the w once.
       [--kv-quant int8|fp8] [--no-prefix-cache] [--spec-k 4 \
       [--spec-draft model]]
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch gemma2-27b --requests 4 \
+      --num-slots 2 --prompt-len 128 --new-tokens 32 [--page-size 16]
+
+gemma2-27b (46 layers alternating a 4096-token window with full range,
+soft-capped, post-norms) serves at full width on one 80 GB card: its
+27.2 B parameters take 54.5 GB in bf16. Its windowed layers keep ring
+caches; the paged pool serves it cold (no prefix cache), and speculation
+and prompt bucketing are refused for it, as in JAX.
+
+--fold folds the single adapter into W_O at construction (the adapter op
+then runs on the identity); --static serves the requests as JAX's
+lock-step `generate` batch instead of through the scheduler; --stream
+prints every token the moment it is sampled.
 
 Paged KV (--page-size P): a block pool of P-token pages with copy-on-write
 prefix sharing (--no-prefix-cache turns sharing off), --kv-blocks blocks
@@ -73,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import tempfile
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -130,14 +144,16 @@ def build_params(cfg: ModelCfg, seed: int, tasks: int, device) -> List[dict]:
 
 
 def build_engine(cfg: ModelCfg, seed: int = 0, tasks: int = 0, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, fold: bool = False):
     """ServeEngine over one perturbed adapter, or a MultiTaskEngine over
-    `tasks` of them; `quant` quantizes the backbone (see ServeEngine)."""
+    `tasks` of them; `quant` quantizes the backbone and `fold` folds the
+    single adapter into W_O (see ServeEngine)."""
     device = resolve_device(device)
     variants = build_params(cfg, seed, tasks, device)
     if tasks > 0:
         return MultiTaskEngine(cfg, variants, quant=quant, device=device)
-    return ServeEngine(cfg, variants[0], quant=quant, device=device)
+    return ServeEngine(cfg, variants[0], fold=fold, quant=quant,
+                       device=device)
 
 
 def quant_line(engine) -> str:
@@ -276,6 +292,11 @@ def outcome_lines(sched) -> List[str]:
     return lines
 
 
+def stream_print(rid: int, tok: int) -> None:
+    """The JAX launcher's --stream line of one token."""
+    print(f"  req{rid} += {tok}", flush=True)
+
+
 def slo_objectives(args, paged: bool) -> list:
     """The objectives the --slo-* flags declare, with JAX's refusals."""
     objectives = []
@@ -313,8 +334,31 @@ def slo_line(obs: MetricsRegistry, report: dict, admission: bool) -> str:
                "deferred tick(s)" if admission else ""))
 
 
+def serve_static(engine, requests: List[Request], top_k: int, seed: int,
+                 log=print) -> np.ndarray:
+    """JAX's --static path: the requests' prompts as one lock-step
+    `generate` batch (per-request task rows over a bank), greedy, or top-k
+    from one generator seeded by `seed`. Logs the line JAX prints and the
+    first 8 tokens of each row; returns the (n, new_tokens) tokens."""
+    gen = (torch.Generator(device=engine.device).manual_seed(seed)
+           if top_k else None)
+    t0 = time.perf_counter()
+    if isinstance(engine, MultiTaskEngine):
+        out = np.stack(engine.generate(requests, generator=gen, top_k=top_k))
+    else:
+        out = engine.generate(np.stack([r.prompt for r in requests]),
+                              requests[0].max_new_tokens, top_k=top_k,
+                              generator=gen)
+    dt = time.perf_counter() - t0
+    log(f"static batch: generated {out.shape} in {dt:.2f}s "
+        f"({out.size / dt:.1f} tok/s)")
+    log(str(out[:, :8]))
+    return out
+
+
 def main(argv=None) -> MetricsRegistry:
-    """Serve as the flags say; returns the serve's MetricsRegistry."""
+    """Serve as the flags say; returns the serve's MetricsRegistry (None
+    under --static, which runs no scheduler)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -379,6 +423,13 @@ def main(argv=None) -> MetricsRegistry:
                          "(here: the untuned base)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--static", action="store_true",
+                    help="lock-step ServeEngine.generate batch instead of "
+                         "the continuous-batching scheduler")
+    ap.add_argument("--stream", action="store_true",
+                    help="print every token the moment it is sampled")
+    ap.add_argument("--fold", action="store_true",
+                    help="fold the adapter into W_O (zero-overhead serving)")
 
     g = ap.add_argument_group("observability (repro_torch.obs)")
     g.add_argument("--metrics-every", type=int, default=0,
@@ -430,6 +481,9 @@ def main(argv=None) -> MetricsRegistry:
                          "(pass --adapter-dir)")
     if args.adapter_dir and args.tasks <= 0:
         raise SystemExit("--adapter-dir requires --tasks > 0")
+    if args.adapter_dir and args.static:
+        raise SystemExit("--adapter-dir serves through the scheduler "
+                         "(drop --static)")
     device = resolve_device(args.device)
     base = build_base(cfg, args.seed, device)
     variants = task_variants(base, args.seed, args.tasks, args.share_w)
@@ -456,9 +510,15 @@ def main(argv=None) -> MetricsRegistry:
     elif args.tasks > 0:
         engine = MultiTaskEngine(cfg, variants, quant=quant, device=device)
     else:
-        engine = ServeEngine(cfg, variants[0], quant=quant, device=device)
+        engine = ServeEngine(cfg, variants[0], fold=args.fold, quant=quant,
+                             device=device)
     if quant:
         print(quant_line(engine))
+    if args.static:
+        serve_static(engine, make_requests(
+            cfg, args.requests, args.prompt_len, args.new_tokens, args.tasks,
+            args.seed, args.top_k, args.temperature), args.top_k, args.seed)
+        return None
     paged = args.page_size > 0
     # a verify writes spec_k positions past the budget; a paged cache is
     # whole pages, as the slot cache is whole 16-token decode pages
@@ -489,7 +549,8 @@ def main(argv=None) -> MetricsRegistry:
             prefix_cache=args.prefix_cache, kv_quant=args.kv_quant or None,
             spec_k=args.spec_k, spec_draft=args.spec_draft,
             top_k=args.top_k, temperature=args.temperature,
-            backbone_quant=quant, slo=slo, admission=admission)
+            backbone_quant=quant, stream=stream_print if args.stream
+            else None, slo=slo, admission=admission)
         sched = make_scheduler(
             engine, scfg,
             draft_model=((cfg, base) if args.spec_k

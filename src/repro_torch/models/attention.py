@@ -1,26 +1,35 @@
-"""Self-attention with GQA, RoPE and qk-norm over a contiguous slot cache
-or a paged block pool (port of `repro.models.attention`, the
-decoder-serving subset).
+"""Self-attention with GQA, RoPE, qk-norm, local windows and soft-capping
+over a contiguous slot cache or a paged block pool (port of
+`repro.models.attention`, the decoder-serving subset).
 
 Cache protocol (per attention layer):
-  prefill: cache=None, cache_len=L -> (y, fresh cache (B, L, KH, D) x2)
+  prefill: cache=None, cache_len=L -> (y, fresh cache (B, size, KH, D)
+           x2), size = L, or min(window, L) for a windowed layer: a ring
+           whose slot p % size holds position p, the last min(size, S)
+           prompt tokens written
   decode, verify, extend: cache = a block pool {"k", "v"} of (num_blocks,
            page, KH, D), each a tensor or an int8/e4m3 `QTensor` with
            per-token fp32 scales (num_blocks, page, KH, 1); write_pos (B,
            S) -> (y, the same pool, K/V of logical position li written in
-           place at (tables[b, li // page], li % page))
+           place at (tables[b, li // page], li % page)), li = the position,
+           or the position mod the ring for a windowed layer, whose ring
+           lies in the first ring // page table entries
 
-Prefill attends through `ops.flash_attention`. Every step with a cache
-attends through `ops.paged_attention`, straight on the pool: a contiguous
+Prefill attends through `ops.flash_attention` (causal, the layer's window,
+the config's soft-cap and query scale). Every step with a cache attends
+through `ops.paged_attention`, straight on the pool: a contiguous
 (B, L, KH, D) slot cache already is a pool of B*L/page pages whose row b
-owns the fixed run b*nbt + arange(nbt) (`decode_tables`), and a paged
-pool comes with the block tables an allocator handed out. The S queries
-of a row sit at its write positions, right-aligned under kv_lens = the
-last write + 1: S = 1 is a decode step, S = k+1 a speculative verify, a
-page-padded prompt suffix a prefix-cache extend. A quantized pool takes
-`quantize_kv(k, mode)` at every write, JAX's per-token rule, and
-#5 widens it to fp32 in place (JAX's gather casts the dequantized K/V to
-the compute dtype first: one rounding apart at bf16).
+owns the fixed run b*nbt + arange(nbt) (`decode_tables`; page =
+`decode_page(L)`, DECODE_PAGE or the largest divisor of it that divides a
+short ring), and a paged pool comes with the block tables an allocator
+handed out. The S queries of a row sit at its write positions,
+right-aligned under kv_lens: the last write + 1 for a full-range layer,
+the last write itself for a windowed one (the kernel's ring convention,
+`kernels/ref.paged_attention_ref`). S = 1 is a decode step, S = k+1 a
+speculative verify, a page-padded prompt suffix a prefix-cache extend.
+A quantized pool takes `quantize_kv(k, mode)` at every write, JAX's
+per-token rule, and #5 widens it to fp32 in place (JAX's gather casts the
+dequantized K/V to the compute dtype first: one rounding apart at bf16).
 
 `apply_attn` returns the attention output before the Hadamard adapter: the
 block applies it together with the residual add and the norm that follows
@@ -28,11 +37,11 @@ block applies it together with the residual add and the norm that follows
 through hooks, as in JAX: LoRA adds its low-rank deltas to q and v before
 the biases; IA3 scales k and v per channel after rope and before the cache
 stores them (a per-channel scale does not commute with rope's pairwise
-rotation). The windowed ring cache and cross-attention arrive with later
-slices.
+rotation). Cross-attention arrives with a later slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -73,31 +82,42 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 def check_slot(slot: Slot) -> None:
     if slot.kind not in ("attn", "rwkv") or slot.moe or slot.cross_attn:
         raise NotImplementedError(
-            f"slot {slot} is not ported: the port serves dense "
-            "self-attention and RWKV6 decoders; recurrent (RG-LRU), MoE and "
+            f"slot {slot} is not ported: the port serves self-attention "
+            "(full-range or windowed) and RWKV6 decoders; recurrent "
+            "(RG-LRU), MoE and "
             "cross-attention blocks arrive with the other-families slice")
-    if slot.window is not None:
-        raise NotImplementedError(
-            "local-window attention needs the windowed ring cache, which "
-            "arrives with a later slice")
+
+
+def cache_size(slot: Slot, cache_len: int) -> int:
+    """A layer's cache length: cache_len, or the ring of a windowed layer,
+    min(window, cache_len)."""
+    return cache_len if slot.window is None else min(slot.window, cache_len)
+
+
+def decode_page(cache_len: int) -> int:
+    """The page of a contiguous cache of cache_len tokens viewed as a pool:
+    DECODE_PAGE, or for a ring that it does not divide (a window of 12,
+    say) the largest divisor of DECODE_PAGE that divides the ring (#5
+    takes any page)."""
+    return math.gcd(cache_len, DECODE_PAGE)
 
 
 def decode_tables(batch: int, cache_len: int, device) -> torch.Tensor:
     """Block tables of a contiguous (batch, cache_len) cache viewed as a
-    pool of DECODE_PAGE-token pages: row b owns pages b*nbt .. b*nbt+nbt-1."""
-    if cache_len % DECODE_PAGE:
-        raise ValueError(f"decode cache length {cache_len} must be a multiple "
-                         f"of the page size {DECODE_PAGE}")
-    nbt = cache_len // DECODE_PAGE
+    pool of `decode_page(cache_len)`-token pages: row b owns pages
+    b*nbt .. b*nbt+nbt-1."""
+    nbt = cache_len // decode_page(cache_len)
     rows = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
     return rows * nbt + torch.arange(nbt, dtype=torch.int32, device=device)
 
 
 def pool_view(cache: dict) -> dict:
-    """A contiguous (B, L, KH, D) slot cache as a pool of DECODE_PAGE-token
-    pages, sharing its storage: writes through the view land in the cache."""
+    """A contiguous (B, L, KH, D) slot cache as a pool of
+    `decode_page(L)`-token pages, sharing its storage: writes through the
+    view land in the cache."""
     B, L, KH, D = cache["k"].shape
-    shape = (B * L // DECODE_PAGE, DECODE_PAGE, KH, D)
+    page = decode_page(L)
+    shape = (B * L // page, page, KH, D)
     return {"k": cache["k"].view(shape), "v": cache["v"].view(shape)}
 
 
@@ -105,15 +125,18 @@ _QUANT_MODE = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
 def write_pool(pool: dict, tables: torch.Tensor, write_pos: torch.Tensor,
-               k: torch.Tensor, v: torch.Tensor) -> None:
+               k: torch.Tensor, v: torch.Tensor,
+               ring: Optional[int] = None) -> None:
     """K/V (B, S, KH, D) of logical positions write_pos (B, S) into their
-    pages, in place. A quantized pool quantizes each token and head on its
-    own (`quantize_kv`: absmax over D), as JAX's decode write does; its
+    pages, in place; with `ring` (a windowed layer) position p lands at
+    ring slot p % ring. A quantized pool quantizes each token and head on
+    its own (`quantize_kv`: absmax over D), as JAX's decode write does; its
     payload is written as bytes, which every backend indexes (float8
     included)."""
     page = (pool["k"].values if is_qtensor(pool["k"]) else pool["k"]).shape[1]
-    blk = tables.gather(1, write_pos // page).long()
-    off = write_pos % page
+    li = write_pos if ring is None else write_pos % ring
+    blk = tables.gather(1, li // page).long()
+    off = li % page
     for name, x in (("k", k), ("v", v)):
         leaf = pool[name]
         if is_qtensor(leaf):
@@ -168,8 +191,9 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     """x: (B, S, d). Prefill (cache_len given), a cache-free forward
     (neither given; the encoder passes causal=False) or a step over a
     block pool (cache, write_pos (B, S), the block tables (B, nbt) int32
-    and kv_lens (B,) int32 = write_pos[:, -1] + 1, shared by every layer;
-    q_pos = write_pos). concat_adapter: (w, b) of an
+    and kv_lens (B,) int32 = write_pos[:, -1] + 1, shared by every
+    full-range layer; a windowed layer hands #5 write_pos[:, -1] itself,
+    the last query's write position; q_pos = write_pos). concat_adapter: (w, b) of an
     'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O:
     one (d,) adapter through `HadamardAffine` (kernels #1/#2), per-row
     (B, d) rows in plain torch. adapter: the block's LoRA or IA3 leaves
@@ -211,13 +235,19 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     if cache is not None:  # write in place, attend over the pool
         if write_pos is None or tuple(write_pos.shape) != (B, S):
             raise ValueError(f"a step over a pool takes write_pos ({B}, {S})")
-        write_pool(cache, tables, write_pos, k, v)
         ks, vs = cache["k"], cache["v"]
         quant = is_qtensor(ks)
+        ring = None
+        if slot.window is not None:
+            page = (ks.values if quant else ks).shape[1]
+            ring = min(slot.window, tables.shape[1] * page)
+            kv_lens = write_pos[:, -1].to(torch.int32)
+        write_pool(cache, tables, write_pos, k, v, ring)
         qh = q[:, 0] if S == 1 else q.transpose(1, 2).contiguous()
         out = ops.paged_attention(
             qh, ks.values if quant else ks, vs.values if quant else vs,
-            tables, kv_lens, scale=scale, cap=cfg.attn_softcap,
+            tables, kv_lens, window=slot.window, scale=scale,
+            cap=cfg.attn_softcap,
             k_scales=ks.scales if quant else None,
             v_scales=vs.scales if quant else None, impl=impl)
         if S > 1:
@@ -227,20 +257,22 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     else:  # prefill (or a cache-free forward)
         out = FlashAttention.apply(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal, None, scale, cfg.attn_softcap, impl)
+            causal, slot.window, scale, cfg.attn_softcap, impl)
         out = out.transpose(1, 2).reshape(B, S, H * Dh)
         new_cache = None
         if cache_len is not None:
             if cache_len < S:
                 raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+            size = cache_size(slot, cache_len)
             new_cache = {
-                "k": torch.zeros((B, cache_len, KH, Dh), dtype=cdt,
-                                 device=x.device),
-                "v": torch.zeros((B, cache_len, KH, Dh), dtype=cdt,
-                                 device=x.device),
-            }
-            new_cache["k"][:, :S] = k
-            new_cache["v"][:, :S] = v
+                name: torch.zeros((B, size, KH, Dh), dtype=cdt,
+                                  device=x.device) for name in ("k", "v")}
+            # the last min(size, S) tokens: a ring holds position p at slot
+            # p % size, a full-range cache at p
+            tail = min(size, S)
+            at = torch.arange(S - tail, S, device=x.device) % size
+            new_cache["k"][:, at] = k[:, S - tail:]
+            new_cache["v"][:, at] = v[:, S - tail:]
 
     if concat_adapter is not None:
         w, b = concat_adapter

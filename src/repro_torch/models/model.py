@@ -9,12 +9,14 @@ Parameters are a plain dict:
 with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "lm_head" only when embeddings are untied; an encoder adds "pos_embed",
 "type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
-a list with one dict per layer: {"k", "v"} for an attention layer, the
+a list with one dict per layer: {"k", "v"} for an attention layer (of the
+cache length, or a windowed layer's ring, `attention.cache_size`), the
 recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. A paged
 pool (`init_paged_pool`) is such a list too: {"k", "v"} block pools of
 (num_blocks, page, KH, D) per layer, block 0 the allocator's null block,
 addressed through per-row block tables (B, nbt) int32 that every layer
-shares. All functions take `impl` and
+shares (a windowed layer's ring in their first ring // page entries).
+All functions take `impl` and
 hand it to every kernel call ("auto" on the serving and training paths;
 "ref" for the plain versions).
 """
@@ -25,8 +27,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.common.types import ModelCfg
-from repro_torch.models.attention import (check_slot, decode_tables,
-                                          pool_init, pool_view)
+from repro_torch.models.attention import (cache_size, check_slot,
+                                          decode_tables, pool_init, pool_view)
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
@@ -47,6 +49,11 @@ def _check_cfg(cfg: ModelCfg) -> None:
 def has_attention(cfg: ModelCfg) -> bool:
     """Whether any layer holds a KV cache."""
     return any(s.kind == "attn" for s in cfg.layer_slots())
+
+
+def has_window(cfg: ModelCfg) -> bool:
+    """Whether any layer keeps a windowed ring cache."""
+    return any(s.window is not None for s in cfg.layer_slots())
 
 
 def has_recurrent_state(cfg: ModelCfg) -> bool:
@@ -120,12 +127,16 @@ def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
 def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                 write_pos=None, kv_lens=None, tables=None, task_ids=None,
                 gates=None, causal=True, impl="auto"):
+    """tables: one (B, nbt) tensor every layer shares, or a list of one a
+    layer."""
     new_caches = []
     for i, (p, slot) in enumerate(zip(params["layers"], cfg.layer_slots())):
         x, c = block_apply(p, cfg, slot, x, q_pos=q_pos,
                            cache=None if caches is None else caches[i],
                            cache_len=cache_len, write_pos=write_pos,
-                           kv_lens=kv_lens, tables=tables, task_ids=task_ids,
+                           kv_lens=kv_lens,
+                           tables=(tables[i] if isinstance(tables, list)
+                                   else tables), task_ids=task_ids,
                            gate=None if gates is None else gates[i],
                            causal=causal, impl=impl)
         new_caches.append(c)
@@ -198,7 +209,9 @@ def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
     """Run `tokens` (B, S) at write_pos (B, S) over block pools (one per
     attention layer, or an RWKV6 layer's state), written in place; kv_lens
     = the last write + 1, so each row's S queries sit at its write
-    positions. Returns final-norm hidden states (B, S, d)."""
+    positions (a windowed layer derives its own, the last write, in
+    `apply_attn`). tables: shared, or a list of one a layer. Returns
+    final-norm hidden states (B, S, d)."""
     kv_lens = (write_pos[:, -1] + 1).to(torch.int32)
     x = embed_tokens(params, cfg, tokens, positions)
     x, _ = _run_layers(params, cfg, x, q_pos=write_pos, caches=pool,
@@ -209,14 +222,20 @@ def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
 
 def _slot_step(params, cfg, caches, tokens, write_pos, task_ids, gates,
                impl):
-    """`_pool_step` over contiguous slot caches, viewed as pools of
-    DECODE_PAGE-token pages (`decode_tables`); the caches are written in
-    place."""
+    """`_pool_step` over contiguous slot caches, each viewed as a pool of
+    `decode_page(L)`-token pages with its own tables (`decode_tables`, one
+    per cache length: a windowed layer's ring is shorter than a full-range
+    layer's cache); the caches are written in place."""
     tables = None
     views = caches
     if has_attention(cfg):
-        L = next(c["k"] for c in caches if "k" in c).shape[1]
-        tables = decode_tables(tokens.shape[0], L, tokens.device)
+        by_len = {}
+        tables = []
+        for c in caches:
+            L = c["k"].shape[1] if "k" in c else None
+            if L is not None and L not in by_len:
+                by_len[L] = decode_tables(tokens.shape[0], L, tokens.device)
+            tables.append(by_len.get(L))
         views = [pool_view(c) if "k" in c else c for c in caches]
     return _pool_step(params, cfg, views, tokens, write_pos, tables,
                       task_ids, gates, impl)
@@ -245,6 +264,10 @@ def _check_verify(cfg: ModelCfg) -> None:
     if has_recurrent_state(cfg):
         raise ValueError("a speculative verify needs full-attention layers: "
                          "recurrent state would take the drafts in")
+    if has_window(cfg):
+        raise ValueError("a speculative verify needs full-attention layers: "
+                         "a ring window evicts entries the earlier queries "
+                         "still need")
 
 
 def verify_lm(params: dict, cfg: ModelCfg, caches: List[dict],
@@ -267,8 +290,11 @@ def verify_lm(params: dict, cfg: ModelCfg, caches: List[dict],
 def init_paged_pool(cfg: ModelCfg, num_blocks: int, page: int,
                     quant: Optional[str] = None, device=None) -> List[dict]:
     """Zeroed block pools, one per layer (`attention.pool_init`); block 0
-    is the allocator's reserved null block. Paged serving is
-    attention-only: a recurrent layer has no block-structured state."""
+    is the allocator's reserved null block. Every layer's pool holds all
+    num_blocks blocks, as JAX's does: the block tables are shared, and a
+    windowed layer's ring uses the first ring // page entries of a row's
+    table. Paged serving is attention-only: a recurrent layer has no
+    block-structured state."""
     _check_cfg(cfg)
     for slot in cfg.layer_slots():
         if slot.kind != "attn" or slot.cross_attn:
@@ -325,6 +351,9 @@ def extend_lm(params: dict, cfg: ModelCfg, pool: List[dict],
     every pad key sits after every real query, which the causal bound
     hides. Returns (logits (1, 1, V) at suffix index last_pos, pool)."""
     S = tokens.shape[1]
+    if has_window(cfg):
+        raise ValueError("a prefix-cache extend needs full-attention layers: "
+                         "ring layouts fold the pad tokens in")
     if not start < kv_len <= start + S or not 0 <= last_pos < S:
         raise ValueError(f"extend: start {start}, kv_len {kv_len}, last_pos "
                          f"{last_pos} for a {S}-token suffix")
@@ -367,12 +396,17 @@ def forward_encoder(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
 
 def init_decode_caches(cfg: ModelCfg, batch: int, cache_len: int,
                        device) -> List[dict]:
-    """Zeroed per-layer caches: (batch, cache_len, KH, D) K/V for an
-    attention layer, the recurrent state of `rwkv_cache_init` (no length)
-    for an RWKV6 layer."""
+    """Zeroed per-layer caches: (batch, size, KH, D) K/V for an attention
+    layer, size = cache_len or a windowed layer's ring
+    (`attention.cache_size`), the recurrent state of `rwkv_cache_init` (no
+    length) for an RWKV6 layer."""
     _check_cfg(cfg)
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return [rwkv_cache_init(cfg, batch, device) if slot.kind == "rwkv" else
-            {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
-            for slot in cfg.layer_slots()]
+
+    def kv(slot):
+        shape = (batch, cache_size(slot, cache_len), cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {name: torch.zeros(shape, dtype=cfg.cdtype, device=device)
+                for name in ("k", "v")}
+
+    return [rwkv_cache_init(cfg, batch, device) if slot.kind == "rwkv"
+            else kv(slot) for slot in cfg.layer_slots()]

@@ -18,8 +18,14 @@ bank, `ops.masked_multitask_hadamard`, then adds the residual and
 normalises in plain torch. The gathers of the other placements clamp each
 task id into the leaf's rows (`core.hadamard.select_rows`), so a shared-w
 bank's single w row serves every request there too. The 'attn_concat'
-placement goes through `apply_attn` (kernels #1/#2); every other block
-shape (post-norms, no adapter) takes the plain path.
+placement goes through `apply_attn` (kernels #1/#2).
+
+With post-norms (gemma2) the JAX block runs the adapter, then
+`post_attn_norm`, then the residual add (`repro/models/program.py:
+155-179`): a norm sits between the adapter and the add, so #3's fused form
+cannot apply. One adapter runs `HadamardAffine` (#1), a static bank #6 and
+a gated hot-swap bank #9 with its layer's gate, as in the pre-LN block;
+the post-norm, the add and the ffn norm follow in plain torch.
 
 The baselines (paper Table 3) sit where JAX puts them: LoRA's and IA3's
 hooks inside `apply_attn`, IA3's ffn scale inside `apply_mlp`, and
@@ -47,8 +53,9 @@ import torch.nn.functional as F
 from repro_torch.common.types import ModelCfg, Slot
 from repro_torch.core.hadamard import select_rows
 from repro_torch.kernels import ops
-from repro_torch.kernels.hadamard import FusedAdapterResidualNorm
-from repro_torch.models.attention import apply_attn, apply_hadamard, attn_init
+from repro_torch.kernels.hadamard import (FusedAdapterResidualNorm,
+                                          HadamardAffine)
+from repro_torch.models.attention import apply_attn, attn_init
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                       gen_device, mlp_init, norm_init)
 from repro_torch.models.rwkv import (rwkv_channel_mix, rwkv_cm_init,
@@ -191,23 +198,18 @@ def _residual_seam(p: dict, cfg: ModelCfg, x, a, ad, task_ids, gate,
     """The mixer output `a` through the adapter `ad` (None: no adapter at
     this seam), the residual add and the ffn norm. Returns (x, h)."""
     ffn_norm = p["ffn_norm"]
-    bank = ad is not None and ad["w"].dim() == 2
-    if ad is not None and not cfg.post_norms:
-        if bank:
-            a = (ops.masked_multitask_hadamard(a, ad["w"], ad["b"], gate,
-                                               task_ids, impl=impl)
-                 if gate is not None else
-                 ops.multitask_hadamard(a, ad["w"], ad["b"], task_ids,
-                                        impl=impl))
-            x = x + a
-            return x, apply_norm(ffn_norm, cfg, x)
+    if ad is not None and ad["w"].dim() == 2:  # a bank: #9 gated, else #6
+        a = (ops.masked_multitask_hadamard(a, ad["w"], ad["b"], gate,
+                                           task_ids, impl=impl)
+             if gate is not None else
+             ops.multitask_hadamard(a, ad["w"], ad["b"], task_ids,
+                                    impl=impl))
+    elif ad is not None and not cfg.post_norms:
         return FusedAdapterResidualNorm.apply(
             a, x, ad["w"], ad["b"], ffn_norm["scale"], ffn_norm.get("bias"),
             cfg.norm_eps, impl)
-    if ad is not None:
-        a = (apply_hadamard(a, select_rows(ad["w"], task_ids),
-                            select_rows(ad["b"], task_ids))
-             if bank else apply_hadamard(a, ad["w"], ad["b"]))
+    elif ad is not None:  # a post-norm between adapter and add: #1 alone
+        a = HadamardAffine.apply(a, ad["w"], ad["b"], impl)
     if cfg.post_norms:
         a = apply_norm(p["post_attn_norm"], cfg, a)
     x = x + a

@@ -11,7 +11,7 @@ watched by an SLO monitor (and acted on by the degradation ladder).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 from repro_torch.models.attention import DECODE_PAGE
 from repro_torch.obs.slo import SLOSpec
@@ -34,7 +34,8 @@ class ServingConfig:
     backbone_quant: the engine's weight quantization make_scheduler
     expects. prefill_bucket: round prompt lengths up to multiples of it.
     top_k/temperature: sampling defaults for launchers building
-    requests.
+    requests. stream: an optional (request_id, token) callback per token,
+    handed to every scheduler.
     SLOs: slo, an SLOSpec evaluated over the scheduler's metrics
     (breaches land as registry events); admission, an AdmissionConfig
     acting on breaches with the degradation ladder (needs slo)."""
@@ -52,6 +53,7 @@ class ServingConfig:
     prefill_bucket: Optional[int] = None
     top_k: int = 0
     temperature: float = 1.0
+    stream: Optional[Callable[[int, int], None]] = None
     slo: Optional[SLOSpec] = None
     admission: Optional[AdmissionConfig] = None
 
@@ -147,7 +149,8 @@ def make_scheduler(engine, config: ServingConfig, *, draft_model=None,
         raise ValueError("draft_model given but spec_k=0")
 
     common = dict(num_slots=config.num_slots, max_len=config.max_len,
-                  prefill_bucket=config.prefill_bucket, obs=obs)
+                  stream=config.stream, prefill_bucket=config.prefill_bucket,
+                  obs=obs)
     if config.paged:
         paged = dict(common, page=config.page_size,
                      num_blocks=(config.num_blocks

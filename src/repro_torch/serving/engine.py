@@ -18,11 +18,19 @@ untied LM head matches the quantization table).
 Both engines also step a paged block pool (`init_paged_pool`,
 `paged_insert`, `copy_block`, `paged_decode_step`, `paged_extend`), for
 `serving/paged.py`, and score k+1 tokens a row in one forward
-(`verify_step`, `paged_verify_step`), for `serving/spec.py`. Folding
-arrives with a later slice.
+(`verify_step`, `paged_verify_step`), for `serving/spec.py`.
+
+`ServeEngine(fold=True)` folds the Hadamard adapter into W_O and b_O at
+construction (`core.hadamard.fold_adapter`, before any quantization), as
+JAX's engine does: the adapter op still runs, on the identity.
+`generate` is JAX's unified entry point: a (B, S) array of same-length
+prompts decoded lock-step to one budget, or a list of `Request`s with
+their own budgets, sampling, EOS and (on a MultiTaskEngine) task rows or
+adapter names.
 """
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -31,7 +39,7 @@ import torch
 from repro_torch.common import tree as tu
 from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg
-from repro_torch.core.hadamard import build_bank
+from repro_torch.core.hadamard import build_bank, fold_adapter
 from repro_torch.models import model as M
 from repro_torch.models.attention import DECODE_PAGE, write_pool
 from repro_torch.quant.qtensor import is_qtensor, quantize_tree
@@ -71,22 +79,22 @@ class ServeEngine:
     device: where the parameters live and every step runs; `cuda` unless
     given (and with no CUDA present the constructor raises).
 
+    fold: fold a Hadamard adapter into W_O and b_O (fp32) and reset it to
+    the identity, which the model still runs (as JAX's engine does).
+
     quant: None keeps the parameters as given; "int8"/"fp8" quantizes the
-    backbone's matmul projections (`quantize_tree`) before placement, so the
-    device holds 1 byte per weight. Adapters, norms and the embedding keep
-    their dtype. A tree that already holds QTensors passes through
-    untouched (`quantize_tree` is idempotent).
+    backbone's matmul projections (`quantize_tree`) before placement, after
+    any folding, so the device holds 1 byte per weight. Adapters, norms and
+    the embedding keep their dtype. A tree that already holds QTensors
+    passes through untouched (`quantize_tree` is idempotent).
     """
 
     def __init__(self, cfg: ModelCfg, params: dict, *, fold: bool = False,
                  quant: Optional[str] = None, device=None):
-        if fold:
-            raise NotImplementedError(
-                "fold=True removes the adapter op, and with it the fused "
-                "adapter-residual-norm kernel; folding arrives with a later "
-                "slice")
         self.device = resolve_device(device)
         self.cfg = cfg
+        if fold and cfg.adapter.kind == "hadamard":
+            params = fold_adapter(params, cfg)
         if quant:
             params = quantize_tree(params, mode=quant)
         self.quant = quant
@@ -126,8 +134,13 @@ class ServeEngine:
         return torch.as_tensor(pos, dtype=torch.long, device=self.device)
 
     def _slot_len(self, caches) -> Optional[int]:
-        return (next(c["k"] for c in caches if "k" in c).shape[1]
-                if M.has_attention(self.cfg) else None)
+        """The bound of a row's positions: the longest full-range
+        attention cache (a ring takes any position; None where no layer
+        bounds it)."""
+        lens = [c["k"].shape[1] for c, s in zip(caches,
+                                                 self.cfg.layer_slots())
+                if "k" in c and s.window is None]
+        return max(lens) if lens else None
 
     def decode_step(self, caches, tok, pos, task_ids=None):
         """One decode step for every row: tok (B, 1), pos (B,) per-row
@@ -172,16 +185,18 @@ class ServeEngine:
                                device=self.device)
 
     def paged_insert(self, pool, fresh, bids):
-        """Write a fresh B = 1 prefill cache (`prefill` with cache_len =
-        len(bids) * page) into pool blocks `bids`, page by page, through
-        the decode write (`attention.write_pool`): a quantized pool
-        quantizes each token and head by the same rule. Returns the pool,
-        written in place."""
+        """Write a fresh B = 1 prefill cache into pool blocks `bids`, page
+        by page, through the decode write (`attention.write_pool`): each
+        layer writes its own length L (the prefill's cache_len, or a
+        windowed layer's ring, in ring order) into the first L // page
+        entries of `bids`, as JAX's insert does; a quantized pool quantizes
+        each token and head by the same rule. Returns the pool, written in
+        place."""
         ids = self._tables(np.asarray(bids).reshape(1, -1))
-        L = fresh[0]["k"].shape[1]
-        pos = torch.arange(L, device=self.device)[None]
         with torch.no_grad():
             for layer, new in zip(pool, fresh):
+                L = new["k"].shape[1]
+                pos = torch.arange(L, device=self.device)[None]
                 write_pool(layer, ids, pos, new["k"], new["v"])
         return pool
 
@@ -243,23 +258,113 @@ class ServeEngine:
 
     # -- lock-step generation -----------------------------------------------
 
-    def generate(self, tokens, max_new_tokens: int, *, top_k: int = 0,
-                 temperature: float = 1.0,
+    def generate(self, requests, max_new_tokens: Optional[int] = None, *,
+                 top_k: int = 0, temperature: float = 1.0,
                  generator: Optional[torch.Generator] = None,
-                 task_ids=None) -> np.ndarray:
-        """Lock-step batch: same-length prompts (B, S) decode together for
-        max_new_tokens. Greedy unless top_k > 0 and a generator (on the
-        engine's device) is given. Returns (B, max_new_tokens) int64."""
-        check_temperature(temperature)
-        tokens = np.asarray(tokens)
-        B, S = tokens.shape
-        cache_len = round_to_page(S + max_new_tokens)
+                 task_ids=None):
+        """JAX's unified generation entry point. Two input forms:
+
+        * an int array (B, S) of same-length prompts and max_new_tokens:
+          the lock-step batch. Returns (B, max_new_tokens) int64, every row
+          decoded to the whole budget; greedy unless top_k > 0 and a
+          `generator` (on the engine's device) is given; task_ids: each
+          row's bank row (a MultiTaskEngine).
+        * a list of `serving.Request`s (same-length prompts): each
+          request's budget, sampling (top_k, temperature and a generator
+          seeded by its seed, else its index, as the scheduler seeds one)
+          and, on a MultiTaskEngine, its task_id or adapter name. Returns a
+          list of token arrays, each cut at its own max_new_tokens and at
+          its first EOS (inclusive) when eos_id is set. A call-level
+          `generator` samples every row with `top_k` instead.
+
+        Mixed prompt lengths, streaming and arrivals over time belong to
+        the schedulers (`serving.make_scheduler`)."""
+        if not isinstance(requests, (list, tuple)):
+            if max_new_tokens is None:
+                raise ValueError("array input requires max_new_tokens")
+            check_temperature(temperature)
+            return self._lockstep(np.asarray(requests), int(max_new_tokens),
+                                  self._call_pick(top_k, temperature,
+                                                  generator), task_ids)
+        reqs = list(requests)
+        if not reqs:
+            return []
+        for r in reqs:
+            check_temperature(r.temperature)
+        prompts = [np.asarray(r.prompt).reshape(-1) for r in reqs]
+        if len({p.shape[0] for p in prompts}) != 1:
+            raise ValueError(
+                "generate(list[Request]) batches lock-step and needs "
+                "same-length prompts; use serving.make_scheduler for "
+                "heterogeneous lengths")
+        tokens = np.stack(prompts)
+        budget = max(r.max_new_tokens for r in reqs)
+        if max_new_tokens is not None:
+            budget = min(budget, int(max_new_tokens))
+        return self._generate_rows(tokens, reqs, budget, generator, top_k)
+
+    @staticmethod
+    def _call_pick(top_k: int, temperature: float,
+                   generator: Optional[torch.Generator]):
+        """One sampling rule for every row: top-k from `generator`, or
+        greedy."""
+        if top_k and generator is not None:
+            return lambda logits: sample_topk(logits, generator, top_k,
+                                              temperature)
+        return sample_greedy
+
+    def _generate_rows(self, tokens, reqs, budget, generator, top_k):
+        """The request-list path. One parameter tree: a request's task_id
+        or adapter needs a MultiTaskEngine."""
+        if any(r.task_id or r.adapter is not None for r in reqs):
+            raise ValueError(
+                "per-request task_id/adapter requires a MultiTaskEngine")
+        return self._decode_rows(tokens, reqs, budget, generator, top_k)
+
+    def _decode_rows(self, tokens, reqs, budget, generator, top_k,
+                     task_ids=None):
+        """Lock-step decode with each request's sampling, then each cut at
+        its budget and EOS."""
+        if generator is not None:  # call-level sampling
+            out = self._lockstep(tokens, budget,
+                                 self._call_pick(top_k, 1.0, generator),
+                                 task_ids)
+            return self._truncate(out, reqs)
+        gens = [torch.Generator(device=self.device).manual_seed(
+                    r.seed if r.seed is not None else i) if r.top_k else None
+                for i, r in enumerate(reqs)]
 
         def pick(logits):
-            if top_k and generator is not None:
-                return sample_topk(logits, generator, top_k, temperature)
-            return sample_greedy(logits)
+            toks = sample_greedy(logits)
+            for i, r in enumerate(reqs):
+                if r.top_k:  # the row's own generator, as the scheduler's
+                    toks[i] = sample_topk(logits[i:i + 1], gens[i], r.top_k,
+                                          r.temperature)[0]
+            return toks
 
+        return self._truncate(self._lockstep(tokens, budget, pick, task_ids),
+                              reqs)
+
+    @staticmethod
+    def _truncate(out: np.ndarray, reqs) -> List[np.ndarray]:
+        res = []
+        for i, r in enumerate(reqs):
+            row = np.asarray(out[i, :r.max_new_tokens])
+            if r.eos_id is not None:
+                hits = np.flatnonzero(row == r.eos_id)
+                if hits.size:
+                    row = row[:hits[0] + 1]
+            res.append(row)
+        return res
+
+    def _lockstep(self, tokens: np.ndarray, max_new_tokens: int, pick,
+                  task_ids=None) -> np.ndarray:
+        """Prefill the (B, S) prompts, then decode every row together for
+        max_new_tokens, `pick` choosing each step's tokens from the logits
+        (the first one after the prefill included). Returns (B,
+        max_new_tokens) int64."""
+        B, S = tokens.shape
+        cache_len = round_to_page(S + max_new_tokens)
         logits, caches = self.prefill(tokens, cache_len, task_ids=task_ids)
         tok = pick(logits)
         out = []
@@ -268,6 +373,8 @@ class ServeEngine:
             logits, caches = self.decode_step(
                 caches, tok[:, None], np.full((B,), S + i), task_ids=task_ids)
             tok = pick(logits)
+        if not out:
+            return np.zeros((B, 0), np.int64)
         return torch.stack(out, dim=1).cpu().numpy()
 
 
@@ -335,3 +442,66 @@ class MultiTaskEngine(ServeEngine):
             raise ValueError(f"task ids {ids} outside the bank's "
                              f"{self.num_tasks} rows")
         return torch.as_tensor(ids, dtype=torch.int32, device=self.device)
+
+    # -- lock-step generation with per-request adapters ---------------------
+
+    def _generate_rows(self, tokens, reqs, budget, generator, top_k):
+        """The request-list path with per-request adapters: every name is
+        resolved to a bank row up front (each unique name pinned once, so
+        no row displaces another mid-batch), the batch runs with those rows
+        as its task ids, and the pins are released in finally: a
+        BankFullError or KeyError halfway must not leak pins."""
+        uniq = list(dict.fromkeys(
+            r.adapter for r in reqs if r.adapter is not None))
+        if uniq and self.adapter_bank is None:
+            raise ValueError(
+                "named-adapter requests need an AdapterBank "
+                "(MultiTaskEngine(cfg, AdapterBank(...)))")
+        acquired = []
+        try:
+            for n in uniq:
+                self.adapter_bank.acquire(n)
+                acquired.append(n)
+            rows = [self.adapter_bank.row_of(r.adapter)
+                    if r.adapter is not None else r.task_id for r in reqs]
+            return self._decode_rows(tokens, reqs, budget, generator, top_k,
+                                     task_ids=rows)
+        finally:
+            for n in acquired:
+                self.adapter_bank.release(n)
+
+    # -- deprecated entry points (use generate(list[Request])) --------------
+
+    def generate_for_tasks(self, tokens, task_ids, max_new_tokens: int, *,
+                           top_k: int = 0,
+                           generator: Optional[torch.Generator] = None):
+        """Deprecated, as in JAX: `generate(list[Request])` with each
+        request's task_id does the same. Returns the (B, max_new_tokens)
+        array of the lock-step batch over rows `task_ids`."""
+        warnings.warn(
+            "generate_for_tasks is deprecated; use MultiTaskEngine."
+            "generate([Request(..., task_id=...)], ...) instead",
+            DeprecationWarning, stacklevel=2)
+        return self.generate(tokens, max_new_tokens, top_k=top_k,
+                             generator=generator, task_ids=task_ids)
+
+    def generate_for_adapters(self, tokens, names, max_new_tokens: int, *,
+                              top_k: int = 0,
+                              generator: Optional[torch.Generator] = None):
+        """Deprecated, as in JAX: `generate(list[Request])` with each
+        request's adapter name does the same (the same pin-once, release
+        discipline). Returns the stacked (B, max_new_tokens) tokens."""
+        warnings.warn(
+            "generate_for_adapters is deprecated; use MultiTaskEngine."
+            "generate([Request(..., adapter=...)], ...) instead",
+            DeprecationWarning, stacklevel=2)
+        if self.adapter_bank is None:
+            raise ValueError("generate_for_adapters needs an AdapterBank")
+        from repro_torch.serving.scheduler import Request
+
+        tokens = np.asarray(tokens)
+        reqs = [Request(prompt=tokens[i], max_new_tokens=int(max_new_tokens),
+                        adapter=n) for i, n in enumerate(names)]
+        return np.stack(self._generate_rows(tokens, reqs,
+                                            int(max_new_tokens), generator,
+                                            top_k), axis=0)

@@ -45,6 +45,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.registry import BankFullError
 from repro_torch.serving.scheduler import Request, Scheduler, _Slot
@@ -205,13 +206,16 @@ class PagedScheduler(Scheduler):
     its greedy output at fp32, with admission gated on free blocks as well
     as free slots. kv_quant: 'int8'/'fp8' stores the blocks quantized with
     per-token scales. prefix_cache=False prefills every admission cold,
-    paging all the same."""
+    paging all the same. A config with windowed layers takes JAX's cold
+    lane: no prefix cache, prompts unpadded, prefilled at max_len, and a
+    fixed cover of the largest layer's pages a request (each ring a
+    multiple of the page)."""
 
     _sched_kind = "paged"
 
     def __init__(self, engine, *, num_slots: int, num_blocks: int, page: int,
                  max_len: int, kv_quant: Optional[str] = None,
-                 prefix_cache: bool = True,
+                 prefix_cache: bool = True, stream=None,
                  prefill_bucket: Optional[int] = None,
                  obs: Optional[MetricsRegistry] = None):
         if num_slots < 1:
@@ -236,13 +240,18 @@ class PagedScheduler(Scheduler):
             if prefill_bucket % page != 0:
                 raise ValueError("prefill_bucket must be a multiple of the "
                                  "page size (pages are the unit of insert)")
-        self._init_slots(engine, num_slots, max_len, prefill_bucket)
+        self._init_slots(engine, num_slots, max_len, prefill_bucket, stream)
         self._init_obs(obs)  # before PrefixCache: its counters land there
         self.page = page
         self.nb_max = max_len // page
         self.kv_quant = kv_quant
+        self._windowed = M.has_window(cfg)
+        # a ring folds positions into a modular layout: a block's content
+        # depends on the whole trajectory, not the prefix, so sharing and
+        # extend are for full-attention configs; windowed ones run cold
         self.prefix: Optional[PrefixCache] = (
-            PrefixCache(obs=self.obs) if prefix_cache else None)
+            PrefixCache(obs=self.obs) if prefix_cache and not self._windowed
+            else None)
         self._prefix_fill = True  # publication gate (the admission ladder)
         self._c_cold = self.obs.counter("serve_prefix_hits_total",
                                         tier="cold")
@@ -258,6 +267,13 @@ class PagedScheduler(Scheduler):
         self.pool = engine.init_paged_pool(num_blocks, page, kv_quant)
         self.tables = np.zeros((num_slots, self.nb_max), np.int32)
         self._reserved = 0  # allocate-on-write budget of the live slots
+        if self._windowed:
+            # every request allocates one fixed cover at admission: the
+            # largest layer's pages (a ring's, or a full-range layer's
+            # nb_max)
+            self._nbl_windowed = max(
+                (min(s.window, max_len) if s.window is not None
+                 else max_len) // page for s in cfg.layer_slots())
 
     @property
     def stats(self) -> dict:
@@ -288,7 +304,10 @@ class PagedScheduler(Scheduler):
 
     def _nb_worst(self, S: int, max_new: int, P: int) -> int:
         """Worst-case table entries of a request: its page-aligned prefill
-        cover and every decode write of its token budget."""
+        cover and every decode write of its token budget (a windowed
+        config's fixed cover)."""
+        if self._windowed:
+            return self._nbl_windowed
         return max(P // self.page, -(-(S + max_new) // self.page))
 
     def _padded_len(self, S: int) -> int:
@@ -364,7 +383,7 @@ class PagedScheduler(Scheduler):
         S = len(prompt)
         page = self.page
         nb_cov = -(-S // page)  # blocks covering the true prompt
-        P = self._padded_len(S)
+        P = S if self._windowed else self._padded_len(S)
         nb_worst = self._nb_worst(S, req.max_new_tokens, P)
         # named (hot-swap) adapters may be republished with new weights
         # mid-stream, which would stale KV cached under the name: named
@@ -436,8 +455,10 @@ class PagedScheduler(Scheduler):
                 hit_kind = "partial_hit"  # counted by match_prefix
             else:
                 # ---- cold: prefill the page-aligned prompt, insert ----
+                # (a windowed config: the prompt unpadded, its caches at
+                # max_len, the fixed cover allocated)
                 self._ensure_free(nb_worst)
-                nbl = P // page
+                nbl = self._nbl_windowed if self._windowed else P // page
                 for j in range(nbl):
                     tbl[j] = self.alloc.alloc()
                 st.nb_entries = nbl
@@ -445,8 +466,8 @@ class PagedScheduler(Scheduler):
                 if P > S:
                     toks = np.pad(toks, ((0, 0), (0, P - S)))
                 logits, fresh = self.engine.prefill(
-                    toks, P, task_ids=task_ids,
-                    last_pos=None if P == S else S - 1)
+                    toks, self.max_len if self._windowed else P,
+                    task_ids=task_ids, last_pos=None if P == S else S - 1)
                 self.pool = self.engine.paged_insert(self.pool, fresh,
                                                      tbl[:nbl])
                 self._c_cold.inc()

@@ -40,7 +40,6 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs.slo import SLOMonitor, SLOSpec
 from repro_torch.serving.admission import (AdmissionConfig,
@@ -98,6 +97,9 @@ class Scheduler:
     token-exact only for full-attention configs, and refused for others
     (`supports_bucketing`).
 
+    stream: an optional callback `(request_id, token)`, called for every
+    token the moment it is sampled.
+
     obs: the MetricsRegistry to report into (None: a private one, as
     `sched.obs`)."""
 
@@ -109,6 +111,7 @@ class Scheduler:
                      "draft")
 
     def __init__(self, engine, *, num_slots: int, max_len: int,
+                 stream: Optional[Callable[[int, int], None]] = None,
                  prefill_bucket: Optional[int] = None,
                  obs: Optional[MetricsRegistry] = None):
         if num_slots < 1:
@@ -119,17 +122,19 @@ class Scheduler:
                 "prefill_bucket requires full-attention slots (windowed "
                 "ring caches and recurrent/rwkv state would fold the pad "
                 "tokens in)")
-        self._init_slots(engine, num_slots, max_len, prefill_bucket)
+        self._init_slots(engine, num_slots, max_len, prefill_bucket, stream)
         self._init_obs(obs)
         self.caches = engine.init_slot_caches(num_slots, max_len)
 
     def _init_slots(self, engine, num_slots: int, max_len: int,
-                    prefill_bucket: Optional[int]) -> None:
+                    prefill_bucket: Optional[int],
+                    stream: Optional[Callable[[int, int], None]]) -> None:
         """The request bookkeeping every scheduler keeps, whatever holds
         its KV."""
         self.engine = engine
         self.num_slots = num_slots
         self.max_len = max_len
+        self.stream = stream
         self.prefill_bucket = prefill_bucket
         self.slots: List[Optional[_Slot]] = [None] * num_slots
         self.queue: deque = deque()
@@ -261,11 +266,14 @@ class Scheduler:
 
     @staticmethod
     def supports_bucketing(cfg) -> bool:
-        """Whether right-padding prompts is token-exact for this config:
-        with full attention caches (the port admits no window) the pad is
-        causally invisible at prefill and decode overwrites each position
-        before its row's kv_len reaches it; a recurrent state takes it in."""
-        return not M.has_recurrent_state(cfg)
+        """Whether right-padding prompts is token-exact for this config,
+        JAX's predicate: every layer attention with a full-range cache,
+        where the pad is causally invisible at prefill and decode
+        overwrites each position before its row's kv_len reaches it. A
+        ring cache folds the pad into its layout; a recurrent state takes
+        it in."""
+        return all(s.kind == "attn" and s.window is None
+                   for s in cfg.layer_slots())
 
     # -- request lifecycle --------------------------------------------------
 
@@ -345,6 +353,8 @@ class Scheduler:
         st.trace.mark("token")
         self._m_tokens.inc()
         st.tokens.append(tok)
+        if self.stream is not None:
+            self.stream(st.request_id, tok)
         if st.req.eos_id is not None and tok == st.req.eos_id:
             self._retire(slot_idx, st, "eos")
             return True

@@ -174,8 +174,11 @@ class _SpecMixin:
             raise ValueError("spec_k must be >= 1")
         if not Scheduler.supports_bucketing(engine.cfg):
             raise ValueError(
-                "speculative decoding requires full-attention slots: "
-                "recurrent state folds the drafts in outright")
+                "speculative decoding requires full-attention slots: a "
+                "windowed ring cache evicts entries the earlier verify "
+                "queries still need when the k draft positions are "
+                "written (masks can hide stale data, not recover evicted "
+                "data); recurrent state folds the drafts in outright")
 
     def set_spec_k(self, k: int) -> None:
         """The effective speculation depth, 0 <= k <= spec_k; safe between
@@ -309,10 +312,12 @@ class SpecScheduler(_SpecMixin, Scheduler):
 
     def __init__(self, engine, *, num_slots: int, max_len: int,
                  spec_k: int = 4, draft: Optional[Tuple] = None,
-                 prefill_bucket: Optional[int] = None, obs=None):
+                 stream=None, prefill_bucket: Optional[int] = None,
+                 obs=None):
         self._check_spec_target(engine, spec_k)
         super().__init__(engine, num_slots=num_slots, max_len=max_len,
-                         prefill_bucket=prefill_bucket, obs=obs)
+                         stream=stream, prefill_bucket=prefill_bucket,
+                         obs=obs)
         self.spec_k = spec_k
         self._init_spec(engine, num_slots, max_len, spec_k, draft)
 
@@ -344,12 +349,13 @@ class SpecPagedScheduler(_SpecMixin, PagedScheduler):
     def __init__(self, engine, *, num_slots: int, num_blocks: int, page: int,
                  max_len: int, spec_k: int = 4, draft: Optional[Tuple] = None,
                  kv_quant: Optional[str] = None, prefix_cache: bool = True,
-                 prefill_bucket: Optional[int] = None, obs=None):
+                 stream=None, prefill_bucket: Optional[int] = None,
+                 obs=None):
         self._check_spec_target(engine, spec_k)
         self.spec_k = spec_k
         super().__init__(engine, num_slots=num_slots, num_blocks=num_blocks,
                          page=page, max_len=max_len, kv_quant=kv_quant,
-                         prefix_cache=prefix_cache,
+                         prefix_cache=prefix_cache, stream=stream,
                          prefill_bucket=prefill_bucket, obs=obs)
         self._init_spec(engine, num_slots, max_len, spec_k, draft)
 

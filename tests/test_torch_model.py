@@ -155,10 +155,16 @@ def test_identity_adapters_would_hide_the_seam():
 
 
 def test_unported_blocks_raise_naming_the_slice():
+    # windowed layers are ported (the ring cache); RG-LRU, MoE and
+    # cross-attention blocks are not
+    for slot in (T.Slot("rec"), T.Slot("attn", moe=True),
+                 T.Slot("attn", cross_attn=True)):
+        cfg = get_smoke("qwen3-0.6b").replace(groups=(T.Group((slot,), 2),))
+        with pytest.raises(NotImplementedError, match="other-families"):
+            M.init_params(torch.Generator().manual_seed(0), cfg)
     windowed = get_smoke("qwen3-0.6b").replace(
         groups=(T.Group((T.Slot("attn", window=8),), 2),))
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        M.init_params(torch.Generator().manual_seed(0), windowed)
+    M.init_params(torch.Generator().manual_seed(0), windowed)
     with pytest.raises(NotImplementedError, match="encdec"):
         M.init_params(torch.Generator().manual_seed(0),
                       get_smoke("qwen3-0.6b").replace(family="encdec"))

@@ -135,8 +135,10 @@ def test_serving_config_validates():
     sched = make_scheduler(peng, ServingConfig(num_slots=1, max_len=16))
     with pytest.raises(ValueError, match="exceeds"):
         sched.submit(Request(prompt=np.arange(12), max_new_tokens=5))
-    with pytest.raises(NotImplementedError, match="fused"):
-        ServeEngine(peng.cfg, peng.params, fold=True, device="cpu")
+    # folding is ported: the folded engine keeps the identity adapter
+    folded = ServeEngine(peng.cfg, peng.params, fold=True, device="cpu")
+    assert all(bool((layer["adapter"]["w"] == 1).all())
+               for layer in folded.params["layers"])
 
 
 @pytest.mark.parametrize("engine_quant,config_quant",
