@@ -161,6 +161,33 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      bank holding two pruned tenants (#9, each resident row's gates its
      mask), 8 requests of 128 + 32 tokens on 4 slots: 46 #6 or #9 and 46
      #5 a tick, 46 #4 a prefill;
+  3m. #3, #4 and #5 at deepseek-moe-16b's serve shapes against their
+     plain versions, fp32 and bf16, timed L2-cold in bf16: #3 at the
+     RMSNorm seam (4,1,2048) and (1,128,2048); #4 over a 128-token prompt
+     with one query head a KV head (16/16) and with qwen3-moe-235b-a22b's
+     64/4, beside SDPA; #5 over a (4,512,16,128) and a (4,512,4,128) slot
+     cache, bit-identical across two runs, beside SDPA; #7 over int8 at
+     every (K, N) that 5mq quantizes (2048x2048, 2048x10944, 10944x2048,
+     2048x102400) at M 4 and 128, bit-identical across two runs;
+  4m. deepseek-moe-16b in fp32 at full width, depth cut to the dense layer
+     and 2 MoE layers: 4 prompts of 128 tokens and 32 greedy tokens
+     through the kernels against the plain path, logits within 1e-3 of
+     max|ref|, tokens identical, the same routes dropped on both paths,
+     the launches of every call (3 #4 + 3 #3 a prefill, 3 #5 + 3 #3 a
+     step), a planted top-(k-1) routing fault past the limit;
+  5m, 6m, 5mq. deepseek-moe-16b at full width and depth in bf16 (32.8
+     GB): phase 5's traffic admitted mid-decode (one request first, the
+     rest after 2 ticks), one adapter (28 #5 + 28 #3 a tick, 28 #4 + 28
+     #3 a prefill), a 3-task bank (#6) and an int8 backbone (116 #7 a
+     call: the attention projections, the dense layer's MLP, the head;
+     JAX's 12 quantized leaves, no expert among them); tok/s, a tick's
+     and a prefill's profile, peak bytes, the share of routes dropped at
+     decode and at prefill; two bf16 runs of an MoE layer the same bits
+     with no host sync; on 4 prompts, the prefill's last logits against
+     the plain path within MOE["prefill_tol"], which every adapter's w 30 %
+     further from 1 must exceed, and the share of the plain path's routes
+     that the kernel path takes at least MOE["route_share_min"], which
+     top-(k-1) routing must miss; the serve launcher at deepseek-moe-16b;
   5o. qwen3-0.6b with fold=True: at fp32 (phase 4's model) greedy tokens
      equal to the unfolded engine's and each call's launches the same (#3
      on the identity adapter); bf16 and --fold --quant int8 agreement
@@ -216,19 +243,19 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      every train step and eval batch as predicted; quality is reported,
      not gated;
   8r. rwkv6-1.6b LM fine-tuning in bf16, 16x128 tokens a step: the
-     Hadamard adapter for 20 steps (a fixed batch's loss falls, every
+     Hadamard adapter for 6 steps (a fixed batch's loss falls, every
      trainable leaf moves), an int8 trunk (the head alone: one #7 a step)
-     and compressed gradients over bf16 m + int8 v moments, 10 steps each:
+     and compressed gradients over bf16 m + int8 v moments, 4 steps each:
      196,608 trainable, 24 #8, 24 #3 and 24 #2 launches every step, rates,
      peak bytes and a torch.profiler breakdown of a step;
-  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 20 steps a
+  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 12 steps a
      preset): fp32, bf16, bf16+int8 and int8 moments with error feedback,
      and int8 without: each state's bytes equal to state_summary's formula,
      bf16 2.0x, all-int8 no-EF >= 3x, bf16+int8's final loss within 1 % of
-     fp32's, a bf16+int8 run resumed at step 10 bit for bit the unbroken
+     fp32's, a bf16+int8 run resumed at step 6 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     5p-6p, 5a,
+     5p-6p, 5a, 5g-6gs, 5m-5mq,
      8, 8d, 8r, 8p and 8q, and each kernel's device us per decode tick and per
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
@@ -240,6 +267,7 @@ The GPUs other than the first are hidden from it: it drives one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -285,14 +313,14 @@ RWKV_TRAINABLE = {"hadamard": (196_608, 1_599_967_232),
 # the paper's own experiment at bert-base's full width (phase 8p), fp32,
 # TRAIN's 32 x 128 tokens a step: MLM pretraining, then the recipe's lanes
 # over it; only the step counts are cut. Pretraining takes JAX's
-# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 300 steps of its
-# 600, to keep the script inside its time limit (a 1000-step run on an
-# H100 had its MLM loss at its plateau, near 9.5, by step 400), the lanes
-# the learning rates of JAX's paper benchmarks
-# (benchmarks/common.py: stage 1 3e-3, adapters 8e-3, full fine-tuning
-# 3e-4, warmup a tenth of the steps)
-PAPER = dict(pretrain_steps=300, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
-             steps=30, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
+# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 60 steps of its
+# 600, and each lane 12 steps, to keep the script inside its time limit
+# (a 1000-step run on an H100 had its MLM loss at its plateau, near 9.5,
+# by step 400; 300 steps reached 9.52, 100 steps 9.73), the lanes the
+# learning rates of JAX's paper benchmarks (benchmarks/common.py: stage 1
+# 3e-3, adapters 8e-3, full fine-tuning 3e-4, warmup a tenth of the steps)
+PAPER = dict(pretrain_steps=60, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
+             steps=12, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
              second_task="cola", table5_top=(1, 6, 8, 12),
              table4=("B+N", "W+B+N"), search_budget=0.01)
 # each lane's trainable count at bert-base, then the total, as the JAX
@@ -315,10 +343,10 @@ LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
 # launch.pretrain's path (phase 8q): MLM steps of bert-base a moment
 # preset, on the paper's pretraining stream and rate; the bf16+int8 lane
 # saves at resume_at and a fresh state resumes from there
-PRETRAIN_Q = dict(steps=20, resume_at=10)
+PRETRAIN_Q = dict(steps=12, resume_at=6)
 # rwkv6-1.6b's LM fine-tuning (phase 8r) on LM_TRAIN's batches and rate:
 # the Hadamard lane's steps, then the int8-trunk and the compressed lanes'
-RWKV_TRAIN = dict(steps=20, other_steps=10)
+RWKV_TRAIN = dict(steps=6, other_steps=4)
 # gemma2-27b serving (phases 3g-6g): 4 requests, prompts of 4160 tokens
 # (past the 4096-token window: every ring wraps at prefill and again at
 # decode) and of 128, 32 greedy tokens each, on 2 slots of 4352 tokens; 4g
@@ -332,6 +360,23 @@ GEMMA = dict(arch="gemma2-27b", num_slots=2, max_len=4352, long_prompt=4160,
              new_tokens=32, seed=0, depth_groups=2, bank_prompt=128,
              bank_requests=8, bank_slots=4, bank_max_len=160,
              prefill_tol=0.25)
+# deepseek-moe-16b serving (phases 3m-5mq) on SERVE's traffic: 4m cuts the
+# depth to the dense layer and moe_layers_4m MoE layers (fp32); 3m also
+# runs qwen3-moe-235b-a22b's attention shapes (its 470 GB fit no one
+# card). quant_leaves: the leaves JAX's quantization table takes at
+# deepseek-moe-16b (tests/test_torch_moe.py counts them from JAX's own
+# tree). prefill_tol: the limit of the bf16 prefills' last logits, kernel
+# path against plain path, over the first 4 requests' prompts, set from an
+# H100's readings (the kernel path 0.0557-0.0625 from the plain one; every
+# adapter's w 30 % off 0.1504 on the first prompt). route_share_min: the
+# least share of the plain path's routes (every MoE layer's top-6 experts
+# of every prompt token) that the kernel path must take; top-5 routing
+# takes at most 5/6 of them. A top-5 fault moves the bf16 logits no more
+# than bf16 noise does (0.0625-0.0723 against the kernel's 0.0557-0.0625),
+# so the routes, not the logits, are what catch it (PERF.md section 6)
+MOE = dict(arch="deepseek-moe-16b", attn_arch="qwen3-moe-235b-a22b",
+           moe_layers_4m=2, quant_leaves=12, prefill_tol=0.1,
+           route_share_min=0.9)
 
 
 def log(msg: str) -> None:
@@ -4050,6 +4095,600 @@ def main() -> int:
     serve_reports.update({p: gemma_reports[p]
                           for p in ("5g", "5gp", "6g", "6gs")})
 
+    # -- the deepseek-moe-16b phases (3m, 4m, 5m, 6m, 5mq) -------------------
+    # deepseek-moe-16b (configs/deepseek_moe_16b.py): 28 layers, the first
+    # with a dense MLP (d_ff 10,944), the other 27 with 64 routed experts of
+    # 1408 (top-6, gates not renormalized, capacity factor 1.25) and 2
+    # shared ones; d 2048, MHA 16/16 of 128, vocab 102,400, untied head:
+    # 16.4 B parameters, 32.8 GB in bf16. Routing, dispatch, the expert
+    # products and the combine are plain PyTorch, as they are plain jnp in
+    # JAX; the kernels meet new shapes: #3 at d 2048 over RMSNorm, #4 and
+    # #5 with one query head a KV head (and qwen3-moe-235b-a22b's 64/4, 16
+    # a KV head, which only phase 3m runs: 470 GB holds on no one card)
+    from repro_torch import convert
+    from repro_torch.models import moe as moe_mod
+
+    mcfg = launcher.build_config(MOE["arch"])
+    m_layers = mcfg.n_layers
+    moe_launches, moe_reports = {}, {}
+
+    def route_tally():
+        """Wrap `moe._route_group` to keep each MoE layer call's `keep`
+        mask, by the tokens routed together (4 at a 4-slot decode tick, 128
+        at a prefill): a list append a call, no device work, so the timed
+        runs it watches launch nothing more. Returns undo(), which unwraps
+        it and sums {tokens: [dropped, routes]}."""
+        real = moe_mod._route_group
+        kept = {}
+
+        def spy(xg, *a):
+            out = real(xg, *a)
+            kept.setdefault(xg.shape[0], []).append(out[1][1])
+            return out
+
+        moe_mod._route_group = spy
+
+        def undo():
+            moe_mod._route_group = real
+            return {t: [int(sum((~k).sum() for k in ks)),
+                        sum(k.numel() for k in ks)]
+                    for t, ks in sorted(kept.items())}
+
+        return undo
+
+    def route_sets():
+        """Wrap `moe._route_group` to keep the top-k experts of every token
+        of each MoE layer call, in call order. Returns undo(), which
+        unwraps it and gives the list of (tokens, k) index tensors."""
+        real = moe_mod._route_group
+        sets = []
+
+        def spy(xg, router, m, *a):
+            out = real(xg, router, m, *a)
+            sets.append(moe_mod.top_k(out[2], m.top_k)[1])
+            return out
+
+        moe_mod._route_group = spy
+
+        def undo():
+            moe_mod._route_group = real
+            return sets
+
+        return undo
+
+    def route_agreement(got, want):
+        """The share of `want`'s routes (every layer's top-k experts of
+        every token) that `got` routes too."""
+        hit = sum(int((g[:, :, None] == w[:, None, :]).any(1).sum())
+                  for g, w in zip(got, want, strict=True))
+        return hit / sum(w.numel() for w in want)
+
+    def moe_kernels():
+        """Phase 3m: #3 at deepseek's seam, #4 and #5 with deepseek's 16/16
+        heads and qwen3-moe's 64/4 at the serve shapes, each against its
+        plain version in fp32 and bf16 (#5 also bit-identical across two
+        runs) and timed L2-cold in bf16 beside its bound and SDPA."""
+        d_m, D = mcfg.d_model, mcfg.head_dim
+        qm = launcher.build_config(MOE["attn_arch"])
+        rows, S = SERVE["num_slots"], SERVE["prompt_len"]
+        # #3: the seam of a 4-slot decode tick and of a 128-token prefill,
+        # RMSNorm, fp32 w/b, bf16 scale
+        w, b = 1 + randn(d_m, scale=0.1), randn(d_m, scale=0.1)
+        for key, r, s in (("deepseek_decode", rows, 1),
+                          ("deepseek_prefill", 1, S)):
+            for dt in (f32, bf):
+                x, res = randn(r, s, d_m, dtype=dt), randn(r, s, d_m, dtype=dt)
+                scale = randn(d_m, dtype=dt)
+                compare("fused_adapter_norm", f"deepseek ({r},{s},{d_m})", dt,
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       impl="kernel"),
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       impl="ref"))
+            scale = randn(d_m, dtype=bf)
+            xrs = copies_of(lambda: (randn(r, s, d_m, dtype=bf),
+                                     randn(r, s, d_m, dtype=bf)),
+                            2 * r * s * d_m * 2)
+            plan = fused_norm_plan(r * s, d_m, bf)
+            record(f"fused_adapter_norm@{key}", "fused_adapter_norm",
+                   f"x,res ({r},{s},{d_m}) bf16 ({len(xrs)} copies in turn), "
+                   f"fp32 w/b, bf16 scale, RMSNorm (one layer of a "
+                   f"deepseek-moe-16b {'4-slot decode tick' if s == 1 else 'prefill'};"
+                   f" {plan['kernel']}, {plan['blocks']} blocks)", bf,
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, impl="kernel")),
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, impl="ref")),
+                   None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale),
+                   8 * xrs[0][0].numel(),
+                   yardstick_fn=rotating(xrs, lambda x_, r_: F.rms_norm(
+                       x_, (d_m,), scale, 1e-6)), iters=len(xrs), reps=2)
+            results[f"fused_adapter_norm@{key}"].update(
+                library_note="none: rms_norm takes no adapter affine or "
+                             "residual; the yardstick is F.rms_norm of x alone",
+                split_plan=plan)
+            del xrs
+        # #4: a 128-token prefill, causal, with the log-sum-exp in the
+        # checks; deepseek 16 heads on 16, qwen3-moe 64 on 4
+        for key, c in (("deepseek_prefill", mcfg), ("qwen3moe_prefill", qm)):
+            H, KH = c.n_heads, c.n_kv_heads
+            for dt in (f32, bf):
+                q = randn(1, H, S, D, dtype=dt)
+                k, v = randn(1, KH, S, D, dtype=dt), randn(1, KH, S, D, dtype=dt)
+                compare("flash_attention", f"{key} {H}/{KH} heads S={S}", dt,
+                        lambda: ops.flash_attention(q, k, v, impl="kernel",
+                                                    return_lse=True),
+                        lambda: ops.flash_attention(q, k, v, impl="ref",
+                                                    return_lse=True))
+            qkvs = copies_of(lambda: (randn(1, H, S, D, dtype=bf),
+                                      randn(1, KH, S, D, dtype=bf),
+                                      randn(1, KH, S, D, dtype=bf)),
+                             2 * (H + 2 * KH) * S * D)
+            q, k, v = qkvs[0]
+            record(f"flash_attention@{key}", "flash_attention",
+                   f"q (1,{H},{S},{D}) over k/v (1,{KH},{S},{D}) bf16 causal "
+                   f"({len(qkvs)} copies in turn; one layer of a "
+                   f"{c.name} prefill)", bf,
+                   rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                       q_, k_, v_, impl="kernel")),
+                   rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                       q_, k_, v_, impl="ref")),
+                   rotating(qkvs, lambda q_, k_, v_:
+                            F.scaled_dot_product_attention(
+                                q_, k_, v_, is_causal=True, enable_gqa=True)),
+                   2 * nbytes(q) + nbytes(k, v), 4 * H * D * (S * (S + 1) // 2),
+                   iters=len(qkvs), reps=3)
+            results[f"flash_attention@{key}"]["library_note"] = (
+                "torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True)")
+            del qkvs
+        # #5: a 4-slot decode tick over the slot cache of 512, 16-token pages
+        page, max_len = 16, SERVE["max_len"]
+        nbt = max_len // page
+        tables = (torch.arange(rows, device=dev, dtype=torch.int32)[:, None]
+                  * nbt + torch.arange(nbt, device=dev, dtype=torch.int32))
+        kl = torch.tensor([129, 140, 150, 160], dtype=torch.int32, device=dev)
+        n_keys = int(kl.sum())
+        key_mask = (torch.arange(max_len, device=dev)[None, :]
+                    < kl[:, None])[:, None, None, :]
+        for key, c in (("deepseek_decode", mcfg), ("qwen3moe_decode", qm)):
+            H, KH = c.n_heads, c.n_kv_heads
+            for dt in (f32, bf):
+                q = randn(rows, H, D, dtype=dt)
+                kp = randn(rows * nbt, page, KH, D, dtype=dt)
+                vp = randn(rows * nbt, page, KH, D, dtype=dt)
+                compare("paged_attention", f"{key} {H}/{KH} heads", dt,
+                        lambda: ops.paged_attention(q, kp, vp, tables, kl,
+                                                    impl="kernel"),
+                        lambda: ops.paged_attention(q, kp, vp, tables, kl,
+                                                    impl="ref"))
+                runs = [ops.paged_attention(q, kp, vp, tables, kl,
+                                            impl="kernel") for _ in range(2)]
+                check(torch.equal(*runs), f"paged_attention {key} {dt}: two "
+                                          "runs differ")
+            pcopies = copies_of(
+                lambda: (randn(rows, H, D, dtype=bf),
+                         randn(rows * nbt, page, KH, D, dtype=bf),
+                         randn(rows * nbt, page, KH, D, dtype=bf)),
+                2 * rows * max_len * KH * D * 2)
+
+            def sdpa(q_, kp_, vp_, KH=KH):
+                k_ = kp_.view(rows, max_len, KH, D).transpose(1, 2)
+                v_ = vp_.view(rows, max_len, KH, D).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q_[:, :, None], k_, v_, attn_mask=key_mask,
+                    enable_gqa=True)
+
+            plan = paged_split_plan(rows, H, KH, 1, D, page, nbt)
+            record(f"paged_attention@{key}", "paged_attention",
+                   f"q ({rows},{H},{D}) bf16 over a ({rows},{max_len},{KH},"
+                   f"{D}) bf16 slot cache, kv_lens {kl.tolist()} "
+                   f"({len(pcopies)} copies in turn; one layer of a {c.name} "
+                   f"4-slot decode tick; {plan['splits']} splits, "
+                   f"{plan['blocks']} blocks)", bf,
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl, impl="kernel")),
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl, impl="ref")),
+                   None,
+                   nbytes(pcopies[0][0], tables, kl)
+                   + n_keys * KH * D * 2 * 2 + rows * H * D * 4,
+                   4 * H * D * n_keys, yardstick_fn=rotating(pcopies, sdpa),
+                   iters=len(pcopies), reps=3)
+            results[f"paged_attention@{key}"].update(
+                library_note="none: SDPA takes no block table; the yardstick "
+                             "is SDPA over the contiguous slot cache with a "
+                             "key-length mask",
+                split_plan=plan)
+            del pcopies
+        # #7 at every (K, N) that 5mq quantizes: the attention projections
+        # (2048, 2048), the dense layer's MLP (2048, 10944) and (10944,
+        # 2048), the untied head (2048, 102400), each at a 4-slot decode
+        # tick and a 128-token prefill, over int8 values: within phase 3's
+        # tolerances of the plain version, and the same bits across two runs
+        dq = checks["dequant_matmul"]
+        n_f, n_b, plans = len(dq["rel_errs"]), len(dq["rels"]), {}
+        for K, N in ((d_m, mcfg.n_heads * D), (d_m, mcfg.d_ff),
+                     (mcfg.d_ff, d_m), (d_m, mcfg.vocab_size)):
+            (v, sc), = quantized(K, N, torch.int8)
+            for m in (rows, S):
+                for dt in (f32, bf):
+                    x = randn(m, K, dtype=dt)
+                    plan = dequant_matmul_plan(m, K, N, dt, torch.int8)
+                    plans[f"M={m} K={K} N={N} {str(dt)[6:]}"] = plan
+                    compare("dequant_matmul", f"deepseek M={m} K={K} N={N} "
+                            f"int8 ({plan})", dt,
+                            lambda: ops.dequant_matmul(x, v, sc,
+                                                       impl="kernel"),
+                            lambda: ops.dequant_matmul(x, v, sc, impl="ref"))
+                    runs = [ops.dequant_matmul(x, v, sc, impl="kernel")
+                            for _ in range(2)]
+                    check(torch.equal(*runs), f"dequant_matmul deepseek M={m}"
+                                              f" K={K} N={N} {dt}: two runs "
+                                              "differ")
+            del v, sc
+        log(f"[3m] dequant_matmul at deepseek-moe-16b's quantized (K, N), "
+            f"M {rows} and {S}, int8: fp32 max abs err / max|ref| "
+            f"{max(dq['rel_errs'][n_f:]):.3g} (tol {TOL['dequant_matmul']}),"
+            f" bf16 {max(dq['rels'][n_b:]):.3g} (tol {BF16_TOL}); two runs "
+            f"the same bits at each; plans {plans}")
+        release()
+        phase_done("3m")
+
+    def moe_fp32_model():
+        """Phase 4m: deepseek-moe-16b at full width in fp32, TF32 off, its
+        depth cut to the dense layer and 2 MoE layers: 4 prompts of 128
+        tokens and 32 greedy tokens each through the kernels against the
+        plain versions, logits within 1e-3 of max|ref|, tokens identical,
+        the launches of every call as predicted (a prefill 3 #4 + 3 #3, a
+        decode step 3 #5 + 3 #3), and the routes dropped."""
+        cfg4 = mcfg.replace(param_dtype="float32", compute_dtype="float32",
+                            groups=(mcfg.groups[0], Group(
+                                mcfg.groups[1].slots, MOE["moe_layers_4m"])))
+        L4, rows, S = cfg4.n_layers, SERVE["num_slots"], SERVE["prompt_len"]
+        n_new = SERVE["new_tokens"]
+        release()
+        eng = launcher.build_engine(cfg4, seed=1, device=dev)
+        prompts = torch.randint(10, cfg4.vocab_size, (rows, S), generator=gen,
+                                device=dev)
+        want_pre = kernels(flash_attention=L4, fused_adapter_norm=L4)
+        want_dec = kernels(paged_attention=L4, fused_adapter_norm=L4)
+        runs, worst = {}, 0.0
+        with torch.no_grad():
+            for impl in ("auto", "ref"):
+                undo = route_tally()
+                _build.reset_launches()
+                lg, caches = M.prefill_lm(eng.params, cfg4, prompts,
+                                          SERVE["max_len"], impl=impl)
+                torch.cuda.synchronize()
+                pre_counts = _build.launch_counts()
+                logits, toks = [lg], []
+                for i in range(n_new):
+                    tok = lg[:, -1].argmax(-1)
+                    toks.append(tok)
+                    _build.reset_launches()
+                    lg, caches = M.decode_lm(
+                        eng.params, cfg4, caches, tok[:, None],
+                        torch.full((rows,), S + i, device=dev), impl=impl)
+                    torch.cuda.synchronize()
+                    if impl == "auto":
+                        check(_build.launch_counts() == want_dec,
+                              f"[4m] decode step {i} launched "
+                              f"{_build.launch_counts()}, want {want_dec}")
+                    logits.append(lg)
+                if impl == "auto":
+                    check(pre_counts == want_pre, f"[4m] prefill launched "
+                          f"{pre_counts}, want {want_pre}")
+                runs[impl] = (logits, torch.stack(toks, 1), undo())
+        for step, (a, r) in enumerate(zip(runs["auto"][0], runs["ref"][0])):
+            check(bool(torch.isfinite(a).all()), "[4m] non-finite logits")
+            diff = (a - r).abs().max().item()
+            check(diff <= 1e-3 * r.abs().max().item(),
+                  f"[4m] step {step}: |kernel - plain| {diff:.3g} > 1e-3 x "
+                  f"{r.abs().max().item():.3g}")
+            worst = max(worst, diff / r.abs().max().item())
+        check(torch.equal(runs["auto"][1], runs["ref"][1]),
+              f"[4m] greedy tokens differ: kernel {runs['auto'][1].tolist()}, "
+              f"plain {runs['ref'][1].tolist()}")
+        tally = runs["auto"][2]
+        check(tally == runs["ref"][2], f"[4m] the paths dropped different "
+              f"routes: kernel {tally}, plain {runs['ref'][2]}")
+        # a planted fault, the plain path with top-(k-1) routing: past the
+        # 1e-3 limit at the prefill
+        topk = cfg4.replace(moe=dataclasses.replace(
+            cfg4.moe, top_k=cfg4.moe.top_k - 1))
+        with torch.no_grad():
+            fault, _ = M.prefill_lm(eng.params, topk, prompts,
+                                    SERVE["max_len"], impl="ref")
+        ref0 = runs["ref"][0][0]
+        fault_rel = ((fault - ref0).abs().max() / ref0.abs().max()).item()
+        check(fault_rel > 1e-3, f"[4m] top-{topk.moe.top_k} routing moved "
+              f"the fp32 prefill's logits only {fault_rel:.3g} of max|ref|")
+        moe_reports["4m"] = dict(layers=L4, rows=rows, prompt=S,
+                                 new_tokens=n_new, max_rel_diff=worst,
+                                 fault_top_k_minus_1_rel=fault_rel,
+                                 routes_dropped=tally,
+                                 drop_share={t: n / r for t, (n, r)
+                                             in tally.items()},
+                                 tokens=runs["auto"][1].tolist())
+        log(f"[4m] deepseek-moe-16b fp32, {L4} layers (the dense one and "
+            f"{MOE['moe_layers_4m']} MoE), {rows} prompts of {S} + {n_new} "
+            f"greedy tokens: kernel path vs plain path max |diff| / max|ref| "
+            f"{worst:.3g} (tol 1e-3), tokens identical; the planted "
+            f"top-{topk.moe.top_k} routing fault {fault_rel:.3g} of max|ref| "
+            f"at the prefill; routes dropped "
+            f"[dropped, routes] by tokens routed together {tally}, the "
+            f"same on both paths; launches a prefill {want_pre}, a decode "
+            f"step {want_dec}")
+        del eng, caches, runs, fault
+        release()
+        phase_done("4m")
+
+    def moe_serve_run(tag, eng, reqs, want, ref_tokens=None):
+        """SERVE's traffic through make_scheduler on `eng`, reqs[0] alone
+        and the rest submitted after 2 ticks (admissions mid-decode, then
+        retires while other rows decode): the serve checks, each call's
+        launches as `want` says, a decode tick's and a prefill's profile,
+        the routes dropped at decode and at prefill, the peak bytes."""
+        scfg = ServingConfig(num_slots=SERVE["num_slots"],
+                             max_len=SERVE["max_len"],
+                             backbone_quant=getattr(eng, "quant", None))
+        # warm-up: library init, the first call of every kernel
+        make_scheduler(eng, scfg).run([dataclasses.replace(
+            r, max_new_tokens=2) for r in reqs[:2]])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sched = make_scheduler(eng, scfg)
+        per_call = count_per_call(eng)
+        undo = route_tally()
+        _build.reset_launches()
+        done, rep = staggered_run(sched, reqs)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        tally = undo()
+        peak = torch.cuda.max_memory_allocated()
+        del eng.prefill, eng.decode_step
+        per_tick, per_prefill = check_serve_run(
+            tag, per_call, rep, done, counts, sched,
+            tuple(k for k, n in want["tick"].items() if n), mcfg)
+        for k in counts:
+            for what, got in (("tick", per_tick), ("prefill", per_prefill)):
+                w_ = [want[what].get(k, 0)]
+                check(got[k] == w_, f"[{tag}] {k} per {what} {got[k]}, "
+                                    f"want {w_}")
+        slots = SERVE["num_slots"]
+        check(set(tally) == {slots, SERVE["prompt_len"]},
+              f"[{tag}] routed token counts {sorted(tally)}")
+        caches = eng.init_slot_caches(slots, SERVE["max_len"])
+        stids = [t % TASKS for t in range(slots)]
+        tick = profile_calls(lambda: eng.decode_step(
+            caches, [[11]] * slots, [140 + i for i in range(slots)],
+            task_ids=stids if isinstance(eng, MultiTaskEngine) else None), 5)
+        check_profiled(tag, tick, per_tick)
+        del caches
+        pre = profile_prefill(eng)
+        check_profiled(tag, pre, per_prefill)
+        tokens = {c.request_id: c.tokens for c in done}
+        extra = {}
+        if ref_tokens is not None:
+            same = [float((tokens[i] == ref_tokens[i]).mean())
+                    for i in sorted(tokens)]
+            extra["greedy_agreement_with_5m_ungated"] = sum(same) / len(same)
+        moe_launches[tag] = counts
+        moe_reports[tag] = dict(
+            rep, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre,
+            peak_bytes_allocated=peak, bytes_held_before_run=held,
+            routes_dropped=tally,
+            drop_share_decode=tally[slots][0] / tally[slots][1],
+            drop_share_prefill=(tally[SERVE["prompt_len"]][0]
+                                / tally[SERVE["prompt_len"]][1]),
+            **extra, **exact_latency(done))
+        r = moe_reports[tag]
+        log(f"[{tag}] {serve_line(rep, done)}; launches {counts}; per decode "
+            f"tick {per_tick}; per prefill {per_prefill}; peak "
+            f"{peak / 1e9:.2f} GB; routes dropped at decode "
+            f"{r['drop_share_decode']:.4f}, at prefill "
+            f"{r['drop_share_prefill']:.4f} ({tally}); decode tick {tick}; "
+            f"prefill {pre}; {extra}")
+        del sched
+        return tokens
+
+    def moe_serve():
+        """Phases 5m, 6m and 5mq: deepseek-moe-16b at full width and depth
+        in bf16, SERVE's traffic admitted mid-decode into 4 slots of 512:
+        one adapter (5m, #3 at every seam), a 3-task bank (6m, #6) and one
+        adapter over an int8 backbone (5mq, #7 at the attention
+        projections, the dense layer's MLP and the head). 5m also holds two
+        bf16 runs of an MoE layer to the same bits, the prefill's last
+        logits to the plain path's beside two planted faults, and runs the
+        serve launcher at deepseek-moe-16b."""
+        import contextlib
+        import io
+
+        torch.cuda.synchronize()
+        release()
+        held = torch.cuda.memory_allocated()
+        log(f"[5m] device memory allocated before the build: "
+            f"{held / 1e9:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = launcher.build_engine(mcfg, seed=SERVE["seed"], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights_bytes = torch.cuda.memory_allocated() - held
+        build_peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for _, t in tu.flatten_with_paths(eng.params))
+        log(f"[5m] deepseek-moe-16b bf16: {n_params:,} parameters, "
+            f"{weights_bytes / 1e9:.2f} GB on the card, the build peaking at "
+            f"{build_peak / 1e9:.2f} GB in {build_s:.1f} s")
+        L = m_layers
+        reqs = launcher.make_requests(mcfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      0, SERVE["seed"])
+        tokens_5m = moe_serve_run(
+            "5m", eng, reqs, {"tick": {"paged_attention": L,
+                                       "fused_adapter_norm": L},
+                              "prefill": {"flash_attention": L,
+                                          "fused_adapter_norm": L}})
+        moe_reports["5m"].update(weights_bytes_allocated=weights_bytes,
+                                 build_peak_bytes=build_peak, build_s=build_s,
+                                 n_params=n_params)
+        # an MoE layer twice on the same bf16 input: the same bits (no
+        # atomics in the dispatch or the combine), and no host sync (CUDA's
+        # sync debug mode raises on one)
+        layer = eng.params["layers"][1]["moe"]
+        for shape in ((SERVE["num_slots"], 1, mcfg.d_model),
+                      (1, SERVE["prompt_len"], mcfg.d_model)):
+            x = randn(*shape, dtype=bf)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.no_grad():
+                    (y1, a1), (y2, a2) = (moe_mod.moe_apply(layer, mcfg, x)
+                                          for _ in range(2))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(torch.equal(y1, y2) and torch.equal(a1, a2)
+                  and bool(torch.isfinite(y1.float()).all()),
+                  f"[5m] two bf16 runs of an MoE layer at {shape} differ")
+        moe_reports["5m"]["moe_layer_bit_identical_no_sync"] = True
+        # the prefill's last logits and its routes through the kernels
+        # against the plain path, on the first 4 requests' prompts, each
+        # beside a planted fault: every adapter's w 30 % further from 1
+        # (the logits), the plain path with top-(k-1) routing (the routes:
+        # bf16 noise hides its logits, PERF.md section 6)
+        topk = mcfg.replace(moe=dataclasses.replace(
+            mcfg.moe, top_k=mcfg.moe.top_k - 1))
+        off = dict(eng.params, layers=[dict(layer, adapter={
+            "w": 1 + 1.3 * (layer["adapter"]["w"] - 1),
+            "b": layer["adapter"]["b"]}) for layer in eng.params["layers"]])
+        pre = {k: [] for k in ("kernel", "fault_adapter_w_30pc",
+                               "routes_kernel", "routes_top_k_minus_1")}
+        top = []
+        with torch.no_grad():
+            for req in reqs[:SERVE["num_slots"]]:
+                prompt_t = torch.as_tensor(req.prompt[None], device=dev)
+                undo = route_sets()
+                got, _ = eng.prefill(req.prompt[None], SERVE["max_len"])
+                got_r = undo()
+                undo = route_sets()
+                want_l, _ = M.prefill_lm(eng.params, mcfg, prompt_t,
+                                         SERVE["max_len"], impl="ref")
+                want_r = undo()
+                undo = route_sets()
+                M.prefill_lm(eng.params, topk, prompt_t, SERVE["max_len"],
+                             impl="ref")
+                fault_r = undo()
+                fault_a, _ = M.prefill_lm(off, mcfg, prompt_t,
+                                          SERVE["max_len"], impl="ref")
+                check(bool(torch.isfinite(got).all()),
+                      "[5m] non-finite logits")
+                pre["kernel"].append((got - want_l).abs().max().item())
+                pre["fault_adapter_w_30pc"].append(
+                    (fault_a - want_l).abs().max().item())
+                pre["routes_kernel"].append(route_agreement(got_r, want_r))
+                pre["routes_top_k_minus_1"].append(
+                    route_agreement(fault_r, want_r))
+                top.append(bool(got[0, -1].argmax()
+                                == want_l[0, -1].argmax()))
+        del off, got, want_l, fault_a
+        lim, rlim = MOE["prefill_tol"], MOE["route_share_min"]
+        moe_reports["5m"]["prefill_vs_plain"] = dict(
+            max_abs_diff=pre["kernel"], limit=lim,
+            fault_adapter_w_30pc=pre["fault_adapter_w_30pc"],
+            route_share=pre["routes_kernel"], route_share_min=rlim,
+            fault_top_k_minus_1_route_share=pre["routes_top_k_minus_1"],
+            same_top1=top)
+        log(f"[5m] {len(top)} prefills of {SERVE['prompt_len']} tokens, "
+            f"kernel path vs plain path: last logits max |diff| "
+            f"{pre['kernel']} (limit {lim}; planted fault, adapter w 30 % "
+            f"off: {pre['fault_adapter_w_30pc']}); the share of the plain "
+            f"path's routes taken {pre['routes_kernel']} (least {rlim}; "
+            f"planted fault, top-{topk.moe.top_k} routing: "
+            f"{pre['routes_top_k_minus_1']}); same top-1 {top}")
+        check(max(pre["kernel"]) <= lim, f"[5m] the prefill's last logits: "
+              f"|kernel - plain| {max(pre['kernel']):.4g} > {lim}")
+        check(min(pre["fault_adapter_w_30pc"]) > lim, f"[5m] the planted "
+              f"adapter fault moved the plain path's logits only "
+              f"{min(pre['fault_adapter_w_30pc']):.4g}: the limit {lim} "
+              f"would not catch it")
+        check(min(pre["routes_kernel"]) >= rlim, f"[5m] the kernel path "
+              f"took only {min(pre['routes_kernel']):.4g} of the plain "
+              f"path's routes, least {rlim}")
+        check(max(pre["routes_top_k_minus_1"]) < rlim, f"[5m] the planted "
+              f"top-{topk.moe.top_k} fault took "
+              f"{max(pre['routes_top_k_minus_1']):.4g} of the plain path's "
+              f"routes: the limit {rlim} would not catch it")
+        del eng, layer
+        release()
+        phase_done("5m")
+        # the serve launcher itself, on the card by default
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launcher.main(["--arch", MOE["arch"], "--requests", "2",
+                           "--num-slots", "2", "--prompt-len", "128",
+                           "--new-tokens", "8", "--seed", str(SERVE["seed"])])
+        text = out.getvalue()
+        check("served 2 requests / 16 tokens" in text
+              and torch.cuda.get_device_name(0) in text,
+              f"[5m] the launcher printed {text[-800:]!r}")
+        moe_reports["5m"]["launcher_s"] = time.perf_counter() - t0
+        log(f"[5m] launcher --arch {MOE['arch']} in "
+            f"{moe_reports['5m']['launcher_s']:.1f} s: "
+            + " | ".join(ln for ln in text.splitlines()
+                         if ln.startswith("served")))
+        release()
+        phase_done("5m launcher")
+        # 6m: a 3-task bank (#6 at every seam)
+        eng = launcher.build_engine(mcfg, seed=SERVE["seed"], tasks=TASKS,
+                                    device=dev)
+        reqs = launcher.make_requests(mcfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      TASKS, SERVE["seed"])
+        moe_serve_run("6m", eng, reqs, {
+            "tick": {"paged_attention": L, "multitask_hadamard": L},
+            "prefill": {"flash_attention": L, "multitask_hadamard": L}})
+        del eng
+        release()
+        phase_done("6m")
+        # 5mq: int8 backbone: 4 attention projections a layer, the dense
+        # layer's 3 MLP projections and the untied head (116 #7 a call);
+        # the experts stay bf16, as in JAX
+        n_dq = 4 * L + 3 + 1
+        eng = launcher.build_engine(mcfg, seed=SERVE["seed"], device=dev,
+                                    quant="int8")
+        qs = quant_summary(eng.params, lambda p: convert.jax_path(p, mcfg))
+        check(qs["n_quantized_leaves"] == MOE["quant_leaves"],
+              f"[5mq] {qs['n_quantized_leaves']} quantized leaves, JAX "
+              f"quantizes {MOE['quant_leaves']}")
+        check(not any(isinstance(t, QTensor) for p, t in
+                      tu.flatten_with_paths(eng.params) if "/moe/" in p),
+              "[5mq] an expert leaf was quantized")
+        reqs = launcher.make_requests(mcfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      0, SERVE["seed"])
+        moe_serve_run("5mq", eng, reqs, {
+            "tick": {"paged_attention": L, "fused_adapter_norm": L,
+                     "dequant_matmul": n_dq},
+            "prefill": {"flash_attention": L, "fused_adapter_norm": L,
+                        "dequant_matmul": n_dq}}, ref_tokens=tokens_5m)
+        moe_reports["5mq"].update(quant_line=launcher.quant_line(eng),
+                                  quantized_bytes=qs["quantized_bytes"],
+                                  tree_bytes=qs["total_bytes"])
+        log(f"[5mq] {moe_reports['5mq']['quant_line']}")
+        del eng
+        release()
+        phase_done("5mq")
+
+    # -- phases 3m, 4m, 5m, 6m, 5mq: deepseek-moe-16b -------------------------
+    moe_kernels()
+    moe_fp32_model()
+    moe_serve()
+    launches.update(moe_launches)
+    serve_reports.update({p: moe_reports[p] for p in ("5m", "6m", "5mq")})
+
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
     from repro_torch.configs import get as get_arch
@@ -5420,7 +6059,10 @@ def main() -> int:
                   "6rs": "serve_rwkv_hot_swap", "5g": "serve_gemma2_single",
                   "5gp": "serve_gemma2_paged",
                   "6g": "serve_gemma2_multitask",
-                  "6gs": "serve_gemma2_hot_swap", "5o": "serve_fold"}
+                  "6gs": "serve_gemma2_hot_swap", "5o": "serve_fold",
+                  "5m": "serve_deepseek_single",
+                  "6m": "serve_deepseek_multitask",
+                  "5mq": "serve_deepseek_single_int8"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
@@ -5478,7 +6120,9 @@ def main() -> int:
         for at in ("train", "train_lm", "prefill", "head", "rwkv", "verify",
                    "verify_int8", "verify_fp8", "extend", "extend_int8",
                    "extend_fp8", "gemma2_decode", "gemma2_prefill",
-                   "gemma2_local", "gemma2_ring", "gemma2_linear"):
+                   "gemma2_local", "gemma2_ring", "gemma2_linear",
+                   "deepseek_decode", "deepseek_prefill", "qwen3moe_decode",
+                   "qwen3moe_prefill"):
             if f"{name}@{at}" in results:
                 t = results[f"{name}@{at}"]
                 entry[f"{at}_shape_timing"] = dict(
@@ -5507,6 +6151,7 @@ def main() -> int:
                       "train_rwkv": rwkv_report, "pretrain_q": pq_report,
                       "paper": paper_report, "slo_admission": slo_report,
                       "gemma2_model": gemma_reports["4g"],
+                      "moe_model": moe_reports["4m"],
                       "fold": gemma_reports["5o"],
                       "phase_s": phase_s, "card": smi}))
     print(smi)

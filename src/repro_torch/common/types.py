@@ -45,11 +45,31 @@ class AdapterCfg:
 
 
 @dataclass(frozen=True)
+class MoECfg:
+    """A mixture-of-experts FFN (`models/moe.py`): n_experts routed
+    experts of width d_expert, top_k of them a token, capacity_factor
+    times the even share of routes each (the rest dropped), n_shared
+    always-on experts; gates renormalized over the top k when
+    normalize_weights is set; the router computed in router_dtype; the
+    load-balancing loss weighted by aux_loss_weight."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    normalize_weights: bool = True
+    router_dtype: str = "float32"
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class Slot:
     """One block position inside a repeating pattern.
 
     kind: 'attn' | 'rec' (RG-LRU) | 'rwkv' (RWKV6 time-mix)
     window: local attention window (None = full attention)
+    moe: the block's FFN is a mixture of experts (cfg.moe)
     """
 
     kind: str = "attn"
@@ -83,7 +103,7 @@ class ModelCfg:
     groups: Tuple[Group, ...]
     enc_groups: Tuple[Group, ...] = ()
 
-    moe: Optional[object] = None
+    moe: Optional[MoECfg] = None
     adapter: AdapterCfg = AdapterCfg()
 
     norm: str = "rmsnorm"  # 'rmsnorm' | 'layernorm'

@@ -10,8 +10,10 @@ not know (or that the config's family does not have) raises. A multi-task
 bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
 layer, and the baselines' adapters (LoRA, IA3, Houlsby) as their leaves
 per layer: a stacked (repeats, d, r) LoRA leaf gives each layer its (d,
-r). `jax_path` names a port leaf by its JAX path, so that one regex
-(a PEFT mask) means the same leaves in both packages.
+r), and a stacked (repeats, E, d, f) expert stack each MoE layer its (E,
+d, f) (the fp32 router stays fp32). `jax_path` names a port leaf by its
+JAX path, so that one regex (a PEFT mask) means the same leaves in both
+packages.
 
 Task deltas (`core.hadamard.extract_delta`) carry over in the layout the
 registry stores. A delta is a partial tree with None holes; in the JAX
@@ -47,6 +49,8 @@ BLOCK_LEAVES = frozenset(
     + [f"attn/{w}" for w in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
                              "q_norm", "k_norm")]
     + [f"mlp/{w}" for w in ("wi", "wo", "wg", "bi", "bo")]
+    + [f"moe/{w}" for w in ("router", "wi", "wg", "wo", "shared_wi",
+                            "shared_wg", "shared_wo")]
     + [f"rwkv_tm/{w}" for w in ("mu_x", "mu", "lora1", "lora2", "w0", "wA",
                                 "wB", "u", "wr", "wk", "wv", "wg", "wo",
                                 "ln_x_scale", "ln_x_bias")]

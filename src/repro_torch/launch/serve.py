@@ -41,12 +41,23 @@ every tenant and a b per tenant, from a bank that stores the w once.
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.serve --arch gemma2-27b --requests 4 \
       --num-slots 2 --prompt-len 128 --new-tokens 32 [--page-size 16]
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --requests 8 --num-slots 4 --prompt-len 128 --new-tokens 32 \
+      [--tasks 3] [--quant int8]
 
 gemma2-27b (46 layers alternating a 4096-token window with full range,
 soft-capped, post-norms) serves at full width on one 80 GB card: its
 27.2 B parameters take 54.5 GB in bf16. Its windowed layers keep ring
 caches; the paged pool serves it cold (no prefix cache), and speculation
 and prompt bucketing are refused for it, as in JAX.
+
+deepseek-moe-16b (28 layers: a dense one, then 64 routed experts top-6
+and 2 shared experts a layer) serves at full width on one card, 32.8 GB
+in bf16. Its rows route together: an idle slot's row takes expert
+capacity too, and bucketing, prefix hits and speculation follow JAX's
+behaviour, not plain decoding's. --quant quantizes the attention
+projections, the dense layer's MLP and the head; the experts stay bf16,
+as in JAX.
 
 --fold folds the single adapter into W_O at construction (the adapter op
 then runs on the identity); --static serves the requests as JAX's

@@ -80,11 +80,12 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 
 
 def check_slot(slot: Slot) -> None:
-    if slot.kind not in ("attn", "rwkv") or slot.moe or slot.cross_attn:
+    if (slot.kind not in ("attn", "rwkv") or slot.cross_attn
+            or (slot.moe and slot.kind != "attn")):
         raise NotImplementedError(
             f"slot {slot} is not ported: the port serves self-attention "
-            "(full-range or windowed) and RWKV6 decoders; recurrent "
-            "(RG-LRU), MoE and "
+            "(full-range or windowed, with a dense or mixture-of-experts "
+            "FFN) and RWKV6 decoders; recurrent (RG-LRU) and "
             "cross-attention blocks arrive with the other-families slice")
 
 

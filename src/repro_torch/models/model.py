@@ -11,7 +11,10 @@ with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
 a list with one dict per layer: {"k", "v"} for an attention layer (of the
 cache length, or a windowed layer's ring, `attention.cache_size`), the
-recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. A paged
+recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. A
+mixture-of-experts layer (`models/moe.py`) holds "moe" in place of "mlp";
+its tokens route together, so under MoE the rows of a batch are no longer
+independent: every row (an idle slot's too) takes expert capacity. A paged
 pool (`init_paged_pool`) is such a list too: {"k", "v"} block pools of
 (num_blocks, page, KH, D) per layer, block 0 the allocator's null block,
 addressed through per-row block tables (B, nbt) int32 that every layer
@@ -44,6 +47,9 @@ def _check_cfg(cfg: ModelCfg) -> None:
             "arrive with the other-families slice")
     for slot in cfg.layer_slots():
         check_slot(slot)
+        if slot.moe and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: a moe slot needs cfg.moe (a "
+                             "MoECfg)")
 
 
 def has_attention(cfg: ModelCfg) -> bool:
@@ -127,32 +133,37 @@ def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
 def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                 write_pos=None, kv_lens=None, tables=None, task_ids=None,
                 gates=None, causal=True, impl="auto"):
-    """tables: one (B, nbt) tensor every layer shares, or a list of one a
-    layer."""
-    new_caches = []
+    """Returns (x, caches, aux): aux the sum of the MoE blocks'
+    load-balancing losses in layer order (JAX's `_run_groups`), None when
+    no block has one. tables: one (B, nbt) tensor every layer shares, or a
+    list of one a layer."""
+    new_caches, aux_total = [], None
     for i, (p, slot) in enumerate(zip(params["layers"], cfg.layer_slots())):
-        x, c = block_apply(p, cfg, slot, x, q_pos=q_pos,
-                           cache=None if caches is None else caches[i],
-                           cache_len=cache_len, write_pos=write_pos,
-                           kv_lens=kv_lens,
-                           tables=(tables[i] if isinstance(tables, list)
-                                   else tables), task_ids=task_ids,
-                           gate=None if gates is None else gates[i],
-                           causal=causal, impl=impl)
+        x, c, aux = block_apply(p, cfg, slot, x, q_pos=q_pos,
+                                cache=None if caches is None else caches[i],
+                                cache_len=cache_len, write_pos=write_pos,
+                                kv_lens=kv_lens,
+                                tables=(tables[i] if isinstance(tables, list)
+                                        else tables), task_ids=task_ids,
+                                gate=None if gates is None else gates[i],
+                                causal=causal, impl=impl)
         new_caches.append(c)
-    return x, new_caches
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, new_caches, aux_total
 
 
 def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
-                   impl: str = "auto") -> torch.Tensor:
-    """tokens (B, S) -> final-norm hidden states (B, S, d) of the
-    teacher-forced causal forward (training), as JAX's `forward_hidden`;
-    the logits are left to the caller, so the loss can compute them in
-    sequence chunks (cfg.ce_chunk). No caches are made. Autograd runs
-    through the kernels' Functions: the adapter seam (#3 forward; the
-    norm VJP in plain torch, then #2), attention (#4 forward; the tiled
-    plain backward) and, over a quantized trunk, every projection (#7
-    forward; dx in plain torch).
+                   impl: str = "auto"):
+    """tokens (B, S) -> (final-norm hidden states (B, S, d), aux) of the
+    teacher-forced causal forward (training), as JAX's `forward_hidden`:
+    aux is the summed MoE load-balancing loss, an fp32 scalar, 0 for a
+    model without MoE blocks. The logits are left to the caller, so the
+    loss can compute them in sequence chunks (cfg.ce_chunk). No caches are
+    made. Autograd runs through the kernels' Functions: the adapter seam
+    (#3 forward; the norm VJP in plain torch, then #2), attention (#4
+    forward; the tiled plain backward) and, over a quantized trunk, every
+    projection (#7 forward; dx in plain torch).
 
     JAX wraps each layer in `jax.checkpoint` under cfg.remat, which
     trades memory for recompute and changes no number; the port keeps
@@ -166,15 +177,18 @@ def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                          f"family {cfg.family!r}")
     x = embed_tokens(params, cfg, tokens)
     q_pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _ = _run_layers(params, cfg, x, q_pos=q_pos, causal=True, impl=impl)
-    return apply_norm(params["final_norm"], cfg, x)
+    x, _, aux = _run_layers(params, cfg, x, q_pos=q_pos, causal=True,
+                            impl=impl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return apply_norm(params["final_norm"], cfg, x), aux
 
 
 def forward_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                impl: str = "auto") -> torch.Tensor:
     """Teacher-forced full-sequence fp32 logits (B, S, V) (training)."""
-    return lm_logits(params, cfg, forward_hidden(params, cfg, tokens, impl),
-                     impl)
+    return lm_logits(params, cfg,
+                     forward_hidden(params, cfg, tokens, impl)[0], impl)
 
 
 def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
@@ -186,7 +200,8 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     A right-padded prompt passes its true last index as last_pos: under
     causal masking the pad never reaches positions <= last_pos; a config
     with recurrent state refuses one, since the state would take the pad
-    in. gates:
+    in. Under MoE blocks the pad tokens still route and take capacity
+    from the prompt's, as they do in JAX. gates:
     (L, bank rows) fp32 row gates of a hot-swap bank (`AdapterBank`), on
     the params' device; with them every block's bank adapter runs the
     masked multitask op with its layer's row."""
@@ -198,8 +213,9 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
             "would take in the tokens after it; prefill the prompt unpadded")
     x = embed_tokens(params, cfg, tokens)
     q_pos = torch.arange(S, device=tokens.device)
-    x, caches = _run_layers(params, cfg, x, q_pos=q_pos, cache_len=cache_len,
-                            task_ids=task_ids, gates=gates, impl=impl)
+    x, caches, _ = _run_layers(params, cfg, x, q_pos=q_pos,
+                               cache_len=cache_len, task_ids=task_ids,
+                               gates=gates, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x[:, lp:lp + 1])
     return lm_logits(params, cfg, x, impl), caches
 
@@ -214,9 +230,9 @@ def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
     final-norm hidden states (B, S, d)."""
     kv_lens = (write_pos[:, -1] + 1).to(torch.int32)
     x = embed_tokens(params, cfg, tokens, positions)
-    x, _ = _run_layers(params, cfg, x, q_pos=write_pos, caches=pool,
-                       write_pos=write_pos, kv_lens=kv_lens, tables=tables,
-                       task_ids=task_ids, gates=gates, impl=impl)
+    x, _, _ = _run_layers(params, cfg, x, q_pos=write_pos, caches=pool,
+                          write_pos=write_pos, kv_lens=kv_lens, tables=tables,
+                          task_ids=task_ids, gates=gates, impl=impl)
     return x
 
 
@@ -376,7 +392,8 @@ def encode_sequence(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                          f"family {cfg.family!r}")
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed_tokens(params, cfg, tokens, positions=pos, type_ids=type_ids)
-    x, _ = _run_layers(params, cfg, x, q_pos=pos, causal=False, impl=impl)
+    x, _, _ = _run_layers(params, cfg, x, q_pos=pos, causal=False,
+                          impl=impl)
     return x
 
 

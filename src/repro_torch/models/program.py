@@ -42,6 +42,11 @@ wrap the time-mix and the channel-mix outputs, as in JAX's pre-LN block;
 LoRA's and IA3's leaves exist there and train, but no rwkv op reads them
 (they only take weight decay), as in JAX. Its cache is the layer's
 recurrent state, written in place at decode.
+
+A `moe` slot's FFN is the mixture of experts of `models/moe.py` in place
+of the MLP, as in JAX's `block_apply`: the seam and the adapter stay as
+they are, and the experts' load-balancing loss comes back as the block's
+aux, which `models.model._run_layers` sums over the layers.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from repro_torch.kernels.hadamard import (FusedAdapterResidualNorm,
 from repro_torch.models.attention import apply_attn, attn_init
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                       gen_device, mlp_init, norm_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rwkv import (rwkv_channel_mix, rwkv_cm_init,
                                     rwkv_time_mix, rwkv_tm_init)
 
@@ -122,7 +128,10 @@ def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
         p["rwkv_cm"] = rwkv_cm_init(gen, cfg)
     else:
         p["attn"] = attn_init(gen, cfg)
-        p["mlp"] = mlp_init(gen, cfg)
+        if slot.moe:
+            p["moe"] = moe_init(gen, cfg)
+        else:
+            p["mlp"] = mlp_init(gen, cfg)
     if cfg.post_norms:
         p["post_attn_norm"] = norm_init(cfg, dev)
         p["post_ffn_norm"] = norm_init(cfg, dev)
@@ -142,15 +151,17 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                 gate: Optional[torch.Tensor] = None, causal: bool = True,
                 impl: str = "auto"):
     """One block, pre-LN or post-LN (`cfg.ln_placement`). Returns (x,
-    cache). task_ids (B,) int32 select each row's bank row when the
-    adapter leaves are a (T, d) bank; gate (T,) fp32 gates the bank's rows
-    (a pruned tenant's layer passes through as the identity)."""
+    cache, aux): aux the MoE FFN's load-balancing loss (fp32 scalar), None
+    for a block without one. task_ids (B,) int32 select each row's bank
+    row when the adapter leaves are a (T, d) bank; gate (T,) fp32 gates
+    the bank's rows (a pruned tenant's layer passes through as the
+    identity)."""
     if cfg.ln_placement == "post":
         return _post_ln_block(p, cfg, slot, x, q_pos=q_pos, causal=causal,
-                              impl=impl), None
+                              impl=impl), None, None
     if slot.kind == "rwkv":
-        return _rwkv_block(p, cfg, x, cache=cache, task_ids=task_ids,
-                           gate=gate, impl=impl)
+        return (*_rwkv_block(p, cfg, x, cache=cache, task_ids=task_ids,
+                             gate=gate, impl=impl), None)
     acfg = cfg.adapter
     ad = _adapter(p, cfg, task_ids)
     concat = None
@@ -171,12 +182,16 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     x, h = _residual_seam(p, cfg, x, a,
                           ad if acfg.position == "attn_out" else None,
                           task_ids, gate, impl)
-    f = apply_mlp(p["mlp"], cfg, h, impl, ia3=_ia3_scale(p, cfg))
+    aux = None
+    if slot.moe:
+        f, aux = moe_apply(p["moe"], cfg, h)
+    else:
+        f = apply_mlp(p["mlp"], cfg, h, impl, ia3=_ia3_scale(p, cfg))
     if houlsby is not None:
         f = _houlsby(houlsby["ffn_ad"], f)
     if cfg.post_norms:
         f = apply_norm(p["post_ffn_norm"], cfg, f)
-    return x + f, cache
+    return x + f, cache, aux
 
 
 def _ia3_scale(p: dict, cfg: ModelCfg) -> Optional[torch.Tensor]:

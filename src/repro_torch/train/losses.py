@@ -53,11 +53,11 @@ def chunked_cross_entropy(cfg: ModelCfg, params, h, labels, chunk: int,
 
 def lm_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
     """(loss, metrics) of next-token prediction on one batch of tokens and
-    labels (B, S); over cfg.ce_chunk-token chunks when it is set. A dense
-    decoder has no auxiliary loss: aux is 0, as in JAX."""
+    labels (B, S); over cfg.ce_chunk-token chunks when it is set. The MoE
+    blocks' load-balancing loss is added, as in JAX (0 for a dense
+    decoder); metrics "ce" holds the sum, as JAX's does."""
     labels = batch["labels"]
-    h = M.forward_hidden(params, cfg, batch["tokens"], impl)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = M.forward_hidden(params, cfg, batch["tokens"], impl)
     if cfg.ce_chunk:
         loss = chunked_cross_entropy(cfg, params, h, labels, cfg.ce_chunk,
                                      impl) + aux

@@ -137,7 +137,7 @@ def test_chunked_cross_entropy_equals_the_whole_one():
     _, ported = _weights(*_cfgs())
     batch = _tensors(_batches(1)[0])
     with torch.no_grad():
-        h0 = M.forward_hidden(ported, pcfg, batch["tokens"])
+        h0, _ = M.forward_hidden(ported, pcfg, batch["tokens"])
     out = []
     for chunk in (0, 3, 7, 16):
         h = h0.clone().requires_grad_(True)

@@ -37,6 +37,8 @@ def port_cfg(jcfg) -> T.ModelCfg:
         T.Group(tuple(T.Slot(**dataclasses.asdict(s)) for s in g.slots),
                 g.repeats) for g in jcfg.groups)
     kw["adapter"] = T.AdapterCfg(**dataclasses.asdict(jcfg.adapter))
+    if jcfg.moe is not None:
+        kw["moe"] = T.MoECfg(**dataclasses.asdict(jcfg.moe))
     return T.ModelCfg(**kw)
 
 
@@ -155,9 +157,10 @@ def test_identity_adapters_would_hide_the_seam():
 
 
 def test_unported_blocks_raise_naming_the_slice():
-    # windowed layers are ported (the ring cache); RG-LRU, MoE and
-    # cross-attention blocks are not
-    for slot in (T.Slot("rec"), T.Slot("attn", moe=True),
+    # windowed layers (the ring cache) and MoE FFNs on attention blocks
+    # are ported; RG-LRU, cross-attention and an RWKV6 block with experts
+    # are not
+    for slot in (T.Slot("rec"), T.Slot("rwkv", moe=True),
                  T.Slot("attn", cross_attn=True)):
         cfg = get_smoke("qwen3-0.6b").replace(groups=(T.Group((slot,), 2),))
         with pytest.raises(NotImplementedError, match="other-families"):
@@ -165,6 +168,14 @@ def test_unported_blocks_raise_naming_the_slice():
     windowed = get_smoke("qwen3-0.6b").replace(
         groups=(T.Group((T.Slot("attn", window=8),), 2),))
     M.init_params(torch.Generator().manual_seed(0), windowed)
+    moe = get_smoke("qwen3-0.6b").replace(
+        groups=(T.Group((T.Slot("attn", moe=True),), 2),))
+    with pytest.raises(ValueError, match="needs cfg.moe"):
+        M.init_params(torch.Generator().manual_seed(0), moe)
+    moe = moe.replace(moe=T.MoECfg(n_experts=4, top_k=2, d_expert=16))
+    layers = M.init_params(torch.Generator().manual_seed(0), moe)["layers"]
+    assert "mlp" not in layers[0] and layers[0]["moe"]["wi"].shape == (
+        4, 64, 16)
     with pytest.raises(NotImplementedError, match="encdec"):
         M.init_params(torch.Generator().manual_seed(0),
                       get_smoke("qwen3-0.6b").replace(family="encdec"))
