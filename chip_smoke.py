@@ -168,7 +168,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      64/4, beside SDPA; #5 over a (4,512,16,128) and a (4,512,4,128) slot
      cache, bit-identical across two runs, beside SDPA; #7 over int8 at
      every (K, N) that 5mq quantizes (2048x2048, 2048x10944, 10944x2048,
-     2048x102400) at M 4 and 128, bit-identical across two runs;
+     2048x102400) at M 4 and 128, bit-identical across two runs; #6 and
+     #9 at (4,1,2048) and #7 at each of those (K, N) at M 4 timed L2-cold
+     (#7 beside torch._weight_int8pack_mm and the bf16 matmul);
   4m. deepseek-moe-16b in fp32 at full width, depth cut to the dense layer
      and 2 MoE layers: 4 prompts of 128 tokens and 32 greedy tokens
      through the kernels against the plain path, logits within 1e-3 of
@@ -188,6 +190,42 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      further from 1 must exceed, and the share of the plain path's routes
      that the kernel path takes at least MOE["route_share_min"], which
      top-(k-1) routing must miss; the serve launcher at deepseek-moe-16b;
+  3rg. #3, #4, #5, #6, #7 and #9 at recurrentgemma-2b's serve shapes
+     against their plain versions, fp32 and bf16, the same bits across two
+     runs, timed L2-cold: #3 at d 2560 under both plans (split_row in bf16
+     at a 2-slot tick and a 4160-token prefill, warp_row in fp32); #4 over
+     a 4160-token prompt, window 2048, 10 query heads on one KV head of
+     256, beside SDPA with the window's mask (the same function) and
+     causal SDPA; #5 over a 2048-entry ring past its wrap, 10 rows on one
+     KV head, beside SDPA with a key mask; #6 and #9 at (4,1,2560) and
+     (1,128,2560); #7 at every (K, N) that 5rgq quantizes; then the
+     RG-LRU's plain parts (the scan, the fp32 gate products, a tick's
+     gate casts) timed alike;
+  4rg. recurrentgemma-2b in fp32 at full width, depth cut to the first
+     (rec, rec, attention) group and the (rec, rec) tail: a 2100-token
+     prefill of 2 rows (the ring wraps) and 4 decode steps through the
+     kernels against the plain path over one adapter, a 3-task bank and a
+     hot-swap bank with a pruned tenant: logits and rec states within
+     1e-3 of max|ref|, the launches of every call (a prefill 1 #4 + 5 of
+     the seam's kernel, a step 1 #5 + 5);
+  5rg. recurrentgemma-2b at full width and depth in bf16 (5.79 GB): 5g's
+     traffic (prompts of 4160 and 128 tokens, 32 greedy tokens each,
+     admitted mid-decode into 2 slots of 4352): 8 #5 + 26 #3 a tick, 8 #4
+     + 26 #3 a prefill; tok/s, TTFT, token gap, a tick's and a long
+     prefill's profile with the shares of #4, the scan and the gates;
+     two bf16 runs of a rec layer the same bits with no host sync; the
+     long prefills' last logits against the plain path within
+     RGEMMA["prefill_tol"] (relative L2) and with the same top-1, which a
+     planted fault (every rec layer's decay 30 % off) must exceed; the
+     first prompt in fp32 on the same weights, kernel path against plain
+     path within RGEMMA["fp32_tol"], which every adapter's w 30 % further
+     from 1 must exceed; each bf16 path's distance from the plain fp32
+     logits, the kernel path's within RGEMMA["witness_ratio"] x the plain
+     path's; the serve launcher;
+  6rg, 6rgs, 5rgq. the same model on SERVE's traffic through a 3-task
+     bank (26 #6 a call), a 3-row hot-swap bank over tenants pruned to
+     17 of 26 layers (26 #9, each resident row's gates its mask) and an
+     int8 trunk (JAX's 19 leaves, 110 #7 a call, no rec projection);
   5o. qwen3-0.6b with fold=True: at fp32 (phase 4's model) greedy tokens
      equal to the unfolded engine's and each call's launches the same (#3
      on the identity adapter); bf16 and --fold --quant int8 agreement
@@ -255,7 +293,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      fp32's, a bf16+int8 run resumed at step 6 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     5p-6p, 5a, 5g-6gs, 5m-5mq,
+     5p-6p, 5a, 5g-6gs, 5m-5mq, 5rg-5rgq,
      8, 8d, 8r, 8p and 8q, and each kernel's device us per decode tick and per
      prefill from the serve profiles);
   then the card's name and power limit, and the last line,
@@ -377,6 +415,31 @@ GEMMA = dict(arch="gemma2-27b", num_slots=2, max_len=4352, long_prompt=4160,
 MOE = dict(arch="deepseek-moe-16b", attn_arch="qwen3-moe-235b-a22b",
            moe_layers_4m=2, quant_leaves=12, prefill_tol=0.1,
            route_share_min=0.9)
+# recurrentgemma-2b serving (phases 3rg-5rgq): 5rg serves 5g's traffic (2
+# prompts of 4160 tokens, past the 2048-token window, and 2 of 128, 32
+# greedy tokens each, on 2 slots of 4352) at full depth in bf16; 4rg cuts
+# the depth to the first (rec, rec, attention) group and the (rec, rec)
+# tail in fp32, over a 2100-token prompt (the ring wraps) and 4 decode
+# steps; 6rg, 6rgs and 5rgq serve SERVE's traffic through a 3-task bank, a
+# hot-swap bank and an int8 trunk. n_params: the JAX package's count at
+# full size under the Hadamard adapter (2,894,574,080 without it, as
+# tests/test_torch_recurrent.py counts); quant_leaves: the leaves JAX's
+# quantization table takes (the attention and MLP projections; no rec
+# projection, no head: it is tied). prefill_tol: the limit of the relative
+# L2 distance of the bf16 4160-token prefills' last logits, kernel path
+# against plain path, set from an H100's readings (the kernel path
+# 0.021-0.022; planted faults: every rec layer's decay 30 % off 0.056, 10 %
+# off 0.036, every adapter's w 30 % further from 1 0.028; PERF.md section 6).
+# fp32_tol: the limit of the same distance with the same weights in fp32
+# (TF32 off), kernel path against plain path (an H100: 3.2e-6), which the
+# adapter fault must exceed (0.0023); witness_ratio: how much further from
+# the plain fp32 logits the bf16 kernel path's may lie than the plain bf16
+# path's (0.0253 and 0.0255; the adapter fault's 0.0249: bf16 noise hides
+# it there)
+RGEMMA = dict(arch="recurrentgemma-2b", num_slots=2, max_len=4352,
+              long_prompt=4160, new_tokens=32, seed=0, prompt_4rg=2100,
+              steps_4rg=4, n_params=2_894_707_200, quant_leaves=19,
+              prefill_tol=0.035, fp32_tol=1e-4, witness_ratio=1.25)
 
 
 def log(msg: str) -> None:
@@ -456,6 +519,25 @@ def main() -> int:
         r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
         p.read_text())) for p in _build.sources()}
     port_kernels = set().union(*source_kernels.values())
+    # each wrapper's counter and the __global__ functions one of its calls
+    # launches first (one a call: #5's combine and #2's reduce follow the
+    # kernel named here), so a profile's raw events can be counted against
+    # the counters
+    entry_kernels = {
+        "hadamard_affine": {"affine_fwd_kernel"},
+        "hadamard_affine_bwd": {"affine_bwd_partial_kernel"},
+        "fused_adapter_norm": source_kernels["fused_adapter_norm.cu"],
+        "flash_attention": source_kernels["flash_attention.cu"],
+        "paged_attention": {"paged_split_kernel"},
+        "multitask_hadamard": source_kernels["multitask_hadamard.cu"],
+        "dequant_matmul": source_kernels["dequant_matmul.cu"],
+        "masked_multitask_hadamard":
+            source_kernels["masked_multitask_hadamard.cu"],
+        "wkv6": source_kernels["wkv6.cu"]}
+    check(set(entry_kernels) == set(_build.launch_counts()) and all(
+        v and v <= port_kernels for v in entry_kernels.values()),
+        f"phase 2: entry kernels {entry_kernels} against the counters "
+        f"{sorted(_build.launch_counts())} and the sources' {port_kernels}")
     log(f"[2] built {len(_build.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
     # each source's kernel instances, their most registers and their spill
@@ -658,8 +740,9 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             graph.replay()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA)
         # the profiler may drop an event of thousands; the means are over
         # the kernels it saw
         check(0.9 * iters <= len(spans) <= iters, f"trace: {len(spans)} "
@@ -1487,33 +1570,31 @@ def main() -> int:
     log(f"[3] fused_adapter_norm@train: traced {results['fused_adapter_norm@train']['trace']}")
     del xs, gxs, qkvs, xrs
 
-    # #7 timed at wi's decode (M = 4 slots) and prefill (M = 128) shapes,
-    # bf16 activations and int8 weights as the quantized tick runs it, and
-    # at the rwkv6 head's decode shape (x (4, 2048) @ int8 (2048, 65536),
-    # 134 MB: the streaming rate). The weight copies rotate past the 50 MB
-    # L2, which one layer's 15.7 MB of int8 would otherwise sit in from one
-    # replay to the next, as it never does in a tick. The yardstick is
-    # torch.matmul of x with the same weight already dequantized to bf16:
-    # the unquantized path's projection, not a call that computes this
-    # function. The library call, where the installed torch has one, is its
-    # weight-only int8 matmul, which takes the weight transposed (N, K).
-    library_note = None
-    for key, m, K, N, copies in (
-            ("dequant_matmul", SERVE["num_slots"], 1024, 3072, 32),
-            ("dequant_matmul@prefill", SERVE["prompt_len"], 1024, 3072, 32),
-            ("dequant_matmul@head", SERVE["num_slots"], 2048, 65536, 2)):
+    def time_dequant(key, m, K, N, copies, what):
+        """#7 timed L2-cold at x (m, K) bf16 @ int8 values (K, N), as the
+        quantized tick runs it: `copies` weights in turn, past the 50 MB L2
+        that one weight would otherwise sit in from one replay to the next,
+        as it never does in a tick. The yardstick is torch.matmul of x with
+        the same weight already dequantized to bf16: the unquantized path's
+        projection, not a call that computes this function. The library
+        call, where the installed torch has one, is its weight-only int8
+        matmul, which takes the weight transposed (N, K)."""
         wq = quantized(K, N, torch.int8, copies=copies)
-        wbf = [(v.float().mul(sc).to(bf),) for v, sc in wq[:max(2, copies // 2)]]
+        half = wq[:max(2, copies // 2)]
+        wbf = [(v.float().mul(sc).to(bf),) for v, sc in half]
         x = randn(m, K, dtype=bf)
-        int8pack, note = None, None
+        int8pack, lib_rel = None, None
         if hasattr(torch, "_weight_int8pack_mm"):
             wt = [(v.t().contiguous(), sc.reshape(-1).to(bf))
-                  for v, sc in wq[:max(2, copies // 2)]]
+                  for v, sc in half]
             try:
-                torch._weight_int8pack_mm(x, *wt[0])
+                got = torch._weight_int8pack_mm(x, *wt[0])
                 int8pack = wt
                 note = ("torch._weight_int8pack_mm, weight (N, K) int8, bf16 "
                         "scales")
+                want = ops.dequant_matmul(x, *wq[0], impl="ref").float()
+                lib_rel = ((got.float() - want).abs().max().item()
+                           / want.abs().max().item())
             except (RuntimeError, NotImplementedError) as e:
                 note = (f"none: torch._weight_int8pack_mm refused these CUDA "
                         f"tensors in torch {torch.__version__} "
@@ -1521,19 +1602,7 @@ def main() -> int:
         else:
             note = (f"none: torch {torch.__version__} has no weight-only int8 "
                     "matmul call")
-        if library_note != note:
-            log(f"[3] dequant_matmul library call: {note}")
-            library_note = note
-        if int8pack is not None:
-            got = torch._weight_int8pack_mm(x, *int8pack[0])
-            want = ops.dequant_matmul(x, *wq[0], impl="ref")
-            log(f"[3] {key} library call max |diff| / max|ref| vs the plain "
-                f"version: {(got.float() - want.float()).abs().max().item() / want.float().abs().max().item():.3g}")
         plan = dequant_matmul_plan(m, K, N, bf, torch.int8)
-        what = {"dequant_matmul": "wi of one layer, a 4-slot decode tick",
-                "dequant_matmul@prefill": "wi of one layer, a 128-token prefill",
-                "dequant_matmul@head": "the rwkv6-1.6b LM head, a 4-slot "
-                                       "decode tick"}[key]
         record(key, "dequant_matmul",
                f"x ({m},{K}) bf16 @ int8 values ({K},{N}) ({copies} copies in "
                f"turn), fp32 scales (1,{N}) ({what}; {plan['kernel']}, "
@@ -1549,9 +1618,24 @@ def main() -> int:
                yardstick_fn=rotating(wbf, lambda w: torch.matmul(x, w)),
                iters=max(copies, 16), reps=10 if copies > 2 else 5)
         results[key].update(library_note=note, split_plan=plan,
-                            bit_identical_repeats=dq_repeats)
+                            library_rel_diff_vs_plain=lib_rel)
+        log(f"[3] {key} library call: {note}; max |diff| / max|ref| vs the "
+            f"plain version {lib_rel}")
         del wq, wbf, int8pack
         torch.cuda.empty_cache()
+
+    # #7 timed at wi's decode (M = 4 slots) and prefill (M = 128) shapes
+    # and at the rwkv6 head's decode shape (x (4, 2048) @ int8 (2048,
+    # 65536), 134 MB: the streaming rate)
+    for key, m, K, N, copies, what in (
+            ("dequant_matmul", SERVE["num_slots"], 1024, 3072, 32,
+             "wi of one layer, a 4-slot decode tick"),
+            ("dequant_matmul@prefill", SERVE["prompt_len"], 1024, 3072, 32,
+             "wi of one layer, a 128-token prefill"),
+            ("dequant_matmul@head", SERVE["num_slots"], 2048, 65536, 2,
+             "the rwkv6-1.6b LM head, a 4-slot decode tick")):
+        time_dequant(key, m, K, N, copies, what)
+        results[key]["bit_identical_repeats"] = dq_repeats
 
     # #8 the WKV6 recurrence: o and the final state against the plain
     # version, relative to their max |ref| (a T-step sum). The serve path's
@@ -1813,41 +1897,14 @@ def main() -> int:
         "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
         "enable_gqa=True), no lse")
     del xrs, gxs, qkvs
-    wq = quantized(d, 3072, torch.int8, copies=32)
-    wbf = [(v_.float().mul(sc).to(bf),) for v_, sc in wq[:16]]
+    (v_, sc), = quantized(d, 3072, torch.int8)
     x = randn(n_lm, d, dtype=bf)
     compare("dequant_matmul", f"M={n_lm} K={d} N=3072 int8 (train_lm)", bf,
-            lambda: ops.dequant_matmul(x, *wq[0], impl="kernel"),
-            lambda: ops.dequant_matmul(x, *wq[0], impl="ref"))
-    int8pack, lm_note = None, library_note
-    if library_note.startswith("torch._weight_int8pack_mm"):
-        packed = [(v_.t().contiguous(), sc.reshape(-1).to(bf))
-                  for v_, sc in wq[:16]]
-        try:
-            torch._weight_int8pack_mm(x, *packed[0])
-            int8pack = packed
-        except (RuntimeError, NotImplementedError) as e:
-            lm_note = (f"none: torch._weight_int8pack_mm refused M={n_lm} "
-                       f"({str(e).splitlines()[0][:160]})")
-    plan = dequant_matmul_plan(n_lm, d, 3072, bf, torch.int8)
-    record("dequant_matmul@train_lm", "dequant_matmul",
-           f"x ({n_lm},{d}) bf16 @ int8 values ({d},3072) (32 copies in "
-           f"turn), fp32 scales (1,3072) (wi of one layer, a qwen3-0.6b "
-           f"train_lm forward; {plan['kernel']}, {math.prod(plan['grid'])} "
-           f"blocks, cluster {plan['cluster']})", bf,
-           rotating(wq, lambda v_, sc: ops.dequant_matmul(x, v_, sc,
-                                                          impl="kernel")),
-           rotating(wq, lambda v_, sc: ops.dequant_matmul(x, v_, sc,
-                                                          impl="ref")),
-           None if int8pack is None else rotating(
-               int8pack, lambda w_, s_: torch._weight_int8pack_mm(x, w_, s_)),
-           nbytes(x, *wq[0]) + n_lm * 3072 * 2, 2 * n_lm * d * 3072,
-           yardstick_fn=rotating(wbf, lambda w_: torch.matmul(x, w_)),
-           iters=32, reps=5)
-    results["dequant_matmul@train_lm"].update(library_note=lm_note,
-                                              split_plan=plan)
-    del wq, wbf, int8pack, x
-    torch.cuda.empty_cache()
+            lambda: ops.dequant_matmul(x, v_, sc, impl="kernel"),
+            lambda: ops.dequant_matmul(x, v_, sc, impl="ref"))
+    del v_, sc, x
+    time_dequant("dequant_matmul@train_lm", n_lm, d, 3072, 32,
+                 "wi of one layer, a qwen3-0.6b train_lm forward")
 
     # the rwkv6 train shapes: an rwkv6-1.6b fine-tuning step in bf16 (phase
     # 8r), 16 x 128 tokens of 2048. #3 at the seam, LayerNorm with bf16
@@ -2355,17 +2412,58 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
         call_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+        # device-side events only: each kernel once (an aten op's entry
+        # repeats the device time of the kernels it launched), read from
+        # the profiler's raw events: key_averages() first builds the host
+        # event tree, ~0.17 ms a kernel (PERF.md section 6). The events
+        # should hold every launch the wrappers counted: a profile that
+        # lost one under-counts the device time. Late in a long process
+        # each profile lost up to 3 of the port's kernels, the same count
+        # whatever its length (PERF.md section 6), so one more call runs at
+        # each end of the window, a spin kernel marks the n calls off
+        # from them, and only the events between the marks count. A
+        # profile short of a counted launch is taken again, up to 3 times;
+        # the last may lack at most 3 launches of a kernel, or 2 %, and its
+        # shortfall is reported
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                before = _build.launch_counts()
+                for _ in range(n):
+                    fn()
+                    torch.cuda.synchronize()
+                after = _build.launch_counts()
+                torch.cuda._sleep(1)
                 fn()
                 torch.cuda.synchronize()
-        # device-side events only: each kernel once (an aten op's entry
-        # repeats the device time of the kernels it launched)
-        dev_us, launches = {}, 0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                dev_us[e.key] = e.self_device_time_total / n
-                launches += e.count
+            evs = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+            marks = sorted(e.start_ns() for e in evs  # torch.cuda._sleep's
+                           if "spin" in e.name() or "sleep" in e.name())
+            dev_us, launches, seen = {}, 0, {}
+            for e in evs:
+                if len(marks) == 2 and marks[0] < e.start_ns() < marks[1]:
+                    dev_us[e.name()] = (dev_us.get(e.name(), 0.0)
+                                        + e.duration_ns() / 1e3 / n)
+                    launches += 1
+                    for fn_name in re.findall(r"::(\w+)[<(]", e.name())[:1]:
+                        seen[fn_name] = seen.get(fn_name, 0) + 1
+            short = {k: (after[k] - before[k],
+                         sum(seen.get(f, 0) for f in ks))
+                     for k, ks in entry_kernels.items()}
+            short = {k: v for k, v in short.items() if v[0] != v[1]}
+            if len(marks) == 2 and not short:
+                break
+            log(f"profile: attempt {attempt} of {n} calls: {len(marks)} "
+                f"marks, short of the counted launches (counted, seen): "
+                f"{short}")
+        check(len(marks) == 2 and all(
+            seen_ >= min(counted - 3, 0.98 * counted)
+            for counted, seen_ in short.values()),
+            f"profile: 3 profiles of {n} calls each lost launches: "
+            f"{len(marks)} marks, (counted, seen): {short}")
         busy_ms = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
         # summed over a kernel's template instantiations
@@ -2375,6 +2473,7 @@ def main() -> int:
                 if fn_name in port_kernels:
                     port_us[fn_name] = port_us.get(fn_name, 0.0) + v
         return {"ms": call_ms, "device_ms": busy_ms if dev_us else None,
+                "profile_attempts": attempt, "events_short": short,
                 "device_busy_share": busy_ms / call_ms if dev_us else None,
                 "device_kernels": launches / n,
                 "top_device_us": [[k[:80], v] for k, v in top],
@@ -3393,6 +3492,49 @@ def main() -> int:
         L2 (two at least), each call of a timed graph taking the next."""
         return [make() for _ in range(max(2, -(-100 * 2**20 // per_copy)))]
 
+    def bank_fns(name, wb, bb, gate, ids):
+        """(kernel, plain) of #6 (name "multitask_hadamard") or #9 over the
+        bank (wb, bb), #9 with its row gates, at the rows `ids`."""
+        if name == "multitask_hadamard":
+            return tuple(lambda x, impl=impl: ops.multitask_hadamard(
+                x, wb, bb, ids, impl=impl) for impl in ("kernel", "ref"))
+        return tuple(lambda x, impl=impl: ops.masked_multitask_hadamard(
+            x, wb, bb, gate, ids, impl=impl) for impl in ("kernel", "ref"))
+
+    def hold_bank(arch, rows, S, d_, wb, bb, gate):
+        """#6 and #9 at x (rows, S, d_) fp32 and bf16, request r on bank
+        row r mod rows: each equal to its plain version byte for byte."""
+        ids = torch.arange(rows, dtype=torch.int32, device=dev) % wb.shape[0]
+        for dt in (f32, bf):
+            x = randn(rows, S, d_, dtype=dt)
+            for name in ("multitask_hadamard", masked_name):
+                kern, plain = bank_fns(name, wb, bb, gate, ids)
+                compare(name, f"{arch} ({rows},{S},{d_})", dt,
+                        lambda: kern(x), lambda: plain(x))
+                check(torch.equal(kern(x), plain(x)),
+                      f"{name} {arch} ({rows},{S},{d_}) {dt}: not the plain "
+                      "version byte for byte")
+
+    def time_bank(key, rows, S, d_, wb, bb, gate, what):
+        """#6 and #9 timed L2-cold at x (rows, S, d_) bf16 over the bank
+        (wb, bb): `<name>@<key>` in the kernels line."""
+        ids = torch.arange(rows, dtype=torch.int32, device=dev) % wb.shape[0]
+        xs = copies_of(lambda: (randn(rows, S, d_, dtype=bf),),
+                       rows * S * d_ * 2)
+        rows_read = nbytes(wb[:1], bb[:1]) * min(rows, wb.shape[0])
+        for name in ("multitask_hadamard", masked_name):
+            kern, plain = bank_fns(name, wb, bb, gate, ids)
+            record(f"{name}@{key}", name,
+                   f"x ({rows},{S},{d_}) bf16 ({len(xs)} copies in turn), a "
+                   f"{wb.shape[0]}-row fp32 bank"
+                   f"{', gates' if name == masked_name else ''} ({what})",
+                   bf, rotating(xs, kern), rotating(xs, plain), None,
+                   2 * nbytes(xs[0][0]) + rows_read + 4 * rows,
+                   3 * xs[0][0].numel(), iters=len(xs), reps=2)
+            results[f"{name}@{key}"]["library_note"] = (
+                "none: the bank gather and the affine are separate calls")
+        del xs
+
     def gemma2_kernels():
         """Phase 3g: #1, #4, #5, #6 and #9 at gemma2-27b's serve shapes,
         each against its plain version in fp32 and bf16 and timed L2-cold
@@ -3545,52 +3687,12 @@ def main() -> int:
         # not the identity
         wb3, bb3 = 1 + randn(3, d_g, scale=0.1), randn(3, d_g, scale=0.1)
         gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
-        for rows, S in ((4, 1), (1, GEMMA["bank_prompt"])):
-            ids = torch.arange(rows, dtype=torch.int32, device=dev) % 3
-            for dt in (f32, bf):
-                x = randn(rows, S, d_g, dtype=dt)
-                for name, kern, plain in (
-                        ("multitask_hadamard",
-                         lambda: ops.multitask_hadamard(x, wb3, bb3, ids,
-                                                        impl="kernel"),
-                         lambda: ops.multitask_hadamard(x, wb3, bb3, ids,
-                                                        impl="ref")),
-                        ("masked_multitask_hadamard",
-                         lambda: ops.masked_multitask_hadamard(
-                             x, wb3, bb3, gate3, ids, impl="kernel"),
-                         lambda: ops.masked_multitask_hadamard(
-                             x, wb3, bb3, gate3, ids, impl="ref"))):
-                    compare(name, f"gemma2 ({rows},{S},{d_g})", dt, kern,
-                            plain)
-                    check(torch.equal(kern(), plain()),
-                          f"{name} gemma2 ({rows},{S},{d_g}) {dt}: not the "
-                          "plain version byte for byte")
-            key = "gemma2_decode" if S == 1 else "gemma2_prefill"
-            xs = copies_of(lambda: (randn(rows, S, d_g, dtype=bf),),
-                           rows * S * d_g * 2)
-            for name, kern, plain in (
-                    ("multitask_hadamard",
-                     lambda x: ops.multitask_hadamard(x, wb3, bb3, ids,
-                                                      impl="kernel"),
-                     lambda x: ops.multitask_hadamard(x, wb3, bb3, ids,
-                                                      impl="ref")),
-                    ("masked_multitask_hadamard",
-                     lambda x: ops.masked_multitask_hadamard(
-                         x, wb3, bb3, gate3, ids, impl="kernel"),
-                     lambda x: ops.masked_multitask_hadamard(
-                         x, wb3, bb3, gate3, ids, impl="ref"))):
-                rows_read = nbytes(wb3[:1], bb3[:1]) * min(rows, 3)
-                record(f"{name}@{key}", name,
-                       f"x ({rows},{S},{d_g}) bf16 ({len(xs)} copies in "
-                       f"turn), a 3-row fp32 bank{', gates' if 'masked' in name else ''}"
-                       f" (one layer of a gemma2-27b "
-                       f"{'4-slot decode tick' if S == 1 else '128-token prefill'})",
-                       bf, rotating(xs, kern), rotating(xs, plain), None,
-                       2 * nbytes(xs[0][0]) + rows_read + 4 * rows,
-                       3 * xs[0][0].numel(), iters=len(xs), reps=2)
-                results[f"{name}@{key}"]["library_note"] = (
-                    "none: the bank gather and the affine are separate calls")
-            del xs
+        for key, rows, S in (("gemma2_decode", 4, 1),
+                             ("gemma2_prefill", 1, GEMMA["bank_prompt"])):
+            hold_bank("gemma2", rows, S, d_g, wb3, bb3, gate3)
+            time_bank(key, rows, S, d_g, wb3, bb3, gate3,
+                      f"one layer of a gemma2-27b "
+                      f"{'4-slot decode tick' if S == 1 else '128-token prefill'}")
         release()
         phase_done("3g")
 
@@ -3733,18 +3835,20 @@ def main() -> int:
 
         return sched.run(reqs[:1], on_tick=hook)
 
-    def gemma_serve_checks(tag, per_call, rep, done, counts, reqs, want):
+    def serve_checks(tag, per_call, rep, done, counts, reqs, want,
+                     vocab=gcfg.vocab_size):
         """Each request retires with its whole budget of in-vocabulary
         tokens, every launch falls inside a prefill or a decode step, and
         each call launches what `want` says ({kernel: n} per decode tick
         and per prefill). Returns the distinct counts per tick and per
         prefill."""
         check(len(done) == len(reqs), f"[{tag}] {len(done)} completions")
-        for c in done:
-            check(len(c.tokens) == g_new and c.finish_reason == "length"
-                  and bool(((c.tokens >= 0) & (c.tokens < gcfg.vocab_size))
-                           .all()), f"[{tag}] request {c.request_id}: "
-                  f"{len(c.tokens)} tokens ({c.finish_reason})")
+        for c, r in zip(sorted(done, key=lambda c: c.request_id), reqs):
+            check(len(c.tokens) == r.max_new_tokens
+                  and c.finish_reason == "length"
+                  and bool(((c.tokens >= 0) & (c.tokens < vocab)).all()),
+                  f"[{tag}] request {c.request_id}: {len(c.tokens)} tokens "
+                  f"({c.finish_reason})")
         for k in counts:
             check(sum(c[k] for calls in per_call.values() for c in calls)
                   == counts[k], f"[{tag}] {k} launched outside prefill and "
@@ -3818,7 +3922,7 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated()
             delattr(eng, "prefill")
             delattr(eng, step_fn)
-            per_tick, per_prefill = gemma_serve_checks(
+            per_tick, per_prefill = serve_checks(
                 tag, {"prefill": per_call["prefill"],
                       "decode_step": per_call[step_fn]}, rep, done,
                 counts, reqs, want)
@@ -3967,7 +4071,7 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated()
             del eng.prefill, eng.decode_step
             seam = masked_name if hot else "multitask_hadamard"
-            per_tick, per_prefill = gemma_serve_checks(
+            per_tick, per_prefill = serve_checks(
                 tag, per_call, rep, done, counts, reqs,
                 {"tick": {"paged_attention": g_layers, seam: g_layers},
                  "prefill": {"flash_attention": g_layers, seam: g_layers}})
@@ -4331,6 +4435,20 @@ def main() -> int:
             f"{max(dq['rel_errs'][n_f:]):.3g} (tol {TOL['dequant_matmul']}),"
             f" bf16 {max(dq['rels'][n_b:]):.3g} (tol {BF16_TOL}); two runs "
             f"the same bits at each; plans {plans}")
+        # timed L2-cold at 6m's and 5mq's decode tick: #6 (and #9) at the
+        # seam, #7 at each (K, N)
+        wb3, bb3 = 1 + randn(3, d_m, scale=0.1), randn(3, d_m, scale=0.1)
+        gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
+        hold_bank("deepseek", rows, 1, d_m, wb3, bb3, gate3)
+        time_bank("deepseek_decode", rows, 1, d_m, wb3, bb3, gate3,
+                  "one layer of a deepseek-moe-16b 4-slot decode tick")
+        for K, N, what in ((d_m, mcfg.n_heads * D, "an attention projection"),
+                           (d_m, mcfg.d_ff, "the dense layer's wi or wg"),
+                           (mcfg.d_ff, d_m, "the dense layer's wo"),
+                           (d_m, mcfg.vocab_size, "the untied head")):
+            time_dequant(f"dequant_matmul@deepseek_{K}x{N}", rows, K, N,
+                         max(2, -(-100 * 2**20 // (K * N))),
+                         f"{what} of deepseek-moe-16b, a 4-slot decode tick")
         release()
         phase_done("3m")
 
@@ -4688,6 +4806,771 @@ def main() -> int:
     moe_serve()
     launches.update(moe_launches)
     serve_reports.update({p: moe_reports[p] for p in ("5m", "6m", "5mq")})
+
+    # -- the recurrentgemma-2b phases (3rg, 4rg, 5rg, 6rg, 6rgs, 5rgq) ------
+    # recurrentgemma-2b (configs/recurrentgemma_2b.py): 26 layers, (rec,
+    # rec, attention with window 2048) x 8 then (rec, rec); d 2560, MQA
+    # 10/1 of 256, d_ff 7680 (GeGLU), lru_width 2560, conv width 4, vocab
+    # 256,000 tied: 2.894 B parameters, 5.79 GB in bf16. The RG-LRU is
+    # plain PyTorch, as it is plain jnp in JAX; the kernels meet new shapes:
+    # #3 at d 2560 (split_row in bf16, warp_row in fp32), #4 and #5 at
+    # head_dim 256 with 10 query heads on one KV head, #6 and #9 at d 2560,
+    # #7 at the attention and MLP projections (the rec projections stay
+    # bf16, as in JAX)
+    from repro_torch.models import recurrent as rec_mod
+
+    rcfg = launcher.build_config(RGEMMA["arch"])
+    r_layers = rcfg.n_layers
+    r_attn = sum(s.kind == "attn" for s in rcfg.layer_slots())
+    r_rec = r_layers - r_attn
+    r_window = rcfg.layer_slots()[2].window
+    r_slots, r_len = RGEMMA["num_slots"], RGEMMA["max_len"]
+    r_long, r_new = RGEMMA["long_prompt"], RGEMMA["new_tokens"]
+    rg_launches, rg_reports, rg_parts = {}, {}, {}
+
+    def same_bits(fn, what):
+        """fn twice on the same inputs: every output the same bits."""
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{what}: two runs differ")
+
+    def rg_kernels():
+        """Phase 3rg: #3, #4, #5, #6, #7 and #9 at recurrentgemma-2b's
+        serve shapes, each against its plain version in fp32 and bf16,
+        the same bits across two runs, and timed L2-cold in bf16 beside its
+        bound; then the RG-LRU's two heavy plain parts at the 4160-token
+        prefill (the scan, the fp32 gate products) and a decode tick's gate
+        casts, timed alike."""
+        d_r, H, KH, D = rcfg.d_model, rcfg.n_heads, rcfg.n_kv_heads, \
+            rcfg.head_dim
+        # #3: the seam of a 2- and a 4-slot decode tick and of a 4160-token
+        # prefill, RMSNorm; bf16 takes split_row, fp32 warp_row
+        w, b = 1 + randn(d_r, scale=0.1), randn(d_r, scale=0.1)
+        plans = {}
+        for rows, S in ((r_slots, 1), (SERVE["num_slots"], 1), (1, r_long)):
+            for dt in (f32, bf):
+                x, res = randn(rows, S, d_r, dtype=dt), randn(rows, S, d_r,
+                                                              dtype=dt)
+                scale = randn(d_r, dtype=dt)
+                plan = fused_norm_plan(rows * S, d_r, dt)
+                plans[f"({rows},{S}) {str(dt)[6:]}"] = plan["kernel"]
+                compare("fused_adapter_norm", f"recurrentgemma ({rows},{S},"
+                        f"{d_r}) {plan['kernel']}", dt,
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       impl="kernel"),
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       impl="ref"))
+                same_bits(lambda: ops.fused_adapter_norm(
+                    x, res, w, b, scale, impl="kernel"),
+                    f"fused_adapter_norm recurrentgemma ({rows},{S}) {dt}")
+        check(set(plans.values()) == {"split_row", "warp_row"}
+              and all(k.endswith("float32") == (v == "warp_row")
+                      for k, v in plans.items()),
+              f"[3rg] #3's plans at d {d_r}: {plans}")
+        for key, rows, S, dt in (("rgemma_decode", r_slots, 1, bf),
+                                 ("rgemma_decode_fp32", r_slots, 1, f32),
+                                 ("rgemma_prefill", 1, r_long, bf)):
+            scale = randn(d_r, dtype=dt)
+            xrs = copies_of(lambda: (randn(rows, S, d_r, dtype=dt),
+                                     randn(rows, S, d_r, dtype=dt)),
+                            2 * rows * S * d_r * dt.itemsize)
+            plan = fused_norm_plan(rows * S, d_r, dt)
+            record(f"fused_adapter_norm@{key}", "fused_adapter_norm",
+                   f"x,res ({rows},{S},{d_r}) {str(dt)[6:]} ({len(xrs)} "
+                   f"copies in turn), fp32 w/b, scale, RMSNorm (one layer of "
+                   f"a recurrentgemma-2b "
+                   f"{'2-slot decode tick' if S == 1 else 'prefill'}; "
+                   f"{plan['kernel']}, {plan['warps_per_row']} warps a row, "
+                   f"{plan['blocks']} blocks)", dt,
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, impl="kernel")),
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, impl="ref")),
+                   None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale),
+                   8 * xrs[0][0].numel(),
+                   yardstick_fn=rotating(xrs, lambda x_, r_: F.rms_norm(
+                       x_, (d_r,), scale, 1e-6)), iters=len(xrs), reps=2)
+            results[f"fused_adapter_norm@{key}"].update(
+                library_note="none: rms_norm takes no adapter affine or "
+                             "residual; the yardstick is F.rms_norm of x alone",
+                split_plan=plan)
+            del xrs
+        # #4: a 4160-token prefill through a windowed layer (2048), 10
+        # query heads on one KV head of 256, fp32 and bf16
+        S = r_long
+        qi = torch.arange(S, device=dev)
+        wmask = (qi[None, :] <= qi[:, None]) & (qi[:, None] - qi[None, :]
+                                                < r_window)
+        for dt in (f32, bf):
+            q = randn(1, H, S, D, dtype=dt)
+            k, v = randn(1, KH, S, D, dtype=dt), randn(1, KH, S, D, dtype=dt)
+            compare("flash_attention", f"recurrentgemma S={S} window="
+                    f"{r_window} {H}/{KH} heads of {D}", dt,
+                    lambda: ops.flash_attention(q, k, v, window=r_window,
+                                                impl="kernel"),
+                    lambda: ops.flash_attention(q, k, v, window=r_window,
+                                                impl="ref"))
+            same_bits(lambda: ops.flash_attention(q, k, v, window=r_window,
+                                                  impl="kernel"),
+                      f"flash_attention recurrentgemma {dt}")
+            del q, k, v
+            release()
+        qkvs = copies_of(lambda: (randn(1, H, S, D, dtype=bf),
+                                  randn(1, KH, S, D, dtype=bf),
+                                  randn(1, KH, S, D, dtype=bf)),
+                         2 * (H + 2 * KH) * S * D)
+        q, k, v = qkvs[0]
+        pairs = sum(min(i + 1, r_window) for i in range(S))
+        record("flash_attention@rgemma_prefill", "flash_attention",
+               f"q (1,{H},{S},{D}) over k/v (1,{KH},{S},{D}) bf16, causal, "
+               f"window {r_window} ({len(qkvs)} copies in turn; one "
+               f"attention layer of a recurrentgemma-2b prefill; {pairs:,} "
+               "query-key pairs a head)", bf,
+               rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                   q_, k_, v_, window=r_window, impl="kernel")),
+               rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                   q_, k_, v_, window=r_window, impl="ref")),
+               rotating(qkvs, lambda q_, k_, v_:
+                        F.scaled_dot_product_attention(
+                            q_, k_, v_, attn_mask=wmask, enable_gqa=True)),
+               2 * nbytes(q) + nbytes(k, v), 4 * H * D * pairs,
+               yardstick_fn=rotating(qkvs, lambda q_, k_, v_:
+                                     F.scaled_dot_product_attention(
+                                         q_, k_, v_, is_causal=True,
+                                         enable_gqa=True)),
+               iters=len(qkvs), reps=2)
+        results["flash_attention@rgemma_prefill"]["library_note"] = (
+            "scaled_dot_product_attention(attn_mask=the causal window, "
+            "enable_gqa=True): the same function; the yardstick is SDPA "
+            "is_causal over every key")
+        del qkvs, wmask
+        release()
+        # #5: a 2-slot decode tick over the ring (2048 entries in 16-token
+        # pages; kv_lens the last write, past the wrap), 10 rows on 1 KV
+        # head in 2 chunks
+        page, size = 16, r_window
+        nbt = size // page
+        tables = (torch.arange(r_slots, device=dev, dtype=torch.int32)
+                  [:, None] * nbt + torch.arange(nbt, device=dev,
+                                                 dtype=torch.int32))
+        kl = [4200, 4170]
+        kl_t = torch.tensor(kl, dtype=torch.int32, device=dev)
+        for dt in (f32, bf):
+            q = randn(r_slots, H, D, dtype=dt)
+            kp = randn(r_slots * nbt, page, KH, D, dtype=dt)
+            vp = randn(r_slots * nbt, page, KH, D, dtype=dt)
+            compare("paged_attention", f"recurrentgemma ring {size} kv_lens "
+                    f"{kl} {H}/{KH} heads of {D}", dt,
+                    lambda: ops.paged_attention(q, kp, vp, tables, kl_t,
+                                                window=r_window,
+                                                impl="kernel"),
+                    lambda: ops.paged_attention(q, kp, vp, tables, kl_t,
+                                                window=r_window, impl="ref"))
+            same_bits(lambda: ops.paged_attention(q, kp, vp, tables, kl_t,
+                                                  window=r_window,
+                                                  impl="kernel"),
+                      f"paged_attention recurrentgemma {dt}")
+        pcopies = copies_of(
+            lambda: (randn(r_slots, H, D, dtype=bf),
+                     randn(r_slots * nbt, page, KH, D, dtype=bf),
+                     randn(r_slots * nbt, page, KH, D, dtype=bf)),
+            2 * r_slots * size * KH * D * 2)
+        # every ring entry holds a key the query sees, once the ring wrapped
+        key_mask = (torch.arange(size, device=dev)[None, :]
+                    < torch.clamp(kl_t + 1, max=size)[:, None])[:, None,
+                                                                None, :]
+
+        def sdpa(q_, kp_, vp_):
+            k_ = kp_.view(r_slots, size, KH, D).transpose(1, 2)
+            v_ = vp_.view(r_slots, size, KH, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q_[:, :, None], k_, v_, attn_mask=key_mask, enable_gqa=True)
+
+        plan = paged_split_plan(r_slots, H, KH, 1, D, page, nbt, r_window)
+        record("paged_attention@rgemma_ring", "paged_attention",
+               f"q ({r_slots},{H},{D}) bf16 over a ring of {size} keys a row "
+               f"in {page}-token pages, kv_lens {kl} ({len(pcopies)} copies "
+               f"in turn; one attention layer of a recurrentgemma-2b 2-slot "
+               f"decode tick; {plan['splits']} splits, {plan['row_chunks']} "
+               f"row chunks of {plan['rows_per_block']}, {plan['blocks']} "
+               f"blocks, {plan['smem_bytes']} B of shared memory)", bf,
+               rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                   q_, kp_, vp_, tables, kl_t, window=r_window,
+                   impl="kernel")),
+               rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                   q_, kp_, vp_, tables, kl_t, window=r_window, impl="ref")),
+               rotating(pcopies, sdpa),
+               nbytes(pcopies[0][0], tables, kl_t)
+               + r_slots * size * KH * D * 2 * 2 + r_slots * H * D * 4,
+               4 * H * D * r_slots * size, iters=len(pcopies), reps=3)
+        results["paged_attention@rgemma_ring"].update(
+            library_note="scaled_dot_product_attention over the ring's "
+                         "contiguous keys with a key mask (every entry "
+                         "live past the wrap; softmax is blind to the "
+                         "ring's order): the same function",
+            split_plan=plan)
+        del pcopies
+        # #6 and #9 at d 2560: a 4-slot decode tick and a 128-token prefill
+        # over a 3-row fp32 bank, #9 with a gated-off row
+        wb3, bb3 = 1 + randn(3, d_r, scale=0.1), randn(3, d_r, scale=0.1)
+        gate3 = torch.tensor([1.0, 0.0, 1.0], device=dev)
+        for key, rows, S in (("rgemma_decode", SERVE["num_slots"], 1),
+                             ("rgemma_prefill", 1, SERVE["prompt_len"])):
+            hold_bank("recurrentgemma", rows, S, d_r, wb3, bb3, gate3)
+            time_bank(key, rows, S, d_r, wb3, bb3, gate3,
+                      f"one layer of a recurrentgemma-2b "
+                      f"{'4-slot decode tick' if S == 1 else '128-token prefill'}")
+        # #7 at every (K, N) that 5rgq quantizes: wq and wo (2560, 2560),
+        # wk and wv (2560, 256), wi and wg (2560, 7680), the MLP's wo
+        # (7680, 2560), at a 4-slot decode tick and a 128-token prefill,
+        # against the plain version and the same bits twice; timed at the
+        # decode tick
+        dq = checks["dequant_matmul"]
+        n_f, n_b, dq_plans = len(dq["rel_errs"]), len(dq["rels"]), {}
+        kns = ((d_r, H * D), (d_r, KH * D), (d_r, rcfg.d_ff),
+               (rcfg.d_ff, d_r))
+        for K, N in kns:
+            (v, sc), = quantized(K, N, torch.int8)
+            for m in (SERVE["num_slots"], SERVE["prompt_len"]):
+                for dt in (f32, bf):
+                    x = randn(m, K, dtype=dt)
+                    plan = dequant_matmul_plan(m, K, N, dt, torch.int8)
+                    dq_plans[f"M={m} K={K} N={N} {str(dt)[6:]}"] = \
+                        plan["kernel"]
+                    compare("dequant_matmul", f"recurrentgemma M={m} K={K} "
+                            f"N={N} int8", dt,
+                            lambda: ops.dequant_matmul(x, v, sc,
+                                                       impl="kernel"),
+                            lambda: ops.dequant_matmul(x, v, sc, impl="ref"))
+                    same_bits(lambda: ops.dequant_matmul(x, v, sc,
+                                                         impl="kernel"),
+                              f"dequant_matmul recurrentgemma M={m} K={K} "
+                              f"N={N} {dt}")
+            del v, sc
+            time_dequant(f"dequant_matmul@rgemma_{K}x{N}", SERVE["num_slots"],
+                         K, N, max(2, -(-100 * 2**20 // (K * N))),
+                         f"a recurrentgemma-2b projection, a 4-slot decode "
+                         f"tick")
+        log(f"[3rg] dequant_matmul at recurrentgemma-2b's quantized (K, N) "
+            f"{kns}, M {SERVE['num_slots']} and {SERVE['prompt_len']}, int8: "
+            f"fp32 max abs err / max|ref| {max(dq['rel_errs'][n_f:]):.3g} "
+            f"(tol {TOL['dequant_matmul']}), bf16 "
+            f"{max(dq['rels'][n_b:]):.3g} (tol {BF16_TOL}); the same bits "
+            f"twice; plans {dq_plans}")
+        # the RG-LRU's plain parts at a 4160-token prefill, fp32 as JAX
+        # runs them: the associative scan (13 levels) and the two gate
+        # products (TF32 off, the bf16 gates cast to fp32 at every call);
+        # and at a 2-slot decode tick the two gate casts alone
+        W = rcfg.lru_width
+        p = rec_mod.rec_init(torch.Generator(device=dev).manual_seed(0),
+                             rcfg)
+        xc = randn(1, r_long, W)
+        a = torch.rand(1, r_long, W, generator=gen, device=dev)
+        bb = randn(1, r_long, W)
+
+        def gates(x_):
+            with torch.no_grad():
+                return rec_mod._rg_lru(p, x_, torch.zeros(
+                    x_.shape[0], W, device=dev))
+
+        with torch.no_grad():
+            for key, fn, what in (
+                    ("scan", lambda: rec_mod._assoc_scan(a, bb),
+                     f"the associative scan of (1,{r_long},{W}) fp32"),
+                    ("rg_lru", lambda: gates(xc),
+                     f"the whole RG-LRU of (1,{r_long},{W}) fp32: the gate "
+                     "products, the decay and the scan"),
+                    ("gate_cast", lambda: (p["gate_a"].float(),
+                                           p["gate_x"].float()),
+                     f"the two gate casts of a decode step, ({W},{W}) "
+                     "bf16 -> fp32")):
+                ms, host = time_ms(fn, iters=5, reps=3)
+                rg_parts[key] = dict(ms=ms, host_ms=host, what=what)
+        rg_parts["gates_and_decay"] = dict(
+            ms=rg_parts["rg_lru"]["ms"] - rg_parts["scan"]["ms"],
+            what="the RG-LRU less its scan")
+        log(f"[3rg] the RG-LRU's plain parts, device ms a layer on {smi}: "
+            f"{json.dumps(rg_parts)}")
+        del p, xc, a, bb
+        release()
+        phase_done("3rg")
+
+    def rg_fp32_model():
+        """Phase 4rg: recurrentgemma-2b at full width in fp32, TF32 off,
+        its depth cut to the first (rec, rec, attention) group and the
+        (rec, rec) tail: a 2100-token prefill (the 2048-ring wraps) of 2
+        rows and 4 decode steps through the kernels against the plain
+        versions (impl="ref"), over one adapter, a 3-task bank and a 3-row
+        hot-swap bank holding a tenant pruned to the paper-0.022 preset:
+        logits and the rec states within 1e-3 of max|ref|, and the
+        launches of each path as predicted (a prefill 1 #4 + 5 of the
+        seam's kernel, a step 1 #5 + 5)."""
+        cfg4 = rcfg.replace(param_dtype="float32", compute_dtype="float32",
+                            groups=(Group(rcfg.groups[0].slots, 1),
+                                    rcfg.groups[1]))
+        L4, S4, n4 = cfg4.n_layers, RGEMMA["prompt_4rg"], RGEMMA["steps_4rg"]
+        cache_len = r_len  # the attention layer's ring: min(2048, r_len)
+        release()
+        base = launcher.build_base(cfg4, 1, dev)
+        variants = launcher.task_variants(base, 1, TASKS)
+        pmask = preset_mask(cfg4)
+        check(int(pmask.sum()) == 3 and pmask[2:].all(),
+              f"[4rg] paper-0.022 keeps {pmask.tolist()} of {L4}")
+        pruned = apply_layer_mask(variants[0], cfg4, pmask)
+        static = MultiTaskEngine(cfg4, variants, device=dev)
+        with tempfile.TemporaryDirectory() as td:
+            reg = AdapterRegistry(td)
+            reg.publish("pruned", launcher.task_delta(pruned, cfg4, pmask))
+            reg.publish("dense", launcher.task_delta(variants[1], cfg4))
+            hot = MultiTaskEngine(cfg4, AdapterBank(cfg4, base, 3, reg),
+                                  device=dev)
+            rows = [hot.adapter_bank.lookup(n) for n in ("pruned", "dense")]
+        check(rows == [0, 1], f"[4rg] bank rows {rows}")
+        toks = torch.randint(10, cfg4.vocab_size, (2, S4), generator=gen,
+                             device=dev)
+        steps_ = n4 + 1
+        report = {}
+        for tag, params, tids, gates_, seam in (
+                ("single", variants[0], None, None, "fused_adapter_norm"),
+                ("bank", static.params,
+                 torch.tensor([0, 2], dtype=torch.int32, device=dev), None,
+                 "multitask_hadamard"),
+                ("hot_swap", hot.params,
+                 torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                 hot.adapter_bank.gate_tensor, masked_name)):
+            want = {"flash_attention": 1, "paged_attention": n4,
+                    seam: steps_ * L4}
+            runs = {}
+            with torch.no_grad():
+                for impl in ("auto", "ref"):
+                    _build.reset_launches()
+                    lg, caches = M.prefill_lm(params, cfg4, toks, cache_len,
+                                              task_ids=tids, gates=gates_,
+                                              impl=impl)
+                    out = [lg]
+                    for i in range(n4):
+                        tok = torch.randint(
+                            10, cfg4.vocab_size, (2, 1), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(i))
+                        pos = torch.full((2,), S4 + i, device=dev)
+                        lg, caches = M.decode_lm(params, cfg4, caches, tok,
+                                                 pos, task_ids=tids,
+                                                 gates=gates_, impl=impl)
+                        out.append(lg)
+                    torch.cuda.synchronize()
+                    runs[impl] = (out, _build.launch_counts(), caches)
+            for impl in ("auto", "ref"):
+                for k, n in runs[impl][1].items():
+                    w_ = want.get(k, 0) if impl == "auto" else 0
+                    check(n == w_, f"[4rg] ({tag}): the {impl} path "
+                                   f"launched {k} {n} times, want {w_}")
+            worst = 0.0
+            for step, (a_, r_) in enumerate(zip(runs["auto"][0],
+                                                runs["ref"][0])):
+                check(a_.shape == (2, 1, cfg4.vocab_size)
+                      and bool(torch.isfinite(a_).all()),
+                      f"[4rg] logits {tuple(a_.shape)}")
+                diff, top = (a_ - r_).abs().max().item(), \
+                    r_.abs().max().item()
+                check(diff <= 1e-3 * top, f"[4rg] step {step} ({tag}): "
+                      f"|kernel - plain| {diff:.3g} > 1e-3 x {top:.3g}")
+                worst = max(worst, diff / top)
+            state = max((ca[n] - cr[n]).abs().max().item()
+                        / cr[n].abs().max().item()
+                        for ca, cr in zip(runs["auto"][2], runs["ref"][2])
+                        if "h" in ca for n in ("h", "conv"))
+            check(state <= 1e-3, f"[4rg] ({tag}): rec states differ by "
+                                 f"{state:.3g} of their max")
+            report[tag] = dict(kernel_vs_plain=worst,
+                               rec_state_kernel_vs_plain=state,
+                               launches={k: n for k, n in
+                                         runs["auto"][1].items() if n})
+            log(f"[4rg] recurrentgemma-2b fp32, {L4} layers (rec, rec, "
+                f"attention; rec, rec), {tag}: a {S4}-token prefill of 2 "
+                f"rows + {n4} decode steps, launches "
+                f"{report[tag]['launches']}; kernel path vs plain path max "
+                f"|diff| / max|ref| {worst:.3g} (tol 1e-3), rec states "
+                f"{state:.3g}")
+            del runs, caches
+        rg_reports["4rg"] = dict(report, layers=L4, prompt=S4, steps=n4,
+                                 kept_layers=int(pmask.sum()))
+        del base, variants, pruned, static, hot
+        release()
+        phase_done("4rg")
+
+    def rg_serve_run(tag, eng, reqs, want):
+        """reqs through make_scheduler on `eng` (SERVE's slots and length),
+        reqs[0] alone and the rest after 2 ticks: the serve checks, each
+        call's launches as `want` says, a decode tick's and a 128-token
+        prefill's profile, the peak bytes."""
+        scfg = ServingConfig(num_slots=SERVE["num_slots"],
+                             max_len=SERVE["max_len"],
+                             backbone_quant=getattr(eng, "quant", None))
+        make_scheduler(eng, scfg).run([dataclasses.replace(
+            r, max_new_tokens=2) for r in reqs[:2]])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sched = make_scheduler(eng, scfg)
+        per_call = count_per_call(eng)
+        _build.reset_launches()
+        done, rep = staggered_run(sched, reqs)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del eng.prefill, eng.decode_step
+        per_tick, per_prefill = serve_checks(
+            tag, per_call, rep, done, counts, reqs, want, rcfg.vocab_size)
+        check(all(bool(torch.isfinite(leaf.float()).all())
+                  for c in sched.caches for leaf in c.values()),
+              f"[{tag}] non-finite cache")
+        slots = SERVE["num_slots"]
+        caches = eng.init_slot_caches(slots, SERVE["max_len"])
+        stids = [t % TASKS for t in range(slots)]
+        tick = profile_calls(lambda: eng.decode_step(
+            caches, [[11]] * slots, [140 + i for i in range(slots)],
+            task_ids=stids if isinstance(eng, MultiTaskEngine) else None), 5)
+        check_profiled(tag, tick, per_tick)
+        del caches
+        pre = profile_prefill(eng)
+        check_profiled(tag, pre, per_prefill)
+        rg_launches[tag] = counts
+        rg_reports[tag] = dict(
+            rep, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre,
+            peak_bytes_allocated=peak, **exact_latency(done))
+        log(f"[{tag}] recurrentgemma-2b bf16 on {smi}: "
+            f"{serve_line(rep, done)}; launches {counts}; per decode tick "
+            f"{per_tick}; per prefill {per_prefill}; peak "
+            f"{peak / 1e9:.2f} GB; decode tick {tick}; prefill {pre}")
+        del sched
+        return {c.request_id: c.tokens for c in done}
+
+    def rg_serve():
+        """Phases 5rg, 6rg, 6rgs and 5rgq: recurrentgemma-2b at full width
+        and depth in bf16. 5rg: one adapter (#3 at every seam), 2 prompts
+        of 4160 and 2 of 128 tokens, 32 greedy tokens each, admitted
+        mid-decode into 2 slots of 4352; a rec layer's two bf16 runs the
+        same bits with no host sync; the long prefill's last logits against
+        the plain path beside two planted faults; the serve launcher. Then
+        SERVE's traffic through a 3-task bank (#6), a 3-row hot-swap bank
+        holding pruned tenants (#9) and an int8 trunk (#7)."""
+        import contextlib
+        import io
+
+        torch.cuda.synchronize()
+        release()
+        held = torch.cuda.memory_allocated()
+        log(f"[5rg] device memory allocated before the build: "
+            f"{held / 1e9:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = launcher.build_engine(rcfg, seed=RGEMMA["seed"], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights_bytes = torch.cuda.memory_allocated() - held
+        n_params = sum(t.numel() for _, t in tu.flatten_with_paths(eng.params))
+        check(n_params == RGEMMA["n_params"], f"[5rg] {n_params:,} "
+              f"parameters, JAX counts {RGEMMA['n_params']:,}")
+        log(f"[5rg] recurrentgemma-2b bf16: {n_params:,} parameters, "
+            f"{weights_bytes / 1e9:.2f} GB on the card, built in "
+            f"{build_s:.1f} s")
+        rs = np.random.RandomState(RGEMMA["seed"])
+        lens = [r_long, SERVE["prompt_len"]] * 2
+        reqs = [Request(prompt=rs.randint(10, rcfg.vocab_size, size=(n,)),
+                        max_new_tokens=r_new) for n in lens]
+        want = {"tick": {"paged_attention": r_attn,
+                         "fused_adapter_norm": r_layers},
+                "prefill": {"flash_attention": r_attn,
+                            "fused_adapter_norm": r_layers}}
+        scfg = ServingConfig(num_slots=r_slots, max_len=r_len)
+        make_scheduler(eng, scfg).run([Request(prompt=reqs[1].prompt,
+                                               max_new_tokens=2)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sched = make_scheduler(eng, scfg)
+        per_call = count_per_call(eng)
+        _build.reset_launches()
+        done, rep = staggered_run(sched, reqs)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del eng.prefill, eng.decode_step
+        per_tick, per_prefill = serve_checks(
+            "5rg", per_call, rep, done, counts, reqs, want, rcfg.vocab_size)
+        kinds = [sorted(c) for c in sched.caches[:3]]
+        check(kinds == [["conv", "h"], ["conv", "h"], ["k", "v"]]
+              and sched.caches[2]["k"].shape[1] == r_window
+              and sched.caches[0]["h"].dtype == torch.float32,
+              f"[5rg] slot caches {kinds}")
+        del sched
+        caches = eng.init_slot_caches(r_slots, r_len)
+        tick = profile_calls(lambda: eng.decode_step(
+            caches, [[11]] * r_slots, [r_long + 40, 300]), 5)
+        del caches
+        pre = profile_calls(lambda: eng.prefill(reqs[0].prompt[None], r_len),
+                            2)
+        pre_ms = pre["device_ms"]
+        check(pre_ms is not None, "[5rg] the prefill's profile shows no "
+                                  "device time")
+        flash_us = sum(pre["port_kernel_us"].get(k, 0.0)
+                       for k in source_kernels["flash_attention.cu"])
+        shares = dict(
+            flash_attention=flash_us / 1e3 / pre_ms,
+            scan=r_rec * rg_parts["scan"]["ms"] / pre_ms,
+            gates_and_decay=r_rec * rg_parts["gates_and_decay"]["ms"] / pre_ms,
+            gate_casts_of_a_tick_ms=r_rec * rg_parts["gate_cast"]["ms"])
+        rg_reports["5rg"] = dict(
+            rep, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre,
+            prefill_shares=shares, weights_bytes_allocated=weights_bytes,
+            build_s=build_s, peak_bytes_allocated=peak, n_params=n_params,
+            **exact_latency(done))
+        rg_launches["5rg"] = counts
+        log(f"[5rg] recurrentgemma-2b bf16 slot caches, 2 slots of {r_len}, "
+            f"prompts {lens} on {smi}: {serve_line(rep, done)}; launches "
+            f"{counts}; per decode tick {per_tick}; per prefill "
+            f"{per_prefill}; peak {peak / 1e9:.2f} GB; decode tick {tick}; "
+            f"{r_long}-token prefill {pre}; its shares (the scan and the "
+            f"gates from 3rg's timings x {r_rec} rec layers) {shares}")
+        # a rec layer twice on the same bf16 inputs, a decode step into a
+        # cache and a prefill: the same bits, and no host sync (CUDA's sync
+        # debug mode raises on one)
+        layer = eng.params["layers"][0]["rec"]
+        for shape in ((r_slots, 1, rcfg.d_model),
+                      (1, SERVE["prompt_len"], rcfg.d_model)):
+            x = randn(*shape, dtype=bf)
+            c0 = rec_mod.rec_cache_init(rcfg, shape[0], dev)
+            c0["h"].normal_(generator=gen)
+            outs = []
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.no_grad():
+                    for _ in range(2):
+                        c = {k: t.clone() for k, t in c0.items()}
+                        y, c = rec_mod.rec_apply(layer, rcfg, x, c)
+                        outs.append((y, c["h"], c["conv"]))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(*outs))
+                  and bool(torch.isfinite(outs[0][0].float()).all()),
+                  f"[5rg] two bf16 runs of a rec layer at {shape} differ")
+        rg_reports["5rg"]["rec_layer_bit_identical_no_sync"] = True
+        # the long prefills' last logits through the kernels against the
+        # plain path, and the first one's beside planted faults: every
+        # adapter's w 30 % further from 1 (the arithmetic #3 does at each
+        # seam) and every rec layer's decay parameter 10 % and 30 % off.
+        # The measure is the logits' relative L2 distance (one bf16 step of
+        # the largest logit, ~0.1, is as large as the faults' max |diff|).
+        # In bf16 any change, a kernel's rounding or a fault, leaves ~0.02
+        # of noise after 26 layers over 4160 tokens, so the bf16 limit
+        # catches only the 30 % decay fault. The adapter fault moves the
+        # logits ~0.002 (in fp32), far under that noise, so the same
+        # weights run in fp32 (TF32 off) too: the kernel path within
+        # RGEMMA["fp32_tol"] of the plain path, the adapter fault past it.
+        # And each bf16 path's distance from the plain fp32 logits is the
+        # witness of the noise floor: the kernel path's within
+        # RGEMMA["witness_ratio"] x the plain bf16 path's
+        lim, lim32 = RGEMMA["prefill_tol"], RGEMMA["fp32_tol"]
+        ratio = RGEMMA["witness_ratio"]
+
+        def rel_l2(a_, b_):
+            return ((a_.float() - b_.float()).norm() / b_.float().norm()).item()
+
+        def faulty(params, scale_w, scale_a):
+            return dict(params, layers=[dict(
+                layer_, adapter={
+                    "w": 1 + scale_w * (layer_["adapter"]["w"] - 1),
+                    "b": layer_["adapter"]["b"]},
+                **({"rec": dict(layer_["rec"], a_param=layer_["rec"][
+                    "a_param"] * scale_a)} if "rec" in layer_ else {}))
+                for layer_ in params["layers"]])
+
+        fault_scales = {"adapter_w_30pc": (1.3, 1.0),
+                        "decay_10pc": (1.0, 1.1), "decay_30pc": (1.0, 1.3)}
+        dists, maxes, top = [], [], []
+        with torch.no_grad():
+            for req in (reqs[0], reqs[2]):
+                prompt_t = torch.as_tensor(req.prompt[None], device=dev)
+                got, _ = eng.prefill(req.prompt[None], r_len)
+                want_l, _ = M.prefill_lm(eng.params, rcfg, prompt_t, r_len,
+                                         impl="ref")
+                check(bool(torch.isfinite(got).all()),
+                      "[5rg] non-finite logits")
+                dists.append(rel_l2(got, want_l))
+                maxes.append((got - want_l).abs().max().item())
+                top.append(bool(got[0, -1].argmax()
+                                == want_l[0, -1].argmax()))
+                if req is reqs[0]:
+                    got_0, want_0, prompt_0 = got, want_l, prompt_t
+            faults, fault_logits = {}, {}
+            for name, (scale_w, scale_a) in fault_scales.items():
+                off = faulty(eng.params, scale_w, scale_a)
+                fault, _ = M.prefill_lm(off, rcfg, prompt_0, r_len,
+                                        impl="ref")
+                faults[name] = dict(rel_l2=rel_l2(fault, want_0),
+                                    max_abs=(fault - want_0).abs().max()
+                                    .item())
+                fault_logits[name] = fault
+                del off, fault
+            # the same weights in fp32: plain, kernels, the adapter fault
+            cfg32 = rcfg.replace(param_dtype="float32",
+                                 compute_dtype="float32")
+            p32 = tu.map_with_path(lambda _, t: t.float(), eng.params)
+            ref32, _ = M.prefill_lm(p32, cfg32, prompt_0, r_len, impl="ref")
+            ker32, _ = M.prefill_lm(p32, cfg32, prompt_0, r_len)
+            off = faulty(p32, *fault_scales["adapter_w_30pc"])
+            fault32, _ = M.prefill_lm(off, cfg32, prompt_0, r_len,
+                                      impl="ref")
+            del off, p32
+            fp32 = dict(kernel_vs_plain=rel_l2(ker32, ref32),
+                        adapter_w_30pc_vs_plain=rel_l2(fault32, ref32),
+                        same_top1=bool(ker32[0, -1].argmax()
+                                       == ref32[0, -1].argmax()),
+                        limit=lim32)
+            witness = dict(plain_bf16=rel_l2(want_0, ref32),
+                           kernel_bf16=rel_l2(got_0, ref32),
+                           **{f"{k}_bf16": rel_l2(v, ref32)
+                              for k, v in fault_logits.items()},
+                           ratio_limit=ratio)
+            bf16_top = bool(want_0[0, -1].argmax() == ref32[0, -1].argmax())
+            del ker32, fault32, fault_logits
+        release()
+        rg_reports["5rg"]["prefill_vs_plain"] = dict(
+            rel_l2=dists, max_abs_diff=maxes, limit=lim, faults=faults,
+            same_top1=top, max_abs_ref=want_0.abs().max().item(), fp32=fp32,
+            vs_plain_fp32=witness, plain_bf16_same_top1_as_fp32=bf16_top)
+        log(f"[5rg] the {r_long}-token prefills' last logits, kernel path vs "
+            f"plain path: relative L2 {dists} (limit {lim}), max |diff| "
+            f"{maxes}, same top-1 {top}; planted faults on the first: "
+            f"{faults}; in fp32 {fp32}; each bf16 path against the plain "
+            f"fp32 logits {witness}, plain bf16 same top-1 as fp32 "
+            f"{bf16_top}")
+        check(max(dists) <= lim, f"[5rg] the prefills' last logits: "
+              f"relative L2 |kernel - plain| {max(dists):.4g} > {lim}")
+        check(all(top), f"[5rg] the kernel path's top-1 differs from the "
+                        f"plain path's: {top}")
+        check(faults["decay_30pc"]["rel_l2"] > lim, f"[5rg] the planted "
+              f"fault (decay 30 % off) moved the plain path's logits only "
+              f"{faults['decay_30pc']['rel_l2']:.4g}: the limit {lim} would "
+              "not catch it")
+        check(fp32["kernel_vs_plain"] <= lim32 and fp32["same_top1"],
+              f"[5rg] fp32: kernel path vs plain path {fp32}")
+        check(fp32["adapter_w_30pc_vs_plain"] > lim32, f"[5rg] fp32: the "
+              f"planted adapter fault moved the logits only "
+              f"{fp32['adapter_w_30pc_vs_plain']:.4g}, within {lim32}")
+        check(witness["kernel_bf16"] <= ratio * witness["plain_bf16"],
+              f"[5rg] the bf16 kernel path is further from the fp32 logits "
+              f"than {ratio} x the plain bf16 path's: {witness}")
+        del eng, got, want_l, want_0, got_0, ref32, layer
+        release()
+        phase_done("5rg")
+        # the serve launcher itself, at recurrentgemma-2b, on the card
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launcher.main(["--arch", RGEMMA["arch"], "--requests", "2",
+                           "--num-slots", "2", "--prompt-len", "128",
+                           "--new-tokens", "8", "--seed",
+                           str(RGEMMA["seed"])])
+        text = out.getvalue()
+        check("served 2 requests / 16 tokens" in text
+              and torch.cuda.get_device_name(0) in text,
+              f"[5rg] the launcher printed {text[-800:]!r}")
+        rg_reports["5rg"]["launcher_s"] = time.perf_counter() - t0
+        log(f"[5rg] launcher --arch {RGEMMA['arch']} in "
+            f"{rg_reports['5rg']['launcher_s']:.1f} s: "
+            + " | ".join(ln for ln in text.splitlines()
+                         if ln.startswith("served")))
+        release()
+        phase_done("5rg launcher")
+        L, A = r_layers, r_attn
+        # 6rg: a 3-task bank (#6 at every seam, the rec layers' too)
+        eng = launcher.build_engine(rcfg, seed=RGEMMA["seed"], tasks=TASKS,
+                                    device=dev)
+        reqs = launcher.make_requests(rcfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      TASKS, RGEMMA["seed"])
+        rg_serve_run("6rg", eng, reqs, {
+            "tick": {"paged_attention": A, "multitask_hadamard": L},
+            "prefill": {"flash_attention": A, "multitask_hadamard": L}})
+        del eng
+        release()
+        phase_done("6rg")
+        # 6rgs: a 3-row hot-swap bank over 3 tenants, task0 and task2
+        # pruned to the paper-0.022 preset (17 of 26 layers)
+        base = launcher.build_base(rcfg, RGEMMA["seed"], dev)
+        variants = launcher.task_variants(base, RGEMMA["seed"], TASKS)
+        pmask = preset_mask(rcfg)
+        check(int(pmask.sum()) == 17, f"[6rgs] paper-0.022 keeps "
+              f"{int(pmask.sum())} of {L}")
+        masks = [pmask if t % 2 == 0 else None for t in range(TASKS)]
+        with tempfile.TemporaryDirectory() as td:
+            registry = AdapterRegistry(td)
+            for t, (v, m) in enumerate(zip(variants, masks)):
+                if m is not None:
+                    v = apply_layer_mask(v, rcfg, m)
+                registry.publish(f"task{t}", launcher.task_delta(v, rcfg, m))
+            eng = MultiTaskEngine(rcfg, AdapterBank(rcfg, base, TASKS,
+                                                    registry), device=dev)
+            reqs = launcher.make_requests(rcfg, SERVE["requests"],
+                                          SERVE["prompt_len"],
+                                          SERVE["new_tokens"], TASKS,
+                                          RGEMMA["seed"], named=True)
+            rg_serve_run("6rgs", eng, reqs, {
+                "tick": {"paged_attention": A, masked_name: L},
+                "prefill": {"flash_attention": A, masked_name: L}})
+            bank = eng.adapter_bank
+            for name in bank.resident:
+                t = int(name.removeprefix("task"))
+                want_g = (masks[t] if masks[t] is not None else
+                          np.ones(L, bool)).astype(np.float32)
+                check((bank.gates()[:, bank.row_of(name)] == want_g).all(),
+                      f"[6rgs] {name}'s gates are not its mask")
+            rg_reports["6rgs"].update(bank=bank.stats(),
+                                      kept_layers=int(pmask.sum()))
+        del eng, base, variants, bank
+        release()
+        phase_done("6rgs")
+        # 5rgq: an int8 trunk, JAX's 19 leaves: 4 attention projections in
+        # 8 layers and 3 MLP projections in 26 (110 #7 a call); the rec
+        # projections stay bf16 and the tied head is no leaf
+        n_dq = 4 * A + 3 * L
+        eng = launcher.build_engine(rcfg, seed=RGEMMA["seed"], device=dev,
+                                    quant="int8")
+        qs = quant_summary(eng.params, lambda p: convert.jax_path(p, rcfg))
+        check(qs["n_quantized_leaves"] == RGEMMA["quant_leaves"],
+              f"[5rgq] {qs['n_quantized_leaves']} quantized leaves, JAX "
+              f"quantizes {RGEMMA['quant_leaves']}")
+        check(not any(isinstance(t, QTensor) for p, t in
+                      tu.flatten_with_paths(eng.params) if "/rec/" in p),
+              "[5rgq] a rec leaf was quantized")
+        reqs = launcher.make_requests(rcfg, SERVE["requests"],
+                                      SERVE["prompt_len"], SERVE["new_tokens"],
+                                      0, RGEMMA["seed"])
+        rg_serve_run("5rgq", eng, reqs, {
+            "tick": {"paged_attention": A, "fused_adapter_norm": L,
+                     "dequant_matmul": n_dq},
+            "prefill": {"flash_attention": A, "fused_adapter_norm": L,
+                        "dequant_matmul": n_dq}})
+        rg_reports["5rgq"].update(quant_line=launcher.quant_line(eng),
+                                  quantized_bytes=qs["quantized_bytes"],
+                                  tree_bytes=qs["total_bytes"])
+        log(f"[5rgq] {rg_reports['5rgq']['quant_line']}")
+        del eng
+        release()
+        phase_done("5rgq")
+
+    # -- phases 3rg, 4rg, 5rg, 6rg, 6rgs, 5rgq: recurrentgemma-2b -----------
+    rg_kernels()
+    rg_fp32_model()
+    rg_serve()
+    launches.update(rg_launches)
+    serve_reports.update({p: rg_reports[p]
+                          for p in ("5rg", "6rg", "6rgs", "5rgq")})
 
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
@@ -5920,15 +6803,19 @@ def main() -> int:
              ("bf16+int8", "bf16+int8", True), ("int8", "int8", True),
              ("int8_no_ef", "int8", False))
     final_loss = {}
+    t8q = {"states": 0.0, "steps": 0.0, "resume": 0.0, "profile": 0.0}
     with tempfile.TemporaryDirectory() as ckdir:
         for tag, preset, ef in lanes:
             ocfg = optim_for(preset, lr=PAPER["pretrain_lr"], steps=n_pq,
                              ef=ef)
+            t0 = time.perf_counter()
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             state = pq_state(ocfg)
             torch.cuda.synchronize()
             made = torch.cuda.memory_allocated() - held
+            t8q["states"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
             summ = qstate.state_summary(state["opt"], ocfg)
             want_b = formula_bytes(state["trainable"], ocfg)
             check(summ["bytes"] == want_b and summ["n_params"] ==
@@ -5937,7 +6824,8 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             stream = pq_batches()
             if tag == "bf16+int8":
-                # the unbroken run, its first at_pq steps saving once
+                # the unbroken run, its first at_pq steps saving once, as
+                # launch/pretrain saves (zlib-framed)
                 mgr = CheckpointManager(ckdir, keep=1)
                 state, hist, step = pq_run(tag, state, ocfg, stream, at_pq,
                                            manager=mgr, save_every=at_pq)
@@ -5952,6 +6840,8 @@ def main() -> int:
                                     pq_launches[tag].items()}
             else:
                 state, hist, step = pq_run(tag, state, ocfg, stream, n_pq)
+            t8q["steps"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
             peak = torch.cuda.max_memory_allocated()
             rep = dict(rates(hist), optimizer_state=summ,
                        formula_bytes=want_b, allocated_by_make_state=made,
@@ -5993,9 +6883,12 @@ def main() -> int:
                                  "bit_for_bit_losses": got == want_l,
                                  "state_bit_for_bit": same}
                 del fresh, restored
-            if tag in ("fp32", "bf16+int8", "int8"):  # after the checks
+            t8q["resume"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if tag == "int8":  # after the checks; the slowest lane on an H100
                 batch = loop.to_device(next(pq_batches()), dev)
                 rep["profile"] = profile_calls(lambda: step(state, batch), 2)
+            t8q["profile"] += time.perf_counter() - t0
             pq_report[tag] = rep
             log(f"[8q] {tag} on {smi}: {TRAIN['arch']} full MLM, fp32, "
                 f"{n_pq} steps of {B_tr}x{S_tr} tokens, moments "
@@ -6020,6 +6913,9 @@ def main() -> int:
     pq_report["gates"] = {"bf16_ratio": ratio_bf16,
                           "int8_no_ef_ratio": ratio_floor,
                           "bf16_int8_final_loss_rel_vs_fp32": rel_q}
+    pq_report["seconds"] = t8q
+    log("[8q] seconds by part: " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in t8q.items()))
     log(f"[8q] gates on {smi}: bf16 {ratio_bf16:.6f}x (2.0), all-int8 "
         f"no-EF {ratio_floor:.4f}x (>= 3), bf16+int8 final loss "
         f"{100 * rel_q:.4f} % off fp32 (<= 1 %); resume bit for bit")
@@ -6062,7 +6958,11 @@ def main() -> int:
                   "6gs": "serve_gemma2_hot_swap", "5o": "serve_fold",
                   "5m": "serve_deepseek_single",
                   "6m": "serve_deepseek_multitask",
-                  "5mq": "serve_deepseek_single_int8"}
+                  "5mq": "serve_deepseek_single_int8",
+                  "5rg": "serve_rgemma_single",
+                  "6rg": "serve_rgemma_multitask",
+                  "6rgs": "serve_rgemma_hot_swap",
+                  "5rgq": "serve_rgemma_single_int8"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
@@ -6075,7 +6975,8 @@ def main() -> int:
     extra_timed = ("yardstick_ms", "yardstick_host_ms", "library_note",
                    "split_plan", "bit_identical_repeats", "ms_l2_warm",
                    "alt_plan", "trace", "refused_plans", "keyless_cases",
-                   "bwd_plain_eager_ms", "bwd_route")
+                   "bwd_plain_eager_ms", "bwd_route",
+                   "library_rel_diff_vs_plain")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
@@ -6117,15 +7018,9 @@ def main() -> int:
         }
         if name in REL_TOL:
             entry["max_rel_err_fp32"] = max(checks[name]["rel_errs"])
-        for at in ("train", "train_lm", "prefill", "head", "rwkv", "verify",
-                   "verify_int8", "verify_fp8", "extend", "extend_int8",
-                   "extend_fp8", "gemma2_decode", "gemma2_prefill",
-                   "gemma2_local", "gemma2_ring", "gemma2_linear",
-                   "deepseek_decode", "deepseek_prefill", "qwen3moe_decode",
-                   "qwen3moe_prefill"):
-            if f"{name}@{at}" in results:
-                t = results[f"{name}@{at}"]
-                entry[f"{at}_shape_timing"] = dict(
+        for rkey, t in results.items():
+            if rkey.startswith(name + "@"):
+                entry[f"{rkey.split('@', 1)[1]}_shape_timing"] = dict(
                     {k: t[k] for k in timed + extra_timed if k in t},
                     shape=t["shape"])
         if name == "flash_attention":
@@ -6152,6 +7047,8 @@ def main() -> int:
                       "paper": paper_report, "slo_admission": slo_report,
                       "gemma2_model": gemma_reports["4g"],
                       "moe_model": moe_reports["4m"],
+                      "rgemma_model": rg_reports["4rg"],
+                      "rgemma_rg_lru_parts": rg_parts,
                       "fold": gemma_reports["5o"],
                       "phase_s": phase_s, "card": smi}))
     print(smi)

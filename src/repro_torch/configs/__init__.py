@@ -2,7 +2,8 @@
 
 The port carries the architectures its slices run: qwen3-0.6b and
 rwkv6-1.6b (serving and decoder-LM fine-tuning), gemma2-27b (serving over
-windowed ring caches), deepseek-moe-16b and qwen3-moe-235b-a22b
+windowed ring caches), recurrentgemma-2b (serving RG-LRU blocks beside
+windowed MQA), deepseek-moe-16b and qwen3-moe-235b-a22b
 (mixture-of-experts serving; the latter, 470 GB in bf16, at its smoke
 dims) and the paper's own BERT-family encoders (two-stage training, MLM
 pretraining). The other `repro` configs arrive with the slices that run
@@ -12,13 +13,15 @@ from __future__ import annotations
 
 from repro_torch.common.types import ModelCfg
 from repro_torch.configs import (bert, deepseek_moe_16b, gemma2_27b,
-                                 qwen3_0_6b, qwen3_moe_235b_a22b, rwkv6_1_6b)
+                                 qwen3_0_6b, qwen3_moe_235b_a22b,
+                                 recurrentgemma_2b, rwkv6_1_6b)
 
 ASSIGNED = {
     "deepseek-moe-16b": deepseek_moe_16b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
     "gemma2-27b": gemma2_27b,
     "qwen3-0.6b": qwen3_0_6b,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "rwkv6-1.6b": rwkv6_1_6b,
 }
 

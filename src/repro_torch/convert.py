@@ -11,9 +11,10 @@ bank (adapter leaves (repeats, T, d)) carries over as (T, d) rows per
 layer, and the baselines' adapters (LoRA, IA3, Houlsby) as their leaves
 per layer: a stacked (repeats, d, r) LoRA leaf gives each layer its (d,
 r), and a stacked (repeats, E, d, f) expert stack each MoE layer its (E,
-d, f) (the fp32 router stays fp32). `jax_path` names a port leaf by its
-JAX path, so that one regex (a PEFT mask) means the same leaves in both
-packages.
+d, f) (the fp32 router stays fp32), and an RG-LRU layer its rec leaves
+(its `a_param` stays fp32, as JAX makes it). `jax_path` names a port leaf
+by its JAX path, so that one regex (a PEFT mask) means the same leaves in
+both packages.
 
 Task deltas (`core.hadamard.extract_delta`) carry over in the layout the
 registry stores. A delta is a partial tree with None holes; in the JAX
@@ -55,6 +56,9 @@ BLOCK_LEAVES = frozenset(
                                 "wB", "u", "wr", "wk", "wv", "wg", "wo",
                                 "ln_x_scale", "ln_x_bias")]
     + [f"rwkv_cm/{w}" for w in ("mu_k", "mu_r", "ck", "cv", "cr")]
+    + [f"rec/{w}" for w in ("in_x", "in_y", "conv_w", "conv_b", "a_param",
+                            "gate_a", "gate_x", "gate_a_b", "gate_x_b",
+                            "out")]
     + [f"adapter/{w}" for w in ("w", "b",  # Hadamard
                                  "qa", "qb", "va", "vb",  # LoRA
                                  "lk", "lv", "lff")]  # IA3

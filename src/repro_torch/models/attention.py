@@ -80,13 +80,14 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
 
 
 def check_slot(slot: Slot) -> None:
-    if (slot.kind not in ("attn", "rwkv") or slot.cross_attn
-            or (slot.moe and slot.kind != "attn")):
+    if (slot.kind not in ("attn", "rec", "rwkv") or slot.cross_attn
+            or (slot.moe and slot.kind == "rwkv")):
         raise NotImplementedError(
             f"slot {slot} is not ported: the port serves self-attention "
-            "(full-range or windowed, with a dense or mixture-of-experts "
-            "FFN) and RWKV6 decoders; recurrent (RG-LRU) and "
-            "cross-attention blocks arrive with the other-families slice")
+            "(full-range or windowed) and RG-LRU blocks, each with a dense "
+            "or mixture-of-experts FFN, and RWKV6 blocks with their channel "
+            "mix; cross-attention blocks and an RWKV6 block with experts "
+            "arrive with the other-families slice")
 
 
 def cache_size(slot: Slot, cache_len: int) -> int:

@@ -2,6 +2,7 @@
 RoPE and the MLP, as plain functions on tensors and parameter dicts."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -38,6 +39,18 @@ def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype,
 def embed_init(gen: torch.Generator, n: int, d: int, dtype,
                scale: float = 0.02) -> torch.Tensor:
     return dense_init(gen, n, d, dtype, scale)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls at full precision (no TF32) inside the block: the MoE
+    router's logits and the RG-LRU's gates, which JAX computes in fp32."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 # ---------------------------------------------------------------------------

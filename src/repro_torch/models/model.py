@@ -11,7 +11,8 @@ with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
 a list with one dict per layer: {"k", "v"} for an attention layer (of the
 cache length, or a windowed layer's ring, `attention.cache_size`), the
-recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer. A
+recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer and {"h",
+"conv"} for an RG-LRU layer (`models/recurrent.py`). A
 mixture-of-experts layer (`models/moe.py`) holds "moe" in place of "mlp";
 its tokens route together, so under MoE the rows of a batch are no longer
 independent: every row (an idle slot's too) takes expert capacity. A paged
@@ -35,6 +36,7 @@ from repro_torch.models.attention import (cache_size, check_slot,
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
+from repro_torch.models.recurrent import rec_cache_init
 from repro_torch.models.rwkv import rwkv_cache_init
 from repro_torch.quant.qtensor import qdense
 
@@ -63,10 +65,10 @@ def has_window(cfg: ModelCfg) -> bool:
 
 
 def has_recurrent_state(cfg: ModelCfg) -> bool:
-    """Whether any layer carries recurrent state (an RWKV6 layer), which
-    takes in every token it sees: a pad token, unlike under causal
-    attention, is not invisible to it."""
-    return any(s.kind == "rwkv" for s in cfg.layer_slots())
+    """Whether any layer carries recurrent state (an RWKV6 or an RG-LRU
+    layer), which takes in every token it sees: a pad token, unlike under
+    causal attention, is not invisible to it."""
+    return any(s.kind in ("rwkv", "rec") for s in cfg.layer_slots())
 
 
 def init_params(gen: torch.Generator, cfg: ModelCfg) -> dict:
@@ -223,7 +225,7 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
 def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
                gates, impl, positions=None):
     """Run `tokens` (B, S) at write_pos (B, S) over block pools (one per
-    attention layer, or an RWKV6 layer's state), written in place; kv_lens
+    attention layer, or a recurrent layer's state), written in place; kv_lens
     = the last write + 1, so each row's S queries sit at its write
     positions (a windowed layer derives its own, the last write, in
     `apply_attn`). tables: shared, or a list of one a layer. Returns
@@ -415,15 +417,18 @@ def init_decode_caches(cfg: ModelCfg, batch: int, cache_len: int,
                        device) -> List[dict]:
     """Zeroed per-layer caches: (batch, size, KH, D) K/V for an attention
     layer, size = cache_len or a windowed layer's ring
-    (`attention.cache_size`), the recurrent state of `rwkv_cache_init` (no
-    length) for an RWKV6 layer."""
+    (`attention.cache_size`), the recurrent state of `rwkv_cache_init` or
+    `rec_cache_init` (no length) for an RWKV6 or an RG-LRU layer."""
     _check_cfg(cfg)
 
-    def kv(slot):
+    def one(slot):
+        if slot.kind == "rwkv":
+            return rwkv_cache_init(cfg, batch, device)
+        if slot.kind == "rec":
+            return rec_cache_init(cfg, batch, device)
         shape = (batch, cache_size(slot, cache_len), cfg.n_kv_heads,
                  cfg.head_dim)
         return {name: torch.zeros(shape, dtype=cfg.cdtype, device=device)
                 for name in ("k", "v")}
 
-    return [rwkv_cache_init(cfg, batch, device) if slot.kind == "rwkv"
-            else kv(slot) for slot in cfg.layer_slots()]
+    return [one(slot) for slot in cfg.layer_slots()]

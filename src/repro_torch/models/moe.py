@@ -33,13 +33,13 @@ a fixed order, so two bf16 runs give the same bits.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 
 from repro_torch.common.types import ModelCfg, MoECfg
-from repro_torch.models.layers import act_fn, dense_init, gen_device
+from repro_torch.models.layers import (act_fn, dense_init, full_fp32,
+                                      gen_device)
 
 
 def _expert_init(gen: Optional[torch.Generator], shape, dtype):
@@ -83,20 +83,9 @@ def capacity(m: MoECfg, Tg: int) -> int:
     return int(max(1, -(-Tg * m.top_k * m.capacity_factor // m.n_experts)))
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """fp32 matmuls at full precision (no TF32) inside the block."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def router_probs(xg: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     """(Tg, d) -> fp32 softmax over the experts of xg @ router."""
-    with _full_fp32():
+    with full_fp32():
         logits = xg.float() @ router.float()
     return torch.softmax(logits, dim=-1)
 

@@ -43,6 +43,15 @@ LoRA's and IA3's leaves exist there and train, but no rwkv op reads them
 (they only take weight decay), as in JAX. Its cache is the layer's
 recurrent state, written in place at decode.
 
+An RG-LRU block (`models/recurrent.py`, recurrentgemma) has the seam
+too: JAX applies the Hadamard adapter to the rec output under any
+position (`repro/models/program.py:165-170`), d_model wide, and so does
+the port, through `_residual_seam` (#3 for one adapter, #6 for a static
+bank, #9 for a gated hot-swap bank); Houlsby's bottlenecks wrap the rec
+and the FFN outputs. A rec block holds no "attn" leaf, so folding skips
+it and its adapter stays live. Its cache is the layer's recurrent state
+{"h", "conv"}, written in place at decode.
+
 A `moe` slot's FFN is the mixture of experts of `models/moe.py` in place
 of the MLP, as in JAX's `block_apply`: the seam and the adapter stay as
 they are, and the experts' load-balancing loss comes back as the block's
@@ -64,6 +73,7 @@ from repro_torch.models.attention import apply_attn, attn_init
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                       gen_device, mlp_init, norm_init)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.recurrent import rec_apply, rec_init
 from repro_torch.models.rwkv import (rwkv_channel_mix, rwkv_cm_init,
                                     rwkv_time_mix, rwkv_tm_init)
 
@@ -127,7 +137,10 @@ def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
         p["rwkv_tm"] = rwkv_tm_init(gen, cfg)
         p["rwkv_cm"] = rwkv_cm_init(gen, cfg)
     else:
-        p["attn"] = attn_init(gen, cfg)
+        if slot.kind == "rec":
+            p["rec"] = rec_init(gen, cfg)
+        else:
+            p["attn"] = attn_init(gen, cfg)
         if slot.moe:
             p["moe"] = moe_init(gen, cfg)
         else:
@@ -164,24 +177,27 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                              gate=gate, impl=impl), None)
     acfg = cfg.adapter
     ad = _adapter(p, cfg, task_ids)
-    concat = None
-    if ad is not None and acfg.position == "attn_concat":
-        concat = ((select_rows(ad["w"], task_ids),
-                   select_rows(ad["b"], task_ids))
-                  if ad["w"].dim() == 2 else (ad["w"], ad["b"]))
-
     houlsby = _baseline(p, cfg, "houlsby")
     h = apply_norm(p["attn_norm"], cfg, x)
-    a, cache = apply_attn(p["attn"], cfg, slot, h, q_pos=q_pos, cache=cache,
-                          cache_len=cache_len, write_pos=write_pos,
-                          kv_lens=kv_lens, tables=tables,
-                          concat_adapter=concat, adapter=p.get("adapter"),
-                          causal=causal, impl=impl)
+    if slot.kind == "rec":  # the adapter under any position, d_model wide
+        a, cache = rec_apply(p["rec"], cfg, h, cache)
+        seam_ad = ad
+    else:
+        concat = None
+        if ad is not None and acfg.position == "attn_concat":
+            concat = ((select_rows(ad["w"], task_ids),
+                       select_rows(ad["b"], task_ids))
+                      if ad["w"].dim() == 2 else (ad["w"], ad["b"]))
+        a, cache = apply_attn(p["attn"], cfg, slot, h, q_pos=q_pos,
+                              cache=cache, cache_len=cache_len,
+                              write_pos=write_pos, kv_lens=kv_lens,
+                              tables=tables, concat_adapter=concat,
+                              adapter=p.get("adapter"), causal=causal,
+                              impl=impl)
+        seam_ad = ad if acfg.position == "attn_out" else None
     if houlsby is not None:
         a = _houlsby(houlsby["attn_ad"], a)
-    x, h = _residual_seam(p, cfg, x, a,
-                          ad if acfg.position == "attn_out" else None,
-                          task_ids, gate, impl)
+    x, h = _residual_seam(p, cfg, x, a, seam_ad, task_ids, gate, impl)
     aux = None
     if slot.moe:
         f, aux = moe_apply(p["moe"], cfg, h)

@@ -45,13 +45,15 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 74, res
+    assert res["modules"] >= 76, res
     assert {"repro_torch.quant.qtensor", "repro_torch.kernels.quant",
             "repro_torch.kernels.sparse", "repro_torch.sparse.prune",
             "repro_torch.sparse.shared", "repro_torch.checkpoint.store",
             "repro_torch.checkpoint._msgpack", "repro_torch.serving.registry",
             "repro_torch.models.rwkv", "repro_torch.kernels.rwkv6",
             "repro_torch.configs.rwkv6_1_6b", "repro_torch.serving.paged",
+            "repro_torch.models.recurrent",
+            "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.serving.spec", "repro_torch.optim.qstate",
             "repro_torch.optim.compression",
             "repro_torch.launch.pretrain", "repro_torch.obs",

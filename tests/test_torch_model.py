@@ -157,14 +157,18 @@ def test_identity_adapters_would_hide_the_seam():
 
 
 def test_unported_blocks_raise_naming_the_slice():
-    # windowed layers (the ring cache) and MoE FFNs on attention blocks
-    # are ported; RG-LRU, cross-attention and an RWKV6 block with experts
-    # are not
-    for slot in (T.Slot("rec"), T.Slot("rwkv", moe=True),
-                 T.Slot("attn", cross_attn=True)):
+    # windowed layers (the ring cache), MoE FFNs on attention blocks and
+    # RG-LRU blocks are ported; cross-attention and an RWKV6 block with
+    # experts are not
+    for slot in (T.Slot("rwkv", moe=True), T.Slot("attn", cross_attn=True)):
         cfg = get_smoke("qwen3-0.6b").replace(groups=(T.Group((slot,), 2),))
         with pytest.raises(NotImplementedError, match="other-families"):
             M.init_params(torch.Generator().manual_seed(0), cfg)
+    rec = get_smoke("qwen3-0.6b").replace(
+        groups=(T.Group((T.Slot("rec"),), 2),), lru_width=64)
+    layers = M.init_params(torch.Generator().manual_seed(0), rec)["layers"]
+    assert "attn" not in layers[0] and layers[0]["rec"]["gate_a"].shape == (
+        64, 64)
     windowed = get_smoke("qwen3-0.6b").replace(
         groups=(T.Group((T.Slot("attn", window=8),), 2),))
     M.init_params(torch.Generator().manual_seed(0), windowed)
