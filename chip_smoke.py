@@ -106,7 +106,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      ticks, no retrace; in bf16 the tokens' agreement with an unloaded run
      of plain greedy decoding (spec_k = 0) over the same pool is reported,
      in fp32 (4p's model) they must be equal; then phase 5's
-     traffic with metrics on and off in three alternating pairs (host ms a
+     traffic with metrics on and off in two alternating pairs (host ms a
      tick and tok/s, their ratio reported), and the serve launcher
      in-process with JAX's obs and SLO flags: its JSON snapshot's series,
      the .prom text of the registry it returns (cumulative buckets), its
@@ -226,6 +226,44 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      bank (26 #6 a call), a 3-row hot-swap bank over tenants pruned to
      17 of 26 layers (26 #9, each resident row's gates its mask) and an
      int8 trunk (JAX's 19 leaves, 110 #7 a call, no rec projection);
+  3wt. #4, #5, #3 and #2 at whisper-tiny's shapes against their plain
+     versions, fp32 and bf16, the same bits twice, timed L2-cold in bf16:
+     #4 non-causal over the encoder's 1500 frames (8,6,1500,64), the cross
+     prefill (8,6,16|1500,64) and a decoder longer than the frames
+     (1,6,2048|1500,64), beside SDPA; #5 over the 1500-frame cross cache
+     in pages of 4 (kv_lens 1500 on every row) and over self-attention
+     caches of 80, beside SDPA; #3 LayerNorm with bias at (8,1500,384) and
+     (8,1,384), beside F.layer_norm of x alone; #4's backward at the cross
+     prefill and #3's (its VJP, then #2) at 8wt's seams against autograd
+     through the plain forward, #2 on the fp32 cotangent at (12000,384)
+     timed;
+  4wt. whisper-tiny in fp32 (TF32 off) at full width and depth, norms and
+     q/k moved off their init: 4 clips, a prefill and 8 greedy decode
+     steps through the kernels against the plain path (relative L2 within
+     WHISPER["fp32_tol"], tokens equal, a prefill 12 #4 + 8 #3, a step 8
+     #5 + 4 #3), which an encoder adapter fault and a seam normalised by
+     ffn_norm in place of cross_norm must exceed;
+  5wt. whisper-tiny bf16: 8 clips of 1500 seeded frames, 16-token
+     prompts, 64 greedy tokens through prefill_encdec and decode_encdec
+     (4 #5 self + 4 #5 cross + 4 #3 a tick, 12 #4 + 8 #3 a prefill), the
+     plain path's tokens beside them, a tick's and a prefill's profile;
+  8wt. encdec_loss fine-tuning of whisper-tiny, Hadamard, bf16, 8 clips x
+     64 tokens, 6 steps: a fixed batch's loss falls, every trainable leaf
+     (the encoder's too) moves, JAX's 12,288 trainable, 12 #4 + 8 #3 + 8
+     #2 a step;
+  3iv. #4 causal (2,64|8,384,128), #5 (2,64,128) over (2,416,8,128), #3
+     RMSNorm at (2,1,8192) and (2,384,8192) and its backward and #2 at
+     (768,8192), internvl2-76b's shapes, as 3wt;
+  4iv. internvl2-76b in fp32 at full width and 2 of 80 layers: 2 x (256
+     patches + 128 tokens), a prefill and 4 decode steps, kernel path vs
+     plain path as 4wt, past which text RoPE positions restarted after
+     the image must land;
+  5iv, 8iv. internvl2-76b bf16 at full width and 8 of 80 layers (9.01 B
+     parameters, 18.0 GB, built on the card from a seed): 2 x (256
+     patches + 128 tokens), 32 greedy tokens (8 #5 + 8 #3 a tick, 8 #4 +
+     8 #3 a prefill), reported as 5wt; then 2 lm_loss steps over the text
+     positions (adapters move, 196,608 trainable, 8 #4 + 8 #3 + 8 #2 a
+     step);
   5o. qwen3-0.6b with fold=True: at fp32 (phase 4's model) greedy tokens
      equal to the unfolded engine's and each call's launches the same (#3
      on the identity adapter); bf16 and --fold --quant int8 agreement
@@ -293,9 +331,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      fp32's, a bf16+int8 run resumed at step 6 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     5p-6p, 5a, 5g-6gs, 5m-5mq, 5rg-5rgq,
-     8, 8d, 8r, 8p and 8q, and each kernel's device us per decode tick and per
-     prefill from the serve profiles);
+     5p-6p, 5a, 5g-6gs, 5m-5mq, 5rg-5rgq, 5wt, 5iv,
+     8, 8d, 8r, 8p, 8q, 8wt and 8iv, and each kernel's device us per decode
+     tick and per prefill from the serve profiles);
   then the card's name and power limit, and the last line,
   {"ok": true, "device": {...}}. Each phase logs its seconds.
 
@@ -358,7 +396,7 @@ RWKV_TRAINABLE = {"hadamard": (196_608, 1_599_967_232),
 # learning rates of JAX's paper benchmarks (benchmarks/common.py: stage 1
 # 3e-3, adapters 8e-3, full fine-tuning 3e-4, warmup a tenth of the steps)
 PAPER = dict(pretrain_steps=60, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
-             steps=12, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
+             steps=8, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
              second_task="cola", table5_top=(1, 6, 8, 12),
              table4=("B+N", "W+B+N"), search_budget=0.01)
 # each lane's trainable count at bert-base, then the total, as the JAX
@@ -440,6 +478,31 @@ RGEMMA = dict(arch="recurrentgemma-2b", num_slots=2, max_len=4352,
               long_prompt=4160, new_tokens=32, seed=0, prompt_4rg=2100,
               steps_4rg=4, n_params=2_894_707_200, quant_leaves=19,
               prefill_tol=0.035, fp32_tol=1e-4, witness_ratio=1.25)
+
+
+# whisper-tiny (phases 3wt-8wt) at full width and depth: 5wt generates 64
+# greedy tokens after 16-token prompts for 8 clips of 1500 seeded frame
+# embeddings into self-attention caches of 80; 4wt runs 4 clips and 8
+# decode steps in fp32; 8wt takes 6 encdec_loss steps of 8 clips x 64
+# tokens. internvl2-76b (phases 3iv-8iv) at full width and 8 of its 80
+# layers (4iv: 2, in fp32): 2 requests of 256 seeded patch embeddings and
+# 128 text tokens, 32 greedy tokens into caches of 416; 8iv 2 lm_loss
+# steps over the text positions. n_params and trainable: the JAX
+# package's counts at these depths under the Hadamard adapter
+# (tests/test_torch_encdec.py and test_torch_vlm.py count the full sizes).
+# fp32_tol: the limit of the relative L2 distance of each call's logits,
+# kernel path against plain path, in fp32 with TF32 off; the planted
+# faults (an encoder adapter's w 30 % off, the decoder seam normalised by
+# ffn_norm in place of cross_norm; the text's RoPE positions restarted
+# after the image) must exceed it
+WHISPER = dict(arch="whisper-tiny", clips=8, prompt=16, new_tokens=64,
+               cache_len=80, seed=0, clips_4wt=4, steps_4wt=8,
+               train_steps=6, train_seq=64, fp32_tol=1e-4,
+               n_params=49_646_976, trainable=12_288)
+INTERNVL = dict(arch="internvl2-76b", layers=8, layers_4iv=2, requests=2,
+                text=128, new_tokens=32, cache_len=416, seed=0, steps_4iv=4,
+                train_steps=2, fp32_tol=1e-4, n_params=9_013_829_632,
+                trainable=196_608)
 
 
 def log(msg: str) -> None:
@@ -2393,18 +2456,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("4r")
 
-    def profile_calls(fn, n):
+    def profile_calls(fn, n, warm=3):
         """Where the time of a call goes: host wall ms per call (each ending
         in a device sync), the device's busy share of it, the kernels that
         take the device time, and the device us per call of each of the
         port's own kernels (the __global__ functions of csrc/), from
         torch.profiler tracing device activity alone: nothing here reads
         the host's op events, and collecting them took about 1 ms a kernel
-        (two rwkv6 train steps of 38,000 kernels each, ~75 s)."""
+        (two rwkv6 train steps of 38,000 kernels each, ~75 s). `warm` calls
+        run first (1 where fn's run has just warmed it, a train step)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        for _ in range(3):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2908,7 +2972,7 @@ def main() -> int:
     # verify-tick run at k = 4 costs 30-36 s on random weights): in bf16
     # their agreement is reported, in fp32 (4p's model, TF32 off) they must
     # be equal. Then phase 5's traffic with
-    # metrics on and off (three alternating pairs: the ratio is reported),
+    # metrics on and off (two alternating pairs: the ratio is reported),
     # and the serve launcher's obs and SLO flags in-process, once: the
     # .prom text is written from the registry it returns
     from repro_torch.obs import MetricsRegistry, SLOSpec, queue_depth_max
@@ -3056,7 +3120,7 @@ def main() -> int:
                                    0, SERVE["seed"])
     cost = {"on": [], "off": []}
     _build.reset_launches()
-    for _ in range(3):
+    for _ in range(2):
         for leg in ("on", "off"):
             sched = make_scheduler(eng, ServingConfig(
                 num_slots=SERVE["num_slots"], max_len=SERVE["max_len"]),
@@ -5572,6 +5636,804 @@ def main() -> int:
     serve_reports.update({p: rg_reports[p]
                           for p in ("5rg", "6rg", "6rgs", "5rgq")})
 
+    # -- the encoder-decoder and VLM phases (3wt-8wt, 3iv-8iv) -------------
+    # whisper-tiny (configs/whisper_tiny.py): 4 encoder + 4 decoder layers,
+    # d 384, MHA 6/6 of 64, LayerNorm with biases, learned positions, 1500
+    # frames, a tied vocabulary of 51,865; ~99 MB in bf16. internvl2-76b
+    # (configs/internvl2_76b.py) at full width and 8 of its 80 layers: d
+    # 8192, GQA 64/8 of 128, d_ff 28,672, RMSNorm, an untied vocabulary of
+    # 128,256 and vlm_proj; ~18.0 GB in bf16 (the whole model, ~141 GB, fits
+    # no one card). Neither has a scheduler in JAX: the phases drive the
+    # model functions themselves (encode_audio, prefill_encdec,
+    # decode_encdec; prefill_lm and decode_lm with patches), encdec_loss and
+    # lm_loss over build_train_step
+    from repro_torch.common.types import OptimCfg
+    from repro_torch.configs.util import dense_decoder
+    from repro_torch.core import peft
+    from repro_torch.core.hadamard import perturb_adapters as perturb
+    from repro_torch.data.synthetic import lm_batches, lm_corpus
+    from repro_torch.models.attention import decode_page, decode_tables
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.train import losses as losses_mod
+    from repro_torch.train.steps import build_train_step, make_state
+
+    wcfg = launcher.build_config(WHISPER["arch"])
+    icfg = launcher.build_config(INTERNVL["arch"]).replace(
+        groups=dense_decoder(INTERNVL["layers"]))
+    fam_launches, fam_reports = {}, {}
+    fam_train_launches, fam_step_calls = {}, {}
+
+    def rel_dist(a_, b_):
+        """The relative L2 distance of a from b, in fp64."""
+        return ((a_.double() - b_.double()).norm()
+                / b_.double().norm()).item()
+
+    def launches_of(fn):
+        """(fn's result, the launches each wrapper counted inside it)."""
+        before = _build.launch_counts()
+        out = fn()
+        after = _build.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def want_launches(tag, what, got, want):
+        """got launched exactly `want` ({kernel: n}) and nothing else."""
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"[{tag}] {what} launched {got}, want {full}")
+
+    def sharpen(params):
+        """Every norm's scale and bias moved off 1 and 0 and every query
+        and key projection scaled by 8, in place (as the CPU tests do): at
+        init (std 0.02) attention is near uniform and the norms are equal,
+        which would hide a fault in the norm that feeds a query."""
+        g_ = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for path, leaf in tu.flatten_with_paths(params):
+                if re.search(r"norm/(scale|bias)$", path):
+                    leaf.add_(0.5 * torch.randn(leaf.shape, generator=g_,
+                                                device=dev).to(leaf.dtype))
+                elif re.search(r"/(wq|wk)$", path):
+                    leaf.mul_(8.0)
+        return params
+
+    def seed_tokens(n, s, vocab, seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(10, vocab, (n, s), generator=g_, device=dev)
+
+    def seed_embeds(*shape, dtype, seed):
+        """Frame or patch embeddings (the stubbed front ends' outputs),
+        made on the card from a seed."""
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g_, device=dev).to(dtype)
+
+    def fam_kernels(tag, arch, attn_cases, paged_cases, norm_cases,
+                    norm_kind, train_cases):
+        """#4, #5, #3 and #2 at a family's shapes: each case against its
+        plain version in fp32 and bf16 (a kernel's own output the same bits
+        twice; #3's autograd Function, whose backward runs #2, against
+        autograd through the plain forward), then timed L2-cold in bf16
+        (#2 on the fp32 cotangent the norm VJP hands it) beside its bound
+        and one PyTorch call. attn_cases: (key, b, H, KH, Sq, Skv, D,
+        causal); paged_cases: (key, b, H, KH, D, L, kv_lens); norm_cases:
+        (key, rows, S, d); train_cases: (key, rows, d), the first timed."""
+        for key, b_, H, KH, sq, skv, D, causal in attn_cases:
+            what = (f"({b_},{H}|{KH},{sq}|{skv},{D}) "
+                    f"{'causal' if causal else 'non-causal'}")
+            for dt in (f32, bf):
+                q = randn(b_, H, sq, D, dtype=dt)
+                k, v = randn(b_, KH, skv, D, dtype=dt), randn(b_, KH, skv, D,
+                                                              dtype=dt)
+                compare("flash_attention", f"{arch} {key} {what}", dt,
+                        lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                    impl="kernel"),
+                        lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                    impl="ref"))
+                same_bits(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                      impl="kernel"),
+                          f"flash_attention {arch} {key} {dt}")
+                del q, k, v
+            qkvs = copies_of(lambda: (randn(b_, H, sq, D, dtype=bf),
+                                      randn(b_, KH, skv, D, dtype=bf),
+                                      randn(b_, KH, skv, D, dtype=bf)),
+                             2 * b_ * (H * sq + 2 * KH * skv) * D)
+            q = qkvs[0][0]
+            pairs = b_ * sum(min(i + 1 + skv - sq, skv) for i in range(sq)) \
+                if causal else b_ * sq * skv
+            record(f"flash_attention@{tag}_{key}", "flash_attention",
+                   f"q ({b_},{H},{sq},{D}) over k/v ({b_},{KH},{skv},{D}) "
+                   f"bf16, {'causal' if causal else 'non-causal'} "
+                   f"({len(qkvs)} copies in turn; one {arch} {key} "
+                   f"attention call)", bf,
+                   rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                       q_, k_, v_, causal=causal, impl="kernel")),
+                   rotating(qkvs, lambda q_, k_, v_: ops.flash_attention(
+                       q_, k_, v_, causal=causal, impl="ref")),
+                   rotating(qkvs, lambda q_, k_, v_:
+                            F.scaled_dot_product_attention(
+                                q_, k_, v_, is_causal=causal,
+                                enable_gqa=H != KH)),
+                   2 * nbytes(q) + nbytes(*qkvs[0][1:]), 4 * H * D * pairs,
+                   iters=len(qkvs), reps=2)
+            results[f"flash_attention@{tag}_{key}"]["library_note"] = (
+                f"scaled_dot_product_attention(is_causal={causal}): the same "
+                "function")
+            del qkvs, q
+            release()
+        for key, b_, H, KH, D, L, lens in paged_cases:
+            page = decode_page(L)
+            nbt = L // page
+            tables = decode_tables(b_, L, dev)
+            kl_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            what = (f"q ({b_},{H},{D}) over ({b_},{L},{KH},{D}) in "
+                    f"{page}-token pages, kv_lens {sorted(set(lens))}")
+            for dt in (f32, bf):
+                q = randn(b_, H, D, dtype=dt)
+                kc = randn(b_ * nbt, page, KH, D, dtype=dt)
+                vc = randn(b_ * nbt, page, KH, D, dtype=dt)
+                compare("paged_attention", f"{arch} {key} {what}", dt,
+                        lambda: ops.paged_attention(q, kc, vc, tables, kl_t,
+                                                    impl="kernel"),
+                        lambda: ops.paged_attention(q, kc, vc, tables, kl_t,
+                                                    impl="ref"))
+                same_bits(lambda: ops.paged_attention(q, kc, vc, tables,
+                                                      kl_t, impl="kernel"),
+                          f"paged_attention {arch} {key} {dt}")
+                del q, kc, vc
+            pcopies = copies_of(
+                lambda: (randn(b_, H, D, dtype=bf),
+                         randn(b_ * nbt, page, KH, D, dtype=bf),
+                         randn(b_ * nbt, page, KH, D, dtype=bf)),
+                2 * b_ * L * KH * D * 2)
+            full = all(n == L for n in lens)
+            key_mask = (torch.arange(L, device=dev)[None, :]
+                        < kl_t[:, None])[:, None, None, :]
+
+            def sdpa(q_, kp_, vp_, b_=b_, L=L, KH=KH, D=D, full=full,
+                     key_mask=key_mask, gqa=H != KH):
+                k_ = kp_.view(b_, L, KH, D).transpose(1, 2)
+                v_ = vp_.view(b_, L, KH, D).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q_[:, :, None], k_, v_,
+                    attn_mask=None if full else key_mask, enable_gqa=gqa)
+
+            plan = paged_split_plan(b_, H, KH, 1, D, page, nbt)
+            keys_read = sum(lens)
+            record(f"paged_attention@{tag}_{key}", "paged_attention",
+                   f"{what} bf16 ({len(pcopies)} copies in turn; one {arch} "
+                   f"{key} layer of a decode tick; {plan['splits']} splits, "
+                   f"{plan['row_chunks']} row chunks of "
+                   f"{plan['rows_per_block']}, {plan['blocks']} blocks)", bf,
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl_t, impl="kernel")),
+                   rotating(pcopies, lambda q_, kp_, vp_: ops.paged_attention(
+                       q_, kp_, vp_, tables, kl_t, impl="ref")),
+                   rotating(pcopies, sdpa),
+                   nbytes(pcopies[0][0], tables, kl_t)
+                   + keys_read * KH * D * 2 * 2 + b_ * H * D * 4,
+                   4 * H * D * keys_read, iters=len(pcopies), reps=3)
+            results[f"paged_attention@{tag}_{key}"].update(
+                library_note=(
+                    "scaled_dot_product_attention over the contiguous cache"
+                    + ("" if full else " with a key mask")
+                    + ": the same function"), split_plan=plan)
+            del pcopies
+            release()
+        for key, rows, S, d_ in norm_cases:
+            w, b = 1 + randn(d_, scale=0.1), randn(d_, scale=0.1)
+            ln = norm_kind == "layernorm"
+            for dt in (f32, bf):
+                x, res = randn(rows, S, d_, dtype=dt), randn(rows, S, d_,
+                                                             dtype=dt)
+                scale = 1 + randn(d_, dtype=dt, scale=0.1)
+                bias = randn(d_, dtype=dt, scale=0.1) if ln else None
+                plan = fused_norm_plan(rows * S, d_, dt)
+                compare("fused_adapter_norm", f"{arch} ({rows},{S},{d_}) "
+                        f"{norm_kind} {plan['kernel']}", dt,
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       bias, impl="kernel"),
+                        lambda: ops.fused_adapter_norm(x, res, w, b, scale,
+                                                       bias, impl="ref"))
+                same_bits(lambda: ops.fused_adapter_norm(
+                    x, res, w, b, scale, bias, impl="kernel"),
+                    f"fused_adapter_norm {arch} ({rows},{S}) {dt}")
+            scale = 1 + randn(d_, dtype=bf, scale=0.1)
+            bias = randn(d_, dtype=bf, scale=0.1) if ln else None
+            xrs = copies_of(lambda: (randn(rows, S, d_, dtype=bf),
+                                     randn(rows, S, d_, dtype=bf)),
+                            4 * rows * S * d_)
+            plan = fused_norm_plan(rows * S, d_, bf)
+            yard = (lambda x_, r_: F.layer_norm(x_, (d_,), scale, bias,
+                                                1e-6)) if ln else \
+                (lambda x_, r_: F.rms_norm(x_, (d_,), scale, 1e-6))
+            record(f"fused_adapter_norm@{tag}_{key}", "fused_adapter_norm",
+                   f"x,res ({rows},{S},{d_}) bf16 ({len(xrs)} copies in "
+                   f"turn), fp32 w/b, {norm_kind} (one {arch} seam; "
+                   f"{plan['kernel']}, {plan['blocks']} blocks)", bf,
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, bias, impl="kernel")),
+                   rotating(xrs, lambda x_, r_: ops.fused_adapter_norm(
+                       x_, r_, w, b, scale, bias, impl="ref")),
+                   None, 4 * nbytes(xrs[0][0]) + nbytes(w, b, scale, bias),
+                   8 * xrs[0][0].numel(), yardstick_fn=rotating(xrs, yard),
+                   iters=len(xrs), reps=2)
+            results[f"fused_adapter_norm@{tag}_{key}"].update(
+                library_note=f"none: {'layer_norm' if ln else 'rms_norm'} "
+                             "takes no adapter affine or residual; the "
+                             f"yardstick is F.{'layer_norm' if ln else 'rms_norm'}"
+                             " of x alone", split_plan=plan)
+            del xrs
+            release()
+        ln = norm_kind == "layernorm"
+        for i, (key, n_, d_) in enumerate(train_cases):
+            w, b = 1 + randn(d_, scale=0.1), randn(d_, scale=0.1)
+            for dt in (f32, bf):
+                x, res = randn(n_, d_, dtype=dt), randn(n_, d_, dtype=dt)
+                scale = 1 + randn(d_, dtype=dt, scale=0.1)
+                ins = (x, res, w, b, scale) + (
+                    (randn(d_, dtype=dt, scale=0.1),) if ln else ())
+                cots = (randn(n_, d_, dtype=dt), randn(n_, d_, dtype=dt))
+                compare("fused_adapter_norm_bwd", f"{arch} {key} ({n_},{d_}) "
+                        f"{norm_kind}", dt,
+                        lambda: grads_of(lambda *t: FusedAdapterResidualNorm
+                                         .apply(*t[:5], t[5] if ln else None,
+                                                1e-6, "kernel"), ins, cots),
+                        lambda: grads_of(lambda *t: ref
+                                         .fused_adapter_residual_norm_ref(
+                                             *t[:5], eps=1e-6,
+                                             bias=t[5] if ln else None),
+                                         ins, cots),
+                        summed=(2, 3, 4, 5))
+                gt = randn(n_, d_)  # the fp32 cotangent the norm VJP hands on
+                compare("hadamard_affine_bwd", f"{arch} {key} g ({n_},{d_}) "
+                        f"fp32, x {str(dt)[6:]}", dt,
+                        lambda: ops.hadamard_affine_bwd(gt, x, w,
+                                                        impl="kernel"),
+                        lambda: ops.hadamard_affine_bwd(gt, x, w,
+                                                        impl="ref"),
+                        summed=(1, 2))
+                del x, res, ins, cots, gt
+            if i:
+                continue
+            gxs = copies_of(lambda: (randn(n_, d_), randn(n_, d_, dtype=bf)),
+                            6 * n_ * d_)
+            record(f"hadamard_affine_bwd@{tag}_{key}", "hadamard_affine_bwd",
+                   f"g ({n_},{d_}) fp32, x ({n_},{d_}) bf16 ({len(gxs)} "
+                   f"copies in turn), fp32 w (one {arch} seam of a train "
+                   "step's backward, under #3)", f32,
+                   rotating(gxs, lambda g_, x_: ops.hadamard_affine_bwd(
+                       g_, x_, w, impl="kernel")),
+                   rotating(gxs, lambda g_, x_: ops.hadamard_affine_bwd(
+                       g_, x_, w, impl="ref")),
+                   None,
+                   # read g, x, w; write dx (fp32), dw, db
+                   2 * nbytes(gxs[0][0]) + nbytes(gxs[0][1], w) + 2 * d_ * 4,
+                   4 * n_ * d_, iters=len(gxs), reps=2)
+            results[f"hadamard_affine_bwd@{tag}_{key}"]["library_note"] = (
+                "none: no one call gives g*w with the column sums of g*x "
+                "and g")
+            del gxs
+            release()
+
+    def wt_kernels():
+        """Phase 3wt: #4, #5 and #3 at whisper-tiny's shapes (and #4's
+        backward at the cross-attention prefill)."""
+        H, KH, D, d_w = wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim, \
+            wcfg.d_model
+        B, Fr, S, L = WHISPER["clips"], wcfg.n_audio_frames, \
+            WHISPER["prompt"], WHISPER["cache_len"]
+        fam_kernels(
+            "whisper", "whisper-tiny",
+            (("encoder", B, H, KH, Fr, Fr, D, False),
+             ("cross", B, H, KH, S, Fr, D, False),
+             ("cross_long", 1, H, KH, 2048, Fr, D, False)),
+            (("cross", B, H, KH, D, Fr, [Fr] * B),
+             ("self", B, H, KH, D, L, [S + 1 + 8 * i for i in range(B)])),
+            (("encoder", B, Fr, d_w), ("decode", B, 1, d_w)), "layernorm",
+            (("train_encoder", B * Fr, d_w),
+             ("train_decoder", B * WHISPER["train_seq"], d_w)))
+        # the backward of FlashAttention at the cross prefill (16 queries
+        # over 1500 keys) against autograd through the plain forward
+        for dt in (f32, bf):
+            q, g = randn(B, H, S, D, dtype=dt), randn(B, H, S, D, dtype=dt)
+            k, v = randn(B, KH, Fr, D, dtype=dt), randn(B, KH, Fr, D,
+                                                        dtype=dt)
+            compare("flash_attention_bwd", f"whisper cross ({B},{H},{S}|{Fr},"
+                    f"{D}) non-causal", dt,
+                    lambda: grads_of(lambda *t: FlashAttention.apply(
+                        *t, False, None, None, 0.0, "kernel"), (q, k, v),
+                        (g,)),
+                    lambda: grads_of(lambda *t: ops.flash_attention(
+                        *t, causal=False, impl="ref"), (q, k, v), (g,)))
+        log(f"[3wt] whisper-tiny: {errors('flash_attention')}; backward "
+            f"{checks['flash_attention_bwd']['errs'][-1]:.3g} fp32, "
+            f"{checks['flash_attention_bwd']['rels'][-1]:.3g} bf16 / max|ref|"
+            f"; paged {errors('paged_attention')}; #3 "
+            f"{errors('fused_adapter_norm')}; #3's backward "
+            f"{errors('fused_adapter_norm_bwd')}; #2 "
+            f"{errors('hadamard_affine_bwd')}")
+        phase_done("3wt")
+
+    def encdec_run(params, cfg_, frames, toks, steps_, impl):
+        """prefill_encdec, then `steps_` greedy decode_encdec steps:
+        (logits of each call, tokens (B, 1 + steps_), each call's
+        launches)."""
+        S, L = toks.shape[1], WHISPER["cache_len"]
+        (lg, caches), n = launches_of(lambda: M.prefill_encdec(
+            params, cfg_, frames, toks, L, impl=impl))
+        outs, calls, tok = [lg], [n], lg.argmax(-1)
+        out_toks = [tok]
+        for step in range(steps_):
+            (lg, caches), n = launches_of(lambda: M.decode_encdec(
+                params, cfg_, caches, tok, S + step, impl=impl))
+            outs.append(lg)
+            calls.append(n)
+            tok = lg.argmax(-1)
+            out_toks.append(tok)
+        return outs, torch.cat(out_toks, 1), calls
+
+    def wt_fp32_model():
+        """Phase 4wt: whisper-tiny in fp32 (TF32 off) at full width and
+        depth, the same seeded weights with perturbed adapters (norms moved
+        off their init and q/k sharpened, `sharpen`): 4 clips of 1500
+        frames, 16-token prompts, a prefill and 8 greedy decode steps
+        through the kernels against the plain path (impl="ref"), each
+        call's logits within WHISPER["fp32_tol"] relative L2, the greedy
+        tokens equal, each call's launches as predicted; two planted faults
+        (every encoder adapter's w 30 % off, the decoder's seams
+        normalised by ffn_norm in place of cross_norm) past the limit."""
+        cfg32 = wcfg.replace(param_dtype="float32", compute_dtype="float32")
+        params = sharpen(perturb(M.init_params(
+            torch.Generator(device=dev).manual_seed(WHISPER["seed"]), cfg32),
+            WHISPER["seed"] + 100, scale=0.2))
+        B4, Fr, S, n = WHISPER["clips_4wt"], cfg32.n_audio_frames, \
+            WHISPER["prompt"], WHISPER["steps_4wt"]
+        frames = seed_embeds(B4, Fr, cfg32.d_model, dtype=f32, seed=1)
+        toks = seed_tokens(B4, S, cfg32.vocab_size, 2)
+        with torch.no_grad():
+            ref_outs, ref_toks, ref_calls = encdec_run(params, cfg32, frames,
+                                                       toks, n, "ref")
+            ker_outs, ker_toks, ker_calls = encdec_run(params, cfg32, frames,
+                                                       toks, n, "auto")
+            check(all(not any(c.values()) for c in ref_calls),
+                  f"[4wt] the plain path launched {ref_calls}")
+            Le = len(cfg32.layer_slots())
+            want_launches("4wt", "the prefill", ker_calls[0],
+                          {"flash_attention": 3 * Le,
+                           "fused_adapter_norm": 2 * Le})
+            for c in ker_calls[1:]:
+                want_launches("4wt", "a decode step", c,
+                              {"paged_attention": 2 * Le,
+                               "fused_adapter_norm": Le})
+            dists = [rel_dist(a_, b_) for a_, b_ in zip(ker_outs, ref_outs)]
+            # the planted faults, through the kernels on the prefill
+            enc_w = dict(params, enc_layers=[
+                dict(lyr, adapter=dict(lyr["adapter"],
+                                       w=lyr["adapter"]["w"] * 1.3))
+                for lyr in params["enc_layers"]])
+            seam = dict(params, layers=[dict(lyr, cross_norm=lyr["ffn_norm"])
+                                        for lyr in params["layers"]])
+            faults = {name: rel_dist(M.prefill_encdec(
+                p_, cfg32, frames, toks, WHISPER["cache_len"])[0],
+                ref_outs[0]) for name, p_ in (("encoder_adapter_w_30pc", enc_w),
+                                              ("seam_ffn_norm", seam))}
+        lim = WHISPER["fp32_tol"]
+        log(f"[4wt] whisper-tiny fp32 on {smi}: {B4} clips x {Fr} frames, "
+            f"{S}-token prompts, {n} greedy steps; kernel path vs plain path "
+            f"relative L2 prefill {dists[0]:.3g}, steps max "
+            f"{max(dists[1:]):.3g} (limit {lim}); tokens equal "
+            f"{torch.equal(ker_toks, ref_toks)}; planted faults {faults}; "
+            f"launches a prefill {ker_calls[0]}, a step {ker_calls[1]}")
+        check(max(dists) <= lim, f"[4wt] kernel path vs plain path {dists}")
+        check(torch.equal(ker_toks, ref_toks), "[4wt] greedy tokens differ")
+        check(all(v > lim for v in faults.values()),
+              f"[4wt] a planted fault within the limit {lim}: {faults}")
+        fam_reports["4wt"] = dict(rel_l2=dists, faults=faults, limit=lim,
+                                  launches_prefill=ker_calls[0],
+                                  launches_step=ker_calls[1])
+        del params, enc_w, seam
+        release()
+        phase_done("4wt")
+
+    def fam_tick_report(tag, prefill_fn, tick_fn, per_tick, per_prefill):
+        """A tick's and a prefill's profile (device ms, busy share,
+        kernels, the port's kernels' us), each checked against the
+        wrappers' counts."""
+        tick = profile_calls(tick_fn, 5)
+        pre = profile_calls(prefill_fn, 2)
+        check_profiled(tag, tick, per_tick)
+        check_profiled(tag, pre, per_prefill)
+        return tick, pre
+
+    def wt_serve():
+        """Phase 5wt: whisper-tiny bf16 at full width and depth, one
+        perturbed adapter: 8 clips of 1500 seeded frames, 16-token prompts,
+        64 greedy tokens, self-attention caches of 80: per tick 4 #5 self +
+        4 #5 cross + 4 #3, per prefill 12 #4 + 8 #3; the plain path's tokens
+        beside the kernel path's (agreement reported, bf16); device and
+        host ms a tick and a prefill, a tick's profile."""
+        params = launcher.build_params(wcfg, WHISPER["seed"], 0, dev)[0]
+        n_params = tu.count_params(params)
+        check(n_params == WHISPER["n_params"], f"[5wt] {n_params:,} "
+              f"parameters, JAX counts {WHISPER['n_params']:,}")
+        B, Fr, S, L = WHISPER["clips"], wcfg.n_audio_frames, \
+            WHISPER["prompt"], WHISPER["cache_len"]
+        steps_ = WHISPER["new_tokens"] - 1
+        frames = seed_embeds(B, Fr, wcfg.d_model, dtype=bf, seed=3)
+        toks = seed_tokens(B, S, wcfg.vocab_size, 4)
+        Le = len(wcfg.layer_slots())
+        with torch.no_grad():
+            encdec_run(params, wcfg, frames, toks, 2, "auto")  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs, ker_toks, calls = encdec_run(params, wcfg, frames, toks,
+                                               steps_, "auto")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            want_launches("5wt", "the prefill", calls[0],
+                          {"flash_attention": 3 * Le,
+                           "fused_adapter_norm": 2 * Le})
+            for c in calls[1:]:
+                want_launches("5wt", "a decode tick", c,
+                              {"paged_attention": 2 * Le,
+                               "fused_adapter_norm": Le})
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  "[5wt] non-finite logits")
+            check(bool(((ker_toks >= 0) & (ker_toks < wcfg.vocab_size)).all()),
+                  "[5wt] token ids out of range")
+            _, ref_toks, _ = encdec_run(params, wcfg, frames, toks, steps_,
+                                        "ref")
+            agree = (ker_toks == ref_toks).float().mean().item()
+            # host ms: a prefill and a tick, each synced
+            lg, caches = M.prefill_encdec(params, wcfg, frames, toks, L)
+            tok = lg.argmax(-1)
+            pre_host = time_host(lambda: M.prefill_encdec(
+                params, wcfg, frames, toks, L), 3)
+            tick_host = time_host(lambda: M.decode_encdec(
+                params, wcfg, caches, tok, S + 5), 10)
+            counts = {k: sum(c[k] for c in calls) for k in calls[0]}
+            per_tick = {k: sorted({c[k] for c in calls[1:]}) for k in counts}
+            per_prefill = {k: [calls[0][k]] for k in counts}
+            tick, pre = fam_tick_report(
+                "5wt", lambda: M.prefill_encdec(params, wcfg, frames, toks,
+                                                L),
+                lambda: M.decode_encdec(params, wcfg, caches, tok, S + 5),
+                per_tick, per_prefill)
+        fam_launches["5wt"] = counts
+        fam_reports["5wt"] = dict(
+            clips=B, frames=Fr, prompt=S, new_tokens=WHISPER["new_tokens"],
+            cache_len=L, ticks=steps_, run_s=run_s,
+            tok_per_s=B * WHISPER["new_tokens"] / run_s,
+            host_ms_per_tick=tick_host, host_ms_per_prefill=pre_host,
+            token_agreement_vs_plain=agree, n_params=n_params,
+            peak_bytes_allocated=peak, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre)
+        log(f"[5wt] whisper-tiny bf16 on {smi}: {n_params:,} parameters; "
+            f"{B} clips, {S}-token prompts, {WHISPER['new_tokens']} greedy "
+            f"tokens in {run_s:.3f} s ({B * WHISPER['new_tokens'] / run_s:.1f}"
+            f" tok/s); host ms a tick {tick_host:.3f}, a prefill "
+            f"{pre_host:.3f}; tokens vs the plain path's {agree:.4f}; "
+            f"launches {counts}; per tick {per_tick}; per prefill "
+            f"{per_prefill}; peak {peak / 1e9:.3f} GB; tick {tick}; "
+            f"prefill {pre}")
+        del params, caches
+        release()
+        phase_done("5wt")
+
+    def time_host(fn, n):
+        """Host wall ms per call, each call ending in a device sync."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def fam_train(tag, cfg_, batches, steps_, want_step, want_trainable,
+                  params, fixed=None):
+        """steps_ Hadamard steps of build_train_step (the family's loss)
+        over `batches` from `params` (identity adapters moved by
+        perturbation): finite losses, the trainable count JAX's, each
+        step's launches `want_step`, every trainable leaf moved; with
+        `fixed`, that batch's loss before and after (it must fall)."""
+        strat = peft.strategy("hadamard")
+        ocfg = OptimCfg(lr=3e-3, total_steps=steps_)
+        state = make_state(None, cfg_, strat, ocfg, params=params)
+        del params
+        release()
+        n_train = sum(x.numel() for x in state["trainable"].values())
+        check(n_train == want_trainable, f"[{tag}] {n_train:,} trainable, "
+              f"JAX's {want_trainable:,}")
+        start = {p: x.detach().clone() for p, x in state["trainable"].items()}
+        loss_fn = losses_mod.loss_for(cfg_)
+
+        def probe():
+            with torch.no_grad():
+                return loss_fn(cfg_, state["params"], fixed)[0].item()
+
+        before = probe() if fixed is not None else None
+        step = build_train_step(cfg_, ocfg)
+        hist, calls, times = [], [], []
+        for b_ in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, m), n = launches_of(lambda: step(state, b_))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            hist.append(m["loss"].item())
+            calls.append(n)
+            want_launches(tag, "a train step", n, want_step)
+        after = probe() if fixed is not None else None
+        check(all(math.isfinite(x) for x in hist), f"[{tag}] losses {hist}")
+        moved = {p: bool((x.detach() != start[p]).any())
+                 for p, x in state["trainable"].items()}
+        check(all(moved.values()), f"[{tag}] leaves that did not move: "
+              f"{[p for p, v in moved.items() if not v][:4]}")
+        if fixed is not None:
+            check(after < before, f"[{tag}] the fixed batch's loss "
+                  f"{before:.5f} -> {after:.5f} did not fall")
+        fam_train_launches[tag] = {k: sum(c[k] for c in calls)
+                                   for k in calls[0]}
+        fam_step_calls[tag] = calls
+        rep = dict(steps=len(hist), losses=hist, trainable=n_train,
+                   fixed_batch_loss=[before, after],
+                   host_ms_per_step=times, moved_leaves=len(moved),
+                   enc_leaves_moved=sum(p.startswith("enc_layers/")
+                                        for p in moved),
+                   peak_bytes_allocated=torch.cuda.max_memory_allocated())
+        del state, step
+        release()
+        return rep
+
+    def wt_train():
+        """Phase 8wt: encdec_loss fine-tuning of whisper-tiny, Hadamard
+        strategy, bf16, 8 clips x 64 tokens a step, 6 steps: a fixed
+        batch's loss falls, every trainable leaf moves (the encoder's too),
+        12,288 trainable (JAX's), 12 #4 + 8 #3 + 8 #2 a step."""
+        B, Fr, S = WHISPER["clips"], wcfg.n_audio_frames, WHISPER["train_seq"]
+        corpus = lm_corpus(wcfg.vocab_size, 20_000, seed=WHISPER["seed"])
+        batches = []
+        for i, b_ in enumerate(lm_batches(corpus, WHISPER["train_steps"], B,
+                                          S, seed=WHISPER["seed"])):
+            batches.append({"tokens": torch.from_numpy(b_["tokens"]).to(dev),
+                            "labels": torch.from_numpy(b_["labels"]).to(dev),
+                            "frames": seed_embeds(B, Fr, wcfg.d_model,
+                                                  dtype=bf, seed=20 + i)})
+        params = launcher.build_base(wcfg, WHISPER["seed"], dev)
+        Le = len(wcfg.layer_slots()) + len(wcfg.enc_layer_slots())
+        torch.cuda.reset_peak_memory_stats()
+        rep = fam_train("8wt", wcfg, batches, len(batches),
+                        {"flash_attention": 3 * len(wcfg.layer_slots()),
+                         "fused_adapter_norm": Le,
+                         "hadamard_affine_bwd": Le},
+                        WHISPER["trainable"], params, fixed=batches[0])
+        fam_reports["8wt"] = rep
+        log(f"[8wt] whisper-tiny encdec_loss, hadamard, bf16, {B} clips x "
+            f"{S} tokens on {smi}: {json.dumps(rep)}")
+        phase_done("8wt")
+
+    def iv_params(cfg_, seed):
+        """internvl2 weights made on the card from a seed, adapters
+        perturbed."""
+        return perturb(M.init_params(torch.Generator(device=dev).manual_seed(
+            seed), cfg_), seed + 100, scale=0.2)
+
+    def iv_kernels():
+        """Phase 3iv: #4, #5 and #3 at internvl2-76b's shapes."""
+        H, KH, D, d_i = icfg.n_heads, icfg.n_kv_heads, icfg.head_dim, \
+            icfg.d_model
+        R, n_img, S, L = INTERNVL["requests"], icfg.n_image_tokens, \
+            INTERNVL["text"], INTERNVL["cache_len"]
+        T = n_img + S
+        fam_kernels(
+            "internvl2", "internvl2-76b",
+            (("prefill", R, H, KH, T, T, D, True),),
+            (("decode", R, H, KH, D, L, [T + 5, T + 20]),),
+            (("decode", R, 1, d_i), ("prefill", R, T, d_i)), "rmsnorm",
+            (("train", R * T, d_i),))
+        log(f"[3iv] internvl2-76b: {errors('flash_attention')}; paged "
+            f"{errors('paged_attention')}; #3 {errors('fused_adapter_norm')}"
+            f"; #3's backward {errors('fused_adapter_norm_bwd')}; #2 "
+            f"{errors('hadamard_affine_bwd')}")
+        phase_done("3iv")
+
+    def vlm_run(params, cfg_, patches, toks, steps_, impl):
+        """prefill_lm with patches, then `steps_` greedy decode_lm steps at
+        n_img + S onward: (logits of each call, tokens, each call's
+        launches)."""
+        R, T = toks.shape[0], patches.shape[1] + toks.shape[1]
+        (lg, caches), n = launches_of(lambda: M.prefill_lm(
+            params, cfg_, toks, INTERNVL["cache_len"], patches=patches,
+            impl=impl))
+        outs, calls, tok = [lg], [n], lg.argmax(-1)
+        out_toks = [tok]
+        for step in range(steps_):
+            pos = torch.full((R,), T + step, dtype=torch.int32, device=dev)
+            (lg, caches), n = launches_of(lambda: M.decode_lm(
+                params, cfg_, caches, tok, pos, impl=impl))
+            outs.append(lg)
+            calls.append(n)
+            tok = lg.argmax(-1)
+            out_toks.append(tok)
+        return outs, torch.cat(out_toks, 1), calls
+
+    def iv_inputs(cfg_, dtype):
+        R, S = INTERNVL["requests"], INTERNVL["text"]
+        return (seed_embeds(R, cfg_.n_image_tokens, cfg_.d_model, dtype=dtype,
+                            seed=5),
+                seed_tokens(R, S, cfg_.vocab_size, 6))
+
+    def iv_fp32_model():
+        """Phase 4iv: internvl2-76b in fp32 (TF32 off) at full width and 2
+        of its 80 layers: 2 requests of 256 patches + 128 text tokens, a
+        prefill and 4 greedy decode steps through the kernels against the
+        plain path, each call's logits within INTERNVL["fp32_tol"] relative
+        L2 and the tokens equal; a planted fault (the text's RoPE positions
+        restarted at 0 after the image rows) past the limit."""
+        cfg32 = icfg.replace(groups=dense_decoder(INTERNVL["layers_4iv"]),
+                             param_dtype="float32", compute_dtype="float32")
+        params = iv_params(cfg32, INTERNVL["seed"])
+        patches, toks = iv_inputs(cfg32, f32)
+        n_img, S, n = cfg32.n_image_tokens, toks.shape[1], \
+            INTERNVL["steps_4iv"]
+        Lr = len(cfg32.layer_slots())
+        with torch.no_grad():
+            ref_outs, ref_toks, ref_calls = vlm_run(params, cfg32, patches,
+                                                    toks, n, "ref")
+            ker_outs, ker_toks, ker_calls = vlm_run(params, cfg32, patches,
+                                                    toks, n, "auto")
+            check(all(not any(c.values()) for c in ref_calls),
+                  f"[4iv] the plain path launched {ref_calls}")
+            want_launches("4iv", "the prefill", ker_calls[0],
+                          {"flash_attention": Lr, "fused_adapter_norm": Lr})
+            for c in ker_calls[1:]:
+                want_launches("4iv", "a decode step", c,
+                              {"paged_attention": Lr,
+                               "fused_adapter_norm": Lr})
+            dists = [rel_dist(a_, b_) for a_, b_ in zip(ker_outs, ref_outs)]
+            # the planted fault: the text's positions restart at 0
+            x = M._decoder_embed(params, cfg32, toks, patches)
+            q_pos = torch.cat([torch.arange(n_img, device=dev),
+                               torch.arange(S, device=dev)])
+            x, _, _ = M._run_layers(params, cfg32, x, q_pos=q_pos,
+                                    cache_len=INTERNVL["cache_len"])
+            x = apply_norm(params["final_norm"], cfg32, x[:, -1:])
+            fault = rel_dist(M.lm_logits(params, cfg32, x), ref_outs[0])
+        lim = INTERNVL["fp32_tol"]
+        log(f"[4iv] internvl2-76b fp32, {Lr} of 80 layers, on {smi}: "
+            f"{patches.shape[0]} x ({n_img} patches + {S} tokens), {n} "
+            f"greedy steps; kernel path vs plain path relative L2 prefill "
+            f"{dists[0]:.3g}, steps max {max(dists[1:]):.3g} (limit {lim}); "
+            f"tokens equal {torch.equal(ker_toks, ref_toks)}; planted fault "
+            f"(text RoPE restarted at 0) {fault:.3g}; launches a prefill "
+            f"{ker_calls[0]}, a step {ker_calls[1]}")
+        check(max(dists) <= lim, f"[4iv] kernel path vs plain path {dists}")
+        check(torch.equal(ker_toks, ref_toks), "[4iv] greedy tokens differ")
+        check(fault > lim, f"[4iv] the planted fault {fault} within {lim}")
+        fam_reports["4iv"] = dict(rel_l2=dists, rope_restart_fault=fault,
+                                  limit=lim, launches_prefill=ker_calls[0],
+                                  launches_step=ker_calls[1])
+        del params, x
+        release()
+        phase_done("4iv")
+
+    def iv_serve():
+        """Phase 5iv: internvl2-76b bf16 at full width, 8 of 80 layers
+        (9.01 B parameters, 18.0 GB), built on the card from a seed: 2
+        requests of 256 seeded patch embeddings + 128 text tokens, 32
+        greedy tokens, caches of 416: 8 #5 + 8 #3 a tick, 8 #4 + 8 #3 a
+        prefill; reported as 5wt. Returns the parameters (8iv trains
+        them)."""
+        torch.cuda.synchronize()
+        before_b = torch.cuda.memory_allocated()
+        params = iv_params(icfg, INTERNVL["seed"])
+        n_params = tu.count_params(params)
+        weights = torch.cuda.memory_allocated() - before_b
+        check(n_params == INTERNVL["n_params"], f"[5iv] {n_params:,} "
+              f"parameters, JAX counts {INTERNVL['n_params']:,}")
+        patches, toks = iv_inputs(icfg, bf)
+        R, T, L = toks.shape[0], patches.shape[1] + toks.shape[1], \
+            INTERNVL["cache_len"]
+        steps_ = INTERNVL["new_tokens"] - 1
+        Li = len(icfg.layer_slots())
+        with torch.no_grad():
+            vlm_run(params, icfg, patches, toks, 2, "auto")  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs, ker_toks, calls = vlm_run(params, icfg, patches, toks,
+                                            steps_, "auto")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            want_launches("5iv", "the prefill", calls[0],
+                          {"flash_attention": Li, "fused_adapter_norm": Li})
+            for c in calls[1:]:
+                want_launches("5iv", "a decode tick", c,
+                              {"paged_attention": Li,
+                               "fused_adapter_norm": Li})
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  "[5iv] non-finite logits")
+            _, ref_toks, _ = vlm_run(params, icfg, patches, toks, steps_,
+                                     "ref")
+            agree = (ker_toks == ref_toks).float().mean().item()
+            lg, caches = M.prefill_lm(params, icfg, toks, L, patches=patches)
+            tok = lg.argmax(-1)
+            pos = torch.full((R,), T + 5, dtype=torch.int32, device=dev)
+            pre_host = time_host(lambda: M.prefill_lm(
+                params, icfg, toks, L, patches=patches), 3)
+            tick_host = time_host(lambda: M.decode_lm(
+                params, icfg, caches, tok, pos), 10)
+            counts = {k: sum(c[k] for c in calls) for k in calls[0]}
+            per_tick = {k: sorted({c[k] for c in calls[1:]}) for k in counts}
+            per_prefill = {k: [calls[0][k]] for k in counts}
+            tick, pre = fam_tick_report(
+                "5iv", lambda: M.prefill_lm(params, icfg, toks, L,
+                                            patches=patches),
+                lambda: M.decode_lm(params, icfg, caches, tok, pos),
+                per_tick, per_prefill)
+        floor = weights / HBM_BYTES_PER_S * 1e3
+        fam_launches["5iv"] = counts
+        fam_reports["5iv"] = dict(
+            requests=R, patches=patches.shape[1], text=toks.shape[1],
+            new_tokens=INTERNVL["new_tokens"], cache_len=L, ticks=steps_,
+            run_s=run_s, tok_per_s=R * INTERNVL["new_tokens"] / run_s,
+            host_ms_per_tick=tick_host, host_ms_per_prefill=pre_host,
+            token_agreement_vs_plain=agree, n_params=n_params,
+            weights_bytes_allocated=weights, tick_read_floor_ms=floor,
+            peak_bytes_allocated=peak, launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre)
+        log(f"[5iv] internvl2-76b bf16, {Li} of 80 layers, on {smi}: "
+            f"{n_params:,} parameters, {weights / 1e9:.2f} GB (a tick's "
+            f"read floor {floor:.2f} ms); {R} x ({patches.shape[1]} patches "
+            f"+ {toks.shape[1]} tokens), {INTERNVL['new_tokens']} greedy "
+            f"tokens in {run_s:.3f} s; host ms a tick {tick_host:.3f}, a "
+            f"prefill {pre_host:.3f}; tokens vs the plain path's "
+            f"{agree:.4f}; launches {counts}; per tick {per_tick}; per "
+            f"prefill {per_prefill}; peak {peak / 1e9:.2f} GB; tick {tick}; "
+            f"prefill {pre}")
+        del caches, lg, outs
+        release()
+        phase_done("5iv")
+        return params
+
+    def iv_train(params):
+        """Phase 8iv: 2 Hadamard steps of lm_loss over the text positions
+        of 2 x (256 patches + 128 tokens), bf16, 8 layers: finite losses,
+        the adapters move, 196,608 trainable (JAX's), 8 #4 + 8 #3 + 8 #2 a
+        step."""
+        R, S = INTERNVL["requests"], INTERNVL["text"]
+        batches = []
+        for i in range(INTERNVL["train_steps"]):
+            toks = seed_tokens(R, S + 1, icfg.vocab_size, 30 + i)
+            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                            "patches": seed_embeds(R, icfg.n_image_tokens,
+                                                   icfg.d_model, dtype=bf,
+                                                   seed=40 + i)})
+        Li = len(icfg.layer_slots())
+        torch.cuda.reset_peak_memory_stats()
+        rep = fam_train("8iv", icfg, batches, len(batches),
+                        {"flash_attention": Li, "fused_adapter_norm": Li,
+                         "hadamard_affine_bwd": Li},
+                        INTERNVL["trainable"], params)
+        fam_reports["8iv"] = rep
+        log(f"[8iv] internvl2-76b lm_loss over the text, hadamard, bf16, "
+            f"{Li} layers, {R} x ({icfg.n_image_tokens} + {S}) on {smi}: "
+            f"{json.dumps(rep)}")
+        phase_done("8iv")
+
+    # -- phases 3wt, 4wt, 5wt, 8wt, 3iv, 4iv, 5iv, 8iv ------------------------
+    wt_kernels()
+    wt_fp32_model()
+    wt_serve()
+    wt_train()
+    iv_kernels()
+    iv_fp32_model()
+    iv_train(iv_serve())
+    launches.update(fam_launches)
+    serve_reports.update({p: fam_reports[p] for p in ("5wt", "5iv")})
+
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
     from repro_torch.configs import get as get_arch
@@ -6253,7 +7115,8 @@ def main() -> int:
             del start
         if profile:
             batch = loop.to_device(next(lm_batches_of(1, seed=99)), dev)
-            rep["profile"] = profile_calls(lambda: plain_step(state, batch), 2)
+            rep["profile"] = profile_calls(lambda: plain_step(state, batch), 2,
+                                           warm=1)  # the lane warmed it
         lm_ctx["report"][tag] = rep
         step_calls[lm_ctx["key"] + tag] = calls
         log(f"[{ph}] {tag} on {smi}: {lm_ctx['arch']} bf16, {steps_} steps "
@@ -6558,7 +7421,7 @@ def main() -> int:
     pre_step = build_train_step(bert_full, ocfg_pre,
                                 loss_fn=pretrain_mod.mlm_loss)
     pre_rep["profile"] = profile_calls(lambda: pre_step(pre_state, mlm_batch),
-                                       2)
+                                       2, warm=1)
     del pre_state, pre_step
     paper_report["pretrain"] = pre_rep
     log(f"[8p] pretrain on {smi}: {TRAIN['arch']} fp32 MLM, "
@@ -6887,7 +7750,8 @@ def main() -> int:
             t0 = time.perf_counter()
             if tag == "int8":  # after the checks; the slowest lane on an H100
                 batch = loop.to_device(next(pq_batches()), dev)
-                rep["profile"] = profile_calls(lambda: step(state, batch), 2)
+                rep["profile"] = profile_calls(lambda: step(state, batch), 2,
+                                               warm=1)  # the lane warmed it
             t8q["profile"] += time.perf_counter() - t0
             pq_report[tag] = rep
             log(f"[8q] {tag} on {smi}: {TRAIN['arch']} full MLM, fp32, "
@@ -6923,6 +7787,11 @@ def main() -> int:
     phase_done("8q")
 
     # -- phase 9: the kernels line ------------------------------------------
+    fam_train_name = {"8wt": "train_whisper", "8iv": "train_internvl2"}
+    train_launches.update({fam_train_name[t]: c
+                           for t, c in fam_train_launches.items()})
+    step_calls.update({fam_train_name[t]: c
+                       for t, c in fam_step_calls.items()})
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
         "hadamard_affine": (csrc + "hadamard_affine.cu",
@@ -6962,7 +7831,8 @@ def main() -> int:
                   "5rg": "serve_rgemma_single",
                   "6rg": "serve_rgemma_multitask",
                   "6rgs": "serve_rgemma_hot_swap",
-                  "5rgq": "serve_rgemma_single_int8"}
+                  "5rgq": "serve_rgemma_single_int8",
+                  "5wt": "serve_whisper", "5iv": "serve_internvl2"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
@@ -7049,6 +7919,10 @@ def main() -> int:
                       "moe_model": moe_reports["4m"],
                       "rgemma_model": rg_reports["4rg"],
                       "rgemma_rg_lru_parts": rg_parts,
+                      "whisper_model": fam_reports["4wt"],
+                      "internvl2_model": fam_reports["4iv"],
+                      "train_whisper": fam_reports["8wt"],
+                      "train_internvl2": fam_reports["8iv"],
                       "fold": gemma_reports["5o"],
                       "phase_s": phase_s, "card": smi}))
     print(smi)

@@ -181,8 +181,16 @@ class ModelCfg:
         return torch_dtype(self.compute_dtype)
 
     def layer_slots(self) -> Tuple[Slot, ...]:
-        """The decoder stack's slots in execution order, one per layer."""
+        """The decoder stack's slots in execution order, one per layer.
+        `n_layers` counts both stacks, as JAX's does; a per-layer array of
+        the decoder (gate rows, depth masks, caches) is sized by this."""
         return tuple(s for g in self.groups for _ in range(g.repeats)
+                     for s in g.slots)
+
+    def enc_layer_slots(self) -> Tuple[Slot, ...]:
+        """The encoder stack's slots (an encdec config's `enc_groups`) in
+        execution order, one per layer; empty for every other family."""
+        return tuple(s for g in self.enc_groups for _ in range(g.repeats)
                      for s in g.slots)
 
 

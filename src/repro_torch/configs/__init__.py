@@ -5,24 +5,28 @@ rwkv6-1.6b (serving and decoder-LM fine-tuning), gemma2-27b (serving over
 windowed ring caches), recurrentgemma-2b (serving RG-LRU blocks beside
 windowed MQA), deepseek-moe-16b and qwen3-moe-235b-a22b
 (mixture-of-experts serving; the latter, 470 GB in bf16, at its smoke
-dims) and the paper's own BERT-family encoders (two-stage training, MLM
-pretraining). The other `repro` configs arrive with the slices that run
-them.
+dims), whisper-tiny (the encoder-decoder family) and internvl2-76b (the
+VLM family), and the paper's own BERT-family encoders (two-stage
+training, MLM pretraining). The other `repro` configs arrive with the
+slices that run them.
 """
 from __future__ import annotations
 
 from repro_torch.common.types import ModelCfg
 from repro_torch.configs import (bert, deepseek_moe_16b, gemma2_27b,
-                                 qwen3_0_6b, qwen3_moe_235b_a22b,
-                                 recurrentgemma_2b, rwkv6_1_6b)
+                                 internvl2_76b, qwen3_0_6b,
+                                 qwen3_moe_235b_a22b, recurrentgemma_2b,
+                                 rwkv6_1_6b, whisper_tiny)
 
 ASSIGNED = {
     "deepseek-moe-16b": deepseek_moe_16b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
     "gemma2-27b": gemma2_27b,
+    "internvl2-76b": internvl2_76b,
     "qwen3-0.6b": qwen3_0_6b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "rwkv6-1.6b": rwkv6_1_6b,
+    "whisper-tiny": whisper_tiny,
 }
 
 # the paper's own PLMs (encoder classifiers for the GLUE-style benchmarks)

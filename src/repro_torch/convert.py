@@ -14,7 +14,10 @@ r), and a stacked (repeats, E, d, f) expert stack each MoE layer its (E,
 d, f) (the fp32 router stays fp32), and an RG-LRU layer its rec leaves
 (its `a_param` stays fp32, as JAX makes it). `jax_path` names a port leaf
 by its JAX path, so that one regex (a PEFT mask) means the same leaves in
-both packages.
+both packages. An encdec model's encoder stack ("enc_blocks/g<G>/slot<S>"
+in JAX, "enc_layers/<i>" in the port) unstacks the same way over
+`cfg.enc_groups`, and its cross-attention leaves ("cross", "cross_norm")
+are block leaves like any other.
 
 Task deltas (`core.hadamard.extract_delta`) carry over in the layout the
 registry stores. A delta is a partial tree with None holes; in the JAX
@@ -44,11 +47,13 @@ from repro_torch.common import tree as tu
 from repro_torch.common.types import ModelCfg
 from repro_torch.quant.qtensor import QTensor, quantizable
 
-_NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
+_NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm",
+          "cross_norm")
 BLOCK_LEAVES = frozenset(
     [f"{n}/{leaf}" for n in _NORMS for leaf in ("scale", "bias")]
-    + [f"attn/{w}" for w in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
-                             "q_norm", "k_norm")]
+    + [f"{a}/{w}" for a in ("attn", "cross")
+       for w in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo", "q_norm",
+                 "k_norm")]
     + [f"mlp/{w}" for w in ("wi", "wo", "wg", "bi", "bo")]
     + [f"moe/{w}" for w in ("router", "wi", "wg", "wo", "shared_wi",
                             "shared_wg", "shared_wo")]
@@ -70,15 +75,37 @@ ENCODER_LEAVES = frozenset(["pos_embed/table", "type_embed/table",
                             "embed_norm/scale", "embed_norm/bias",
                             "pooler/kernel", "pooler/bias",
                             "classifier/kernel", "classifier/bias"])
-_BLOCK_RE = re.compile(r"^blocks/g(\d+)/slot(\d+)/(.+)$")
-_LAYER_RE = re.compile(r"^layers/(\d+)/(.+)$")
+ENCDEC_LEAVES = frozenset(["enc_final_norm/scale", "enc_final_norm/bias",
+                           "enc_pos_embed/table"])
+# group 1: "enc_" for the encdec encoder's stack
+_BLOCK_RE = re.compile(r"^(enc_)?blocks/g(\d+)/slot(\d+)/(.+)$")
+_LAYER_RE = re.compile(r"^(enc_)?layers/(\d+)/(.+)$")
 _QFIELD_RE = re.compile(r"^(.+)/(values|scales)$")
 
 
 def top_leaves(cfg: ModelCfg) -> frozenset:
     """The non-block leaves a config of this family may hold."""
-    return TOP_LEAVES | ENCODER_LEAVES if cfg.family == "encoder" \
-        else TOP_LEAVES
+    out = TOP_LEAVES
+    if cfg.family == "encoder":
+        out = out | ENCODER_LEAVES
+    if cfg.pos == "learned":
+        out = out | {"pos_embed/table"}
+    if cfg.enc_groups:
+        out = out | ENCDEC_LEAVES
+    if cfg.family == "vlm":
+        out = out | {"vlm_proj/kernel"}
+    return out
+
+
+def _groups(cfg: ModelCfg, enc) -> tuple:
+    """The decoder's groups, or with `enc` the encoder's."""
+    return cfg.enc_groups if enc else cfg.groups
+
+
+def _jax_stack(enc) -> str:
+    """JAX's stacked tree of a stack: the decoder's, or with `enc` the
+    encoder's."""
+    return "enc_blocks" if enc else "blocks"
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -137,10 +164,12 @@ def _join_qtensors(tree: dict) -> dict:
     return walk(tree, "")
 
 
-def _layer_index(cfg: ModelCfg) -> Dict[Tuple[int, int, int], int]:
-    """(group, repeat, slot) -> position in the port's layer list."""
+def _layer_index(cfg: ModelCfg,
+                 enc: bool = False) -> Dict[Tuple[int, int, int], int]:
+    """(group, repeat, slot) -> position in the port's layer list (the
+    encoder's with `enc`)."""
     out, n = {}, 0
-    for gi, g in enumerate(cfg.groups):
+    for gi, g in enumerate(_groups(cfg, enc)):
         for r in range(g.repeats):
             for si in range(len(g.slots)):
                 out[(gi, r, si)] = n
@@ -158,12 +187,14 @@ def _set(tree: dict, path: str, value) -> None:
 def jax_path(path: str, cfg: ModelCfg) -> str:
     """The JAX path of the port leaf `path`: 'layers/3/adapter/w' ->
     'blocks/g0/slot0/adapter/w' (every layer of a group shares its group's
-    stacked leaf); a top-level path is the same in both."""
+    stacked leaf), 'enc_layers/1/...' -> 'enc_blocks/g0/slot0/...'; a
+    top-level path is the same in both."""
     m = _LAYER_RE.match(path)
     if m is None:
         return path
-    gi, _, si = _layer_position(cfg)[int(m.group(1))]
-    return f"blocks/g{gi}/slot{si}/{m.group(2)}"
+    enc = m.group(1)
+    gi, _, si = _layer_position(cfg, enc)[int(m.group(2))]
+    return f"{_jax_stack(enc)}/g{gi}/slot{si}/{m.group(3)}"
 
 
 def jax_ndim(path: str, leaf: torch.Tensor) -> int:
@@ -172,20 +203,30 @@ def jax_ndim(path: str, leaf: torch.Tensor) -> int:
     return leaf.dim() + (1 if _LAYER_RE.match(path) else 0)
 
 
-def _layer_position(cfg: ModelCfg) -> List[Tuple[int, int, int]]:
-    """Position in the port's layer list -> (group, repeat, slot)."""
-    index = _layer_index(cfg)
+def _layer_position(cfg: ModelCfg,
+                    enc: bool = False) -> List[Tuple[int, int, int]]:
+    """Position in the port's layer list (the encoder's with `enc`) ->
+    (group, repeat, slot)."""
+    index = _layer_index(cfg, enc)
     return sorted(index, key=index.get)
 
 
+def _stacks(cfg: ModelCfg):
+    """(enc, the port's list name) of each stack the config has."""
+    return [(False, "layers")] + ([(True, "enc_layers")]
+                                  if cfg.enc_groups else [])
+
+
+def _empty_layers(cfg: ModelCfg) -> Dict[bool, List[dict]]:
+    return {enc: [{} for _ in range(len(_layer_index(cfg, enc)))]
+            for enc, _ in _stacks(cfg)}
+
+
 def from_jax_params(np_tree: dict, cfg: ModelCfg, device) -> dict:
-    """The port's parameters from a JAX decoder or encoder parameter tree
-    whose leaves are numpy arrays. Raises on any leaf it does not map."""
-    if cfg.enc_groups:
-        raise NotImplementedError("encdec encoder stacks (enc_groups) are "
-                                  "not ported yet")
-    index = _layer_index(cfg)
-    layers: List[dict] = [{} for _ in range(len(index))]
+    """The port's parameters from a JAX parameter tree (any family) whose
+    leaves are numpy arrays. Raises on any leaf it does not map."""
+    index = {enc: _layer_index(cfg, enc) for enc, _ in _stacks(cfg)}
+    layers = _empty_layers(cfg)
     out: dict = {}
     for path, leaf in tu.flatten_with_paths(np_tree):
         m = _BLOCK_RE.match(path)
@@ -194,18 +235,22 @@ def from_jax_params(np_tree: dict, cfg: ModelCfg, device) -> dict:
                 raise KeyError(f"unknown JAX parameter leaf {path!r}")
             _set(out, path, to_tensor(leaf, device))
             continue
-        gi, si, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+        enc = bool(m.group(1))
+        gi, si, rest = int(m.group(2)), int(m.group(3)), m.group(4)
+        groups = _groups(cfg, enc)
         if not _known_leaf(rest, BLOCK_LEAVES):
             raise KeyError(f"unknown JAX block parameter leaf {path!r}")
-        if gi >= len(cfg.groups) or si >= len(cfg.groups[gi].slots):
+        if gi >= len(groups) or si >= len(groups[gi].slots):
             raise KeyError(f"JAX leaf {path!r} has no slot in {cfg.name}")
         arr = np.asarray(leaf)
-        if arr.shape[0] != cfg.groups[gi].repeats:
+        if arr.shape[0] != groups[gi].repeats:
             raise ValueError(f"{path}: leading dim {arr.shape[0]} != group "
-                             f"repeats {cfg.groups[gi].repeats}")
+                             f"repeats {groups[gi].repeats}")
         for r in range(arr.shape[0]):
-            _set(layers[index[(gi, r, si)]], rest, to_tensor(arr[r], device))
-    out["layers"] = layers
+            _set(layers[enc][index[enc][(gi, r, si)]], rest,
+                 to_tensor(arr[r], device))
+    for enc, name in _stacks(cfg):
+        out[name] = layers[enc]
     return _join_qtensors(out)
 
 
@@ -216,16 +261,16 @@ def to_jax_params(params: dict, cfg: ModelCfg) -> dict:
     comes back as its `values` and `scales` arrays."""
     out: dict = {}
     for path, leaf in tu.flatten_with_paths(params):
-        if not path.startswith("layers/"):
+        if not _LAYER_RE.match(path):
             for p, t in _field_leaves(path, leaf):
                 _set(out, p, to_numpy(t))
-    index = _layer_index(cfg)
     per_leaf: Dict[str, Dict[int, np.ndarray]] = {}
-    for (gi, r, si), li in index.items():
-        for rest, leaf in tu.flatten_with_paths(params["layers"][li]):
-            for p, t in _field_leaves(rest, leaf):
-                per_leaf.setdefault(f"blocks/g{gi}/slot{si}/{p}", {})[r] = \
-                    to_numpy(t)
+    for enc, name in _stacks(cfg):
+        for (gi, r, si), li in _layer_index(cfg, enc).items():
+            for rest, leaf in tu.flatten_with_paths(params[name][li]):
+                for p, t in _field_leaves(rest, leaf):
+                    key = f"{_jax_stack(enc)}/g{gi}/slot{si}/{p}"
+                    per_leaf.setdefault(key, {})[r] = to_numpy(t)
     for path, by_repeat in per_leaf.items():
         _set(out, path, np.stack([by_repeat[r] for r in sorted(by_repeat)]))
     return out
@@ -252,7 +297,7 @@ def stack_delta(delta: dict, cfg: ModelCfg) -> dict:
     the JAX layout already and is returned as it is."""
     if not isinstance(delta.get("layers"), list):
         return delta
-    position = _layer_position(cfg)
+    position = {enc: _layer_position(cfg, enc) for enc, _ in _stacks(cfg)}
     out: dict = {}
     groups: Dict[str, Dict[int, object]] = {}
     for path, leaf in tu.flatten_with_paths(delta):
@@ -260,8 +305,10 @@ def stack_delta(delta: dict, cfg: ModelCfg) -> dict:
         if m is None:
             _set(out, path, leaf)
             continue
-        gi, r, si = position[int(m.group(1))]
-        groups.setdefault(f"blocks/g{gi}/slot{si}/{m.group(2)}", {})[r] = leaf
+        enc = bool(m.group(1))
+        gi, r, si = position[enc][int(m.group(2))]
+        groups.setdefault(f"{_jax_stack(enc)}/g{gi}/slot{si}/{m.group(3)}",
+                          {})[r] = leaf
     for path, by_repeat in groups.items():
         leaves = [by_repeat[r] for r in sorted(by_repeat)]
         if all(v is None for v in leaves):
@@ -277,23 +324,26 @@ def stack_delta(delta: dict, cfg: ModelCfg) -> dict:
 def unstack_delta(tree: dict, cfg: ModelCfg) -> dict:
     """The inverse of `stack_delta`: a dense JAX-layout delta (PackedRows
     unpacked first, `sparse.unpack_delta`) -> {"layers": [one dict per
-    layer], **top-level leaves}, with each stacked leaf's rows given to
+    layer], **top-level leaves} (and "enc_layers" for an encdec config),
+    with each stacked leaf's rows given to
     its layers as views. Raises ValueError on a leaf whose group or
     leading dim does not fit `cfg`."""
     from repro_torch.sparse.prune import is_packed  # sparse imports convert
 
-    index = _layer_index(cfg)
-    layers: List[dict] = [{} for _ in range(len(index))]
+    index = {enc: _layer_index(cfg, enc) for enc, _ in _stacks(cfg)}
+    layers = _empty_layers(cfg)
     out: dict = {}
     for path, leaf in tu.flatten_with_paths(tree):
         m = _BLOCK_RE.match(path)
         if m is None:
             _set(out, path, leaf)
             continue
-        gi, si, rest = int(m.group(1)), int(m.group(2)), m.group(3)
-        if gi >= len(cfg.groups) or si >= len(cfg.groups[gi].slots):
+        enc = bool(m.group(1))
+        gi, si, rest = int(m.group(2)), int(m.group(3)), m.group(4)
+        groups = _groups(cfg, enc)
+        if gi >= len(groups) or si >= len(groups[gi].slots):
             raise ValueError(f"{path} has no slot in {cfg.name}")
-        repeats = cfg.groups[gi].repeats
+        repeats = groups[gi].repeats
         if is_packed(leaf):
             raise ValueError(f"{path} is a PackedRows leaf; unpack the delta "
                              "first (sparse.unpack_delta)")
@@ -301,9 +351,10 @@ def unstack_delta(tree: dict, cfg: ModelCfg) -> dict:
             raise ValueError(f"{path}: leading dim {leaf.shape[0]} != group "
                              f"repeats {repeats}")
         for r in range(repeats):
-            _set(layers[index[(gi, r, si)]], rest,
+            _set(layers[enc][index[enc][(gi, r, si)]], rest,
                  None if leaf is None else leaf[r])
-    out["layers"] = layers
+    for enc, name in _stacks(cfg):
+        out[name] = layers[enc]
     return out
 
 

@@ -40,19 +40,14 @@ def _check_window(name, window):
     return -1 if window is None else int(window)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    scale: Optional[float] = None, cap: float = 0.0,
-                    return_lse: bool = False):
-    """q: (B, H, Sq, D); k, v: (B, KH, Skv, D) with H = KH*G and
-    Sq <= Skv; D in {64, 128, 256}. Inputs may be strided views (a
-    transposed (B, S, H, D) projection, say) as long as the last dim is
-    contiguous and every row starts on 16 bytes. Returns q.dtype of shape
-    (B, H, Sq, D), laid out in memory as (B, Sq, H, D) so that merging the
-    heads back is free; with return_lse also each row's fp32 log-sum-exp
-    (B, H, Sq), the residual of the backward. CUDA only."""
-    check_inputs(FLASH, q, k, v, contiguous=False)
-    code = check_dtype(FLASH, "q", q, ACT_DTYPES)
+def flash_shapes(q, k, v, causal: bool = True):
+    """The #4 wrapper's shape checks, on any device: q (B, H, Sq, D) over
+    k, v (B, KH, Skv, D), H a multiple of KH, D in FLASH_HEAD_DIMS; a
+    causal call needs Sq <= Skv (its queries are right-aligned over the
+    keys, and the kernel skips key tiles past the diagonal, which would
+    leave a row of Sq > Skv without a key), a non-causal one reads every
+    key whatever Sq is (a decoder of more tokens than the encoder's frames
+    cross-attends so). Returns (B, H, KH, Sq, Skv, D)."""
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{FLASH}: q, k, v must share one dtype "
                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
@@ -67,9 +62,27 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{tuple(k.shape)}")
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"{FLASH}: head_dim {D} not in {FLASH_HEAD_DIMS}")
-    if Sq > Skv:
-        raise ValueError(f"{FLASH}: Sq {Sq} > Skv {Skv} (queries are "
+    if causal and Sq > Skv:
+        raise ValueError(f"{FLASH}: causal Sq {Sq} > Skv {Skv} (queries are "
                          "right-aligned over the keys)")
+    return B, H, KH, Sq, Skv, D
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None, cap: float = 0.0,
+                    return_lse: bool = False):
+    """q: (B, H, Sq, D); k, v: (B, KH, Skv, D) with H = KH*G, D in {64,
+    128, 256} and, for a causal call, Sq <= Skv (`flash_shapes`). Inputs
+    may be strided views (a transposed (B, S, H, D) projection, say) as
+    long as the last dim is contiguous and every row starts on 16 bytes.
+    Returns q.dtype of shape (B, H, Sq, D), laid out in memory as (B, Sq,
+    H, D) so that merging the heads back is free; with return_lse also
+    each row's fp32 log-sum-exp (B, H, Sq), the residual of the backward.
+    CUDA only."""
+    check_inputs(FLASH, q, k, v, contiguous=False)
+    code = check_dtype(FLASH, "q", q, ACT_DTYPES)
+    B, H, KH, Sq, Skv, D = flash_shapes(q, k, v, causal)
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:

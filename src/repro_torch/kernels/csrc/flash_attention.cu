@@ -37,8 +37,12 @@
 // shuffles.
 //
 // Both: key tiles masked for every row of the block (above the causal
-// diagonal, before the window) are skipped, which needs Sq <= Skv (the
-// wrapper checks it): every row keeps at least its own key.
+// diagonal, before the window) are skipped, which needs Sq <= Skv in a
+// causal call (the wrapper checks it): every row keeps at least its own
+// key. A non-causal call reads every key tile (key_range's end is Skv), so
+// any Sq, more queries than keys included (a decoder of more tokens than
+// the encoder's frames cross-attending); a tail tile past Skv is
+// zero-filled and masked by kj < Skv.
 #include "common.cuh"
 
 namespace {

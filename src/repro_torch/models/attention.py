@@ -37,7 +37,17 @@ block applies it together with the residual add and the norm that follows
 through hooks, as in JAX: LoRA adds its low-rank deltas to q and v before
 the biases; IA3 scales k and v per channel after rope and before the cache
 stores them (a per-channel scale does not commute with rope's pairwise
-rotation). Cross-attention arrives with a later slice.
+rotation).
+
+Cross-attention (an encdec decoder's `cross_attn` slot, JAX's
+`is_cross` branch): K/V come from the encoder output `kv_x`, with no RoPE
+on q or k and no k_norm, and the mask is never causal. Prefill (or a
+cache-free forward) attends through #4 non-causally, queries over every
+encoder frame whatever their count, and prefill returns {"ck", "cv"} (B,
+S_enc, KH, D), built once; a decode step reads them through #5 without the
+K/V projections: `cross_view` shows the cache as a pool of
+`decode_page(S_enc)`-token pages with kv_lens = S_enc on every row, so
+each query, right-aligned at the last key, sees every frame.
 """
 from __future__ import annotations
 
@@ -59,7 +69,10 @@ from repro_torch.quant.qtensor import (QTensor, _storage_dtype, is_qtensor,
 DECODE_PAGE = 16
 
 
-def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
+def attn_init(gen: torch.Generator, cfg: ModelCfg,
+              cross: bool = False) -> dict:
+    """A block's attention leaves; a cross-attention block (`cross`) has
+    no q_norm/k_norm, as in JAX."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {
         "wq": dense_init(gen, d, qd, cfg.pdtype),
@@ -73,21 +86,21 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg) -> dict:
         p["bk"] = torch.zeros((kvd,), dtype=cfg.pdtype, device=dev)
         p["bv"] = torch.zeros((kvd,), dtype=cfg.pdtype, device=dev)
         p["bo"] = torch.zeros((d,), dtype=cfg.pdtype, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((cfg.head_dim,), dtype=cfg.pdtype, device=dev)
         p["k_norm"] = torch.ones((cfg.head_dim,), dtype=cfg.pdtype, device=dev)
     return p
 
 
 def check_slot(slot: Slot) -> None:
-    if (slot.kind not in ("attn", "rec", "rwkv") or slot.cross_attn
-            or (slot.moe and slot.kind == "rwkv")):
+    if (slot.kind not in ("attn", "rec", "rwkv")
+            or (slot.kind == "rwkv" and (slot.moe or slot.cross_attn))):
         raise NotImplementedError(
-            f"slot {slot} is not ported: the port serves self-attention "
+            f"slot {slot} is not ported: the port runs self-attention "
             "(full-range or windowed) and RG-LRU blocks, each with a dense "
-            "or mixture-of-experts FFN, and RWKV6 blocks with their channel "
-            "mix; cross-attention blocks and an RWKV6 block with experts "
-            "arrive with the other-families slice")
+            "or mixture-of-experts FFN and optionally a cross-attention "
+            "sublayer, and RWKV6 blocks with their channel mix; an RWKV6 "
+            "block with experts or cross-attention is not ported")
 
 
 def cache_size(slot: Slot, cache_len: int) -> int:
@@ -121,6 +134,17 @@ def pool_view(cache: dict) -> dict:
     page = decode_page(L)
     shape = (B * L // page, page, KH, D)
     return {"k": cache["k"].view(shape), "v": cache["v"].view(shape)}
+
+
+def cross_view(cache: dict, tables: torch.Tensor,
+               kv_lens: torch.Tensor) -> dict:
+    """A cross-attention layer's {"ck", "cv"} (B, S_enc, KH, D) as the
+    pool a decode step reads through #5: `pool_view`'s pages with the
+    tables of `decode_tables(B, S_enc)` and kv_lens = S_enc on every row
+    (the caller makes both once a step; every cross layer shares them)."""
+    view = pool_view({"k": cache["ck"], "v": cache["cv"]})
+    return {"ck": view["k"], "cv": view["v"], "tables": tables,
+            "kv_lens": kv_lens}
 
 
 _QUANT_MODE = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
@@ -189,7 +213,7 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                tables: Optional[torch.Tensor] = None,
                concat_adapter: Optional[tuple] = None,
                adapter: Optional[dict] = None, causal: bool = True,
-               impl: str = "auto"):
+               kv_x: Optional[torch.Tensor] = None, impl: str = "auto"):
     """x: (B, S, d). Prefill (cache_len given), a cache-free forward
     (neither given; the encoder passes causal=False) or a step over a
     block pool (cache, write_pos (B, S), the block tables (B, nbt) int32
@@ -199,8 +223,14 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     'attn_concat' Hadamard adapter, applied on Concat(heads) before W_O:
     one (d,) adapter through `HadamardAffine` (kernels #1/#2), per-row
     (B, d) rows in plain torch. adapter: the block's LoRA or IA3 leaves
-    (cfg.adapter.kind says which). Returns (y, cache)."""
+    (cfg.adapter.kind says which). kv_x (B, S_enc, d): the encoder output
+    a cross-attention sublayer attends over, at prefill or in a cache-free
+    forward; a cross decode step passes `cross_view`'s pool as cache.
+    Returns (y, cache)."""
     check_slot(slot)
+    if kv_x is not None or (cache is not None and "ck" in cache):
+        return _apply_cross(p, cfg, x, kv_x=kv_x, cache=cache,
+                            cache_len=cache_len, impl=impl)
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.cdtype
@@ -280,6 +310,55 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         w, b = concat_adapter
         out = (apply_hadamard(out, w, b) if w.dim() == 2
                else HadamardAffine.apply(out, w, b, impl))
+    y = qdense(out, p["wo"], cdt, impl, tag="attn/wo")
+    if "bo" in p:
+        y = y + p["bo"].to(cdt)
+    return y, new_cache
+
+
+def _apply_cross(p: dict, cfg: ModelCfg, x: torch.Tensor, *,
+                 kv_x: Optional[torch.Tensor], cache: Optional[dict],
+                 cache_len: Optional[int], impl: str):
+    """Cross-attention, JAX's `is_cross` branch of `apply_attn`: queries
+    from x, K/V from the encoder output kv_x (no RoPE, no k_norm; a block's
+    adapter never reaches it), non-causal. With cache (`cross_view`) a
+    decode step reads the stored K/V through #5; else #4 attends over
+    kv_x, and with cache_len the fresh {"ck", "cv"} come back."""
+    B, S, _ = x.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = cfg.cdtype
+    q = qdense(x, p["wq"], cdt, impl, tag="attn/wq")
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+    q = q.reshape(B, S, H, Dh)
+    if "q_norm" in p:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+    scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
+    new_cache = None
+    if cache is not None:
+        qh = q[:, 0] if S == 1 else q.transpose(1, 2).contiguous()
+        out = ops.paged_attention(qh, cache["ck"], cache["cv"],
+                                  cache["tables"], cache["kv_lens"],
+                                  scale=scale, cap=cfg.attn_softcap,
+                                  impl=impl)
+        if S > 1:
+            out = out.transpose(1, 2)
+        out = out.to(cdt).reshape(B, S, H * Dh)
+        new_cache = cache
+    else:
+        k = qdense(kv_x, p["wk"], cdt, impl, tag="attn/wk")
+        v = qdense(kv_x, p["wv"], cdt, impl, tag="attn/wv")
+        if "bk" in p:
+            k = k + p["bk"].to(cdt)
+            v = v + p["bv"].to(cdt)
+        k = k.reshape(B, -1, KH, Dh)
+        v = v.reshape(B, -1, KH, Dh)
+        out = FlashAttention.apply(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), False,
+            None, scale, cfg.attn_softcap, impl)
+        out = out.transpose(1, 2).reshape(B, S, H * Dh)
+        if cache_len is not None:
+            new_cache = {"ck": k, "cv": v}
     y = qdense(out, p["wo"], cdt, impl, tag="attn/wo")
     if "bo" in p:
         y = y + p["bo"].to(cdt)

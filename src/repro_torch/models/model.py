@@ -1,18 +1,25 @@
 """Model families (port of `repro.models.model`): the decoder LM (init,
 embedding, tied head, the teacher-forced training forward, prefill and
-per-row decode) and the BERT-style
-encoder classifier (learned positions, segment embeddings, post-LN
-blocks, pooler and classifier).
+per-row decode), the BERT-style encoder classifier (learned positions,
+segment embeddings, post-LN blocks, pooler and classifier), the
+encoder-decoder (whisper: an audio encoder over precomputed frame
+embeddings, a causal decoder with cross-attention) and the VLM
+(internvl2: precomputed patch embeddings through `vlm_proj`, prepended to
+the text of a decoder LM).
 
 Parameters are a plain dict:
   {"embed": {"table"}, "layers": [block params, ...], "final_norm": {...}}
 with one entry of "layers" per block in execution order (`cfg.layer_slots`);
 "lm_head" only when embeddings are untied; an encoder adds "pos_embed",
-"type_embed", "embed_norm", "pooler" and an fp32 "classifier". Caches are
+"type_embed", "embed_norm", "pooler" and an fp32 "classifier"; an encdec
+model "enc_layers" (the encoder's blocks, `cfg.enc_layer_slots`),
+"enc_final_norm", "enc_pos_embed" and the decoder's "pos_embed"; a VLM
+"vlm_proj". Caches are
 a list with one dict per layer: {"k", "v"} for an attention layer (of the
 cache length, or a windowed layer's ring, `attention.cache_size`), the
 recurrent state {"S", "tm_prev", "cm_prev"} for an RWKV6 layer and {"h",
-"conv"} for an RG-LRU layer (`models/recurrent.py`). A
+"conv"} for an RG-LRU layer (`models/recurrent.py`); a cross-attention
+layer adds the encoder's {"ck", "cv"} (B, S_enc, KH, D) beside its own. A
 mixture-of-experts layer (`models/moe.py`) holds "moe" in place of "mlp";
 its tokens route together, so under MoE the rows of a batch are no longer
 independent: every row (an idle slot's too) takes expert capacity. A paged
@@ -32,7 +39,8 @@ import torch
 
 from repro_torch.common.types import ModelCfg
 from repro_torch.models.attention import (cache_size, check_slot,
-                                          decode_tables, pool_init, pool_view)
+                                          cross_view, decode_tables,
+                                          pool_init, pool_view)
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                       gen_device, norm_init)
 from repro_torch.models.program import block_apply, block_init
@@ -42,16 +50,23 @@ from repro_torch.quant.qtensor import qdense
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
-    if cfg.family not in ("decoder", "encoder"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported: the port runs decoder LMs "
-            "and BERT-style encoders; encdec (whisper) and VLM backbones "
-            "arrive with the other-families slice")
-    for slot in cfg.layer_slots():
+    if cfg.family not in ("decoder", "encoder", "encdec", "vlm"):
+        raise NotImplementedError(f"unknown model family {cfg.family!r}")
+    if (cfg.family == "encdec") != bool(cfg.enc_groups):
+        raise ValueError(f"{cfg.name}: an encdec config holds its encoder "
+                         "in enc_groups, and only an encdec config has "
+                         f"enc_groups (family {cfg.family!r}, "
+                         f"{len(cfg.enc_groups)} enc_groups)")
+    for slot in cfg.layer_slots() + cfg.enc_layer_slots():
         check_slot(slot)
         if slot.moe and cfg.moe is None:
             raise ValueError(f"{cfg.name}: a moe slot needs cfg.moe (a "
                              "MoECfg)")
+    if any(s.cross_attn for s in cfg.enc_layer_slots()) or (
+            cfg.family != "encdec"
+            and any(s.cross_attn for s in cfg.layer_slots())):
+        raise ValueError(f"{cfg.name}: cross-attention slots belong to an "
+                         "encdec config's decoder")
 
 
 def has_attention(cfg: ModelCfg) -> bool:
@@ -88,6 +103,14 @@ def init_params(gen: torch.Generator, cfg: ModelCfg) -> dict:
     # an encoder never reads final_norm; JAX makes it all the same, and
     # the parameter counts must agree
     p["final_norm"] = norm_init(cfg, dev)
+    if cfg.enc_groups:
+        p["enc_layers"] = [block_init(gen, cfg, s)
+                           for s in cfg.enc_layer_slots()]
+        p["enc_final_norm"] = norm_init(cfg, dev)
+        p["enc_pos_embed"] = {"table": embed_init(gen, cfg.n_audio_frames, d,
+                                                  cfg.pdtype)}
+    if cfg.family == "vlm":
+        p["vlm_proj"] = {"kernel": dense_init(gen, d, d, cfg.pdtype)}
     if cfg.family == "encoder":
         p["pooler"] = {"kernel": dense_init(gen, d, d, cfg.pdtype),
                        "bias": torch.zeros((d,), dtype=cfg.pdtype, device=dev)}
@@ -134,13 +157,17 @@ def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
 
 def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                 write_pos=None, kv_lens=None, tables=None, task_ids=None,
-                gates=None, causal=True, impl="auto"):
+                gates=None, causal=True, enc_out=None, encoder=False,
+                impl="auto"):
     """Returns (x, caches, aux): aux the sum of the MoE blocks'
     load-balancing losses in layer order (JAX's `_run_groups`), None when
     no block has one. tables: one (B, nbt) tensor every layer shares, or a
-    list of one a layer."""
+    list of one a layer. encoder: run the encdec encoder's stack
+    ("enc_layers") in place of the decoder's."""
+    layers, slots = ((params["enc_layers"], cfg.enc_layer_slots())
+                     if encoder else (params["layers"], cfg.layer_slots()))
     new_caches, aux_total = [], None
-    for i, (p, slot) in enumerate(zip(params["layers"], cfg.layer_slots())):
+    for i, (p, slot) in enumerate(zip(layers, slots)):
         x, c, aux = block_apply(p, cfg, slot, x, q_pos=q_pos,
                                 cache=None if caches is None else caches[i],
                                 cache_len=cache_len, write_pos=write_pos,
@@ -148,17 +175,50 @@ def _run_layers(params, cfg, x, *, q_pos, caches=None, cache_len=None,
                                 tables=(tables[i] if isinstance(tables, list)
                                         else tables), task_ids=task_ids,
                                 gate=None if gates is None else gates[i],
-                                causal=causal, impl=impl)
+                                causal=causal, enc_out=enc_out, impl=impl)
         new_caches.append(c)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, new_caches, aux_total
 
 
+def _zero_aux(aux, device):
+    """The summed MoE aux loss, or an fp32 0 where no block has one."""
+    return (torch.zeros((), dtype=torch.float32, device=device)
+            if aux is None else aux)
+
+
+def _decoder_embed(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+                   patches: Optional[torch.Tensor] = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """JAX's `_decoder_embed`: the tokens embedded at positions 0..S_txt-1
+    (a learned position table adds them); a VLM's patches (B, n_img, d)
+    projected by `vlm_proj` (`qdense`, tag "vlm_proj") and put ahead of
+    the text, (B, n_img + S_txt, d)."""
+    pos = (torch.arange(tokens.shape[1], device=tokens.device)
+           if cfg.pos == "learned" else None)  # only a table reads them
+    x = embed_tokens(params, cfg, tokens, positions=pos)
+    if cfg.family == "vlm" and patches is not None:
+        img = qdense(patches.to(cfg.cdtype), params["vlm_proj"]["kernel"],
+                     cfg.cdtype, impl, tag="vlm_proj")
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def _check_lm(cfg: ModelCfg, what: str) -> None:
+    _check_cfg(cfg)
+    if cfg.family not in ("decoder", "vlm"):
+        raise ValueError(f"{what} needs a decoder or VLM config, got family "
+                         f"{cfg.family!r}")
+
+
 def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
-                   impl: str = "auto"):
-    """tokens (B, S) -> (final-norm hidden states (B, S, d), aux) of the
-    teacher-forced causal forward (training), as JAX's `forward_hidden`:
+                   impl: str = "auto",
+                   patches: Optional[torch.Tensor] = None):
+    """tokens (B, S) [, a VLM's patches (B, n_img, d)] -> (final-norm
+    hidden states (B, n_img + S, d), aux) of the teacher-forced causal
+    forward (training), as JAX's `forward_hidden`; RoPE positions run over
+    the image rows and the text together:
     aux is the summed MoE load-balancing loss, an fp32 scalar, 0 for a
     model without MoE blocks. The logits are left to the caller, so the
     loss can compute them in sequence chunks (cfg.ce_chunk). No caches are
@@ -173,32 +233,33 @@ def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     card's memory) and reads no remat option. An RWKV6 layer runs #8
     forward and, under autograd, the recurrence's plain chunked backward
     (`kernels.rwkv6.WKV6`)."""
-    _check_cfg(cfg)
-    if cfg.family != "decoder":
-        raise ValueError(f"forward_hidden needs a decoder config, got "
-                         f"family {cfg.family!r}")
-    x = embed_tokens(params, cfg, tokens)
-    q_pos = torch.arange(tokens.shape[1], device=tokens.device)
+    _check_lm(cfg, "forward_hidden")
+    x = _decoder_embed(params, cfg, tokens, patches, impl)
+    q_pos = torch.arange(x.shape[1], device=tokens.device)
     x, _, aux = _run_layers(params, cfg, x, q_pos=q_pos, causal=True,
                             impl=impl)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return apply_norm(params["final_norm"], cfg, x), aux
+    return apply_norm(params["final_norm"], cfg, x), _zero_aux(aux, x.device)
 
 
 def forward_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
-               impl: str = "auto") -> torch.Tensor:
-    """Teacher-forced full-sequence fp32 logits (B, S, V) (training)."""
-    return lm_logits(params, cfg,
-                     forward_hidden(params, cfg, tokens, impl)[0], impl)
+               impl: str = "auto",
+               patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Teacher-forced full-sequence fp32 logits (B, S, V) (training); a
+    VLM's patches put n_img rows ahead, (B, n_img + S, V)."""
+    return lm_logits(params, cfg, forward_hidden(params, cfg, tokens, impl,
+                                                 patches)[0], impl)
 
 
 def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                cache_len: int, last_pos: Optional[int] = None,
                task_ids: Optional[torch.Tensor] = None,
-               gates: Optional[torch.Tensor] = None, impl: str = "auto"):
+               gates: Optional[torch.Tensor] = None, impl: str = "auto",
+               patches: Optional[torch.Tensor] = None):
     """tokens (B, S) -> (logits (B, 1, V) at `last_pos` (default the last
-    position), caches of length cache_len holding positions 0..S-1).
+    position), caches of length cache_len holding positions 0..S-1). A
+    VLM's patches (B, n_img, d) go ahead of the text: the caches hold
+    positions 0..n_img+S-1, last_pos indexes that sequence and decoding
+    goes on at position n_img + S.
     A right-padded prompt passes its true last index as last_pos: under
     causal masking the pad never reaches positions <= last_pos; a config
     with recurrent state refuses one, since the state would take the pad
@@ -207,13 +268,14 @@ def prefill_lm(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     (L, bank rows) fp32 row gates of a hot-swap bank (`AdapterBank`), on
     the params' device; with them every block's bank adapter runs the
     masked multitask op with its layer's row."""
-    S = tokens.shape[1]
+    _check_lm(cfg, "prefill_lm")
+    x = _decoder_embed(params, cfg, tokens, patches, impl)
+    S = x.shape[1]
     lp = S - 1 if last_pos is None else int(last_pos)
     if lp != S - 1 and has_recurrent_state(cfg):
         raise ValueError(
             f"last_pos {lp} of a {S}-token prompt: a layer's recurrent state "
             "would take in the tokens after it; prefill the prompt unpadded")
-    x = embed_tokens(params, cfg, tokens)
     q_pos = torch.arange(S, device=tokens.device)
     x, caches, _ = _run_layers(params, cfg, x, q_pos=q_pos,
                                cache_len=cache_len, task_ids=task_ids,
@@ -239,24 +301,41 @@ def _pool_step(params, cfg, pool, tokens, write_pos, tables, task_ids,
 
 
 def _slot_step(params, cfg, caches, tokens, write_pos, task_ids, gates,
-               impl):
+               impl, positions=None):
     """`_pool_step` over contiguous slot caches, each viewed as a pool of
     `decode_page(L)`-token pages with its own tables (`decode_tables`, one
     per cache length: a windowed layer's ring is shorter than a full-range
-    layer's cache); the caches are written in place."""
+    layer's cache); the caches are written in place. A cross-attention
+    layer's {"ck", "cv"} go along as `cross_view`'s pool, whose tables and
+    kv_lens every such layer shares."""
     tables = None
     views = caches
     if has_attention(cfg):
+        B, dev = tokens.shape[0], tokens.device
         by_len = {}
         tables = []
         for c in caches:
             L = c["k"].shape[1] if "k" in c else None
             if L is not None and L not in by_len:
-                by_len[L] = decode_tables(tokens.shape[0], L, tokens.device)
+                by_len[L] = decode_tables(B, L, dev)
             tables.append(by_len.get(L))
-        views = [pool_view(c) if "k" in c else c for c in caches]
+        cross = {}
+        views = []
+        for c in caches:
+            if "k" not in c:
+                views.append(c)
+                continue
+            view = pool_view(c)
+            if "ck" in c:
+                L = c["ck"].shape[1]
+                if L not in cross:
+                    cross[L] = (decode_tables(B, L, dev),
+                                torch.full((B,), L, dtype=torch.int32,
+                                           device=dev))
+                view["cross"] = cross_view(c, *cross[L])
+            views.append(view)
     return _pool_step(params, cfg, views, tokens, write_pos, tables,
-                      task_ids, gates, impl)
+                      task_ids, gates, impl, positions)
 
 
 def _positions(pos: torch.Tensor, S: int, device) -> torch.Tensor:
@@ -418,17 +497,108 @@ def init_decode_caches(cfg: ModelCfg, batch: int, cache_len: int,
     """Zeroed per-layer caches: (batch, size, KH, D) K/V for an attention
     layer, size = cache_len or a windowed layer's ring
     (`attention.cache_size`), the recurrent state of `rwkv_cache_init` or
-    `rec_cache_init` (no length) for an RWKV6 or an RG-LRU layer."""
+    `rec_cache_init` (no length) for an RWKV6 or an RG-LRU layer; a
+    cross-attention layer adds "ck", "cv" of (batch, n_audio_frames, KH,
+    D), as JAX's `group_cache_init` does."""
     _check_cfg(cfg)
+
+    def kv(size, names):
+        shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+        return {name: torch.zeros(shape, dtype=cfg.cdtype, device=device)
+                for name in names}
 
     def one(slot):
         if slot.kind == "rwkv":
             return rwkv_cache_init(cfg, batch, device)
-        if slot.kind == "rec":
-            return rec_cache_init(cfg, batch, device)
-        shape = (batch, cache_size(slot, cache_len), cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {name: torch.zeros(shape, dtype=cfg.cdtype, device=device)
-                for name in ("k", "v")}
+        c = (rec_cache_init(cfg, batch, device) if slot.kind == "rec"
+             else kv(cache_size(slot, cache_len), ("k", "v")))
+        if slot.cross_attn:
+            c.update(kv(cfg.n_audio_frames, ("ck", "cv")))
+        return c
 
     return [one(slot) for slot in cfg.layer_slots()]
+
+
+# ---------------------------------------------------------------------------
+# the encdec (whisper) family
+# ---------------------------------------------------------------------------
+
+
+def _check_encdec(cfg: ModelCfg, what: str) -> None:
+    _check_cfg(cfg)
+    if cfg.family != "encdec":
+        raise ValueError(f"{what} needs an encdec config, got family "
+                         f"{cfg.family!r}")
+
+
+def encode_audio(params: dict, cfg: ModelCfg, frames: torch.Tensor,
+                 impl: str = "auto") -> torch.Tensor:
+    """frames (B, S_enc, d): precomputed conv-frontend embeddings (the
+    front end is stubbed, as in JAX) -> the encoder's final-norm states
+    (B, S_enc, d): learned positions added, then the encoder's pre-LN
+    blocks, non-causal (#4 at S_enc keys, #3 at each seam)."""
+    _check_encdec(cfg, "encode_audio")
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(cfg.cdtype) + \
+        params["enc_pos_embed"]["table"][pos].to(cfg.cdtype)
+    x, _, _ = _run_layers(params, cfg, x, q_pos=pos, causal=False,
+                          encoder=True, impl=impl)
+    return apply_norm(params["enc_final_norm"], cfg, x)
+
+
+def forward_encdec(params: dict, cfg: ModelCfg, frames: torch.Tensor,
+                   tokens: torch.Tensor, impl: str = "auto"):
+    """Teacher-forced (fp32 logits (B, S, V), aux) of the decoder over
+    tokens (B, S), cross-attending to `encode_audio(frames)`, as JAX's
+    `forward_encdec`; learned positions 0..S-1."""
+    enc = encode_audio(params, cfg, frames, impl)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, positions=pos)
+    x, _, aux = _run_layers(params, cfg, x, q_pos=pos, causal=True,
+                            enc_out=enc, impl=impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x, impl), _zero_aux(aux, x.device)
+
+
+def prefill_encdec(params: dict, cfg: ModelCfg, frames: torch.Tensor,
+                   tokens: torch.Tensor, cache_len: int,
+                   impl: str = "auto"):
+    """-> (logits (B, 1, V) at the last token, caches): each decoder
+    layer's self-attention K/V of length cache_len holding positions
+    0..S-1, and the encoder's K/V "ck", "cv" (B, S_enc, KH, D) its cross
+    sublayer made once from the encoder output."""
+    enc = encode_audio(params, cfg, frames, impl)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, positions=pos)
+    x, caches, _ = _run_layers(params, cfg, x, q_pos=pos, causal=True,
+                               cache_len=cache_len, enc_out=enc, impl=impl)
+    x = apply_norm(params["final_norm"], cfg, x[:, -1:])
+    return lm_logits(params, cfg, x, impl), caches
+
+
+def decode_encdec(params: dict, cfg: ModelCfg, caches: List[dict],
+                  token: torch.Tensor, pos, impl: str = "auto"):
+    """One decode step of token (B, 1) at pos: a scalar shared by every
+    row, or (B,) per-row positions. The learned position is added, as
+    JAX's `decode_encdec` does; self-attention writes its K/V in place and
+    attends through #5, the cross sublayer reads "ck", "cv" through #5
+    without the K/V projections. Returns (fp32 logits (B, 1, V),
+    caches)."""
+    _check_encdec(cfg, "decode_encdec")
+    B = token.shape[0]
+    pos = torch.as_tensor(pos, device=token.device)
+    if pos.dim() == 0:
+        pos = pos.expand(B)
+    wp = _positions(pos, 1, token.device)
+    x = _slot_step(params, cfg, caches, token, wp, None, None, impl,
+                   positions=wp)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x, impl), caches
+
+
+def init_encdec_caches(cfg: ModelCfg, batch: int, cache_len: int,
+                       device) -> List[dict]:
+    """Zeroed decoder caches with the encoder's K/V slots, as JAX's
+    `init_encdec_caches`: `init_decode_caches` of an encdec config."""
+    _check_encdec(cfg, "init_encdec_caches")
+    return init_decode_caches(cfg, batch, cache_len, device)

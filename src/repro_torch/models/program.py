@@ -56,6 +56,17 @@ A `moe` slot's FFN is the mixture of experts of `models/moe.py` in place
 of the MLP, as in JAX's `block_apply`: the seam and the adapter stay as
 they are, and the experts' load-balancing loss comes back as the block's
 aux, which `models.model._run_layers` sums over the layers.
+
+A `cross_attn` slot (whisper's decoder) adds a cross-attention sublayer
+after the self-attention residual, as `repro/models/program.py:181-187`:
+h = cross_norm(x); x = x + cross(h, enc_out); h = ffn_norm(x). So the
+norm that follows the adapter and the self-attention residual is
+`cross_norm`, not `ffn_norm`: the seam (#3 for one adapter) normalises by
+the norm that actually follows, and after the cross residual comes a plain
+add and `ffn_norm`, with no adapter (JAX passes `adapter=None` to the
+cross block). Its cache: the self-attention {"k", "v"} beside the
+encoder's {"ck", "cv"}; a decode step hands the block `cross_view`'s pool
+under "cross".
 """
 from __future__ import annotations
 
@@ -141,6 +152,9 @@ def block_init(gen: torch.Generator, cfg: ModelCfg, slot: Slot) -> dict:
             p["rec"] = rec_init(gen, cfg)
         else:
             p["attn"] = attn_init(gen, cfg)
+        if slot.cross_attn:
+            p["cross_norm"] = norm_init(cfg, dev)
+            p["cross"] = attn_init(gen, cfg, cross=True)
         if slot.moe:
             p["moe"] = moe_init(gen, cfg)
         else:
@@ -162,13 +176,14 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
                 tables: Optional[torch.Tensor] = None,
                 task_ids: Optional[torch.Tensor] = None,
                 gate: Optional[torch.Tensor] = None, causal: bool = True,
-                impl: str = "auto"):
+                enc_out: Optional[torch.Tensor] = None, impl: str = "auto"):
     """One block, pre-LN or post-LN (`cfg.ln_placement`). Returns (x,
     cache, aux): aux the MoE FFN's load-balancing loss (fp32 scalar), None
     for a block without one. task_ids (B,) int32 select each row's bank
     row when the adapter leaves are a (T, d) bank; gate (T,) fp32 gates
     the bank's rows (a pruned tenant's layer passes through as the
-    identity)."""
+    identity). enc_out (B, S_enc, d): the encoder output a cross slot
+    attends over at prefill or in a cache-free forward."""
     if cfg.ln_placement == "post":
         return _post_ln_block(p, cfg, slot, x, q_pos=q_pos, causal=causal,
                               impl=impl), None, None
@@ -197,7 +212,19 @@ def block_apply(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
         seam_ad = ad if acfg.position == "attn_out" else None
     if houlsby is not None:
         a = _houlsby(houlsby["attn_ad"], a)
-    x, h = _residual_seam(p, cfg, x, a, seam_ad, task_ids, gate, impl)
+    if slot.cross_attn:
+        x, hc = _residual_seam(p, cfg, x, a, seam_ad, task_ids, gate, impl,
+                               norm=p["cross_norm"])
+        ca, cc = apply_attn(p["cross"], cfg, slot, hc, q_pos=q_pos,
+                            cache=None if cache is None
+                            else cache.get("cross"),
+                            cache_len=cache_len, kv_x=enc_out, impl=impl)
+        x = x + ca
+        h = apply_norm(p["ffn_norm"], cfg, x)
+        if cache_len is not None:  # prefill: the self and cross caches
+            cache = {**cache, **cc}
+    else:
+        x, h = _residual_seam(p, cfg, x, a, seam_ad, task_ids, gate, impl)
     aux = None
     if slot.moe:
         f, aux = moe_apply(p["moe"], cfg, h)
@@ -225,10 +252,11 @@ def _adapter(p: dict, cfg: ModelCfg, task_ids) -> Optional[dict]:
 
 
 def _residual_seam(p: dict, cfg: ModelCfg, x, a, ad, task_ids, gate,
-                   impl: str):
+                   impl: str, norm: Optional[dict] = None):
     """The mixer output `a` through the adapter `ad` (None: no adapter at
-    this seam), the residual add and the ffn norm. Returns (x, h)."""
-    ffn_norm = p["ffn_norm"]
+    this seam), the residual add and the norm that follows: `norm`, the
+    ffn norm unless given (a cross slot's `cross_norm`). Returns (x, h)."""
+    nrm = p["ffn_norm"] if norm is None else norm
     if ad is not None and ad["w"].dim() == 2:  # a bank: #9 gated, else #6
         a = (ops.masked_multitask_hadamard(a, ad["w"], ad["b"], gate,
                                            task_ids, impl=impl)
@@ -237,14 +265,14 @@ def _residual_seam(p: dict, cfg: ModelCfg, x, a, ad, task_ids, gate,
                                     impl=impl))
     elif ad is not None and not cfg.post_norms:
         return FusedAdapterResidualNorm.apply(
-            a, x, ad["w"], ad["b"], ffn_norm["scale"], ffn_norm.get("bias"),
+            a, x, ad["w"], ad["b"], nrm["scale"], nrm.get("bias"),
             cfg.norm_eps, impl)
     elif ad is not None:  # a post-norm between adapter and add: #1 alone
         a = HadamardAffine.apply(a, ad["w"], ad["b"], impl)
     if cfg.post_norms:
         a = apply_norm(p["post_attn_norm"], cfg, a)
     x = x + a
-    return x, apply_norm(ffn_norm, cfg, x)
+    return x, apply_norm(nrm, cfg, x)
 
 
 def _rwkv_block(p: dict, cfg: ModelCfg, x: torch.Tensor, *,

@@ -1,6 +1,7 @@
 """Loss functions (port of `repro.train.losses`): the decoder LM's
-next-token cross-entropy (whole or in sequence chunks) and the encoder
-classifier's loss."""
+next-token cross-entropy (whole or in sequence chunks; a VLM's over its
+text positions only), the encoder-decoder's and the encoder classifier's
+loss."""
 from __future__ import annotations
 
 import torch
@@ -53,16 +54,31 @@ def chunked_cross_entropy(cfg: ModelCfg, params, h, labels, chunk: int,
 
 def lm_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
     """(loss, metrics) of next-token prediction on one batch of tokens and
-    labels (B, S); over cfg.ce_chunk-token chunks when it is set. The MoE
+    labels (B, S); over cfg.ce_chunk-token chunks when it is set. A VLM's
+    batch carries "patches" (B, n_img, d) too, and the loss reads the last
+    S positions alone, the text's (`h[:, -S:]`), as JAX's does. The MoE
     blocks' load-balancing loss is added, as in JAX (0 for a dense
     decoder); metrics "ce" holds the sum, as JAX's does."""
     labels = batch["labels"]
-    h, aux = M.forward_hidden(params, cfg, batch["tokens"], impl)
+    h, aux = M.forward_hidden(params, cfg, batch["tokens"], impl,
+                              patches=batch.get("patches"))
+    if cfg.family == "vlm":  # the loss covers the text positions alone
+        h = h[:, -labels.shape[1]:]
     if cfg.ce_chunk:
         loss = chunked_cross_entropy(cfg, params, h, labels, cfg.ce_chunk,
                                      impl) + aux
     else:
         loss = cross_entropy(M.lm_logits(params, cfg, h, impl), labels) + aux
+    return loss, {"ce": loss, "aux": aux}
+
+
+def encdec_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
+    """(loss, metrics) of the encoder-decoder on one batch: frames (B,
+    S_enc, d), tokens and labels (B, S); the decoder's next-token
+    cross-entropy plus the aux loss, as JAX's `encdec_loss`."""
+    logits, aux = M.forward_encdec(params, cfg, batch["frames"],
+                                   batch["tokens"], impl)
+    loss = cross_entropy(logits, batch["labels"]) + aux
     return loss, {"ce": loss, "aux": aux}
 
 
@@ -82,11 +98,8 @@ def classification_loss(cfg: ModelCfg, params, batch, impl: str = "auto"):
 
 
 def loss_for(cfg: ModelCfg):
-    """The loss of the config's family: `lm_loss` for a decoder (attention
-    or RWKV6 blocks), `classification_loss` for an encoder. Families the
-    port does not train raise, naming the slice that brings them."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"no {cfg.family} loss yet: encdec (whisper) and VLM backbones "
-            "arrive with the other-families slice")
-    return {"decoder": lm_loss, "encoder": classification_loss}[cfg.family]
+    """The loss of the config's family, as JAX's `loss_for`: `lm_loss`
+    for a decoder or a VLM, `encdec_loss` for an encoder-decoder,
+    `classification_loss` for an encoder."""
+    return {"decoder": lm_loss, "vlm": lm_loss, "encdec": encdec_loss,
+            "encoder": classification_loss}[cfg.family]

@@ -210,7 +210,9 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
     `pretrain.mlm_loss`).
 
     microbatch=n accumulates the gradient over n slices of the batch's
-    leading dim, as JAX's scan does: each slice's gradients add up in fp32,
+    leading dim (every entry: tokens, labels and an encdec batch's frames
+    or a VLM batch's patches), as JAX's scan does: each slice's gradients
+    add up in fp32,
     the sum is scaled by 1/n, and the loss and metrics are the slices'
     means.
 
@@ -227,8 +229,6 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
     clipped by their global norm, and handed to AdamW."""
     if gate is not None and layer_mask is not None:
         raise ValueError("pass either gate or layer_mask, not both")
-    if loss_fn is None:
-        loss_for(cfg)  # a family the port does not train raises here
     gates = None if gate is None else dict(tu.flatten_with_paths(gate))
 
     def gate_of(state):
@@ -285,16 +285,18 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
 def build_eval_step(cfg: ModelCfg):
     """Returns eval(params, batch) -> predictions: class ids (or logit 0 of
     a regression config) of an encoder, each position's argmax token of a
-    decoder LM."""
-    if cfg.family not in ("encoder", "decoder"):
-        raise NotImplementedError(
-            f"evaluating a {cfg.family} model is not ported: it arrives "
-            "with the other-families slice")
+    decoder LM or a VLM (whose batch passes its "patches", as JAX's eval
+    step does). JAX's eval step runs `forward_lm`, which takes no frames,
+    so an encdec config is refused."""
+    if cfg.family == "encdec":
+        raise ValueError("an encdec model has no eval step: JAX's runs "
+                         "forward_lm, which takes no audio frames")
 
     @torch.no_grad()
     def eval_step(params, batch):
-        if cfg.family == "decoder":
-            return M.forward_lm(params, cfg, batch["tokens"]).argmax(-1)
+        if cfg.family in ("decoder", "vlm"):
+            return M.forward_lm(params, cfg, batch["tokens"],
+                                patches=batch.get("patches")).argmax(-1)
         logits, _, _ = M.forward_encoder(params, cfg, batch["tokens"],
                                          batch.get("type_ids"))
         if cfg.is_regression:

@@ -33,9 +33,10 @@ KEY = jax.random.PRNGKey(0)
 def port_cfg(jcfg) -> T.ModelCfg:
     """The port's ModelCfg with every field of a JAX ModelCfg."""
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    kw["groups"] = tuple(
-        T.Group(tuple(T.Slot(**dataclasses.asdict(s)) for s in g.slots),
-                g.repeats) for g in jcfg.groups)
+    for name in ("groups", "enc_groups"):
+        kw[name] = tuple(
+            T.Group(tuple(T.Slot(**dataclasses.asdict(s)) for s in g.slots),
+                    g.repeats) for g in getattr(jcfg, name))
     kw["adapter"] = T.AdapterCfg(**dataclasses.asdict(jcfg.adapter))
     if jcfg.moe is not None:
         kw["moe"] = T.MoECfg(**dataclasses.asdict(jcfg.moe))
@@ -157,13 +158,18 @@ def test_identity_adapters_would_hide_the_seam():
 
 
 def test_unported_blocks_raise_naming_the_slice():
-    # windowed layers (the ring cache), MoE FFNs on attention blocks and
-    # RG-LRU blocks are ported; cross-attention and an RWKV6 block with
-    # experts are not
-    for slot in (T.Slot("rwkv", moe=True), T.Slot("attn", cross_attn=True)):
-        cfg = get_smoke("qwen3-0.6b").replace(groups=(T.Group((slot,), 2),))
-        with pytest.raises(NotImplementedError, match="other-families"):
-            M.init_params(torch.Generator().manual_seed(0), cfg)
+    # windowed layers (the ring cache), MoE FFNs on attention blocks,
+    # RG-LRU blocks and cross-attention (an encdec decoder's) are ported;
+    # an RWKV6 block with experts is not, and a cross slot outside an
+    # encdec config has no encoder to attend over
+    cfg = get_smoke("qwen3-0.6b").replace(
+        groups=(T.Group((T.Slot("rwkv", moe=True),), 2),))
+    with pytest.raises(NotImplementedError, match="RWKV6 block with experts"):
+        M.init_params(torch.Generator().manual_seed(0), cfg)
+    cfg = get_smoke("qwen3-0.6b").replace(
+        groups=(T.Group((T.Slot("attn", cross_attn=True),), 2),))
+    with pytest.raises(ValueError, match="encdec config's decoder"):
+        M.init_params(torch.Generator().manual_seed(0), cfg)
     rec = get_smoke("qwen3-0.6b").replace(
         groups=(T.Group((T.Slot("rec"),), 2),), lru_width=64)
     layers = M.init_params(torch.Generator().manual_seed(0), rec)["layers"]
@@ -180,6 +186,7 @@ def test_unported_blocks_raise_naming_the_slice():
     layers = M.init_params(torch.Generator().manual_seed(0), moe)["layers"]
     assert "mlp" not in layers[0] and layers[0]["moe"]["wi"].shape == (
         4, 64, 16)
-    with pytest.raises(NotImplementedError, match="encdec"):
+    # an encdec config without its encoder stack (enc_groups) is refused
+    with pytest.raises(ValueError, match="encdec config holds its encoder"):
         M.init_params(torch.Generator().manual_seed(0),
                       get_smoke("qwen3-0.6b").replace(family="encdec"))
