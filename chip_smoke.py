@@ -91,7 +91,8 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   5p, 5pq, 5pf, 5s, 5sp, 6p. paged KV and speculative decoding: 8
      requests sharing a 96-token prefix (4 cold admissions, 2 whole-prompt
      hits, 2 prefix hits) in 16-token pages of bf16, int8 and e4m3, then
-     self speculation (k = 4) over the slot caches and over the pool, and
+     self speculation (k = 4, budgets of 8 tokens) over the slot caches
+     and over the pool, and
      a 3-task bank's pool: the admissions and the launches of every
      prefill, extend, decode or verify tick and draft call as predicted,
      the pool drained to 0 live blocks once the prefix cache is cleared,
@@ -106,7 +107,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      ticks, no retrace; in bf16 the tokens' agreement with an unloaded run
      of plain greedy decoding (spec_k = 0) over the same pool is reported,
      in fp32 (4p's model) they must be equal; then phase 5's
-     traffic with metrics on and off in two alternating pairs (host ms a
+     traffic with metrics on and off, one pair (host ms a
      tick and tok/s, their ratio reported), and the serve launcher
      in-process with JAX's obs and SLO flags: its JSON snapshot's series,
      the .prom text of the registry it returns (cumulative buckets), its
@@ -264,6 +265,30 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      8 #3 a prefill), reported as 5wt; then 2 lm_loss steps over the text
      positions (adapters move, 196,608 trainable, 8 #4 + 8 #3 + 8 #2 a
      step);
+  3sc. #3 LayerNorm with its bias (split_row at d 4608, warp_row at
+     3072), #4 causal (1,36|4,128,128) and (1,24|2,128,128) and #5 (4,36,128)
+     over (4,512,4,128) and (4,24,128) over (4,512,2,128), starcoder2-7b's
+     and -3b's serve shapes, as 3iv; #7 at every (K, N) of starcoder2-7b's,
+     starcoder2-3b's, gemma2-27b's and internvl2-76b's quantized trunks
+     (the untied heads and vlm_proj included) at M 4 and 128, fp32 and bf16
+     x over int8 and e4m3 values, the same bits twice, each timed L2-cold
+     at M 4;
+  4sc. starcoder2-7b in fp32 at full width and 2 layers, biases moved off 0:
+     2 x 128 tokens, a prefill and 4 decode steps, kernel path vs plain path
+     within STARCODER["fp32_tol"], past which every adapter's w 30 % off
+     and the attention biases dropped must land;
+  5sc, 5scq. starcoder2-7b bf16 at full width and depth (14.8 GB): SERVE's
+     traffic admitted mid-decode, 32 #5 + 32 #3 a tick and 32 #4 + 32 #3 a
+     prefill (+ 193 #7 over 5scq's int8 trunk, JAX's 7 leaves); the plain
+     path's tokens beside them, the prefill's last logits against the
+     plain path beside planted faults, the launcher at starcoder2-3b;
+  5gq. gemma2-27b over an int8 trunk at full depth, built leaf by leaf in
+     place (the build's peak under 80 GB; JAX's 14 leaves): 8 x (128 +
+     32) on 4 slots of 160, 46 #5 + 46 #1 + 322 #7 a tick; the prefill's
+     last logits against the plain path beside a planted fault;
+  5ivq. internvl2-76b at 8 of 80 layers over an int8 trunk (JAX's 9
+     leaves, vlm_proj and the head among them) on 5iv's traffic: 57 #7 a
+     tick, 58 a prefill;
   5o. qwen3-0.6b with fold=True: at fp32 (phase 4's model) greedy tokens
      equal to the unfolded engine's and each call's launches the same (#3
      on the identity adapter); bf16 and --fold --quant int8 agreement
@@ -298,9 +323,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
      every train step and eval batch counted inside those runs, step rates
      and a torch.profiler breakdown of a train step;
   8d. decoder-LM fine-tuning of qwen3-0.6b in bf16, 16x128 `lm_batches`
-     tokens a step: 30 steps of 'hadamard' (the loss of one fixed batch
-     falls, and every trainable leaf moves), 10 over an
-     int8 trunk calibrated on 2 batches, 10 over fp8, 6 with microbatch=2,
+     tokens a step: 12 steps of 'hadamard' (the loss of one fixed batch
+     falls, and every trainable leaf moves), 4 over an
+     int8 trunk calibrated on 2 batches, 4 over fp8, 4 with microbatch=2,
      and a resume (6 steps saving at step 3; a fresh state restored from
      step 3 takes steps 4-6, held to the unbroken run): finite losses,
      the trainable count (86,016 of 596,107,264), the launches of every
@@ -321,17 +346,17 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
   8r. rwkv6-1.6b LM fine-tuning in bf16, 16x128 tokens a step: the
      Hadamard adapter for 6 steps (a fixed batch's loss falls, every
      trainable leaf moves), an int8 trunk (the head alone: one #7 a step)
-     and compressed gradients over bf16 m + int8 v moments, 4 steps each:
+     and compressed gradients over bf16 m + int8 v moments, 2 steps each:
      196,608 trainable, 24 #8, 24 #3 and 24 #2 launches every step, rates,
      peak bytes and a torch.profiler breakdown of a step;
-  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 12 steps a
+  8q. launch.pretrain's path on bert-base (`full`, MLM, fp32, 6 steps a
      preset): fp32, bf16, bf16+int8 and int8 moments with error feedback,
      and int8 without: each state's bytes equal to state_summary's formula,
      bf16 2.0x, all-int8 no-EF >= 3x, bf16+int8's final loss within 1 % of
-     fp32's, a bf16+int8 run resumed at step 6 bit for bit the unbroken
+     fp32's, a bf16+int8 run resumed at step 3 bit for bit the unbroken
      one, 12 #4 and nothing else launched a step;
   9. one JSON line of per-kernel results (launch counts from phases 5-6rs,
-     5p-6p, 5a, 5g-6gs, 5m-5mq, 5rg-5rgq, 5wt, 5iv,
+     5p-6p, 5a, 5g-6gs, 5m-5mq, 5rg-5rgq, 5wt, 5iv, 5sc-5ivq,
      8, 8d, 8r, 8p, 8q, 8wt and 8iv, and each kernel's device us per decode
      tick and per prefill from the serve profiles);
   then the card's name and power limit, and the last line,
@@ -368,7 +393,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-1.6b"
 SERVE = dict(requests=8, num_slots=4, max_len=512, prompt_len=128,
-             new_tokens=32, seed=0)
+             new_tokens=32, seed=0, spec_new_tokens=8)
 TASKS = 3
 # the paper's experiment: two-stage fine-tune of bert-base on sst2
 TRAIN = dict(arch="bert-base", task="sst2", batch=32, seq=128, steps=30,
@@ -389,13 +414,13 @@ RWKV_TRAINABLE = {"hadamard": (196_608, 1_599_967_232),
 # the paper's own experiment at bert-base's full width (phase 8p), fp32,
 # TRAIN's 32 x 128 tokens a step: MLM pretraining, then the recipe's lanes
 # over it; only the step counts are cut. Pretraining takes JAX's
-# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 60 steps of its
-# 600, and each lane 12 steps, to keep the script inside its time limit
+# pretrain_encoder defaults (lr 1e-3, mask rate 0.15) but 24 steps of its
+# 600, and each lane 8 steps, to keep the script inside its time limit
 # (a 1000-step run on an H100 had its MLM loss at its plateau, near 9.5,
 # by step 400; 300 steps reached 9.52, 100 steps 9.73), the lanes the
 # learning rates of JAX's paper benchmarks (benchmarks/common.py: stage 1
 # 3e-3, adapters 8e-3, full fine-tuning 3e-4, warmup a tenth of the steps)
-PAPER = dict(pretrain_steps=60, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
+PAPER = dict(pretrain_steps=24, pretrain_lr=1e-3, mask_rate=0.15, seed=0,
              steps=8, stage1_lr=3e-3, stage2_lr=8e-3, full_lr=3e-4,
              second_task="cola", table5_top=(1, 6, 8, 12),
              table4=("B+N", "W+B+N"), search_budget=0.01)
@@ -413,16 +438,16 @@ PAPER_COUNTS = {
 }
 # decoder-LM fine-tuning of qwen3-0.6b in bf16 on the synthetic Markov
 # corpus (`lm_corpus`, 200,000 tokens): steps of batch x seq tokens
-LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=30, quant_steps=10,
-                microbatch_steps=6, resume_steps=6, save_every=3,
+LM_TRAIN = dict(batch=16, seq=128, lr=3e-3, seed=0, steps=12, quant_steps=4,
+                microbatch_steps=4, resume_steps=6, save_every=3,
                 calibrate_batches=2)
 # launch.pretrain's path (phase 8q): MLM steps of bert-base a moment
 # preset, on the paper's pretraining stream and rate; the bf16+int8 lane
 # saves at resume_at and a fresh state resumes from there
-PRETRAIN_Q = dict(steps=12, resume_at=6)
+PRETRAIN_Q = dict(steps=6, resume_at=3)
 # rwkv6-1.6b's LM fine-tuning (phase 8r) on LM_TRAIN's batches and rate:
 # the Hadamard lane's steps, then the int8-trunk and the compressed lanes'
-RWKV_TRAIN = dict(steps=6, other_steps=4)
+RWKV_TRAIN = dict(steps=6, other_steps=2)
 # gemma2-27b serving (phases 3g-6g): 4 requests, prompts of 4160 tokens
 # (past the 4096-token window: every ring wraps at prefill and again at
 # decode) and of 128, 32 greedy tokens each, on 2 slots of 4352 tokens; 4g
@@ -503,6 +528,47 @@ INTERNVL = dict(arch="internvl2-76b", layers=8, layers_4iv=2, requests=2,
                 text=128, new_tokens=32, cache_len=416, seed=0, steps_4iv=4,
                 train_steps=2, fp32_tol=1e-4, n_params=9_013_829_632,
                 trainable=196_608)
+# starcoder2-7b (phases 3sc-5scq) at full width and depth: 5sc serves
+# SERVE's traffic in bf16, 5scq over an int8 trunk; 4sc cuts the depth to
+# 2 layers in fp32 (2 prompts of 128 tokens, 4 decode steps); 3sc also
+# runs starcoder2-3b's shapes, and 5sc its launcher. n_params: the JAX
+# package's count under the Hadamard adapter; quant_leaves: the leaves
+# JAX's quantization table takes (tests/test_torch_starcoder2.py).
+# fp32_tol: 4sc's limit of the relative L2 distance of each call's
+# logits, kernel path against plain path, which planted faults must
+# exceed; prefill_tol: the limit of the relative L2 distance of 5sc's
+# bf16 prefill's last logits, kernel path against plain path, set from an
+# H100's readings (0.0164) beside planted faults (0.028, 0.041; PERF.md
+# section 6)
+STARCODER = dict(arch="starcoder2-7b", small="starcoder2-3b", seed=0,
+                 layers_4sc=2, steps_4sc=4, n_params=7_400_711_168,
+                 quant_leaves=7, fp32_tol=1e-4, prefill_tol=0.022)
+# the int8 trunks of gemma2-27b at full depth (5gq, on 6g's short
+# traffic; its build's peak under build_peak_max) and internvl2-76b at
+# 5iv's 8 layers (5ivq). *_leaves: the leaves JAX's quantization table
+# takes (tests/test_torch_quant_build.py); dq_shapes: the (K, N) of every
+# projection that 5scq, 5gq and 5ivq quantize (wq, wk and wv, wo, the
+# MLP's in and out, the untied heads; internvl2's vlm_proj is (8192,
+# 8192), wq's), which 3sc holds; gemma_prefill_tol (max |diff|) and
+# internvl_prefill_tol (relative L2): the limits of the int8 prefills'
+# last logits, kernel path against plain path, set from an H100's
+# readings (0.150; 0.026) beside the planted adapter fault (0.312; 0.208)
+QUANT_TRUNKS = dict(
+    build_peak_max=80e9, gemma_leaves=14, internvl_leaves=9,
+    gemma_prefill_tol=0.25, internvl_prefill_tol=0.05,
+    dq_shapes=(
+        ("starcoder2-7b", "starcoder2_7b",
+         ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
+          (4608, 49152))),
+        ("starcoder2-3b", "starcoder2_3b",
+         ((3072, 3072), (3072, 256), (3072, 12288), (12288, 3072),
+          (3072, 49152))),
+        ("gemma2-27b", "gemma2",
+         ((4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864),
+          (36864, 4608))),
+        ("internvl2-76b", "internvl2",
+         ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192),
+          (8192, 128256)))))
 
 
 def log(msg: str) -> None:
@@ -2673,7 +2739,8 @@ def main() -> int:
                                       tasks, SERVE["seed"])
         scfg = ServingConfig(num_slots=SERVE["num_slots"],
                              max_len=SERVE["max_len"], backbone_quant=quant)
-        make_scheduler(eng, scfg).run(reqs[:2])  # warm-up: library init, caches
+        make_scheduler(eng, scfg).run([dataclasses.replace(
+            r, max_new_tokens=2) for r in reqs[:2]])  # warm-up
         sched = make_scheduler(eng, scfg)
         per_call = count_per_call(eng)
         torch.cuda.synchronize()
@@ -2746,7 +2813,9 @@ def main() -> int:
     # alone, so, prompts being published when they retire, the admissions
     # are 0-3 cold, 4-5 whole-prompt hits and 6-7 prefix hits (a 32-token
     # extend). 5p: bf16 blocks; 5pq, 5pf: int8, e4m3 blocks; 5s, 5sp: self
-    # speculation (k = 4) over the slot caches and over the pool; 6p: a
+    # speculation (k = 4) over the slot caches and over the pool, the same
+    # prompts with budgets of SERVE["spec_new_tokens"] (a verify tick is 6
+    # forwards; more of them repeat the same checks); 6p: a
     # 3-task bank (#6) on the launcher's traffic with requests 4-5
     # repeating prompts 0-1 under other tasks, so every admission is cold.
     # Launches per call, predicted: a cold prefill 28 #4 + 28 seam (#3, or
@@ -2820,6 +2889,9 @@ def main() -> int:
         sched = make_scheduler(eng, ServingConfig(
             num_slots=SERVE["num_slots"], max_len=SERVE["max_len"], **feat))
         paged, spec = feat.get("paged", False), "spec_k" in feat
+        budget = SERVE["spec_new_tokens"] if spec else SERVE["new_tokens"]
+        run_reqs = [dataclasses.replace(r, max_new_tokens=budget)
+                    for r in preqs]
         tick_call = (("paged_verify_step" if paged else "verify_step") if spec
                      else "paged_decode_step")
         per_call = count_per_call(eng, ("prefill", "paged_extend", tick_call))
@@ -2827,7 +2899,7 @@ def main() -> int:
                       if spec else {})
         torch.cuda.synchronize()
         _build.reset_launches()
-        done, rep = sched.run(preqs)
+        done, rep = sched.run(run_reqs)
         torch.cuda.synchronize()
         launches[phase] = _build.launch_counts()
         peak_bytes = torch.cuda.max_memory_allocated() - held
@@ -2855,13 +2927,13 @@ def main() -> int:
               == rep["ticks"], f"phase {phase}: {len(per_call[tick_call])} "
               f"{tick_call} calls over {rep['ticks']} ticks")
         check(len(done) == SERVE["requests"] and all(
-            len(c.tokens) == SERVE["new_tokens"] and c.finish_reason == "length"
+            len(c.tokens) == budget and c.finish_reason == "length"
             and bool(((c.tokens >= 0) & (c.tokens < V)).all()) for c in done),
             f"phase {phase}: requests retired as "
             f"{[(len(c.tokens), c.finish_reason) for c in done]}")
         check(pool_finite(sched.pool if paged else sched.caches),
               f"phase {phase}: non-finite KV")
-        same = [float((c.tokens == ref_tokens[c.request_id]).mean())
+        same = [float((c.tokens == ref_tokens[c.request_id][:budget]).mean())
                 for c in done]
         extra = {"weights_bytes_allocated": weights_bytes,
                  "peak_bytes_allocated": peak_bytes,
@@ -2904,6 +2976,7 @@ def main() -> int:
         if spec:
             extra.update(spec_stats=sched.spec_stats,
                          acceptance_rate=sched.acceptance_rate,
+                         new_tokens=budget,
                          ticks_vs_5p=rep["ticks"] / serve_reports["5p"]["ticks"],
                          spec_line=launcher.outcome_lines(sched)[0])
         tokens_of[phase] = {c.request_id: c.tokens for c in done}
@@ -2972,7 +3045,7 @@ def main() -> int:
     # verify-tick run at k = 4 costs 30-36 s on random weights): in bf16
     # their agreement is reported, in fp32 (4p's model, TF32 off) they must
     # be equal. Then phase 5's traffic with
-    # metrics on and off (two alternating pairs: the ratio is reported),
+    # metrics on and off (one pair: the ratio is reported),
     # and the serve launcher's obs and SLO flags in-process, once: the
     # .prom text is written from the registry it returns
     from repro_torch.obs import MetricsRegistry, SLOSpec, queue_depth_max
@@ -3120,15 +3193,14 @@ def main() -> int:
                                    0, SERVE["seed"])
     cost = {"on": [], "off": []}
     _build.reset_launches()
-    for _ in range(2):
-        for leg in ("on", "off"):
-            sched = make_scheduler(eng, ServingConfig(
-                num_slots=SERVE["num_slots"], max_len=SERVE["max_len"]),
-                obs=MetricsRegistry(enabled=leg == "on"))
-            torch.cuda.synchronize()
-            _, rep5 = sched.run(reqs5)
-            cost[leg].append((rep5["elapsed_s"] / rep5["ticks"] * 1e3,
-                              rep5["tokens_per_s"]))
+    for leg in ("on", "off"):
+        sched = make_scheduler(eng, ServingConfig(
+            num_slots=SERVE["num_slots"], max_len=SERVE["max_len"]),
+            obs=MetricsRegistry(enabled=leg == "on"))
+        torch.cuda.synchronize()
+        _, rep5 = sched.run(reqs5)
+        cost[leg].append((rep5["elapsed_s"] / rep5["ticks"] * 1e3,
+                          rep5["tokens_per_s"]))
     slo_launches["serve_obs_cost"] = _build.launch_counts()
     med = {leg: (float(np.median([a for a, _ in v])),
                  float(np.median([b for _, b in v])))
@@ -3451,7 +3523,8 @@ def main() -> int:
                                       tasks, SERVE["seed"])
         scfg = ServingConfig(num_slots=SERVE["num_slots"],
                              max_len=SERVE["max_len"], backbone_quant=quant)
-        make_scheduler(eng, scfg).run(reqs[:2])  # warm-up
+        make_scheduler(eng, scfg).run([dataclasses.replace(
+            r, max_new_tokens=2) for r in reqs[:2]])  # warm-up
         sched = make_scheduler(eng, scfg)
         state_bytes = sum(leaf.numel() * leaf.element_size()
                           for c in sched.caches for leaf in c.values())
@@ -4123,7 +4196,8 @@ def main() -> int:
                     for i in range(nb)]
             scfg = ServingConfig(num_slots=GEMMA["bank_slots"],
                                  max_len=bank_len)
-            make_scheduler(eng, scfg).run(reqs[:1])  # warm-up
+            make_scheduler(eng, scfg).run([dataclasses.replace(
+                reqs[0], max_new_tokens=2)])  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             sched = make_scheduler(eng, scfg)
@@ -5757,7 +5831,7 @@ def main() -> int:
                 f"scaled_dot_product_attention(is_causal={causal}): the same "
                 "function")
             del qkvs, q
-            release()
+            torch.cuda.empty_cache()  # the copies hold no cycle
         for key, b_, H, KH, D, L, lens in paged_cases:
             page = decode_page(L)
             nbt = L // page
@@ -5816,7 +5890,7 @@ def main() -> int:
                     + ("" if full else " with a key mask")
                     + ": the same function"), split_plan=plan)
             del pcopies
-            release()
+            torch.cuda.empty_cache()  # the copies hold no cycle
         for key, rows, S, d_ in norm_cases:
             w, b = 1 + randn(d_, scale=0.1), randn(d_, scale=0.1)
             ln = norm_kind == "layernorm"
@@ -5861,7 +5935,7 @@ def main() -> int:
                              f"yardstick is F.{'layer_norm' if ln else 'rms_norm'}"
                              " of x alone", split_plan=plan)
             del xrs
-            release()
+            torch.cuda.empty_cache()  # the copies hold no cycle
         ln = norm_kind == "layernorm"
         for i, (key, n_, d_) in enumerate(train_cases):
             w, b = 1 + randn(d_, scale=0.1), randn(d_, scale=0.1)
@@ -5911,7 +5985,7 @@ def main() -> int:
                 "none: no one call gives g*w with the column sums of g*x "
                 "and g")
             del gxs
-            release()
+            torch.cuda.empty_cache()  # the copies hold no cycle
 
     def wt_kernels():
         """Phase 3wt: #4, #5 and #3 at whisper-tiny's shapes (and #4's
@@ -6433,6 +6507,586 @@ def main() -> int:
     iv_train(iv_serve())
     launches.update(fam_launches)
     serve_reports.update({p: fam_reports[p] for p in ("5wt", "5iv")})
+
+    # -- the starcoder2 phases and the quantized trunks (3sc-5ivq) ----------
+    # starcoder2-7b (configs/starcoder2_7b.py): 32 layers, d 4608, GQA 36/4
+    # of 128, d_ff 18,432, pre-LN LayerNorm with biases in every norm and
+    # projection, a non-gated GeLU MLP, an untied vocabulary of 49,152;
+    # 14.8 GB in bf16. starcoder2-3b: 30 layers, d 3072, GQA 24/2; 6.4 GB.
+    # Then the int8 trunks that no earlier phase served: starcoder2-7b's,
+    # gemma2-27b's at full depth (built leaf by leaf in place by
+    # build_engine, under QUANT_TRUNKS["build_peak_max"]) and internvl2-76b's
+    # at 8 of 80 layers (vlm_proj and the untied head quantized too)
+    from repro_torch.quant import quantize_owned
+
+    scfg = launcher.build_config(STARCODER["arch"])
+    scfg3 = launcher.build_config(STARCODER["small"])
+
+    def sc_kernels():
+        """Phase 3sc: #3 (LayerNorm with its bias), #4 causal and #5 at
+        starcoder2-7b's and starcoder2-3b's serve shapes (fam_kernels, as
+        3iv), and #7 at every (K, N) that 5scq, 5gq and 5ivq quantize and
+        no earlier phase ran: each at M 4 (a 4-slot tick) and 128 (a
+        prefill), fp32 and bf16 x, int8 and e4m3 values, against the plain
+        version within phase 3's tolerances and the same bits twice; then
+        timed L2-cold at M 4, bf16 x over int8 values, beside its bound,
+        the library call and the bf16 matmul yardstick."""
+        slots, S, Lc = SERVE["num_slots"], SERVE["prompt_len"], \
+            SERVE["max_len"]
+        lens = [S + 1 + 8 * i for i in range(slots)]
+        t3 = {"attention and norms": 0.0, "#7 checks": 0.0, "#7 timing": 0.0}
+        t0 = time.perf_counter()
+        for arch_, c_ in ((STARCODER["arch"], scfg),
+                          (STARCODER["small"], scfg3)):
+            H, KH, D, d_ = c_.n_heads, c_.n_kv_heads, c_.head_dim, c_.d_model
+            fam_kernels(
+                "starcoder2_" + arch_.rsplit("-", 1)[1], arch_,
+                (("prefill", 1, H, KH, S, S, D, True),),
+                (("decode", slots, H, KH, D, Lc, lens),),
+                (("decode", slots, 1, d_), ("prefill", 1, S, d_)),
+                "layernorm", ())
+        t3["attention and norms"] += time.perf_counter() - t0
+        dq = checks["dequant_matmul"]
+        n_f, n_b, dq_plans = len(dq["rel_errs"]), len(dq["rels"]), {}
+        iv_rows = INTERNVL["requests"] * (icfg.n_image_tokens
+                                          + INTERNVL["text"])
+        for owner, tag, kns in QUANT_TRUNKS["dq_shapes"]:
+            # internvl2's prefill runs 2 x (256 + 128) rows (5ivq)
+            ms = (slots, S) + ((iv_rows,) if tag == "internvl2" else ())
+            for K, N in kns:
+                t0 = time.perf_counter()
+                for vdt in VALUE_DTYPES:
+                    (v, sc_), = quantized(K, N, vdt)
+                    for m in ms:
+                        for dt in (f32, bf):
+                            x = randn(m, K, dtype=dt)
+                            dq_plans[f"M={m} K={K} N={N} {str(dt)[6:]}"] = \
+                                dequant_matmul_plan(m, K, N, dt, vdt)["kernel"]
+                            case = f"{owner} M={m} K={K} N={N} {vdt}"
+                            compare("dequant_matmul", case, dt,
+                                    lambda: ops.dequant_matmul(
+                                        x, v, sc_, impl="kernel"),
+                                    lambda: ops.dequant_matmul(
+                                        x, v, sc_, impl="ref"))
+                            same_bits(lambda: ops.dequant_matmul(
+                                x, v, sc_, impl="kernel"),
+                                f"dequant_matmul {case} {dt}")
+                            del x
+                    del v, sc_
+                t3["#7 checks"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                time_dequant(f"dequant_matmul@{tag}_{K}x{N}", slots, K, N,
+                             max(2, -(-100 * 2**20 // (K * N))),
+                             f"a {owner} projection, a 4-slot decode tick")
+                t3["#7 timing"] += time.perf_counter() - t0
+        log(f"[3sc] starcoder2-7b and -3b: {errors('flash_attention')}; "
+            f"paged {errors('paged_attention')}; #3 "
+            f"{errors('fused_adapter_norm')}; dequant_matmul at "
+            f"{[(o, k) for o, _, k in QUANT_TRUNKS['dq_shapes']]}, M {slots} "
+            f"and {S}, int8 and e4m3: fp32 max abs err / max|ref| "
+            f"{max(dq['rel_errs'][n_f:]):.3g} (tol {TOL['dequant_matmul']}), "
+            f"bf16 {max(dq['rels'][n_b:]):.3g} (tol {BF16_TOL}); the same "
+            f"bits twice; plans {dq_plans}; seconds by part {t3}")
+        phase_done("3sc")
+
+    def move_biases(params):
+        """Every projection bias moved off 0, in place (the init's zeros
+        would hide a dropped bias)."""
+        g_ = torch.Generator(device=dev).manual_seed(9)
+        with torch.no_grad():
+            for path, leaf in tu.flatten_with_paths(params):
+                if re.search(r"/(attn/b[qkvo]|mlp/b[io])$", path):
+                    leaf.add_(0.1 * torch.randn(leaf.shape, generator=g_,
+                                                device=dev).to(leaf.dtype))
+        return params
+
+    def text_run(params, cfg_, toks, steps_, impl, cache_len):
+        """prefill_lm, then `steps_` greedy decode_lm steps: (logits of
+        each call, tokens, each call's launches)."""
+        R, S = toks.shape
+        (lg, caches), n = launches_of(lambda: M.prefill_lm(
+            params, cfg_, toks, cache_len, impl=impl))
+        outs, calls, tok = [lg], [n], lg.argmax(-1)
+        out_toks = [tok]
+        for step in range(steps_):
+            pos = torch.full((R,), S + step, dtype=torch.int32, device=dev)
+            (lg, caches), n = launches_of(lambda: M.decode_lm(
+                params, cfg_, caches, tok, pos, impl=impl))
+            outs.append(lg)
+            calls.append(n)
+            tok = lg.argmax(-1)
+            out_toks.append(tok)
+        return outs, torch.cat(out_toks, 1), calls
+
+    def sc_fp32_model():
+        """Phase 4sc: starcoder2-7b in fp32 (TF32 off) at full width and 2
+        layers, adapters perturbed, norms and q/k sharpened and every
+        projection bias moved off 0: 2 prompts of 128 tokens, a prefill and
+        4 greedy decode steps through the kernels against the plain path,
+        each call's logits within STARCODER["fp32_tol"] relative L2, the
+        tokens equal, each call's launches as predicted; two planted
+        faults (every adapter's w 30 % further from 1, every attention
+        bias dropped) past the limit."""
+        cfg32 = scfg.replace(groups=dense_decoder(STARCODER["layers_4sc"]),
+                             param_dtype="float32", compute_dtype="float32")
+        params = move_biases(sharpen(perturb(M.init_params(
+            torch.Generator(device=dev).manual_seed(STARCODER["seed"]),
+            cfg32), STARCODER["seed"] + 100, scale=0.2)))
+        toks = seed_tokens(2, SERVE["prompt_len"], cfg32.vocab_size, 12)
+        n, Lq, Lc = STARCODER["steps_4sc"], cfg32.n_layers, SERVE["max_len"]
+        with torch.no_grad():
+            ref_outs, ref_toks, ref_calls = text_run(params, cfg32, toks, n,
+                                                     "ref", Lc)
+            ker_outs, ker_toks, ker_calls = text_run(params, cfg32, toks, n,
+                                                     "auto", Lc)
+            check(all(not any(c.values()) for c in ref_calls),
+                  f"[4sc] the plain path launched {ref_calls}")
+            want_launches("4sc", "the prefill", ker_calls[0],
+                          {"flash_attention": Lq, "fused_adapter_norm": Lq})
+            for c in ker_calls[1:]:
+                want_launches("4sc", "a decode step", c,
+                              {"paged_attention": Lq,
+                               "fused_adapter_norm": Lq})
+            dists = [rel_dist(a_, b_) for a_, b_ in zip(ker_outs, ref_outs)]
+            adapter_w = dict(params, layers=[
+                dict(lyr, adapter=dict(lyr["adapter"], w=1 + 1.3 * (
+                    lyr["adapter"]["w"] - 1))) for lyr in params["layers"]])
+            no_bias = dict(params, layers=[
+                dict(lyr, attn={k: v for k, v in lyr["attn"].items()
+                                if not k.startswith("b")})
+                for lyr in params["layers"]])
+            faults = {name: rel_dist(M.prefill_lm(p_, cfg32, toks, Lc)[0],
+                                     ref_outs[0])
+                      for name, p_ in (("adapter_w_30pc", adapter_w),
+                                       ("attention_bias_dropped", no_bias))}
+        lim = STARCODER["fp32_tol"]
+        log(f"[4sc] starcoder2-7b fp32, {Lq} of 32 layers, on {smi}: 2 x "
+            f"{toks.shape[1]} tokens, {n} greedy steps; kernel path vs plain "
+            f"path relative L2 prefill {dists[0]:.3g}, steps max "
+            f"{max(dists[1:]):.3g} (limit {lim}); tokens equal "
+            f"{torch.equal(ker_toks, ref_toks)}; planted faults {faults}; "
+            f"launches a prefill {ker_calls[0]}, a step {ker_calls[1]}")
+        check(max(dists) <= lim, f"[4sc] kernel path vs plain path {dists}")
+        check(torch.equal(ker_toks, ref_toks), "[4sc] greedy tokens differ")
+        check(all(v > lim for v in faults.values()),
+              f"[4sc] a planted fault within the limit {lim}: {faults}")
+        fam_reports["4sc"] = dict(rel_l2=dists, faults=faults, limit=lim,
+                                  launches_prefill=ker_calls[0],
+                                  launches_step=ker_calls[1])
+        del params, adapter_w, no_bias
+        release()
+        phase_done("4sc")
+
+    def plain_tokens(eng, reqs, slots, max_len):
+        """The greedy tokens of `reqs` through the same scheduler and
+        admissions, every engine step on the plain path (impl="ref"): no
+        kernel launches."""
+        def prefill(tokens, cache_len, task_ids=None, last_pos=None):
+            with torch.no_grad():
+                return M.prefill_lm(eng.params, eng.cfg, eng._tokens(tokens),
+                                    cache_len, last_pos=last_pos, impl="ref")
+
+        def decode_step(caches, tok, pos, task_ids=None):
+            pos = eng._positions(pos, 1, eng._slot_len(caches))
+            with torch.no_grad():
+                return M.decode_lm(eng.params, eng.cfg, caches,
+                                   eng._tokens(tok), pos, impl="ref")
+
+        eng.prefill, eng.decode_step = prefill, decode_step
+        _build.reset_launches()
+        try:
+            done, _ = staggered_run(make_scheduler(eng, ServingConfig(
+                num_slots=slots, max_len=max_len, backbone_quant=eng.quant)),
+                reqs)
+        finally:
+            del eng.prefill, eng.decode_step
+        check(not any(_build.launch_counts().values()),
+              f"the plain path launched {_build.launch_counts()}")
+        return {c.request_id: c.tokens for c in done}
+
+    def fam_serve_run(tag, eng, cfg_, reqs, want, slots, max_len):
+        """reqs through make_scheduler on `eng`, reqs[0] alone and the rest
+        after 2 ticks: the serve checks, each call's launches as `want`
+        says, a decode tick's and a prefill's profile checked against the
+        wrappers' counts, the peak bytes. Returns (report, tokens by
+        request)."""
+        scfg_ = ServingConfig(num_slots=slots, max_len=max_len,
+                              backbone_quant=eng.quant)
+        make_scheduler(eng, scfg_).run([dataclasses.replace(
+            r, max_new_tokens=2) for r in reqs[:2]])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sched = make_scheduler(eng, scfg_)
+        per_call = count_per_call(eng)
+        _build.reset_launches()
+        done, rep = staggered_run(sched, reqs)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del eng.prefill, eng.decode_step
+        per_tick, per_prefill = serve_checks(
+            tag, per_call, rep, done, counts, reqs, want, cfg_.vocab_size)
+        check(all(bool(torch.isfinite(leaf.float()).all())
+                  for c in sched.caches for leaf in c.values()),
+              f"[{tag}] non-finite cache")
+        del sched
+        caches = eng.init_slot_caches(slots, max_len)
+        pos = [len(reqs[0].prompt) + 8 + i for i in range(slots)]
+        prompt = reqs[0].prompt[None]
+        tick, pre = fam_tick_report(
+            tag, lambda: eng.prefill(prompt, max_len),
+            lambda: eng.decode_step(caches, [[11]] * slots, pos),
+            per_tick, per_prefill)
+        del caches
+        fam_launches[tag] = counts
+        report = dict(rep, launches_per_decode_tick=per_tick,
+                      launches_per_prefill=per_prefill, tick=tick,
+                      prefill=pre, peak_bytes_allocated=peak,
+                      **exact_latency(done))
+        log(f"[{tag}] {cfg_.name} on {smi}: {serve_line(rep, done)}; "
+            f"launches {counts}; per decode tick {per_tick}; per prefill "
+            f"{per_prefill}; peak {peak / 1e9:.2f} GB; decode tick {tick}; "
+            f"prefill {pre}")
+        return report, {c.request_id: c.tokens for c in done}
+
+    def built(tag, make):
+        """(engine or tree that `make()` builds, its bytes on the card, the
+        build's peak bytes, seconds), the device memory held before it
+        logged."""
+        torch.cuda.synchronize()
+        release()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated() - held
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] the build: {held / 1e9:.2f} GB held before it, "
+            f"{weights / 1e9:.2f} GB after, peaking at {peak / 1e9:.2f} GB "
+            f"in {build_s:.1f} s")
+        return out, weights, peak, build_s
+
+    def adapter_fault(params):
+        """A tree whose every adapter w lies 30 % further from 1."""
+        return dict(params, layers=[dict(lyr, adapter={
+            "w": 1 + 1.3 * (lyr["adapter"]["w"] - 1),
+            "b": lyr["adapter"]["b"]}) for lyr in params["layers"]])
+
+    def prefill_vs_plain(tag, eng, cfg_, prompt, max_len, faults, limit,
+                         metric):
+        """The bf16 prefill's last logits through the kernels against the
+        plain path on the same weights, within `limit` by `metric`
+        ("rel_l2" or "max_abs") and with the same top-1; every planted
+        fault ({name: (params, cfg)} on the plain path) past the limit."""
+        dist = rel_dist if metric == "rel_l2" else (
+            lambda a_, b_: (a_.float() - b_.float()).abs().max().item())
+        prompt_t = torch.as_tensor(prompt[None], device=dev)
+        with torch.no_grad():
+            got, _ = eng.prefill(prompt[None], max_len)
+            want_l, _ = M.prefill_lm(eng.params, cfg_, prompt_t, max_len,
+                                     impl="ref")
+            fault_d = {name: dist(M.prefill_lm(p_, c_, prompt_t, max_len,
+                                               impl="ref")[0], want_l)
+                       for name, (p_, c_) in faults.items()}
+        d_ = dist(got, want_l)
+        top = bool(got[0, -1].argmax() == want_l[0, -1].argmax())
+        out = dict(metric=metric, kernel_vs_plain=d_, limit=limit,
+                   faults=fault_d, same_top1=top)
+        log(f"[{tag}] the prefill's last logits ({len(prompt)} tokens), "
+            f"kernel path vs plain path: {metric} {d_:.4g} (limit {limit}), "
+            f"same top-1 {top}; planted faults {fault_d}")
+        check(bool(torch.isfinite(got).all()), f"[{tag}] non-finite logits")
+        check(d_ <= limit and top, f"[{tag}] the prefill's last logits: "
+              f"{metric} {d_:.4g} (limit {limit}), same top-1 {top}")
+        check(all(v > limit for v in fault_d.values()),
+              f"[{tag}] a planted fault within the limit {limit}: {fault_d}")
+        return out
+
+    def sc_serve():
+        """Phase 5sc: starcoder2-7b bf16 at full width and depth, one
+        perturbed adapter, SERVE's traffic admitted mid-decode into 4 slots
+        of 512: 32 #5 + 32 #3 a tick, 32 #4 + 32 #3 a prefill; the plain
+        path's tokens on the same admissions (agreement reported), the
+        prefill's last logits against the plain path beside a planted
+        fault (the plain path normalising by RMSNorm), tok/s, a tick's and
+        a prefill's profile, the weights' read floor, the peak; then the
+        serve launcher at starcoder2-3b, full depth, briefly."""
+        import contextlib
+        import io
+
+        eng, weights, build_peak, build_s = built("5sc", lambda: (
+            launcher.build_engine(scfg, seed=STARCODER["seed"], device=dev)))
+        n_params = tu.count_params(eng.params)
+        check(n_params == STARCODER["n_params"], f"[5sc] {n_params:,} "
+              f"parameters, JAX counts {STARCODER['n_params']:,}")
+        Ls = scfg.n_layers
+        slots, Lc = SERVE["num_slots"], SERVE["max_len"]
+        reqs = launcher.make_requests(scfg, SERVE["requests"],
+                                      SERVE["prompt_len"],
+                                      SERVE["new_tokens"], 0,
+                                      STARCODER["seed"])
+        rep, toks = fam_serve_run(
+            "5sc", eng, scfg, reqs,
+            {"tick": {"paged_attention": Ls, "fused_adapter_norm": Ls},
+             "prefill": {"flash_attention": Ls, "fused_adapter_norm": Ls}},
+            slots, Lc)
+        plain = plain_tokens(eng, reqs, slots, Lc)
+        agree = float(np.mean([(toks[i] == plain[i]).mean() for i in toks]))
+        logits = prefill_vs_plain(
+            "5sc", eng, scfg, reqs[0].prompt, Lc,
+            {"rmsnorm_for_layernorm": (eng.params, scfg.replace(
+                norm="rmsnorm")),
+             "adapter_w_30pc": (adapter_fault(eng.params), scfg)},
+            STARCODER["prefill_tol"], "rel_l2")
+        floor = weights / HBM_BYTES_PER_S * 1e3
+        rep.update(token_agreement_vs_plain=agree, prefill_vs_plain=logits,
+                   n_params=n_params, weights_bytes_allocated=weights,
+                   build_peak_bytes=build_peak, build_s=build_s,
+                   tick_read_floor_ms=floor)
+        fam_reports["5sc"] = rep
+        log(f"[5sc] starcoder2-7b bf16: {n_params:,} parameters, "
+            f"{weights / 1e9:.2f} GB (a tick's read floor {floor:.2f} ms); "
+            f"greedy tokens vs the plain path's {agree:.4f}; tick "
+            f"{rep['tick']['device_ms']:.3f} device ms, "
+            f"{rep['tick']['ms']:.2f} host ms, busy "
+            f"{rep['tick']['device_busy_share']:.3f}, "
+            f"{rep['tick']['device_kernels']:.0f} kernels")
+        del eng
+        release()
+        phase_done("5sc")
+        # the serve launcher itself, at starcoder2-3b's full depth
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launcher.main(["--arch", STARCODER["small"], "--requests", "2",
+                           "--num-slots", "2", "--prompt-len", "128",
+                           "--new-tokens", "8",
+                           "--seed", str(STARCODER["seed"])])
+        text = out.getvalue()
+        check("served 2 requests / 16 tokens" in text,
+              f"[5sc] the launcher printed {text[-800:]!r}")
+        fam_reports["5sc"]["launcher_3b_s"] = time.perf_counter() - t0
+        log(f"[5sc] launcher --arch {STARCODER['small']} in "
+            f"{fam_reports['5sc']['launcher_3b_s']:.1f} s: "
+            + " | ".join(ln for ln in text.splitlines()
+                         if ln.startswith("served")))
+        release()
+        phase_done("5sc launcher")
+
+    def quant_checks(tag, eng, cfg_, want_leaves):
+        """quant_summary's leaves by convert.jax_path: JAX's count."""
+        qs = quant_summary(eng.params, lambda p: convert.jax_path(p, cfg_))
+        check(qs["n_quantized_leaves"] == want_leaves,
+              f"[{tag}] {qs['n_quantized_leaves']} quantized leaves, JAX "
+              f"quantizes {want_leaves}")
+        return qs
+
+    def sc_quant():
+        """Phase 5scq: starcoder2-7b over an int8 trunk (JAX's 7 leaves:
+        the 6 projections of every layer and the untied head, 193 #7 a
+        call; the biases stay bf16) on 5sc's traffic."""
+        eng, weights, build_peak, _ = built("5scq", lambda: (
+            launcher.build_engine(scfg, seed=STARCODER["seed"], device=dev,
+                                  quant="int8")))
+        qs = quant_checks("5scq", eng, scfg, STARCODER["quant_leaves"])
+        Ls = scfg.n_layers
+        n_dq = 6 * Ls + 1
+        reqs = launcher.make_requests(scfg, SERVE["requests"],
+                                      SERVE["prompt_len"],
+                                      SERVE["new_tokens"], 0,
+                                      STARCODER["seed"])
+        rep, _ = fam_serve_run(
+            "5scq", eng, scfg, reqs,
+            {"tick": {"paged_attention": Ls, "fused_adapter_norm": Ls,
+                      "dequant_matmul": n_dq},
+             "prefill": {"flash_attention": Ls, "fused_adapter_norm": Ls,
+                         "dequant_matmul": n_dq}},
+            SERVE["num_slots"], SERVE["max_len"])
+        rep.update(quant_line=launcher.quant_line(eng),
+                   quantized_bytes=qs["quantized_bytes"],
+                   tree_bytes=qs["total_bytes"],
+                   weights_bytes_allocated=weights,
+                   build_peak_bytes=build_peak,
+                   tick_read_floor_ms=weights / HBM_BYTES_PER_S * 1e3)
+        fam_reports["5scq"] = rep
+        log(f"[5scq] {rep['quant_line']}; tick "
+            f"{rep['tick']['device_ms']:.3f} device ms against a "
+            f"{rep['tick_read_floor_ms']:.2f} ms read floor")
+        del eng
+        release()
+        phase_done("5scq")
+
+    def gemma2_quant():
+        """Phase 5gq: gemma2-27b over an int8 trunk at full depth, built by
+        build_engine leaf by leaf (its build peak under
+        QUANT_TRUNKS["build_peak_max"]; JAX's 14 leaves: 7 in each of the two
+        layer slots, the head tied), on 6g's short traffic (8 x (128 + 32)
+        on 4 slots of 160): 46 #5 + 46 #1 + 322 #7 a tick, 46 #4 + 46 #1 +
+        322 #7 a prefill; the prefill's last logits against the plain path
+        (max |diff|, the same top-1) beside a planted fault (every
+        adapter's w 30 % further from 1)."""
+        eng, weights, build_peak, build_s = built("5gq", lambda: (
+            launcher.build_engine(gcfg, seed=GEMMA["seed"], device=dev,
+                                  quant="int8")))
+        check(build_peak < QUANT_TRUNKS["build_peak_max"], f"[5gq] the build "
+              f"peaked at {build_peak / 1e9:.2f} GB")
+        qs = quant_checks("5gq", eng, gcfg, QUANT_TRUNKS["gemma_leaves"])
+        n_dq = 7 * g_layers
+        slots, Lc = GEMMA["bank_slots"], GEMMA["bank_max_len"]
+        reqs = launcher.make_requests(gcfg, GEMMA["bank_requests"],
+                                      GEMMA["bank_prompt"], g_new, 0,
+                                      GEMMA["seed"])
+        rep, _ = fam_serve_run(
+            "5gq", eng, gcfg, reqs,
+            {"tick": {"paged_attention": g_layers,
+                      "hadamard_affine": g_layers, "dequant_matmul": n_dq},
+             "prefill": {"flash_attention": g_layers,
+                         "hadamard_affine": g_layers,
+                         "dequant_matmul": n_dq}}, slots, Lc)
+        logits = prefill_vs_plain(
+            "5gq", eng, gcfg, reqs[0].prompt, Lc,
+            {"adapter_w_30pc": (adapter_fault(eng.params), gcfg)},
+            QUANT_TRUNKS["gemma_prefill_tol"], "max_abs")
+        rep.update(quant_line=launcher.quant_line(eng),
+                   quantized_bytes=qs["quantized_bytes"],
+                   tree_bytes=qs["total_bytes"], prefill_vs_plain=logits,
+                   weights_bytes_allocated=weights,
+                   build_peak_bytes=build_peak, build_s=build_s,
+                   tick_read_floor_ms=weights / HBM_BYTES_PER_S * 1e3)
+        fam_reports["5gq"] = rep
+        log(f"[5gq] {rep['quant_line']}; the build peaked at "
+            f"{build_peak / 1e9:.2f} GB (limit "
+            f"{QUANT_TRUNKS['build_peak_max'] / 1e9:.0f} GB), "
+            f"{weights / 1e9:.2f} GB held; tick "
+            f"{rep['tick']['device_ms']:.3f} device ms against a "
+            f"{rep['tick_read_floor_ms']:.2f} ms read floor")
+        del eng
+        release()
+        phase_done("5gq")
+
+    def iv_quant():
+        """Phase 5ivq: internvl2-76b at 8 of 80 layers over an int8 trunk
+        (JAX's 9 leaves: 7 a layer's kind, the untied head, vlm_proj),
+        quantized in place leaf by leaf as it is made, on 5iv's traffic: 8
+        #5 + 8 #3 + 57 #7 a tick, 8 #4 + 8 #3 + 58 #7 a prefill
+        (vlm_proj's); the plain path's tokens beside the kernel path's;
+        the prefill's last logits against the plain path (relative L2)
+        beside a planted fault (every adapter's w 30 % further from 1);
+        reported as 5iv."""
+        def make():
+            p_ = iv_params(icfg, INTERNVL["seed"])
+            quantize_owned(p_, "int8")
+            return p_
+
+        params, weights, build_peak, _ = built("5ivq", make)
+        qs = quant_summary(params, lambda p: convert.jax_path(p, icfg))
+        check(qs["n_quantized_leaves"] == QUANT_TRUNKS["internvl_leaves"]
+              and isinstance(params["vlm_proj"]["kernel"], QTensor),
+              f"[5ivq] {qs['n_quantized_leaves']} quantized leaves, JAX "
+              f"quantizes {QUANT_TRUNKS['internvl_leaves']} with vlm_proj")
+        patches, toks = iv_inputs(icfg, bf)
+        R, T, L = toks.shape[0], patches.shape[1] + toks.shape[1], \
+            INTERNVL["cache_len"]
+        steps_ = INTERNVL["new_tokens"] - 1
+        Li = len(icfg.layer_slots())
+        n_dq = 7 * Li + 1
+        with torch.no_grad():
+            vlm_run(params, icfg, patches, toks, 2, "auto")  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs, ker_toks, calls = vlm_run(params, icfg, patches, toks,
+                                            steps_, "auto")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            want_launches("5ivq", "the prefill", calls[0],
+                          {"flash_attention": Li, "fused_adapter_norm": Li,
+                           "dequant_matmul": n_dq + 1})
+            for c in calls[1:]:
+                want_launches("5ivq", "a decode tick", c,
+                              {"paged_attention": Li,
+                               "fused_adapter_norm": Li,
+                               "dequant_matmul": n_dq})
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  "[5ivq] non-finite logits")
+            _, ref_toks, _ = vlm_run(params, icfg, patches, toks, steps_,
+                                     "ref")
+            agree = (ker_toks == ref_toks).float().mean().item()
+            want_l, _ = M.prefill_lm(params, icfg, toks, L, patches=patches,
+                                     impl="ref")
+            fault = rel_dist(M.prefill_lm(adapter_fault(params), icfg, toks,
+                                          L, patches=patches,
+                                          impl="ref")[0], want_l)
+            lg, caches = M.prefill_lm(params, icfg, toks, L, patches=patches)
+            # random weights leave internvl2's logits flat (5iv's bf16
+            # tokens agree 0.70 with the plain path's): the top-1 and the
+            # margin between the plain path's two best are reported
+            top2 = want_l[:, -1].float().topk(2, dim=-1).values
+            logits = dict(kernel_vs_plain=rel_dist(lg, want_l),
+                          limit=QUANT_TRUNKS["internvl_prefill_tol"],
+                          fault_adapter_w_30pc=fault, same_top1=bool(
+                              (lg[:, -1].argmax(-1)
+                               == want_l[:, -1].argmax(-1)).all()),
+                          plain_top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+                          plain_logit_std=want_l[:, -1].float().std(
+                              -1).tolist())
+            log(f"[5ivq] the prefill's last logits, kernel path vs plain "
+                f"path: relative L2 {logits['kernel_vs_plain']:.4g} (limit "
+                f"{logits['limit']}); the planted adapter fault "
+                f"{fault:.4g}; same top-1 {logits['same_top1']} (the plain "
+                f"path's top-2 margins {logits['plain_top2_margin']}, its "
+                f"logits' std {logits['plain_logit_std']})")
+            check(logits["kernel_vs_plain"] <= logits["limit"] < fault,
+                  f"[5ivq] the prefill's last logits {logits}")
+            del want_l
+            tok = lg.argmax(-1)
+            pos = torch.full((R,), T + 5, dtype=torch.int32, device=dev)
+            counts = {k: sum(c[k] for c in calls) for k in calls[0]}
+            per_tick = {k: sorted({c[k] for c in calls[1:]}) for k in counts}
+            per_prefill = {k: [calls[0][k]] for k in counts}
+            tick, pre = fam_tick_report(
+                "5ivq", lambda: M.prefill_lm(params, icfg, toks, L,
+                                             patches=patches),
+                lambda: M.decode_lm(params, icfg, caches, tok, pos),
+                per_tick, per_prefill)
+        floor = weights / HBM_BYTES_PER_S * 1e3
+        fam_launches["5ivq"] = counts
+        fam_reports["5ivq"] = dict(
+            requests=R, ticks=steps_, run_s=run_s,
+            tok_per_s=R * INTERNVL["new_tokens"] / run_s,
+            token_agreement_vs_plain=agree, quant_summary=qs,
+            prefill_vs_plain=logits,
+            weights_bytes_allocated=weights, build_peak_bytes=build_peak,
+            tick_read_floor_ms=floor, peak_bytes_allocated=peak,
+            launches_per_decode_tick=per_tick,
+            launches_per_prefill=per_prefill, tick=tick, prefill=pre)
+        log(f"[5ivq] internvl2-76b int8, {Li} of 80 layers, on {smi}: "
+            f"{qs['n_quantized_leaves']} quantized leaves, "
+            f"{weights / 1e9:.2f} GB (a tick's read floor {floor:.2f} ms), "
+            f"the build peaking at {build_peak / 1e9:.2f} GB; {R} x "
+            f"({patches.shape[1]} patches + {toks.shape[1]} tokens), "
+            f"{INTERNVL['new_tokens']} greedy tokens in {run_s:.3f} s; "
+            f"tokens vs the plain path's {agree:.4f}; launches {counts}; per "
+            f"tick {per_tick}; per prefill {per_prefill}; peak "
+            f"{peak / 1e9:.2f} GB; tick {tick}; prefill {pre}")
+        del params, caches, lg, outs
+        release()
+        phase_done("5ivq")
+
+    # -- phases 3sc, 4sc, 5sc, 5scq, 5gq, 5ivq ------------------------------
+    sc_kernels()
+    sc_fp32_model()
+    sc_serve()
+    sc_quant()
+    gemma2_quant()
+    iv_quant()
+    launches.update({p: fam_launches[p]
+                     for p in ("5sc", "5scq", "5gq", "5ivq")})
+    serve_reports.update({p: fam_reports[p]
+                          for p in ("5sc", "5scq", "5gq", "5ivq")})
 
     # -- phase 7: full-width bert-base in fp32, kernel path vs plain path ---
     from repro_torch.common.types import OptimCfg, TrainCfg
@@ -7832,7 +8486,11 @@ def main() -> int:
                   "6rg": "serve_rgemma_multitask",
                   "6rgs": "serve_rgemma_hot_swap",
                   "5rgq": "serve_rgemma_single_int8",
-                  "5wt": "serve_whisper", "5iv": "serve_internvl2"}
+                  "5wt": "serve_whisper", "5iv": "serve_internvl2",
+                  "5sc": "serve_starcoder2_single",
+                  "5scq": "serve_starcoder2_single_int8",
+                  "5gq": "serve_gemma2_single_int8",
+                  "5ivq": "serve_internvl2_int8"}
     by_phase = {**{serve_name[p]: counts for p, counts in launches.items()},
                 **train_launches,
                 **{f"train_lm_{t}": c for t, c in lm_launches.items()},
@@ -7921,6 +8579,7 @@ def main() -> int:
                       "rgemma_rg_lru_parts": rg_parts,
                       "whisper_model": fam_reports["4wt"],
                       "internvl2_model": fam_reports["4iv"],
+                      "starcoder2_model": fam_reports["4sc"],
                       "train_whisper": fam_reports["8wt"],
                       "train_internvl2": fam_reports["8iv"],
                       "fold": gemma_reports["5o"],

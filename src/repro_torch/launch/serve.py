@@ -108,13 +108,14 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg
 from repro_torch.configs import get, get_smoke
 from repro_torch.core import peft
-from repro_torch.core.hadamard import extract_delta, perturb_adapters
+from repro_torch.core.hadamard import (extract_delta, fold_adapter,
+                                      perturb_adapters)
 from repro_torch.models import model as M
 from repro_torch.obs import (JsonlSink, MetricsRegistry, ProfiledTicks,
                              SLOSpec, accept_floor, kv_free_floor,
                              queue_depth_max, tpot_target, ttft_target,
                              write_snapshot)
-from repro_torch.quant import quant_summary
+from repro_torch.quant import quant_summary, quantize_owned
 from repro_torch.serving import (AdapterBank, AdapterRegistry,
                                  AdmissionConfig, AdmissionShedError,
                                  MultiTaskEngine, Request, ServeEngine,
@@ -154,13 +155,39 @@ def build_params(cfg: ModelCfg, seed: int, tasks: int, device) -> List[dict]:
     return task_variants(build_base(cfg, seed, device), seed, tasks)
 
 
+def own_trunk(cfg: ModelCfg, trees: List[dict], quant: Optional[str],
+              fold: bool = False) -> List[dict]:
+    """The build's own trees, ready for an engine: with `quant`, the single
+    adapter folded into W_O first where `fold` asks (as the engine would
+    fold it) and the backbone quantized in place, leaf by leaf
+    (`quantize_owned`), over `trees` that share their backbone leaves and
+    that nothing else references. Returns the trees to hand the engine
+    (with fold=False where they are folded)."""
+    if not quant:
+        return trees
+    if fold and cfg.adapter.kind == "hadamard":
+        trees = [fold_adapter(trees.pop(0), cfg)]
+    quantize_owned(trees, quant)
+    return trees
+
+
 def build_engine(cfg: ModelCfg, seed: int = 0, tasks: int = 0, device=None,
                  quant: Optional[str] = None, fold: bool = False):
     """ServeEngine over one perturbed adapter, or a MultiTaskEngine over
     `tasks` of them; `quant` quantizes the backbone and `fold` folds the
-    single adapter into W_O (see ServeEngine)."""
+    single adapter into W_O (see ServeEngine).
+
+    The build owns the trees it makes, so with `quant` it quantizes them
+    in place, one leaf at a time (`own_trunk`): at its peak the device
+    holds the dense tree and one projection's fp32 temporaries (gemma2-27b
+    int8: 54.5 GB of bf16, a 57.1 GB peak on an H100), never the dense
+    tree beside the quantized one (~83 GB there), and it ends holding the
+    quantized tree alone (28.4 GB)."""
     device = resolve_device(device)
     variants = build_params(cfg, seed, tasks, device)
+    if quant:
+        variants = own_trunk(cfg, variants, quant, fold and tasks <= 0)
+        fold = False
     if tasks > 0:
         return MultiTaskEngine(cfg, variants, quant=quant, device=device)
     return ServeEngine(cfg, variants[0], fold=fold, quant=quant,
@@ -508,6 +535,20 @@ def main(argv=None) -> MetricsRegistry:
         variants = [apply_layer_mask(v, cfg, layer_mask) for v in variants]
         print(f"pruned serving: top {args.prune_to}/{n_layers(cfg)} "
               "layers active, packed deltas published")
+    # --spec-draft model drafts with the untuned base, kept dense as in JAX
+    draft_model = ((cfg, base) if args.spec_k and args.spec_draft == "model"
+                   else None)
+    if quant:
+        # the launcher owns these trees: quantized in place, leaf by leaf,
+        # so the dense trunk is never held beside the quantized one unless
+        # the drafter reads it
+        fold_one = args.fold and args.tasks <= 0
+        if fold_one or draft_model is not None:
+            variants = own_trunk(cfg, variants, quant, fold_one)
+            if draft_model is None:
+                base = None
+        else:
+            own_trunk(cfg, [base] + variants, quant)
 
     registry = None
     if args.adapter_dir:
@@ -521,8 +562,8 @@ def main(argv=None) -> MetricsRegistry:
     elif args.tasks > 0:
         engine = MultiTaskEngine(cfg, variants, quant=quant, device=device)
     else:
-        engine = ServeEngine(cfg, variants[0], fold=args.fold, quant=quant,
-                             device=device)
+        engine = ServeEngine(cfg, variants[0], fold=args.fold and not quant,
+                             quant=quant, device=device)
     if quant:
         print(quant_line(engine))
     if args.static:
@@ -564,9 +605,7 @@ def main(argv=None) -> MetricsRegistry:
             else None, slo=slo, admission=admission)
         sched = make_scheduler(
             engine, scfg,
-            draft_model=((cfg, base) if args.spec_k
-                         and args.spec_draft == "model" else None),
-            obs=obs)
+            draft_model=draft_model, obs=obs)
     except ValueError as e:
         raise SystemExit(str(e))
     requests = make_requests(cfg, args.requests, args.prompt_len,

@@ -17,6 +17,7 @@ from repro_torch.quant.qtensor import (
     quant_summary,
     quantization_error,
     quantize,
+    quantize_owned,
     quantize_tree,
 )
 
@@ -33,5 +34,6 @@ __all__ = [
     "quant_summary",
     "quantization_error",
     "quantize",
+    "quantize_owned",
     "quantize_tree",
 ]

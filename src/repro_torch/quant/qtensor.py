@@ -250,6 +250,52 @@ def _best_clip(leaf: torch.Tensor, mode: str, act_sq) -> float:
     return best
 
 
+def _wanted(path: str, leaf, regexes) -> bool:
+    """A floating tensor of two or more dims whose path matches."""
+    return (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+            and leaf.is_floating_point()
+            and any(r.search(path) for r in regexes))
+
+
+def _slot(tree, path: str):
+    """(the container holding the leaf at `path`, its key or index)."""
+    *heads, last = path.split("/")
+    for k in heads:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree, (int(last) if isinstance(tree, (list, tuple)) else last)
+
+
+def quantize_owned(trees, mode: str = "int8") -> None:
+    """`quantize_tree(tree, mode)` done in place, one leaf at a time, over
+    trees that the caller owns: one tree, or a list of trees that share
+    their backbone leaves (a base and its adapter variants).
+
+    Each matching leaf is quantized once, every tree's reference to it is
+    replaced by that QTensor, and the dense leaf is released before the
+    next one is quantized. So where nothing else references the trees'
+    leaves, no more than one dense projection outlives its QTensor, and
+    the peak is the dense tree plus one leaf's fp32 temporaries, not the
+    dense tree plus the quantized one (`quantize_tree` returns a new tree
+    while its argument keeps every dense leaf alive). The QTensors are
+    `quantize_tree`'s byte for byte; QTensors and unmatched leaves stay as
+    they are. The containers are mutated; nothing is returned."""
+    _storage_dtype(mode)
+    trees = list(trees) if isinstance(trees, (list, tuple)) else [trees]
+    paths = [path for path, leaf in tu.flatten_with_paths(trees[0])
+             if _wanted(path, leaf, _QUANT_RES)]
+    for path in paths:
+        made = {}  # id of a dense leaf -> its QTensor, for shared leaves
+        for tree in trees:
+            parent, key = _slot(tree, path)
+            leaf = parent[key]
+            if not _wanted(path, leaf, _QUANT_RES):
+                continue
+            if id(leaf) not in made:
+                made[id(leaf)] = quantize(leaf, mode)
+            parent[key] = made[id(leaf)]
+        del made, leaf  # the dense leaf goes with the last reference
+
+
 def quantize_tree(params, mode: str = "int8", *, stats=None, patterns=None,
                   cfg=None):
     """Quantize every backbone matmul leaf of a parameter tree.
@@ -278,9 +324,7 @@ def quantize_tree(params, mode: str = "int8", *, stats=None, patterns=None,
                else tuple(re.compile(p) for p in patterns))
 
     def wanted(path, leaf):
-        return (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
-                and leaf.is_floating_point()
-                and any(r.search(path) for r in regexes))
+        return _wanted(path, leaf, regexes)
 
     clips = {}
     if stats:

@@ -87,6 +87,15 @@ class ServeEngine:
     any folding, so the device holds 1 byte per weight. Adapters, norms and
     the embedding keep their dtype. A tree that already holds QTensors
     passes through untouched (`quantize_tree` is idempotent).
+
+    The engine does not own `params`: `quantize_tree` leaves it untouched,
+    so while the caller references it the build holds the dense tree and
+    the quantized one at once (gemma2-27b: 54.5 GB of bf16 beside a 28.4
+    GB int8 tree, more than one 80 GB card). A caller that owns its tree
+    quantizes it in place first (`quant.quantize_owned`, as
+    `launch.serve.build_engine` and the launcher do): the peak is then the
+    dense tree and one projection's temporaries, and the engine adopts the
+    QTensors as they are.
     """
 
     def __init__(self, cfg: ModelCfg, params: dict, *, fold: bool = False,
