@@ -41,10 +41,10 @@ SMS = 132  # the H100's streaming multiprocessors, which the plans fill
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_long)  # a host array of strides
 SIGNATURES = {
-    "rt_hadamard_affine": (_P, _P, _I, _P, _I, _P, _L, _I, _I, _P),
+    "rt_hadamard_affine": (_P, _P, _I, _P, _I, _P, _L, _I, _I, _I, _I, _I, _L,
+                           _I, _I, _P),
     "rt_hadamard_affine_bwd": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _L, _I,
-                               _P),
-    "rt_hadamard_affine_chunk_rows": (),
+                               _I, _I, _I, _L, _I, _I, _P),
     "rt_fused_adapter_norm": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
                               _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,

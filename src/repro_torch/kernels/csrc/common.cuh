@@ -39,42 +39,58 @@ __device__ __forceinline__ float load_vec(const void* p, int is_bf16, long i) {
                  : static_cast<const float*>(p)[i];
 }
 
+// a load through the read-only path, or (STREAM) an evict-first one, for
+// data read once; a store, or (STREAM) an evict-first one, for data not
+// read again soon
+template <bool STREAM, typename V>
+__device__ __forceinline__ V load_ro(const V* p) {
+  if constexpr (STREAM) return __ldcs(p);
+  else return __ldg(p);
+}
+template <bool STREAM, typename V>
+__device__ __forceinline__ void store_to(V* p, V v) {
+  if constexpr (STREAM) __stcs(p, v);
+  else *p = v;
+}
+
 // BYTES bytes at p into 32-bit words, with the widest loads they allow (16
-// bytes at most each) through the read-only path; the caller guarantees
-// the alignment. BYTES == 2 fills the low half of w[0].
-template <int BYTES>
+// bytes at most each) through the read-only path (STREAM: evict-first);
+// the caller guarantees the alignment. BYTES == 2 fills the low half of w[0].
+template <int BYTES, bool STREAM = false>
 __device__ __forceinline__ void load_bytes(const void* p, uint32_t* w) {
   if constexpr (BYTES >= 16) {
     static_assert(BYTES % 16 == 0, "whole 16-byte loads");
 #pragma unroll
     for (int i = 0; i < BYTES / 16; ++i) {
-      const uint4 t = __ldg(static_cast<const uint4*>(p) + i);
+      const uint4 t = load_ro<STREAM>(static_cast<const uint4*>(p) + i);
       w[4 * i] = t.x; w[4 * i + 1] = t.y; w[4 * i + 2] = t.z; w[4 * i + 3] = t.w;
     }
   } else if constexpr (BYTES == 8) {
-    const uint2 t = __ldg(static_cast<const uint2*>(p));
+    const uint2 t = load_ro<STREAM>(static_cast<const uint2*>(p));
     w[0] = t.x; w[1] = t.y;
   } else if constexpr (BYTES == 4) {
-    w[0] = __ldg(static_cast<const unsigned int*>(p));
+    w[0] = load_ro<STREAM>(static_cast<const unsigned int*>(p));
   } else {
     static_assert(BYTES == 2, "2, 4, 8 or a multiple of 16 bytes");
-    w[0] = __ldg(static_cast<const unsigned short*>(p));
+    w[0] = load_ro<STREAM>(static_cast<const unsigned short*>(p));
   }
 }
 
-template <int BYTES>
+template <int BYTES, bool STREAM = false>
 __device__ __forceinline__ void store_bytes(void* p, const uint32_t* w) {
   if constexpr (BYTES >= 16) {
 #pragma unroll
     for (int i = 0; i < BYTES / 16; ++i)
-      static_cast<uint4*>(p)[i] = make_uint4(w[4 * i], w[4 * i + 1],
-                                             w[4 * i + 2], w[4 * i + 3]);
+      store_to<STREAM>(static_cast<uint4*>(p) + i,
+                       make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2],
+                                  w[4 * i + 3]));
   } else if constexpr (BYTES == 8) {
-    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    store_to<STREAM>(static_cast<uint2*>(p), make_uint2(w[0], w[1]));
   } else if constexpr (BYTES == 4) {
-    *static_cast<unsigned int*>(p) = w[0];
+    store_to<STREAM>(static_cast<unsigned int*>(p), w[0]);
   } else {
-    *static_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0]);
+    store_to<STREAM>(static_cast<unsigned short*>(p),
+                     static_cast<unsigned short>(w[0]));
   }
 }
 
@@ -98,7 +114,8 @@ struct Raw {
 };
 
 // v[0..VEC) rounded once to T and stored as one access of VEC elements
-template <typename T, int VEC>
+// (STREAM: evict-first)
+template <typename T, int VEC, bool STREAM = false>
 __device__ __forceinline__ void store_vec(T* p, const float* v) {
   uint32_t w[(VEC * sizeof(T) + 3) / 4];
   if constexpr (sizeof(T) == 4) {
@@ -113,7 +130,7 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
       w[j / 2] = *reinterpret_cast<const uint32_t*>(&pr);
     }
   }
-  store_bytes<VEC * sizeof(T)>(p, w);
+  store_bytes<VEC * sizeof(T), STREAM>(p, w);
 }
 
 // host side: may a 16-byte access start at p?

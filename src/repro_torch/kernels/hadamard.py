@@ -17,8 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import (SMS, aligned16, check_dtype,
-                                        check_inputs, full_vec, launch,
-                                        library, ptr)
+                                        check_inputs, full_vec, launch, ptr)
 from repro_torch.kernels.ref import fused_adapter_residual_norm_bwd_ref
 
 NAME = "fused_adapter_norm"
@@ -34,6 +33,13 @@ WARP_ROW_WARPS = (1, 2, 4)  # warp_row: the warps a row may span
 MAX_LANE_ELEMS = 32        # warp_row: elements of a row a lane holds, at most
 WARP_ROW_THREADS = 128     # warp_row: threads of a block, at most
 SPLIT_LANE_VECS = 4        # split_row: vectors of a row a thread aims at
+
+# hadamard_affine.cu's grid (affine_plan, affine_bwd_plan)
+AFFINE_LANES = 32      # threads across a column tile, a vector each
+AFFINE_MAX_WARPS = 8   # warps down a block's rows, at most
+AFFINE_UNROLLS = (2, 4)  # rows a thread has in flight: the kernels' instances
+AFFINE_BLOCKS_PER_SM = 4      # #1
+AFFINE_BWD_BLOCKS_PER_SM = 2  # #2: fewer chunks for the last block to sum
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -113,26 +119,87 @@ def fused_adapter_residual_norm(x, res, w, b, scale, *, eps: float = 1e-6,
     return xn, h
 
 
+def affine_grid(n: int, d: int, vec: int, blocks_per_sm: int) -> dict:
+    """The grid of `hadamard_affine.cu`'s kernels over n rows of d: column
+    tiles of AFFINE_LANES vectors of `vec`; AFFINE_MAX_WARPS warps down a
+    block's rows, one a row below that many rows (no warp without a row);
+    row chunks of `rows_per_block` (a multiple of the warps) such that the
+    blocks come to about `blocks_per_sm` an SM, and no more chunks than
+    give every thread two rows; `unroll`, the rows a thread has in flight,
+    4 where a thread has 16 rows or more, else 2 (what timed fastest at
+    every seam of the two kernels). n == 0: one chunk of no rows."""
+    tiles = _cdiv(d // vec, AFFINE_LANES)
+    warps = max(1, min(AFFINE_MAX_WARPS, n))
+    chunks = max(1, min(_cdiv(n, 2 * warps),
+                        _cdiv(blocks_per_sm * SMS, tiles)))
+    rows = warps * _cdiv(_cdiv(max(n, 1), chunks), warps)
+    chunks = max(1, _cdiv(n, rows))
+    unroll = AFFINE_UNROLLS[-1] if rows // warps >= 16 else AFFINE_UNROLLS[0]
+    return dict(vec=vec, warps=warps, unroll=unroll, rows_per_block=rows,
+                tile_cols=AFFINE_LANES * vec, col_tiles=tiles, chunks=chunks,
+                blocks=chunks * tiles)
+
+
+def affine_plan(n: int, d: int, dtype=torch.bfloat16,
+                aligned: bool = True) -> dict:
+    """The launch of #1 (`affine_fwd_kernel`) for n rows of d elements of
+    `dtype`, from shapes alone: `vec` (16 bytes: 8 bf16, 4 fp32; 1 where d
+    is not a multiple of that or `aligned` is False, a pointer off the
+    16-byte grid), `warps`, `unroll`, `rows_per_block`, `chunks` and
+    `blocks` (`affine_grid`'s, AFFINE_BLOCKS_PER_SM blocks an SM), which
+    the C entry point launches as they are (it refuses a plan that does not
+    cover every row and column once). gemma2-27b's 2-row decode: 18 blocks
+    of 2 warps; its 4160-row prefill: 522 blocks of 8 warps, 18 rows a
+    thread, 4 in flight; bert-base's 4096 rows of 768 fp32: 516 blocks, 6
+    rows a thread, 2 in flight."""
+    full = full_vec(dtype)
+    vec = full if aligned and d % full == 0 else 1
+    return affine_grid(n, d, vec, AFFINE_BLOCKS_PER_SM)
+
+
+def affine_bwd_plan(n: int, d: int, g_dtype=torch.float32,
+                    x_dtype=torch.bfloat16, aligned: bool = True) -> dict:
+    """The launch of #2 (`affine_bwd_kernel`) for g, x of n rows of d, as
+    `affine_plan` with `vec` 16 bytes of the wider of g and x (4 with any
+    fp32 operand, 8 for bf16 alone), AFFINE_BWD_BLOCKS_PER_SM blocks an SM,
+    and `partial`, the shape of the fp32 scratch of per-chunk sums, (chunks,
+    2, d). Fewer blocks an SM than #1: each chunk is a partial that the last
+    block of its column tile sums. whisper-tiny's seam (12000, 384): 252
+    blocks, 3 tiles of 84 chunks of 144 rows, 4 in flight a thread."""
+    full = 16 // max(g_dtype.itemsize, x_dtype.itemsize)
+    vec = full if aligned and d % full == 0 else 1
+    plan = affine_grid(n, d, vec, AFFINE_BWD_BLOCKS_PER_SM)
+    return dict(plan, partial=(plan["chunks"], 2, d))
+
+
+def _plan_args(plan: dict):
+    return (plan["vec"], plan["warps"], plan["unroll"],
+            plan["rows_per_block"], plan["chunks"], plan["blocks"])
+
+
 def hadamard_affine(x, w, b):
     """y = x*w + b over the trailing dim. x: (..., d) fp32 or bf16,
     contiguous; w, b: (d,) fp32 or bf16. fp32 math, y in x.dtype. CUDA
-    tensors only."""
+    tensors only. The launch is `affine_plan`'s, 16-byte loads where x, y,
+    w and b allow them."""
     check_inputs(AFFINE, x, w, b)
     code = check_dtype(AFFINE, "x", x, ACT_DTYPES)
     d = x.shape[-1]
+    w_code, b_code = _check_vec(AFFINE, "w", w, d), _check_vec(AFFINE, "b", b, d)
     y = torch.empty_like(x)
-    launch(AFFINE, "rt_hadamard_affine", x.data_ptr(),
-           w.data_ptr(), _check_vec(AFFINE, "w", w, d),
-           b.data_ptr(), _check_vec(AFFINE, "b", b, d),
-           y.data_ptr(), x.numel() // max(d, 1), d, code)
+    n = x.numel() // max(d, 1)
+    plan = affine_plan(n, d, x.dtype, aligned16(x, y, w, b))
+    launch(AFFINE, "rt_hadamard_affine", x.data_ptr(), w.data_ptr(), w_code,
+           b.data_ptr(), b_code, y.data_ptr(), n, d, code, *_plan_args(plan))
     return y
 
 
 def hadamard_affine_bwd(g, x, w):
     """The VJP of `hadamard_affine`: (dx = g*w in g.dtype, dw = sum(g*x),
     db = sum(g)), the sums fp32 (d,) over every row. g, x: (..., d) of one
-    shape, each fp32 or bf16, contiguous; w: (d,). CUDA tensors only. The
-    kernel sums in a fixed order, so dw/db are the same on every run."""
+    shape, each fp32 or bf16, contiguous; w: (d,). CUDA tensors only. One
+    launch of `affine_bwd_plan`'s plan, which sums in a fixed order, so
+    dw/db are the same on every run."""
     check_inputs(AFFINE_BWD, g, x, w)
     g_code = check_dtype(AFFINE_BWD, "g", g, ACT_DTYPES)
     x_code = check_dtype(AFFINE_BWD, "x", x, ACT_DTYPES)
@@ -142,15 +209,16 @@ def hadamard_affine_bwd(g, x, w):
     d = x.shape[-1]
     w_code = _check_vec(AFFINE_BWD, "w", w, d)
     n = x.numel() // max(d, 1)
-    chunk = library().rt_hadamard_affine_chunk_rows()
     dx = torch.empty_like(g)
     dw = torch.empty((d,), dtype=torch.float32, device=g.device)
     db = torch.empty_like(dw)
-    partial = torch.empty(((n + chunk - 1) // chunk, 2, d),
-                          dtype=torch.float32, device=g.device)
+    plan = affine_bwd_plan(n, d, g.dtype, x.dtype, aligned16(g, x, dx, w))
+    partial = torch.empty(plan["partial"], dtype=torch.float32,
+                          device=g.device)
     launch(AFFINE_BWD, "rt_hadamard_affine_bwd", g.data_ptr(), g_code,
            x.data_ptr(), x_code, w.data_ptr(), w_code, dx.data_ptr(),
-           dw.data_ptr(), db.data_ptr(), partial.data_ptr(), n, d)
+           dw.data_ptr(), db.data_ptr(), partial.data_ptr(), n, d,
+           *_plan_args(plan))
     return dx, dw, db
 
 

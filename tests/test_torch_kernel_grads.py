@@ -68,17 +68,35 @@ def test_hadamard_affine_matches_pallas(shape, dtype):
 
 
 # n not a multiple of the Pallas block rows (256 at these widths): the
-# kernel's last block holds pad rows that its sums must mask
-@pytest.mark.parametrize("n,d", [(300, 64), (513, 96), (5, 128)])
-def test_hadamard_affine_bwd_matches_pallas(n, d):
+# kernel's last block holds pad rows that its sums must mask. g and x fp32,
+# then the pairs the port's trainers hand #2: g fp32 over x bf16 (the norm
+# VJP's cotangent over the adapter's input) and bf16 over bf16
+_AFFINE_BWD_SHAPES = [(300, 64), (513, 96), (5, 128)]
+
+
+@pytest.mark.parametrize("n,d,g_dtype,x_dtype", [
+    pytest.param(n, d, "float32", "float32", id=f"{n}-{d}")
+    for n, d in _AFFINE_BWD_SHAPES] + [
+    pytest.param(n, d, gdt, xdt, id=f"{n}-{d}-{gdt}-{xdt}")
+    for n, d in _AFFINE_BWD_SHAPES
+    for gdt, xdt in (("float32", "bfloat16"), ("bfloat16", "bfloat16"))])
+def test_hadamard_affine_bwd_matches_pallas(n, d, g_dtype, x_dtype):
     assert n % jhad._block_rows(d)
-    g, x = _rand((n, d), 10), _rand((n, d), 11)
+    g = jnp.asarray(_rand((n, d), 10)).astype(g_dtype)
+    x = jnp.asarray(_rand((n, d), 11)).astype(x_dtype)
     w = 1 + _rand((d,), 12, 0.2)
-    want = jhad._affine_bwd_call(jnp.asarray(g), jnp.asarray(x),
-                                 jnp.asarray(w), interpret=True)
-    got = tops.hadamard_affine_bwd(_t(g), _t(x), _t(w))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-6,
-                               rtol=0)
+    want = jhad._affine_bwd_call(g, x, jnp.asarray(w), interpret=True)
+
+    def torch_of(a, dtype):  # the same values, in the same dtype
+        return _t(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype))
+
+    got = tops.hadamard_affine_bwd(torch_of(g, g_dtype), torch_of(x, x_dtype),
+                                   _t(w))
+    assert got[0].dtype == getattr(torch, g_dtype)
+    # dx = g*w in fp32, rounded once to g's dtype in both packages
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(want[0].astype(jnp.float32)),
+                               atol=1e-6, rtol=0)
     for gt, wt in zip(got[1:], want[1:]):
         assert gt.dtype == torch.float32
         _close_rel(gt.numpy(), wt, 1e-5)

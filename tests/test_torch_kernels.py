@@ -140,6 +140,117 @@ def test_fused_norm_wrapper_refuses_cpu_tensors(plan):
 
 
 # ---------------------------------------------------------------------------
+# #1 and #2's plans: the launches of hadamard_affine.cu from shapes alone
+# ---------------------------------------------------------------------------
+
+_F32, _BF = torch.float32, torch.bfloat16
+# (n, d, g dtype, x dtype): the timed seams (whisper-tiny, bert-base,
+# train_lm, rwkv6, internvl2, gemma2-27b's decode and prefill), then ragged
+# ones: no whole column tile, d off the 16-byte vector (4001, 999), one row
+# past bert's chunks, one row, no rows
+_AFFINE_SHAPES = [(12000, 384, _F32, _BF), (4096, 768, _F32, _F32),
+                  (2048, 1024, _F32, _BF), (2048, 2048, _F32, _BF),
+                  (768, 8192, _F32, _BF), (2, 4608, _BF, _BF),
+                  (4160, 4608, _BF, _BF), (7, 4000, _BF, _BF),
+                  (5, 4001, _F32, _F32), (3, 999, _BF, _BF),
+                  (97, 768, _F32, _F32), (1, 384, _F32, _BF),
+                  (0, 384, _F32, _F32)]
+
+
+def _affine_covers_once(plan, n, d, full):
+    """What hadamard_affine.cu's entry points check before they launch a
+    plan, and the cover itself: every row of every chunk is one warp's, and
+    every column one lane's, once."""
+    vec, warps = plan["vec"], plan["warps"]
+    rows, chunks = plan["rows_per_block"], plan["chunks"]
+    assert vec in (1, full) and d % vec == 0
+    assert 1 <= warps <= min(thad.AFFINE_MAX_WARPS, rows)
+    assert plan["unroll"] in thad.AFFINE_UNROLLS
+    tiles = -(-(d // vec) // thad.AFFINE_LANES)
+    assert plan["col_tiles"] == tiles and plan["blocks"] == chunks * tiles
+    assert plan["tile_cols"] == thad.AFFINE_LANES * vec
+    row_cover = np.zeros(n, np.int64)
+    for k in range(chunks):
+        end = min((k + 1) * rows, n)
+        assert end > k * rows or n == 0  # no chunk without a row
+        for ty in range(warps):
+            row_cover[k * rows + ty:end:warps] += 1
+    col_cover = np.zeros(d, np.int64)
+    for lane in range(tiles * thad.AFFINE_LANES):
+        c0 = lane * vec
+        if c0 < d:
+            assert c0 + vec <= d
+            col_cover[c0:c0 + vec] += 1
+    assert (row_cover == 1).all() and (col_cover == 1).all()
+    assert chunks == 1 if n == 0 else chunks * rows >= n > (chunks - 1) * rows
+
+
+@pytest.mark.parametrize("n,d,g_dtype,x_dtype", _AFFINE_SHAPES)
+def test_affine_plans_cover_every_row_and_column_once(n, d, g_dtype, x_dtype):
+    fwd = thad.affine_plan(n, d, x_dtype)
+    _affine_covers_once(fwd, n, d, _build.full_vec(x_dtype))
+    bwd = thad.affine_bwd_plan(n, d, g_dtype, x_dtype)
+    _affine_covers_once(bwd, n, d, 16 // max(g_dtype.itemsize,
+                                             x_dtype.itemsize))
+    assert bwd["partial"] == (bwd["chunks"], 2, d)
+    # a few blocks an SM at most: the grid is sized to the card, not to n
+    assert fwd["blocks"] <= thad.AFFINE_BLOCKS_PER_SM * _build.SMS \
+        + fwd["col_tiles"]
+    assert bwd["blocks"] <= thad.AFFINE_BWD_BLOCKS_PER_SM * _build.SMS \
+        + bwd["col_tiles"]
+
+
+@pytest.mark.parametrize("g_dtype,x_dtype,vec", [
+    (_F32, _F32, 4), (_F32, _BF, 4), (_BF, _F32, 4), (_BF, _BF, 8)])
+def test_affine_plan_vec_follows_the_dtypes_and_alignment(g_dtype, x_dtype,
+                                                          vec):
+    assert thad.affine_bwd_plan(64, 1024, g_dtype, x_dtype)["vec"] == vec
+    assert thad.affine_bwd_plan(64, 1024, g_dtype, x_dtype, False)["vec"] == 1
+    # 16 bytes of the wider operand must divide d
+    assert thad.affine_bwd_plan(64, 1004, g_dtype, x_dtype)["vec"] == (
+        1 if 1004 % vec else vec)
+    assert thad.affine_plan(64, 1024, x_dtype)["vec"] == _build.full_vec(x_dtype)
+    assert thad.affine_plan(64, 1024, x_dtype, False)["vec"] == 1
+    assert thad.affine_plan(64, 1001, x_dtype)["vec"] == 1
+
+
+@pytest.mark.parametrize("d", [1024, 2048, 4608, 8192])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_affine_decode_plans_launch_no_block_or_warp_without_a_row(n, d):
+    for plan in (thad.affine_plan(n, d, _BF),
+                 thad.affine_bwd_plan(n, d, _F32, _BF)):
+        # one chunk holding every row: each block (a column tile) has all n
+        # rows, one a warp
+        assert plan["chunks"] == 1 and plan["blocks"] == plan["col_tiles"]
+        assert plan["warps"] == n and plan["rows_per_block"] == n
+
+
+def test_affine_plans_fill_the_card_at_the_train_seams():
+    # whisper-tiny's seam: 252 blocks of 8 warps, 84 chunks a column tile,
+    # 18 rows a thread, 4 in flight; train_lm's 8 rows a thread, 2
+    plan = thad.affine_bwd_plan(12000, 384, _F32, _BF)
+    assert (plan["blocks"], plan["chunks"], plan["warps"]) == (252, 84, 8)
+    assert plan["unroll"] == 4
+    assert thad.affine_bwd_plan(2048, 1024, _F32, _BF)["unroll"] == 2
+    # gemma2-27b's prefill: 4 rows in flight a thread where it has 18
+    plan = thad.affine_plan(4160, 4608, _BF)
+    assert (plan["blocks"], plan["unroll"], plan["vec"]) == (522, 4, 8)
+    # bert-base's 6 rows a thread: 2 in flight
+    assert thad.affine_plan(4096, 768, _F32)["unroll"] == 2
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF])
+def test_affine_wrappers_refuse_cpu_tensors(dtype):
+    with pytest.raises(ValueError, match="CUDA"):
+        thad.hadamard_affine(torch.zeros(2, 128, dtype=dtype), torch.ones(128),
+                             torch.zeros(128))
+    with pytest.raises(ValueError, match="CUDA"):
+        thad.hadamard_affine_bwd(torch.zeros(2, 128), torch.zeros(2, 128,
+                                                                  dtype=dtype),
+                                 torch.ones(128))
+
+
+# ---------------------------------------------------------------------------
 # #4 flash attention
 # ---------------------------------------------------------------------------
 
