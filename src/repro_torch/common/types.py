@@ -180,6 +180,15 @@ class ModelCfg:
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no block attends over an unbounded range."""
+        for g in tuple(self.groups) + tuple(self.enc_groups):
+            for s in g.slots:
+                if s.kind == "attn" and s.window is None:
+                    return False
+        return True
+
     def layer_slots(self) -> Tuple[Slot, ...]:
         """The decoder stack's slots in execution order, one per layer.
         `n_layers` counts both stacks, as JAX's does; a per-layer array of
@@ -192,6 +201,27 @@ class ModelCfg:
         execution order, one per layer; empty for every other family."""
         return tuple(s for g in self.enc_groups for _ in range(g.repeats)
                      for s in g.slots)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the dry run (JAX's, seq_len x global_batch)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

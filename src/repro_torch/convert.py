@@ -197,6 +197,18 @@ def jax_path(path: str, cfg: ModelCfg) -> str:
     return f"{_jax_stack(enc)}/g{gi}/slot{si}/{m.group(3)}"
 
 
+def jax_shape(path: str, shape: Tuple[int, ...], cfg: ModelCfg
+              ) -> Tuple[int, ...]:
+    """The shape of the JAX leaf a port leaf of `shape` at `path` is one
+    slice of: a layer's leaf gains its group's leading `repeats` dim."""
+    m = _LAYER_RE.match(path)
+    if m is None:
+        return tuple(shape)
+    enc = m.group(1)
+    gi, _, _ = _layer_position(cfg, enc)[int(m.group(2))]
+    return (_groups(cfg, enc)[gi].repeats,) + tuple(shape)
+
+
 def jax_ndim(path: str, leaf: torch.Tensor) -> int:
     """The rank of the port leaf `path` in the JAX layout: a layer's leaf
     is one slice of its group's stacked leaf, one rank more."""

@@ -54,7 +54,10 @@ constexpr int kMaxTiles = 4096;   // column tiles of one backward launch
 // a launch finds them zero. A buffer from the wrapper would need a memset
 // before each launch, a second operation on the stream per call. The cost:
 // two backward launches running at once on one device (two streams) would
-// share them; the port issues every kernel on one stream.
+// share them; the port issues every kernel on one stream. The ranks of a
+// mesh (`repro_torch.dist`) are processes, each with a CUDA context of its
+// own and so its own counters, even where two ranks share one card; inside
+// a rank every kernel still runs on one stream.
 __device__ unsigned int g_tile_arrivals[kMaxTiles];
 
 // VEC elements of T as loaded (one access of VEC * sizeof(T) bytes, aligned

@@ -8,6 +8,9 @@ impl, resolved per call from the first tensor argument:
   'ref'     the plain version on whatever device the tensor is on; what
             `chip_smoke.py` and the tests compare a kernel against. The
             serving path never passes it.
+A meta tensor (shapes, no storage) takes the plain version inside
+`common.costmode.cost_mode_ctx`, where the dry run counts FLOPs, and
+raises outside it.
 
 Each dispatch function is a named range under JAX's name
 (`repro.<op>`, `repro_torch.obs.profile.scope`), recorded only while a
@@ -19,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.costmode import cost_mode
 from repro_torch.kernels import ref
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import hadamard as _had
@@ -38,6 +42,8 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
         return False
     if t.device.type == "cuda":
         return True
+    if t.device.type == "meta" and cost_mode():
+        return False
     if impl == "kernel" or t.device.type != "cpu":
         raise ValueError(f"no kernel for a tensor on {t.device}: the kernels "
                          "run on CUDA tensors")

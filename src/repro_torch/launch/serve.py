@@ -28,6 +28,16 @@ every tenant and a b per tenant, from a bank that stores the w once.
   python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8 \
       --num-slots 4 --prompt-len 128 --new-tokens 32 --tasks 4 \
       --adapter-dir DIR --bank-size 3 [--prune-to 18] [--share-w]
+
+With --mesh DxM the backbone is served tensor-parallel over M ranks by
+JAX's sharding rules (`dist.sharding`; every one of the D data ranks is a
+replica that computes every slot, as JAX's replicated slot dim implies),
+rank 0 printing. Under `torchrun --nproc-per-node N` each process is a
+rank (a card each, NCCL); without torchrun the launcher spawns the ranks
+itself (--backend gloo for ranks that share one card):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-0.6b --mesh 1x2
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --mesh 1x2 --backend gloo
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 8 \
       --num-slots 4 --prompt-len 128 --new-tokens 32 [--tasks 3] \
       [--quant int8]
@@ -96,6 +106,10 @@ fill stop, spec_k halving, defer, shed):
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
+import sys
 import tempfile
 import time
 from typing import Callable, List, Optional
@@ -110,6 +124,8 @@ from repro_torch.configs import get, get_smoke
 from repro_torch.core import peft
 from repro_torch.core.hadamard import (extract_delta, fold_adapter,
                                       perturb_adapters)
+from repro_torch.dist.api import use_mesh
+from repro_torch.launch.mesh import parse_mesh, run_world
 from repro_torch.models import model as M
 from repro_torch.obs import (JsonlSink, MetricsRegistry, ProfiledTicks,
                              SLOSpec, accept_floor, kv_free_floor,
@@ -510,8 +526,48 @@ def main(argv=None) -> MetricsRegistry:
                         "breaches only land as registry events")
     g.add_argument("--admission-check-every", type=int, default=4,
                    help="evaluate the SLO monitor every N scheduler ticks")
+    g = ap.add_argument_group("distribution (repro_torch.dist)")
+    g.add_argument("--mesh", default="",
+                   help="'DATAxMODEL' (e.g. 1x2): serve the backbone "
+                        "tensor-parallel over MODEL ranks (every data rank "
+                        "a replica); under torchrun this process is one "
+                        "rank, else the ranks are spawned here")
+    g.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="the ranks' backend: nccl with a card a rank "
+                        "(default on the card), gloo on the CPU or for "
+                        "ranks that share one card")
     args = ap.parse_args(argv)
+    if args.mesh:
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        device = resolve_device(args.device)
+        run_world(shape, _serve_rank, args, device=device,
+                  backend=args.backend)
+        return None
+    return _serve(args)
 
+
+def _serve_rank(mesh, args):
+    """One rank of a --mesh serve: the engine built under the mesh; rank
+    0 prints, the others serve silently. A rank's hot-swap registry is
+    its own directory under --adapter-dir (each publishes the same
+    deltas at the same tick)."""
+    if args.adapter_dir and mesh.size > 1:
+        args.adapter_dir = os.path.join(args.adapter_dir,
+                                        f"rank{mesh.rank}")
+    out = sys.stdout if mesh.rank == 0 else io.StringIO()
+    with use_mesh(mesh), contextlib.redirect_stdout(out):
+        if mesh.rank == 0:
+            print(f"mesh {'x'.join(map(str, mesh.shape))}: "
+                  f"{mesh.size} rank(s) over {mesh.backend}, model degree "
+                  f"{mesh.degree('model')}")
+        _serve(args)
+    return None
+
+
+def _serve(args) -> Optional[MetricsRegistry]:
     quant = args.quant or None
     cfg = build_config(args.arch, args.smoke)
     if args.share_w and not args.adapter_dir:

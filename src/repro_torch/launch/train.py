@@ -29,10 +29,24 @@ an RWKV6 one (rwkv6-1.6b).
       --steps 30 --batch 32 --seq 128
   python -m repro_torch.launch.train --arch bert-tiny --task sst2 --smoke \\
       --device cpu [--peft lora] [--prune-to 1]
+
+With --mesh DxM a decoder trains data-parallel over D ranks (each its
+shard of every batch, `data.pipeline.shard_batch`; the gradients averaged
+before the compression and the clip, as JAX's step sees the global
+batch) and tensor-parallel over M (`dist.sharding`'s rules, Megatron's
+layout), rank 0 printing and saving. Under `torchrun --nproc-per-node N`
+each process is a rank; without torchrun the launcher spawns them
+(--backend gloo for ranks that share one card):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-0.6b --mesh 2x1
+  python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu --mesh 2x2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import sys
 
 import torch
 
@@ -42,7 +56,11 @@ from repro_torch.common.types import OptimCfg, TrainCfg
 from repro_torch.configs import get, get_smoke
 from repro_torch.convert import jax_path
 from repro_torch.core import peft
+from repro_torch.data.pipeline import Prefetcher, shard_batches
 from repro_torch.data.synthetic import TASKS, TaskData, lm_batches, lm_corpus
+from repro_torch.dist.api import Mesh, use_mesh
+from repro_torch.dist.sharding import check_mesh, local_cfg
+from repro_torch.launch.mesh import parse_mesh, run_world
 from repro_torch.launch.pretrain import QUANT_PRESETS
 from repro_torch.models import model as M
 from repro_torch.optim import qstate
@@ -50,13 +68,8 @@ from repro_torch.quant import calibrate, quant_summary
 from repro_torch.sparse.importance import depth_mask, n_layers
 from repro_torch.train.loop import StepWatchdog, run_train, two_stage_finetune
 from repro_torch.train.losses import loss_for
-from repro_torch.train.steps import build_train_step, make_state, restore_state
-
-# options of the JAX launcher that arrive with later slices
-LATER = {
-    "mesh": "the distributed slice (torch.distributed)",
-}
-
+from repro_torch.train.steps import (build_train_step, make_mesh_state,
+                                    make_state, restore_state)
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -97,14 +110,50 @@ def main(argv=None):
     ap.add_argument("--no-ef", action="store_true",
                     help="disable int8 moment error feedback (bytes floor "
                          "only: no-EF int8 v deadzones and diverges)")
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="'DATAxMODEL' (e.g. 2x1): the decoder-LM step "
+                         "data-parallel over DATA ranks (a batch shard "
+                         "each, gradients averaged) and tensor-parallel "
+                         "over MODEL; under torchrun this process is one "
+                         "rank, else the ranks are spawned here")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="the ranks' backend: nccl with a card a rank "
+                         "(default on the card), gloo on the CPU or for "
+                         "ranks that share one card")
     args = ap.parse_args(argv)
+    if args.mesh:
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+        if cfg.family == "encoder":
+            raise SystemExit("--mesh runs the decoder-LM path; the "
+                             "two-stage encoder recipe runs on one device")
+        try:  # refused meshes fail before any rank starts
+            check_mesh(peft.attach(cfg, peft.strategy(args.peft)),
+                       Mesh(shape))
+        except NotImplementedError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        run_world(shape, _train_rank, args,
+                  device=resolve_device(args.device), backend=args.backend)
+        return
+    _train(args)
 
-    for opt, slice_ in LATER.items():
-        if getattr(args, opt):
-            raise NotImplementedError(
-                f"--{opt.replace('_', '-')} is not ported yet; it arrives "
-                f"with {slice_}")
+
+def _train_rank(mesh, args):
+    """One rank of a --mesh run; rank 0 prints and writes checkpoints."""
+    out = sys.stdout if mesh.rank == 0 else io.StringIO()
+    with use_mesh(mesh), contextlib.redirect_stdout(out):
+        if mesh.rank == 0:
+            print(f"mesh {'x'.join(map(str, mesh.shape))}: {mesh.size} "
+                  f"rank(s) over {mesh.backend}, data degree "
+                  f"{mesh.degree('dp')}, model degree "
+                  f"{mesh.degree('model')}")
+        _train(args, mesh)
+
+
+def _train(args, mesh=None):
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     strat = peft.strategy(args.peft)
     device = resolve_device(args.device)
@@ -149,8 +198,15 @@ def main(argv=None):
         return torch.Generator(device=device).manual_seed(args.seed)
 
     corpus = lm_corpus(cfg.vocab_size, 200_000, seed=args.seed)
-    batches = lm_batches(corpus, args.steps, args.batch, args.seq,
-                         seed=args.seed)
+    source = lm_batches(corpus, args.steps, args.batch, args.seq,
+                        seed=args.seed)
+    if mesh is not None:
+        dp = mesh.degree("dp")
+        if args.batch % dp:
+            raise SystemExit(f"--batch {args.batch} does not split over "
+                             f"{dp} data ranks")
+        source = shard_batches(source, mesh, device)  # the rank's shard
+    batches = Prefetcher(source)
     params = stats = None
     if args.quant and args.calibrate_batches:
         params = M.init_params(gen(), cfg)
@@ -160,8 +216,13 @@ def main(argv=None):
                           max_batches=args.calibrate_batches)
         print(f"calibrated {len(stats)} call sites over "
               f"{args.calibrate_batches} batches")
-    state = make_state(gen(), cfg, strat, ocfg, params=params,
-                       quant=args.quant or None, quant_stats=stats)
+    if mesh is None:
+        state = make_state(gen(), cfg, strat, ocfg, params=params,
+                           quant=args.quant or None, quant_stats=stats)
+    else:  # the whole state from the seed (quantized whole), then sliced
+        state = make_mesh_state(gen(), cfg, strat, ocfg, mesh, params=params,
+                                quant=args.quant or None, quant_stats=stats)
+        cfg = local_cfg(cfg, mesh)
     del params
     if qstate.quantized_moments(ocfg):
         qss = qstate.state_summary(state["opt"], ocfg)
@@ -177,14 +238,20 @@ def main(argv=None):
               f"({qs['ratio']:.2f}x)")
     manager = None
     if args.ckpt_dir:
+        if state.get("sharded"):
+            raise SystemExit(
+                "--ckpt-dir under --mesh: trainable leaves sharded over "
+                "'model' would be written as one rank's slice")
         manager = CheckpointManager(args.ckpt_dir, keep=3)
         if args.resume and manager.latest() is not None:
             restored, meta = manager.restore()
             restore_state(state, restored)
             print(f"resumed from step {meta['step']}")
     step = build_train_step(cfg, ocfg, layer_mask=layer_mask)
+    # every rank holds the same trainable leaves and moments; rank 0 saves
+    saver = manager if mesh is None or mesh.rank == 0 else None
     state, hist = run_train(state, step, batches, steps=args.steps,
-                            log_every=10, manager=manager,
+                            log_every=10, manager=saver,
                             save_every=args.save_every,
                             watchdog=StepWatchdog())
     print(f"final loss: {hist[-1]['loss']:.4f}")

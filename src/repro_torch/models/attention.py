@@ -31,6 +31,14 @@ A quantized pool takes `quantize_kv(k, mode)` at every write, JAX's
 per-token rule, and #5 widens it to fp32 in place (JAX's gather casts the
 dequantized K/V to the compute dtype first: one rounding apart at bf16).
 
+Under a mesh of model degree M (`dist.api`), a rank runs its config's
+n_heads/M and n_kv_heads/M (`dist.sharding.local_cfg`) on its column
+shards of wq/wk/wv and its row shard of wo: the input passes `f`
+(`copy_to_model`), the output projection's partial sums meet in `g`
+(`reduce_from_model`) before `bo`, and a replicated leaf read per head (an
+`attn_concat` adapter's rows, IA3's scales, LoRA's B) takes the rank's
+slice through `split_to_model`. Without a mesh each is the identity.
+
 `apply_attn` returns the attention output before the Hadamard adapter: the
 block applies it together with the residual add and the norm that follows
 (`models/program.py`). The LoRA and IA3 baselines reach inside attention
@@ -57,6 +65,8 @@ from typing import Optional
 import torch
 
 from repro_torch.common.types import ModelCfg, Slot
+from repro_torch.dist.api import (copy_to_model, reduce_from_model,
+                                  split_to_model)
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import FlashAttention
 from repro_torch.kernels.hadamard import HadamardAffine
@@ -238,13 +248,16 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     lora = adapter if adapter is not None and acfg.kind == "lora" else None
     ia3 = adapter if adapter is not None and acfg.kind == "ia3" else None
 
+    x = copy_to_model(x)  # a column-parallel region under a mesh
     q = qdense(x, p["wq"], cdt, impl, tag="attn/wq")
     k = qdense(x, p["wk"], cdt, impl, tag="attn/wk")
     v = qdense(x, p["wv"], cdt, impl, tag="attn/wv")
-    if lora is not None:
-        q = q + _lora_delta(x, lora["qa"], lora["qb"], acfg.lora_alpha,
+    if lora is not None:  # replicated leaves: A whole, B's rank columns
+        q = q + _lora_delta(x, copy_to_model(lora["qa"]),
+                            split_to_model(lora["qb"]), acfg.lora_alpha,
                             acfg.lora_rank)
-        v = v + _lora_delta(x, lora["va"], lora["vb"], acfg.lora_alpha,
+        v = v + _lora_delta(x, copy_to_model(lora["va"]),
+                            split_to_model(lora["vb"]), acfg.lora_alpha,
                             acfg.lora_rank)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
@@ -254,14 +267,14 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
     k = k.reshape(B, S, KH, Dh)
     v = v.reshape(B, S, KH, Dh)
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+        q = rms_head_norm(copy_to_model(p["q_norm"]), q, cfg.norm_eps)
+        k = rms_head_norm(copy_to_model(p["k_norm"]), k, cfg.norm_eps)
     if cfg.pos == "rope":
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
     if ia3 is not None:
-        k = k * ia3["lk"].to(cdt).reshape(KH, Dh)
-        v = v * ia3["lv"].to(cdt).reshape(KH, Dh)
+        k = k * split_to_model(ia3["lk"]).to(cdt).reshape(KH, Dh)
+        v = v * split_to_model(ia3["lv"]).to(cdt).reshape(KH, Dh)
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
 
     if cache is not None:  # write in place, attend over the pool
@@ -306,11 +319,12 @@ def apply_attn(p: dict, cfg: ModelCfg, slot: Slot, x: torch.Tensor, *,
             new_cache["k"][:, at] = k[:, S - tail:]
             new_cache["v"][:, at] = v[:, S - tail:]
 
-    if concat_adapter is not None:
-        w, b = concat_adapter
+    if concat_adapter is not None:  # the rank's heads of its rows
+        w, b = (split_to_model(t) for t in concat_adapter)
         out = (apply_hadamard(out, w, b) if w.dim() == 2
                else HadamardAffine.apply(out, w, b, impl))
-    y = qdense(out, p["wo"], cdt, impl, tag="attn/wo")
+    # row-parallel: the partial sums meet before the bias, added once
+    y = reduce_from_model(qdense(out, p["wo"], cdt, impl, tag="attn/wo"))
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y, new_cache

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.types import ModelCfg
+from repro_torch.dist.api import (copy_to_model, reduce_from_model,
+                                  split_to_model)
 from repro_torch.quant.qtensor import qdense
 
 # ---------------------------------------------------------------------------
@@ -122,6 +124,7 @@ def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
     """ia3: the IA3 baseline's (d_ff,) scale of the activation, after the
     gate and before wo."""
     cdt = cfg.cdtype
+    x = copy_to_model(x)  # Megatron's MLP under a mesh: wi/wg columns,
     h = qdense(x, p["wi"], cdt, impl, tag="mlp/wi")
     if "bi" in p:
         h = h + p["bi"].to(cdt)
@@ -129,8 +132,9 @@ def apply_mlp(p: dict, cfg: ModelCfg, x: torch.Tensor,
     if cfg.gated_mlp:
         h = h * qdense(x, p["wg"], cdt, impl, tag="mlp/wg")
     if ia3 is not None:
-        h = h * ia3.to(cdt)
-    y = qdense(h, p["wo"], cdt, impl, tag="mlp/wo")
+        h = h * split_to_model(ia3).to(cdt)
+    # wo rows: the partial sums meet before the bias, added once
+    y = reduce_from_model(qdense(h, p["wo"], cdt, impl, tag="mlp/wo"))
     if "bo" in p:
         y = y + p["bo"].to(cdt)
     return y

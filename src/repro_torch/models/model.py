@@ -27,6 +27,12 @@ pool (`init_paged_pool`) is such a list too: {"k", "v"} block pools of
 (num_blocks, page, KH, D) per layer, block 0 the allocator's null block,
 addressed through per-row block tables (B, nbt) int32 that every layer
 shares (a windowed layer's ring in their first ring // page entries).
+Under a mesh (`dist.api.use_mesh`) the parameters are a rank's shards
+(`dist.sharding.shard_params`) and cfg its `local_cfg`: the blocks run
+Megatron's layout (`models/attention.py`, `layers.apply_mlp`), a
+vocab-sharded table looks up its own range and the ranks' rows are summed,
+a vocab-sharded head's logits and `vlm_proj`'s columns are all-gathered.
+The adapter seam runs at full d on every rank, after the all-reduce.
 All functions take `impl` and
 hand it to every kernel call ("auto" on the serving and training paths;
 "ref" for the plain versions).
@@ -38,6 +44,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.common.types import ModelCfg
+from repro_torch.dist.api import (copy_to_model, gather_from_model,
+                                  model_index, reduce_from_model)
 from repro_torch.models.attention import (cache_size, check_slot,
                                           cross_view, decode_tables,
                                           pool_init, pool_view)
@@ -124,11 +132,28 @@ def init_params(gen: torch.Generator, cfg: ModelCfg) -> dict:
     return p
 
 
+def _lookup(table: torch.Tensor, cfg: ModelCfg,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows in cfg.cdtype. Under a mesh whose rules shard the
+    table's vocab (a rank holds rows [r*Vr, (r+1)*Vr)), each rank looks up
+    the tokens in its range, zeroes the rest and the ranks' rows are
+    summed (`reduce_from_model`): each token's row comes from one rank, so
+    the sum is exact."""
+    cdt = cfg.cdtype
+    vr = table.shape[0]
+    if vr == cfg.vocab_size:
+        return table[tokens].to(cdt)
+    local = tokens - model_index() * vr
+    inside = (local >= 0) & (local < vr)
+    x = table[local.clamp(0, vr - 1)].to(cdt)
+    return reduce_from_model(x.masked_fill(~inside[..., None], 0))
+
+
 def embed_tokens(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  type_ids: Optional[torch.Tensor] = None):
     cdt = cfg.cdtype
-    x = params["embed"]["table"][tokens].to(cdt)
+    x = _lookup(params["embed"]["table"], cfg, tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
     if cfg.pos == "learned" and positions is not None:
@@ -143,12 +168,21 @@ def embed_tokens(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
 def lm_logits(params: dict, cfg: ModelCfg, h: torch.Tensor,
               impl: str = "auto") -> torch.Tensor:
     """fp32 logits; the tied head is a plain matmul against the table (it
-    is never quantized), an untied head goes through `qdense`."""
+    is never quantized), an untied head goes through `qdense`. Under a
+    mesh a vocab-sharded head computes the rank's vocab columns, which
+    `gather_from_model` puts together before the soft-cap (its input
+    passes `f` there alone: a replicated head's gradient is whole)."""
+    w = (params["embed"]["table"] if cfg.tie_embeddings
+         else params["lm_head"]["kernel"])
+    sharded = w.shape[0 if cfg.tie_embeddings else -1] != cfg.vocab_size
+    if sharded:
+        h = copy_to_model(h)
     if cfg.tie_embeddings:
-        logits = torch.matmul(h, params["embed"]["table"].to(cfg.cdtype).T)
+        logits = torch.matmul(h, w.to(cfg.cdtype).T)
     else:
-        logits = qdense(h, params["lm_head"]["kernel"], cfg.cdtype, impl,
-                        tag="lm_head")
+        logits = qdense(h, w, cfg.cdtype, impl, tag="lm_head")
+    if sharded:
+        logits = gather_from_model(logits, -1)
     logits = logits.float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
@@ -199,8 +233,13 @@ def _decoder_embed(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
            if cfg.pos == "learned" else None)  # only a table reads them
     x = embed_tokens(params, cfg, tokens, positions=pos)
     if cfg.family == "vlm" and patches is not None:
-        img = qdense(patches.to(cfg.cdtype), params["vlm_proj"]["kernel"],
-                     cfg.cdtype, impl, tag="vlm_proj")
+        w = params["vlm_proj"]["kernel"]
+        sharded = w.shape[-1] != cfg.d_model  # column-parallel under a mesh
+        img = patches.to(cfg.cdtype)
+        img = qdense(copy_to_model(img) if sharded else img, w, cfg.cdtype,
+                     impl, tag="vlm_proj")
+        if sharded:
+            img = gather_from_model(img, -1)
         x = torch.cat([img, x], dim=1)
     return x
 

@@ -3,9 +3,13 @@ dispatch over routed experts, plus always-on shared experts (DeepSeek-MoE's
 fine-grained layout).
 
 JAX splits the tokens into G routing groups, one per data-parallel shard,
-so that every device routes its own tokens; the port has no mesh, so G is
-1 (`_n_groups`). The group axis is kept all the same, (G, Tg, d) tokens
-and a (G, E, cap, d) dispatch buffer, for the distribution slice to fill.
+so that every device routes its own tokens. In the port each dp rank
+holds its shard of the batch (`data.pipeline.shard_batch`) and routes it
+as one group (`_n_groups` is 1), which is JAX's split exactly where the
+batch divides; the load-balancing loss stays global, as JAX computes it:
+the experts' mean probabilities and argmax shares are averaged over the
+dp ranks before their product (`dist.api.dp_mean`). The group axis is
+kept, (G, Tg, d) tokens and a (G, E, cap, d) dispatch buffer.
 
 Semantics held to JAX's, route for route:
   * the router's logits in fp32 at full precision (TF32 off for that one
@@ -38,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.common.types import ModelCfg, MoECfg
+from repro_torch.dist.api import dp_mean
 from repro_torch.models.layers import (act_fn, dense_init, full_fp32,
                                       gen_device)
 
@@ -73,7 +78,7 @@ def moe_init(gen: Optional[torch.Generator], cfg: ModelCfg) -> dict:
 
 
 def _n_groups(T: int) -> int:
-    """Routing groups: JAX's data-parallel shard count, 1 with no mesh."""
+    """Routing groups of a call: 1 (a dp rank routes its own shard)."""
     return 1
 
 
@@ -172,10 +177,10 @@ def moe_apply(p: dict, cfg: ModelCfg, x: torch.Tensor):
     probs = torch.cat([r[2] for r in routed]).view(T, E)
 
     # --- aux load-balancing loss (Switch-style, over all T tokens) ---
-    me = probs.mean(dim=0)
+    me = dp_mean(probs.mean(dim=0))
     top1 = probs.argmax(dim=-1)
-    ce = (top1[:, None] == torch.arange(E, device=x.device)).sum(
-        dim=0).float() / T
+    ce = dp_mean((top1[:, None] == torch.arange(E, device=x.device)).sum(
+        dim=0).float() / T)
     aux = m.aux_loss_weight * E * torch.sum(me * ce)
 
     # --- the expert FFNs, batched over groups x experts ---

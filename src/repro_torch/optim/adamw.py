@@ -40,12 +40,14 @@ def global_norm(grads: Tree) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / norm) in fp32: JAX's fp32
     scale promotes a bf16 gradient to fp32, so the product is not rounded
-    back to bf16 before AdamW reads it."""
-    norm = global_norm(grads)
+    back to bf16 before AdamW reads it. norm: the global norm when the
+    caller computed it (a sharded gradient's over its ranks)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {k: g.float() * scale for k, g in grads.items()}, norm
 

@@ -23,6 +23,14 @@ Both engines also step a paged block pool (`init_paged_pool`,
 `ServeEngine(fold=True)` folds the Hadamard adapter into W_O and b_O at
 construction (`core.hadamard.fold_adapter`, before any quantization), as
 JAX's engine does: the adapter op still runs, on the identity.
+Sharded serving: an engine built inside `dist.api.use_mesh(mesh)` holds
+its rank's shards (`dist.sharding.shard_params`: a quantized trunk is
+quantized whole, then sliced) and runs its `local_cfg`, activating the
+mesh again around every model call; its slot caches and paged pools hold
+the rank's KV heads, their slot and block dims whole (JAX's
+`slot_cache_spec`, `paged_cache_spec`). Every data rank computes every
+slot, as JAX's replicated slot dim implies, so the tokens are the same on
+every rank. `full_cfg` is the config it was given.
 `generate` is JAX's unified entry point: a (B, S) array of same-length
 prompts decoded lock-step to one budget, or a list of `Request`s with
 their own budgets, sampling, EOS and (on a MultiTaskEngine) task rows or
@@ -30,6 +38,7 @@ adapter names.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import List, Optional
 
@@ -40,6 +49,8 @@ from repro_torch.common import tree as tu
 from repro_torch.common.device import resolve_device
 from repro_torch.common.types import ModelCfg
 from repro_torch.core.hadamard import build_bank, fold_adapter
+from repro_torch.dist.api import current_mesh, use_mesh
+from repro_torch.dist.sharding import local_cfg, shard_params
 from repro_torch.models import model as M
 from repro_torch.models.attention import DECODE_PAGE, write_pool
 from repro_torch.quant.qtensor import is_qtensor, quantize_tree
@@ -101,13 +112,26 @@ class ServeEngine:
     def __init__(self, cfg: ModelCfg, params: dict, *, fold: bool = False,
                  quant: Optional[str] = None, device=None):
         self.device = resolve_device(device)
-        self.cfg = cfg
+        self.mesh = current_mesh()
+        self.full_cfg = cfg
+        self.cfg = local_cfg(cfg, self.mesh)  # refuses what is not sharded
         if fold and cfg.adapter.kind == "hadamard":
             params = fold_adapter(params, cfg)
         if quant:
             params = quantize_tree(params, mode=quant)
+        if self.mesh is not None:  # quantized whole, then sliced
+            params = shard_params(params, cfg, self.mesh)
         self.quant = quant
         self.params = tu.map_with_path(lambda _, t: t.to(self.device), params)
+
+    def _calls(self):
+        """The context of every model call: no autograd, and the mesh the
+        engine was built under (None: none), as JAX's engine re-activates
+        its mesh around each trace."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(use_mesh(self.mesh))
+        return stack
 
     # -- the model calls ----------------------------------------------------
 
@@ -126,7 +150,7 @@ class ServeEngine:
     def prefill(self, tokens, cache_len: int, task_ids=None, last_pos=None):
         """(logits (B, 1, V), fresh caches of cache_len) for same-length
         prompts; last_pos picks the position whose logits return."""
-        with torch.no_grad():
+        with self._calls():
             return M.prefill_lm(self.params, self.cfg, self._tokens(tokens),
                                 cache_len, last_pos=last_pos,
                                 task_ids=self._task_ids(task_ids),
@@ -157,7 +181,7 @@ class ServeEngine:
         attention layers). Writes the caches in place; returns (logits,
         caches)."""
         pos = self._positions(pos, 1, self._slot_len(caches))
-        with torch.no_grad():
+        with self._calls():
             return M.decode_lm(self.params, self.cfg, caches,
                                self._tokens(tok), pos,
                                task_ids=self._task_ids(task_ids),
@@ -170,7 +194,7 @@ class ServeEngine:
         caches)."""
         toks = self._tokens(toks)
         pos = self._positions(pos, toks.shape[1], self._slot_len(caches))
-        with torch.no_grad():
+        with self._calls():
             return M.verify_lm(self.params, self.cfg, caches, toks, pos,
                                task_ids=self._task_ids(task_ids),
                                gates=self._gates())
@@ -202,7 +226,7 @@ class ServeEngine:
         each token and head by the same rule. Returns the pool, written in
         place."""
         ids = self._tables(np.asarray(bids).reshape(1, -1))
-        with torch.no_grad():
+        with self._calls():
             for layer, new in zip(pool, fresh):
                 L = new["k"].shape[1]
                 pos = torch.arange(L, device=self.device)[None]
@@ -212,7 +236,7 @@ class ServeEngine:
     def copy_block(self, pool, src: int, dst: int):
         """The copy-on-write fork: block src duplicated into dst on every
         leaf (payload and scales). Returns the pool, written in place."""
-        with torch.no_grad():
+        with self._calls():
             for layer in pool:
                 for leaf in layer.values():
                     for t in ((leaf.values, leaf.scales) if is_qtensor(leaf)
@@ -230,7 +254,7 @@ class ServeEngine:
         the host's (num_slots, nb_max) int32 block tables. Returns
         (logits, pool)."""
         pos = self._positions(pos, 1, self._pool_len(pool, tables))
-        with torch.no_grad():
+        with self._calls():
             return M.decode_lm_paged(self.params, self.cfg, pool,
                                      self._tokens(tok), pos,
                                      self._tables(tables),
@@ -244,7 +268,7 @@ class ServeEngine:
         toks = self._tokens(toks)
         pos = self._positions(pos, toks.shape[1],
                               self._pool_len(pool, tables))
-        with torch.no_grad():
+        with self._calls():
             return M.verify_lm_paged(self.params, self.cfg, pool, toks, pos,
                                      self._tables(tables),
                                      task_ids=self._task_ids(task_ids),
@@ -258,7 +282,7 @@ class ServeEngine:
         last real token. Returns (logits (1, 1, V), pool)."""
         toks = self._tokens(tokens)
         self._positions([start], toks.shape[1], self._pool_len(pool, tables))
-        with torch.no_grad():
+        with self._calls():
             return M.extend_lm(self.params, self.cfg, pool, toks,
                                self._tables(tables), int(start), int(kv_len),
                                int(last_pos),

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.common import tree as tu
 from repro_torch.core.hadamard import ADAPTER_RE
+from repro_torch.dist.sharding import local_cfg, shard_params
 from repro_torch.models import model as M
 from repro_torch.serving.paged import PagedScheduler
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -96,7 +97,9 @@ class DraftLane:
                     f"draft model vocab {dcfg.vocab_size} != target vocab "
                     f"{engine.cfg.vocab_size}: drafted token ids would not "
                     "be target tokens")
-            self.cfg = dcfg
+            if engine.mesh is not None:
+                dparams = shard_params(dparams, dcfg, engine.mesh)
+            self.cfg = local_cfg(dcfg, engine.mesh)
             self._sep = tu.map_with_path(lambda _, t: t.to(engine.device),
                                          dparams)
         self.caches = M.init_decode_caches(self.cfg, num_slots, max_len,
@@ -116,7 +119,7 @@ class DraftLane:
         prefill, not the draft's)."""
         tokens = torch.as_tensor(prompt, dtype=torch.long,
                                  device=self.engine.device)
-        with torch.no_grad():
+        with self.engine._calls():
             _, fresh = M.prefill_lm(self._params(), self.cfg, tokens,
                                     self.max_len, last_pos=last_pos)
             for pool, new in zip(self.caches, fresh):
@@ -129,7 +132,7 @@ class DraftLane:
         (B, k) drafts; the lane's caches hold positions through pos+k."""
         params = self._params()
         outs = []
-        with torch.no_grad():
+        with self.engine._calls():
             for _ in range(self.k + 1):
                 logits, self.caches = M.decode_lm(params, self.cfg,
                                                   self.caches, tok[:, None],

@@ -56,11 +56,13 @@ class StepWatchdog:
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as tensors on `device`; integer arrays become int64
-    (index tensors), float arrays keep their dtype."""
+    """A numpy batch (or one already made tensors, such as a rank's shard
+    from `data.pipeline.shard_batch`) as tensors on `device`; integer
+    arrays become int64 (index tensors), float arrays keep their dtype."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = (v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(v)))
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)

@@ -26,6 +26,8 @@ from repro_torch.common import tree as tu
 from repro_torch.common.types import ModelCfg, OptimCfg
 from repro_torch.convert import jax_ndim, jax_path
 from repro_torch.core import peft
+from repro_torch.dist.api import all_reduce, current_mesh, dp_degree
+from repro_torch.dist.sharding import sharded_paths
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                     clip_by_global_norm, global_norm)
@@ -200,6 +202,60 @@ def loss_and_grads(cfg: ModelCfg, state: dict, batch: dict,
                            for p, t, g in zip(paths, leaves, grads)}
 
 
+def dp_average(grads: dict) -> dict:
+    """The gradients averaged over the dp ranks: one all-reduce per dtype
+    over the leaves laid end to end (DDP's bucket), split back."""
+    out = {}
+    by_dtype: dict = {}
+    for p, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(p)
+    for paths in by_dtype.values():
+        flat = torch.cat([grads[p].reshape(-1) for p in paths])
+        flat = all_reduce(flat, "dp", op="mean")
+        i = 0
+        for p in paths:
+            n = grads[p].numel()
+            out[p] = flat[i:i + n].view_as(grads[p])
+            i += n
+    return {p: out[p] for p in grads}
+
+
+def sharded_global_norm(grads: dict, sharded: set) -> torch.Tensor:
+    """The global norm when the leaves in `sharded` hold one model rank's
+    slice each: their squared norms summed over the model ranks, every
+    other leaf's counted once."""
+    def sq(paths):
+        return sum((grads[p].float().square().sum() for p in paths),
+                   torch.zeros((), device=next(iter(grads.values())).device))
+
+    part = all_reduce(sq([p for p in grads if p in sharded]), "model")
+    return torch.sqrt(part + sq([p for p in grads if p not in sharded]))
+
+
+def make_mesh_state(gen: Optional[torch.Generator], cfg: ModelCfg,
+                    strat: peft.Strategy, ocfg: OptimCfg, mesh,
+                    params=None, quant: Optional[str] = None,
+                    quant_stats=None) -> dict:
+    """A rank's train state under `mesh`: the whole state as `make_state`
+    makes it from `gen` or `params` (a quantized trunk quantized whole),
+    then a state
+    over the rank's shards (`dist.sharding.shard_params`) for its
+    `local_cfg`, its moments made anew at the shards' shapes; "sharded"
+    names the trainable leaves that hold one model rank's slice."""
+    from repro_torch.dist.sharding import local_cfg, shard_params
+
+    full = make_state(gen, cfg, strat, ocfg, params=params, quant=quant,
+                      quant_stats=quant_stats)
+    params = shard_params(full["params"], cfg, mesh)
+    sharded = sharded_paths(full["params"], cfg, mesh)
+    del full
+    state = make_state(None, local_cfg(cfg, mesh), strat, ocfg,
+                       params=params)
+    # trainable leaves holding one model rank's slice (the global norm)
+    state["sharded"] = {p for p in state["trainable"] if p in sharded}
+    return state
+
+
 def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
                      gate=None, layer_mask=None,
                      loss_fn: Optional[Callable] = None):
@@ -226,7 +282,15 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
 
     In JAX's order, the gated gradients are then compressed (when the
     state holds `err`: int8 with one scale per JAX leaf, error carried),
-    clipped by their global norm, and handed to AdamW."""
+    clipped by their global norm, and handed to AdamW.
+
+    Under a mesh (`dist.api.use_mesh`, cfg the rank's `local_cfg` and the
+    state's parameters its shards) each dp rank's gradients, loss and
+    scalar metrics are averaged over the dp ranks right after its local
+    loss (the shards are equal), so the gating, compression, clip and
+    AdamW that follow see the global gradient on every rank, as JAX's
+    step does. Over 'model', a trainable leaf the rules shard counts its
+    squared norm summed over the model ranks, a replicated one once."""
     if gate is not None and layer_mask is not None:
         raise ValueError("pass either gate or layer_mask, not both")
     gates = None if gate is None else dict(tu.flatten_with_paths(gate))
@@ -261,16 +325,23 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
 
     def step(state, batch):
         loss, metrics, grads = compute_grads(state, batch)
+        mesh = current_mesh()
+        if dp_degree(mesh) > 1:  # the global batch's gradient and loss
+            grads = dp_average(grads)
+            loss = all_reduce(loss.detach(), "dp", op="mean")
+            metrics = {k: all_reduce(v.detach(), "dp", op="mean")
+                       if v.dim() == 0 else v for k, v in metrics.items()}
         g_tree = gate_of(state)
         if g_tree is not None:
             grads = {p: g * g_tree[p] for p, g in grads.items()}
         if "err" in state:
             grads, state["err"] = compress(
                 grads, state["err"], group_of=lambda p: jax_path(p, cfg))
+        sharded = state.get("sharded")
+        gnorm = (sharded_global_norm(grads, sharded) if sharded
+                 else global_norm(grads))
         if ocfg.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
-        else:
-            gnorm = global_norm(grads)
+            grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip, gnorm)
         lr = lr_at(ocfg, state["step"])
         state["opt"] = adamw_update(grads, state["opt"], state["trainable"],
                                     ocfg, lr)

@@ -45,7 +45,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 76, res
+    assert res["modules"] >= 84, res
     assert {"repro_torch.quant.qtensor", "repro_torch.kernels.quant",
             "repro_torch.kernels.sparse", "repro_torch.sparse.prune",
             "repro_torch.sparse.shared", "repro_torch.checkpoint.store",
@@ -63,7 +63,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "repro_torch.obs.regress",
             "repro_torch.serving.admission", "repro_torch.models.moe",
             "repro_torch.configs.deepseek_moe_16b",
-            "repro_torch.configs.qwen3_moe_235b_a22b"} <= set(res["names"])
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.dist", "repro_torch.dist.api",
+            "repro_torch.dist.sharding", "repro_torch.data.pipeline",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun",
+            "repro_torch.common.costmode"} <= set(res["names"])
     assert res["bad"] == [], f"the port imported {res['bad']}"
 
 
