@@ -101,6 +101,7 @@ class Mesh:
         self.rank = rank
         self.groups: Dict[str, object] = {}
         self.backend: Optional[str] = None
+        self.device: Optional[torch.device] = None  # this rank's, when live
 
     def __repr__(self) -> str:
         dims = "x".join(str(s) for s in self.shape)

@@ -315,14 +315,13 @@ def mesh_of(kind: str) -> Mesh:
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, peft_name: str = "hadamard",
-             with_costs: bool = True, cfg_overrides: Dict = None) -> Dict:
+             with_costs: bool = True) -> Dict:
     cfg = peft.attach(get_cfg(arch), peft.strategy(peft_name))
-    if cfg_overrides:
-        cfg = cfg.replace(**cfg_overrides)
     spec = SHAPES[shape]
     strat, ocfg = peft.strategy(peft_name), OptimCfg()
+    # JAX's record keys; the port takes no config overrides
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind, "peft": peft_name,
-           "overrides": dict(cfg_overrides or {})}
+           "overrides": {}}
     reason = skip_reason(cfg, spec)
     if reason:
         rec.update(status="skipped", reason=reason)

@@ -25,7 +25,6 @@ import os
 import pickle
 import tempfile
 import time
-import traceback
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -54,11 +53,6 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh((2, 16, 16) if multi_pod else (16, 16))
 
 
-def make_host_mesh(data: int = 2, model: int = 4) -> Mesh:
-    """A (data, model) layout with no world behind it."""
-    return Mesh((data, model))
-
-
 def under_torchrun() -> bool:
     return all(v in os.environ for v in _TORCHRUN_VARS)
 
@@ -76,12 +70,25 @@ def pick_backend(device: torch.device, world_size: int,
         return backend
     if device.type != "cuda":
         return "gloo"
+    # the ranks on this host: torchrun's per-node count, else the world
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
     n = torch.cuda.device_count()
-    if world_size > n:
+    if local > n:
         raise RuntimeError(
-            f"{world_size} ranks over {n} card(s): NCCL refuses two ranks on "
-            "one card; name backend='gloo' for ranks that share a card")
+            f"{local} ranks over {n} card(s) on this host: NCCL refuses two "
+            "ranks on one card; name backend='gloo' for ranks that share a "
+            "card")
     return "nccl"
+
+
+def rank_device(device) -> torch.device:
+    """`device` with its card named: a bare 'cuda' becomes the current
+    card, which `torch.cuda.set_device` sets for the calling thread alone
+    (a thread started later, such as a prefetcher's, would take card 0)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def init_world(shape: Sequence[int], device, *, backend: Optional[str] = None,
@@ -91,7 +98,7 @@ def init_world(shape: Sequence[int], device, *, backend: Optional[str] = None,
     this rank's bound `Mesh` of `shape`. Without rank/init_method the
     world comes from torchrun's environment (a single process outside
     torchrun is a world of one). device: the ranks' device type; a card
-    rank sets its current card first."""
+    rank sets its current card first, and the mesh's `device` names it."""
     import torch.distributed as dist
 
     size = 1
@@ -119,14 +126,14 @@ def init_world(shape: Sequence[int], device, *, backend: Optional[str] = None,
                                 world_size=size)
         # one all-reduce over the world on the ranks' device: the backend
         # moves data before any model runs (at a world of one, too)
-        probe = torch.ones(1, device=(torch.device(
-            "cuda", torch.cuda.current_device()) if device.type == "cuda"
-            else device))
+        probe = torch.ones(1, device=rank_device(device))
         dist.all_reduce(probe)
         if probe.item() != size:
             raise RuntimeError(f"{backend}'s all-reduce over {size} ranks "
                                f"gave {probe.item()}")
-    return Mesh(shape, rank=rank).bind_groups(backend)
+    mesh = Mesh(shape, rank=rank).bind_groups(backend)
+    mesh.device = rank_device(device)
+    return mesh
 
 
 def close_world() -> None:
@@ -136,28 +143,24 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(rank, shape, device, backend, init_method, payload, results):
+def _rank_main(rank, shape, device, backend, init_method, tmp):
+    with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
+    if device == "cpu":  # the ranks share the host's cores
+        size = 1
+        for s in shape:
+            size *= s
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    mesh = init_world(shape, device, backend=backend, rank=rank,
+                      init_method=init_method)
     try:
-        with open(payload, "rb") as f:
-            fn, args = pickle.load(f)
-        if device == "cpu":  # the ranks share the host's cores
-            size = 1
-            for s in shape:
-                size *= s
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
-        mesh = init_world(shape, device, backend=backend, rank=rank,
-                          init_method=init_method)
-        try:
-            out = fn(mesh, *args)
-        finally:
-            close_world()
-        # pickled here, by value: a tensor put on the queue as it is
-        # would be shared through memory that ends with this process
-        results.put((rank, "ok", pickle.dumps(
-            out, protocol=pickle.HIGHEST_PROTOCOL)))
-    except BaseException as e:  # handed to the parent, which raises
-        results.put((rank, "error",
-                     f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
+        out = fn(mesh, *args)
+    finally:
+        close_world()
+    # pickled by value: a tensor shared with the parent through memory
+    # would end with this process
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def run_world(shape: Sequence[int], fn: Callable, *args, device="cpu",
@@ -166,11 +169,12 @@ def run_world(shape: Sequence[int], fn: Callable, *args, device="cpu",
     """fn(mesh, *args) on every rank of a world of `shape`; returns the
     ranks' results in rank order. Under torchrun this process is one
     rank: fn runs here and the list holds its result alone. Otherwise the
-    ranks are spawned (fn and args must pickle: a module-level function),
-    meet through a file store, and each rank's exception, or a rank that
-    exits without a result, raises RuntimeError here once all have
-    stopped. A rank's result is pickled by value in the rank (host data
-    is best: numpy, CPU tensors). A world of one runs in this process."""
+    ranks are spawned (fn and args must pickle: a module-level function)
+    and meet through a file store; a rank's exception, a rank that dies,
+    or a world still running after `timeout` s raises RuntimeError here
+    once every rank has stopped. A rank's result is pickled by value in
+    the rank (host data is best: numpy, CPU tensors). A world of one runs
+    in this process."""
     device = torch.device(device)
     size = 1
     for s in shape:
@@ -186,55 +190,35 @@ def run_world(shape: Sequence[int], fn: Callable, *args, device="cpu",
                 return [fn(mesh, *args)]
             finally:
                 close_world()
-    import queue
     import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
 
     pick_backend(device, size, backend)  # refuse before spawning
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
-        init_method = "file://" + os.path.join(tmp, "store")
         # fn and args reach the ranks through a file: a large payload
         # through each process's start pipe would start them one by one
-        payload = os.path.join(tmp, "payload.pkl")
-        with open(payload, "wb") as f:
+        with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
             pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, tuple(shape), str(device), backend,
-                                   init_method, payload, results))
-                 for r in range(size)]
-        for p in procs:
-            p.start()
-        got, errors = {}, []
+        ctx = mp.start_processes(
+            _rank_main, args=(tuple(shape), str(device), backend,
+                              "file://" + os.path.join(tmp, "store"), tmp),
+            nprocs=size, join=False)
         deadline = time.monotonic() + timeout
-        try:
-            while len(got) < size and not errors:
-                try:
-                    rank, status, out = results.get(timeout=1.0)
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode not in (None, 0)]
-                    if dead:
-                        errors.append(f"rank(s) {dead} died with codes "
-                                      f"{[procs[r].exitcode for r in dead]}")
-                    elif time.monotonic() > deadline:
-                        errors.append(f"no result within {timeout} s")
-                    continue
-                if status == "ok":
-                    got[rank] = pickle.loads(out)
-                else:  # the others may wait on it in a collective
-                    errors.append(f"rank {rank}: {out}")
+        try:  # join kills the other ranks once one fails
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"no result within {timeout} s")
+        except ProcessException as e:
+            last = str(e).strip().splitlines()[-1]
+            raise RuntimeError(f"a rank failed: rank {e.error_index}: "
+                               f"{last}\n{e}") from None
         finally:
-            for p in procs:
-                p.join(timeout=5 if errors else timeout)
-            for p in procs:
+            for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                     p.join()
-        if errors:
-            raise RuntimeError("a rank failed: " + "\n".join(errors))
-        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
-        if bad:
-            raise RuntimeError(f"rank(s) {bad} exited with codes "
-                               f"{[procs[r].exitcode for r in bad]}")
-    return [got[r] for r in range(size)]
+        out = []
+        for r in range(size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out

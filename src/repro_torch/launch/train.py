@@ -153,10 +153,25 @@ def _train_rank(mesh, args):
         _train(args, mesh)
 
 
+def train_batches(corpus, args, mesh=None) -> Prefetcher:
+    """--steps batches of `corpus`, made in a prefetch thread; under a
+    mesh, each rank's shard of every batch, copied to `mesh.device`."""
+    source = lm_batches(corpus, args.steps, args.batch, args.seq,
+                        seed=args.seed)
+    if mesh is not None:
+        dp = mesh.degree("dp")
+        if args.batch % dp:
+            raise SystemExit(f"--batch {args.batch} does not split over "
+                             f"{dp} data ranks")
+        source = shard_batches(source, mesh, mesh.device)
+    return Prefetcher(source)
+
+
 def _train(args, mesh=None):
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     strat = peft.strategy(args.peft)
-    device = resolve_device(args.device)
+    # a rank's own card, named for the prefetch thread's copies too
+    device = resolve_device(args.device) if mesh is None else mesh.device
     m_dt, v_dt = QUANT_PRESETS[args.quant_moments]
     ocfg = OptimCfg(lr=args.lr, total_steps=args.steps,
                     compress_grads=args.compress_grads, m_dtype=m_dt,
@@ -198,15 +213,7 @@ def _train(args, mesh=None):
         return torch.Generator(device=device).manual_seed(args.seed)
 
     corpus = lm_corpus(cfg.vocab_size, 200_000, seed=args.seed)
-    source = lm_batches(corpus, args.steps, args.batch, args.seq,
-                        seed=args.seed)
-    if mesh is not None:
-        dp = mesh.degree("dp")
-        if args.batch % dp:
-            raise SystemExit(f"--batch {args.batch} does not split over "
-                             f"{dp} data ranks")
-        source = shard_batches(source, mesh, device)  # the rank's shard
-    batches = Prefetcher(source)
+    batches = train_batches(corpus, args, mesh)
     params = stats = None
     if args.quant and args.calibrate_batches:
         params = M.init_params(gen(), cfg)

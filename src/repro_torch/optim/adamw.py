@@ -24,6 +24,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from repro_torch.common.types import OptimCfg
+from repro_torch.dist.api import all_reduce
 from repro_torch.optim import qstate
 
 Tree = Dict[str, torch.Tensor]
@@ -36,8 +37,17 @@ def adamw_init(trainable: Tree, decay: Iterable[str],
     return qstate.init_opt_state(trainable, cfg or OptimCfg(), decay)
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+def global_norm(grads: Tree, sharded: Iterable[str] = frozenset()
+                ) -> torch.Tensor:
+    """The gradients' L2 norm. `sharded` names the leaves that hold one
+    model rank's slice each under a mesh: their squared norms are summed
+    over the model ranks, every other leaf's counted once."""
+    def sq(paths):
+        return sum((grads[p].float().square().sum() for p in paths),
+                   torch.zeros((), device=next(iter(grads.values())).device))
+
+    part = all_reduce(sq([p for p in grads if p in sharded]), "model")
+    return torch.sqrt(part + sq([p for p in grads if p not in sharded]))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float,

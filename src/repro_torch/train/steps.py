@@ -220,18 +220,6 @@ def dp_average(grads: dict) -> dict:
     return {p: out[p] for p in grads}
 
 
-def sharded_global_norm(grads: dict, sharded: set) -> torch.Tensor:
-    """The global norm when the leaves in `sharded` hold one model rank's
-    slice each: their squared norms summed over the model ranks, every
-    other leaf's counted once."""
-    def sq(paths):
-        return sum((grads[p].float().square().sum() for p in paths),
-                   torch.zeros((), device=next(iter(grads.values())).device))
-
-    part = all_reduce(sq([p for p in grads if p in sharded]), "model")
-    return torch.sqrt(part + sq([p for p in grads if p not in sharded]))
-
-
 def make_mesh_state(gen: Optional[torch.Generator], cfg: ModelCfg,
                     strat: peft.Strategy, ocfg: OptimCfg, mesh,
                     params=None, quant: Optional[str] = None,
@@ -337,9 +325,7 @@ def build_train_step(cfg: ModelCfg, ocfg: OptimCfg, *, microbatch: int = 0,
         if "err" in state:
             grads, state["err"] = compress(
                 grads, state["err"], group_of=lambda p: jax_path(p, cfg))
-        sharded = state.get("sharded")
-        gnorm = (sharded_global_norm(grads, sharded) if sharded
-                 else global_norm(grads))
+        gnorm = global_norm(grads, state.get("sharded") or frozenset())
         if ocfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip, gnorm)
         lr = lr_at(ocfg, state["step"])

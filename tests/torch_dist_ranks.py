@@ -128,3 +128,23 @@ def fail_on_rank(mesh, which):
     if mesh.rank == which:
         raise ValueError(f"planted failure on rank {which}")
     return mesh.rank
+
+
+def exit_on_rank(mesh, which):
+    """Rank `which` dies without raising (a crash); the others return."""
+    if mesh.rank == which:
+        import os
+
+        os._exit(3)
+    return mesh.rank
+
+
+def launcher_batches(mesh, args, corpus):
+    """The train launcher's batches on this rank (`train_batches`, made in
+    its prefetch thread): the mesh's device and each leaf's device and
+    values."""
+    from repro_torch.launch.train import train_batches
+
+    return str(mesh.device), [
+        {k: (str(v.device), v.numpy()) for k, v in b.items()}
+        for b in train_batches(corpus, args, mesh)]
